@@ -1,0 +1,45 @@
+"""Hand-written Hopper kernels of the port, one package per TPU kernel
+they replace, each with its plain PyTorch version (`ref.py`) and a
+wrapper (`ops.py`).  A wrapper picks by the device of its tensors: a CPU
+tensor runs the plain version, a CUDA tensor launches the kernel (or
+raises) — there is no fallback from one to the other."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie
+    on the CPU; anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def check_cuda_operand(name: str, t: torch.Tensor, dtypes=None) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise TypeError(f"{name} dtype {t.dtype} not in {tuple(dtypes)}")
+
+
+def dtype_code(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} dtype {t.dtype}: the kernels take float32 or bfloat16")
+    return DTYPE_CODES[t.dtype]
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,166 @@
+// Flash attention (prefill) for Hopper, sm_90a.
+//
+// Replaces the Pallas TPU kernel `repro/kernels/flash_attention/kernel.py`
+// (`_flash_kernel` / `flash_attention`, wrapper `ops.py:mha_flash`).
+//
+// Computes, per query row, softmax(q.k / sqrt(D)) v over the keys that are
+// live: key index < Skv, the row's `kv_valid` entry set (when given), and
+// key index <= query index when causal.  Layout is the wrapper's own:
+// q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), out (B, Sq, Hq, D).  GQA by
+// index: query head h reads kv head h / (Hq / Hkv), nothing is repeated.
+// `kv_valid` has NB rows; flattened head row b*Hq+h reads row
+// (b*Hq+h)*NB / (B*Hq), as in the TPU kernel's BlockSpec.
+//
+// Design: one block of 4 warps per (16-row query tile, head, batch row);
+// each warp owns 4 query rows and carries their running (m, l, acc) in
+// registers while the block streams 32-key tiles of K and V through
+// shared memory (fp32, rows padded against bank conflicts).  In a score
+// pass each lane owns one key; in the PV pass each lane owns D/32
+// output columns.  Causal blocks stop at their last query's key.
+//
+// Bound on the card: at the offline build's shapes (S <= a few hundred,
+// D = 128) the FLOPs per byte are high, so the kernel is bound by
+// operations; with CUDA-core FMAs it runs far below the tensor-core
+// peak.  Moving the two products onto wgmma tiles is the next step.
+#include "../attn_common.cuh"
+
+namespace {
+
+constexpr int kBQ = 16;     // query rows per block
+constexpr int kBK = 32;     // keys per tile (one per lane in the score pass)
+constexpr int kWarps = 4;
+constexpr int kRPW = kBQ / kWarps;
+constexpr int kDMax = 128;
+constexpr int kDPL = kDMax / 32;
+
+template <typename TQ, typename TK, typename TV>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_fwd_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                 const TV* __restrict__ v, const uint8_t* __restrict__ kv_valid,
+                 TQ* __restrict__ o, int Sq, int Skv, int Hq, int Hkv, int D,
+                 int NB, int total_rows, int causal, float scale) {
+  __shared__ float q_s[kBQ][kDMax];
+  __shared__ float k_s[kBK][kDMax + 1];
+  __shared__ float v_s[kBK][kDMax];
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint8_t* valid_row = nullptr;
+  if (kv_valid != nullptr) {
+    const long long row = (long long)(b * Hq + h) * NB / total_rows;
+    valid_row = kv_valid + row * Skv;
+  }
+
+  for (int e = tid; e < kBQ * D; e += blockDim.x) {
+    const int r = e / D, d = e % D, qi = q0 + r;
+    q_s[r][d] = qi < Sq ? rt::to_f(q[(((size_t)b * Sq + qi) * Hq + h) * D + d]) : 0.f;
+  }
+
+  float m[kRPW], l[kRPW], acc[kRPW][kDPL];
+#pragma unroll
+  for (int r = 0; r < kRPW; ++r) {
+    m[r] = rt::kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) acc[r][i] = 0.f;
+  }
+
+  int k_end = Skv;
+  if (causal) k_end = min(Skv, min(Sq, q0 + kBQ));
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // q tile loaded / previous tile consumed
+    for (int e = tid; e < kBK * D; e += blockDim.x) {
+      const int j = e / D, d = e % D, kj = k0 + j;
+      float kx = 0.f, vx = 0.f;
+      if (kj < Skv) {
+        const size_t off = (((size_t)b * Skv + kj) * Hkv + hk) * D + d;
+        kx = rt::to_f(k[off]);
+        vx = rt::to_f(v[off]);
+      }
+      k_s[j][d] = kx;
+      v_s[j][d] = vx;
+    }
+    __syncthreads();
+
+    const int kj = k0 + lane;
+    const bool key_ok = kj < Skv && (valid_row == nullptr || valid_row[kj] != 0);
+    float p[kRPW];
+#pragma unroll
+    for (int r = 0; r < kRPW; ++r) p[r] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = k_s[lane][d];
+#pragma unroll
+      for (int r = 0; r < kRPW; ++r) p[r] = fmaf(q_s[warp * kRPW + r][d], kd, p[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRPW; ++r) {
+      const int qi = q0 + warp * kRPW + r;
+      const bool ok = key_ok && (!causal || qi >= kj);
+      const float s = ok ? p[r] * scale : rt::kNegInf;
+      const float m_new = fmaxf(m[r], rt::warp_max(s));
+      const float pr = expf(s - m_new);
+      const float corr = expf(m[r] - m_new);
+      l[r] = l[r] * corr + rt::warp_sum(pr);
+      m[r] = m_new;
+      p[r] = rt::round_as<TV>(pr);  // probabilities in the value dtype
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) acc[r][i] *= corr;
+    }
+    for (int j = 0; j < kBK; ++j) {
+      float vj[kDPL];
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) {
+        const int d = lane + 32 * i;
+        vj[i] = d < D ? v_s[j][d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRPW; ++r) {
+        const float pj = __shfl_sync(rt::kFull, p[r], j);
+#pragma unroll
+        for (int i = 0; i < kDPL; ++i) acc[r][i] = fmaf(pj, vj[i], acc[r][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRPW; ++r) {
+    const int qi = q0 + warp * kRPW + r;
+    if (qi >= Sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    TQ* orow = o + (((size_t)b * Sq + qi) * Hq + h) * D;
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) orow[d] = rt::from_f<TQ>(acc[r][i] / denom);
+    }
+  }
+}
+
+}  // namespace
+
+// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
+                                  const void* kv_valid, void* o, int B, int Sq,
+                                  int Skv, int Hq, int Hkv, int D, int NB,
+                                  int causal, float scale, int q_dtype,
+                                  int k_dtype, int v_dtype, void* stream) {
+  if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv != 0 || NB < 1 || B < 1 || Sq < 1)
+    return cudaErrorInvalidValue;
+  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return rt::with_dtype(q_dtype, [&](auto tq) {
+    return rt::with_dtype(k_dtype, [&](auto tk) {
+      return rt::with_dtype(v_dtype, [&](auto tv) {
+        using TQ = decltype(tq);
+        using TK = decltype(tk);
+        using TV = decltype(tv);
+        flash_fwd_kernel<TQ, TK, TV><<<grid, kWarps * 32, 0, st>>>(
+            static_cast<const TQ*>(q), static_cast<const TK*>(k),
+            static_cast<const TV*>(v), static_cast<const uint8_t*>(kv_valid),
+            static_cast<TQ*>(o), Sq, Skv, Hq, Hkv, D, NB, B * Hq, causal, scale);
+        return cudaGetLastError();
+      });
+    });
+  });
+}

@@ -1,0 +1,124 @@
+"""Selective-attention wrapper and its host-side block-liveness map.
+
+A CPU tensor runs the plain version (`ref.selective_mha_ref`); a CUDA
+tensor launches the hand-written kernel (`selective.cu`) or raises.
+`selective_mha.launches` counts kernel launches and nothing else."""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels import _build
+from repro_torch.kernels.selective_attention.ref import selective_mha_ref
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"rt_selective_attention": [_P] * 7 + [_I] * 12 + [_F]
+               + [_I] * 3 + [_P]}
+
+
+def block_liveness(q_positions, hh_mask, *, window: int,
+                   q_block: int = 128, kv_block: int = 128) -> np.ndarray:
+    """Host-side block-liveness map (a numpy copy of the JAX package's
+    `selective_attention/kernel.py:block_liveness`).
+
+    q_positions: (R,) or (NB, R) int absolute query positions (pad = -1);
+    hh_mask: (S,) or (NB, S) heavy-hitter/recomputed key bitmap.  Tile
+    (qi, kj) is live iff any query in it can see any key in the tile
+    (window hit, or any HH key causally visible).  -> (NB, nq, nk) int32.
+    """
+    qp = np.asarray(q_positions)
+    hh = np.asarray(hh_mask)
+    if qp.ndim == 1:
+        qp = qp[None]
+    if hh.ndim == 1:
+        hh = hh[None]
+    nb, r = qp.shape
+    s_len = hh.shape[1]
+    r_p = ((r + q_block - 1) // q_block) * q_block
+    s_p = ((s_len + kv_block - 1) // kv_block) * kv_block
+    qp = np.pad(qp.astype(np.int64), ((0, 0), (0, r_p - r)),
+                constant_values=-1)
+    hh = np.pad(hh.astype(np.int8), ((0, 0), (0, s_p - s_len)))
+    nq, nk = r_p // q_block, s_p // kv_block
+    live = np.zeros((nb, nq, nk), np.int32)
+    for bi in range(nb):
+        qpos_r = qp[bi].reshape(nq, q_block)
+        hh_r = hh[bi].reshape(nk, kv_block)
+        for qi in range(nq):
+            qmax = int(qpos_r[qi].max())
+            qmin_valid = qpos_r[qi][qpos_r[qi] >= 0]
+            qmin = int(qmin_valid.min()) if len(qmin_valid) else -1
+            if qmin < 0 and qmax < 0:
+                continue
+            for kj in range(nk):
+                k_lo, k_hi = kj * kv_block, (kj + 1) * kv_block - 1
+                if k_lo > qmax:
+                    continue                         # fully acausal
+                # window liveness: ∃ q∈[qmin,qmax], k∈[k_lo,k_hi] with
+                # 0 ≤ q−k < window ⟺ [qmin−window+1, qmax] ∩ [k_lo, k_hi] ≠ ∅
+                # (conservative superset for non-contiguous q positions)
+                win_hit = k_hi > qmin - window and k_lo <= qmax
+                hh_hit = bool(hh_r[kj].any())
+                if win_hit or hh_hit:
+                    live[bi, qi, kj] = 1
+    return live
+
+
+def selective_mha(q: torch.Tensor, q_positions, k: torch.Tensor,
+                  v: torch.Tensor, hh_mask, *, live=None, window: int = 256,
+                  q_block: int = 64, kv_block: int = 64) -> torch.Tensor:
+    """q: (B, R, Hq, D); k, v: (B, S, Hkv, D); q_positions: (R,) or
+    (NB, R) int; hh_mask: (S,) or (NB, S); NB divides B*Hq.  `live`: the
+    (NB, nq, nk) map from `block_liveness` over (q_block, kv_block) tiles,
+    computed here from the positions and mask when omitted.  The CPU
+    path ignores it (dead tiles contribute nothing).  -> (B, R, Hq, D)."""
+    q_positions = torch.as_tensor(q_positions, device=q.device)
+    hh_mask = torch.as_tensor(hh_mask, device=q.device)
+    if not K.on_cuda(q, k, v):
+        return selective_mha_ref(q, q_positions, k, v, hh_mask, window=window)
+    B, R, Hq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    S, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv or D > 128:
+        raise ValueError(f"Hq={Hq} Hkv={Hkv} D={D}: need Hkv | Hq and D <= 128")
+    qp = q_positions if q_positions.dim() == 2 else q_positions[None]
+    hh = hh_mask if hh_mask.dim() == 2 else hh_mask[None]
+    nb = qp.shape[0]
+    if qp.shape != (nb, R) or hh.shape != (nb, S) or (B * Hq) % nb:
+        raise ValueError(f"q_positions {tuple(qp.shape)} / hh_mask {tuple(hh.shape)}: "
+                         f"want ({nb}, {R}) / ({nb}, {S}) with NB | {B * Hq}")
+    if q_block % 16 or kv_block % 32:
+        raise ValueError(f"liveness tiles ({q_block}, {kv_block}) must be multiples of (16, 32)")
+    if live is None:
+        live = block_liveness(qp.cpu().numpy(), hh.cpu().numpy(), window=window,
+                              q_block=q_block, kv_block=kv_block)
+    live = torch.as_tensor(live, dtype=torch.int32, device=q.device)
+    if live.dim() == 2:
+        live = live[None]
+    nq, nk = -(-R // q_block), -(-S // kv_block)
+    if live.shape != (nb, nq, nk):
+        raise ValueError(f"live shape {tuple(live.shape)}: want ({nb}, {nq}, {nk})")
+    qp = qp.to(torch.int32).contiguous()
+    hh = hh.to(torch.uint8).contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("live", live)):
+        K.check_cuda_operand(name, t)
+    out = torch.empty_like(q)
+    if out.numel() == 0 or S == 0:
+        return out.zero_()
+    lib = _build.library("selective", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.rt_selective_attention(
+            K.ptr(q), K.ptr(qp), K.ptr(k), K.ptr(v), K.ptr(hh), K.ptr(live),
+            K.ptr(out), B, R, S, Hq, Hkv, D, nb, int(window), q_block, kv_block,
+            nq, nk, 1.0 / D ** 0.5, K.dtype_code("q", q), K.dtype_code("k", k),
+            K.dtype_code("v", v), K.stream_of(q))
+    _build.check(lib, err, "selective_attention")
+    selective_mha.launches += 1
+    return out
+
+
+selective_mha.launches = 0

@@ -1,0 +1,177 @@
+// Selective attention (RcLLM §III-C2b) for Hopper, sm_90a.
+//
+// Replaces the Pallas TPU kernel
+// `repro/kernels/selective_attention/kernel.py` (`_sel_kernel` /
+// `selective_attention`, wrapper `ops.py:selective_mha`).
+//
+// R recomputed queries at arbitrary absolute positions attend over S
+// assembled keys.  Key k is live for a query at position p iff k < S,
+// p >= k, and (p - k < window or hh[k] != 0).  Serving calls it with
+// window 0 and hh = key validity: causal attention over valid keys.
+// Layout: q (B, R, Hq, D), k/v (B, S, Hkv, D), out (B, R, Hq, D);
+// q_pos (NB, R) int32 (-1 = pad row), hh (NB, S) uint8, and the host's
+// block-liveness map live (NB, nq, nk) int32 over (live_qb x live_kb)
+// tiles.  Flattened head row b*Hq+h reads mask row (b*Hq+h)*NB/(B*Hq).
+// GQA by index: query head h reads kv head h / (Hq / Hkv).
+//
+// Design: as the flash kernel (4 warps x 4 query rows, 32-key tiles in
+// shared memory, running (m, l, acc) in registers), plus a skip of every
+// key tile whose liveness entry is 0 — the block-sparse pattern that is
+// the point of the TPU kernel.  Each 16-row block lies inside one
+// liveness row and each 32-key tile inside one liveness column (the
+// wrapper checks the divisibility).
+//
+// Bound on the card: operations at serving shapes (R ~ 200-300 queries
+// per request against S ~ 450-512 keys, D = 128); the CUDA-core FMAs
+// leave the tensor cores idle, which wgmma tiles would fix later.
+#include "../attn_common.cuh"
+
+namespace {
+
+constexpr int kBQ = 16;
+constexpr int kBK = 32;
+constexpr int kWarps = 4;
+constexpr int kRPW = kBQ / kWarps;
+constexpr int kDMax = 128;
+constexpr int kDPL = kDMax / 32;
+
+template <typename TQ, typename TK, typename TV>
+__global__ void __launch_bounds__(kWarps * 32)
+selective_fwd_kernel(const TQ* __restrict__ q, const int* __restrict__ q_pos,
+                     const TK* __restrict__ k, const TV* __restrict__ v,
+                     const uint8_t* __restrict__ hh, const int* __restrict__ live,
+                     TQ* __restrict__ o, int R, int S, int Hq, int Hkv, int D,
+                     int NB, int total_rows, int window, int live_qb, int live_kb,
+                     int live_nq, int live_nk, float scale) {
+  __shared__ float q_s[kBQ][kDMax];
+  __shared__ float k_s[kBK][kDMax + 1];
+  __shared__ float v_s[kBK][kDMax];
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long mrow = (long long)(b * Hq + h) * NB / total_rows;
+  const int* pos_row = q_pos + mrow * R;
+  const uint8_t* hh_row = hh + mrow * S;
+  const int* live_row = live + (mrow * live_nq + q0 / live_qb) * live_nk;
+
+  for (int e = tid; e < kBQ * D; e += blockDim.x) {
+    const int r = e / D, d = e % D, qi = q0 + r;
+    q_s[r][d] = qi < R ? rt::to_f(q[(((size_t)b * R + qi) * Hq + h) * D + d]) : 0.f;
+  }
+  int qp[kRPW];
+  float m[kRPW], l[kRPW], acc[kRPW][kDPL];
+#pragma unroll
+  for (int r = 0; r < kRPW; ++r) {
+    const int qi = q0 + warp * kRPW + r;
+    qp[r] = qi < R ? pos_row[qi] : -1;
+    m[r] = rt::kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < S; k0 += kBK) {
+    if (live_row[k0 / live_kb] == 0) continue;  // dead tile: contributes nothing
+    __syncthreads();
+    for (int e = tid; e < kBK * D; e += blockDim.x) {
+      const int j = e / D, d = e % D, kj = k0 + j;
+      float kx = 0.f, vx = 0.f;
+      if (kj < S) {
+        const size_t off = (((size_t)b * S + kj) * Hkv + hk) * D + d;
+        kx = rt::to_f(k[off]);
+        vx = rt::to_f(v[off]);
+      }
+      k_s[j][d] = kx;
+      v_s[j][d] = vx;
+    }
+    __syncthreads();
+
+    const int kj = k0 + lane;
+    const bool in_range = kj < S;
+    const bool heavy = in_range && hh_row[kj] != 0;
+    float p[kRPW];
+#pragma unroll
+    for (int r = 0; r < kRPW; ++r) p[r] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kd = k_s[lane][d];
+#pragma unroll
+      for (int r = 0; r < kRPW; ++r) p[r] = fmaf(q_s[warp * kRPW + r][d], kd, p[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRPW; ++r) {
+      const bool causal = qp[r] >= kj;
+      const bool ok = in_range && causal && ((qp[r] - kj < window) || heavy);
+      const float s = ok ? p[r] * scale : rt::kNegInf;
+      const float m_new = fmaxf(m[r], rt::warp_max(s));
+      const float pr = expf(s - m_new);
+      const float corr = expf(m[r] - m_new);
+      l[r] = l[r] * corr + rt::warp_sum(pr);
+      m[r] = m_new;
+      p[r] = rt::round_as<TV>(pr);
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) acc[r][i] *= corr;
+    }
+    for (int j = 0; j < kBK; ++j) {
+      float vj[kDPL];
+#pragma unroll
+      for (int i = 0; i < kDPL; ++i) {
+        const int d = lane + 32 * i;
+        vj[i] = d < D ? v_s[j][d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRPW; ++r) {
+        const float pj = __shfl_sync(rt::kFull, p[r], j);
+#pragma unroll
+        for (int i = 0; i < kDPL; ++i) acc[r][i] = fmaf(pj, vj[i], acc[r][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRPW; ++r) {
+    const int qi = q0 + warp * kRPW + r;
+    if (qi >= R) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    TQ* orow = o + (((size_t)b * R + qi) * Hq + h) * D;
+#pragma unroll
+    for (int i = 0; i < kDPL; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) orow[d] = rt::from_f<TQ>(acc[r][i] / denom);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int rt_selective_attention(const void* q, const void* q_pos,
+                                      const void* k, const void* v,
+                                      const void* hh, const void* live, void* o,
+                                      int B, int R, int S, int Hq, int Hkv, int D,
+                                      int NB, int window, int live_qb,
+                                      int live_kb, int live_nq, int live_nk,
+                                      float scale, int q_dtype, int k_dtype,
+                                      int v_dtype, void* stream) {
+  if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv != 0 || NB < 1 || B < 1 || R < 1 ||
+      live_qb % kBQ != 0 || live_kb % kBK != 0 ||
+      live_nq * live_qb < R || live_nk * live_kb < S)
+    return cudaErrorInvalidValue;
+  const dim3 grid((R + kBQ - 1) / kBQ, Hq, B);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return rt::with_dtype(q_dtype, [&](auto tq) {
+    return rt::with_dtype(k_dtype, [&](auto tk) {
+      return rt::with_dtype(v_dtype, [&](auto tv) {
+        using TQ = decltype(tq);
+        using TK = decltype(tk);
+        using TV = decltype(tv);
+        selective_fwd_kernel<TQ, TK, TV><<<grid, kWarps * 32, 0, st>>>(
+            static_cast<const TQ*>(q), static_cast<const int*>(q_pos),
+            static_cast<const TK*>(k), static_cast<const TV*>(v),
+            static_cast<const uint8_t*>(hh), static_cast<const int*>(live),
+            static_cast<TQ*>(o), R, S, Hq, Hkv, D, NB, B * Hq, window, live_qb,
+            live_kb, live_nq, live_nk, scale);
+        return cudaGetLastError();
+      });
+    });
+  });
+}

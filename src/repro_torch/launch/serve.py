@@ -1,0 +1,205 @@
+"""Serving launcher of the port: continuous batching (wave scheduler) over
+the batched engine and the paged KV pool on one device.
+
+    # rcllm serving of the tiny model on the card (kernels built at first use)
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode rcllm --requests 8
+
+    # the same on the CPU, through the kernels' plain versions
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 3
+
+    # Qwen3-8B width (random weights), depth cut to 4 layers
+    PYTHONPATH=src python -m repro_torch.launch.serve --model rcllm-qwen3-8b \\
+        --n-layers 4 --requests 8 --decode-steps 8
+
+The JSON printed carries the keys of the JAX launcher's engine report
+(`repro/launch/serve.py:_engine_report`) with ``"engine": "torch"``,
+plus the device and model that ran.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.configs.rcllm_qwen3_8b import CONFIG as QWEN3_8B
+from repro_torch.core import engine as ENG
+from repro_torch.serving import api as API
+from repro_torch.serving.api import ServeConfig
+from repro_torch.serving.batching import PendingRequest
+
+SERVE_TINY = LMConfig(name="serve-tiny", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=512,
+                      mlp_type="swiglu", dtype="float32")
+
+
+def model_config(name: str, n_layers: Optional[int] = None) -> Optional[LMConfig]:
+    """`None` for the tiny rcllm model of `make_tiny_system`, else the
+    named config with its depth optionally cut."""
+    if name == "tiny":
+        return None
+    if name != QWEN3_8B.name:
+        raise SystemExit(f"unknown --model {name!r}: tiny or {QWEN3_8B.name}")
+    return QWEN3_8B if n_layers is None else dataclasses.replace(QWEN3_8B, n_layers=n_layers)
+
+
+def rcllm_setup(cfg: Optional[LMConfig], device, n_requests: int, qps: float,
+                decode_steps: int, seed: int = 0, model=None):
+    """The rcllm serving run's system and trace, built as the JAX
+    launcher builds its single-instance trace (weights from a seeded
+    generator unless `model` is given).  -> (system, requests, plans)."""
+    from repro_torch.core.rcllm import make_system, make_tiny_system
+    from repro_torch.data import synth as SY
+    from repro_torch.serving.workload import rcllm_workload
+
+    kw = dict(n_items=80, n_requests_hist=40, k_instances=1, seed=seed, device=device,
+              model=model)
+    if cfg is None:
+        system, pool_rv, prof, _ = make_tiny_system(n_layers=2, d_model=32, **kw)
+    else:
+        system, pool_rv, prof, _ = make_system(cfg, **kw)
+    trace = SY.make_trace(system.catalog, pool_rv, prof, n_requests, qps=qps,
+                          n_users=max(3, n_requests // 2), n_candidates=8,
+                          reviews_per_user=1, seed=2)
+    reqs, plans = rcllm_workload(system, trace, decode_steps=decode_steps)
+    return system, reqs, plans
+
+
+def full_setup(device, n_requests: int, qps: float, decode_steps: int,
+               prompt_tokens: int, seed: int = 0):
+    """Full-recompute reference on random prompts.  -> (model, requests)."""
+    from repro_torch.models.transformer import init_params
+
+    if prompt_tokens < 16:
+        raise SystemExit("--prompt-tokens must be >= 16")
+    model = init_params(SERVE_TINY, torch.Generator(device=device).manual_seed(seed),
+                        device=device)
+    rng = np.random.default_rng(1)
+    lo = min(48, prompt_tokens)
+    arrivals = np.cumsum(rng.exponential(1.0 / qps, n_requests))
+    reqs = []
+    for rid in range(n_requests):
+        n = int(rng.integers(lo, prompt_tokens + 1))
+        reqs.append(PendingRequest(
+            arrival_s=float(arrivals[rid]), rid=rid, n_tokens=n,
+            decode_steps=decode_steps,
+            tokens=rng.integers(1, SERVE_TINY.vocab_size, n).astype(np.int32)))
+    return model, reqs
+
+
+def serve(model, cfg: LMConfig, config: ServeConfig, reqs, plans=None):
+    """One closed-loop run.  -> (engine, backend, batcher, completions)."""
+    sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev, window=16)
+    engine = API.build_engine(model, cfg, config, sel=sel)
+    backend = API.build_backend(engine, config, plans=plans)
+    batcher = API.build_batcher(backend, config)
+    done = sorted(batcher.run(list(reqs)), key=lambda c: c.rid)
+    return engine, backend, batcher, done
+
+
+def _percentiles(xs, qs=(50, 90, 99)) -> dict:
+    xs = np.asarray(list(xs), np.float64)
+    if len(xs) == 0:
+        return {f"p{q}_s": None for q in qs}
+    return {f"p{q}_s": float(np.percentile(xs, q)) for q in qs}
+
+
+def report(config: ServeConfig, engine, backend, batcher, done,
+           warmup: bool) -> dict:
+    """The JAX launcher's engine-report keys for one run."""
+    total = max((c.done_s for c in done), default=0.0)
+    n_toks = sum(len(backend.generated[c.rid]) for c in done)
+    stats = engine.pool.stats()
+    ttft = np.asarray([c.first_token_s - c.arrival_s for c in done])
+    dev = engine.model.device
+    out = {
+        "engine": "torch",
+        "mode": config.mode,
+        "sched": config.sched,
+        "attn_backend": "cuda" if dev.type == "cuda" else "plain",
+        "decode_kernel": "paged",
+        "requests": len(done),
+        "kv_reuse": "off",
+        "mesh": None,
+        "decode_steps": config.decode_steps,
+        "includes_jit_compile": not warmup,
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p90_s": float(np.percentile(ttft, 90)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "ttft_mean_s": float(ttft.mean()),
+        "queue_wait_mean_s": float(np.mean([c.queue_wait_s for c in done])),
+        "prefill_mean_s": float(np.mean([c.prefill_s for c in done])),
+        "decode_mean_s": float(np.mean([c.decode_s for c in done])),
+        "per_request": [
+            {"rid": c.rid,
+             "ttft_s": round(float(c.first_token_s - c.arrival_s), 4),
+             "queue_wait_s": round(float(c.queue_wait_s), 4),
+             "prefill_s": round(float(c.prefill_s), 4),
+             "decode_s": round(float(c.decode_s), 4)}
+            for c in done],
+        "decode_tokens": int(n_toks),
+        "throughput_tok_s": float(n_toks / max(total, 1e-9)),
+        "pool_peak_pages": engine.pool.peak_pages,
+        "pool_peak_utilization": round(
+            engine.pool.peak_pages / max(stats.n_pages - 1, 1), 4),
+        "device": str(dev),
+        "model": engine.cfg.name,
+        "n_layers": engine.cfg.n_layers,
+    }
+    tbt = [dt for w in batcher.workers for dt in w.tbt]
+    out.update({f"tbt_{k}": v for k, v in _percentiles(tbt).items()})
+    out["tbt_samples"] = len(tbt)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="rcllm", choices=list(API.MODES))
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--qps", type=float, default=8.0)
+    ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model", default="tiny",
+                    help=f"tiny (the tiny rcllm model) or {QWEN3_8B.name}")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the named model's depth (width is never cut)")
+    ap.add_argument("--prompt-tokens", type=int, default=160)
+    ap.add_argument("--pages", type=int, default=512)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--max-batch-tokens", type=int, default=4096)
+    ap.add_argument("--r-item", type=float, default=0.3)
+    ap.add_argument("--r-rev", type=float, default=0.3)
+    ap.add_argument("--warmup", action="store_true",
+                    help="run the trace once first, so reported times exclude "
+                    "kernel builds and first-call set-up")
+    args = ap.parse_args(argv)
+    try:
+        config = ServeConfig(mode=args.mode, decode_steps=args.decode_steps,
+                             n_pages=args.pages, page_size=args.page_size,
+                             max_batch_tokens=args.max_batch_tokens,
+                             r_item=args.r_item, r_rev=args.r_rev)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    device = torch.device(args.device)
+    plans = None
+    if config.mode == "rcllm":
+        system, reqs, plans = rcllm_setup(model_config(args.model, args.n_layers),
+                                          device, args.requests, args.qps,
+                                          config.decode_steps)
+        model, cfg = system.model, system.cfg
+    else:
+        model, reqs = full_setup(device, args.requests, args.qps,
+                                 config.decode_steps, args.prompt_tokens)
+        cfg = model.cfg
+    if args.warmup:
+        serve(model, cfg, config, reqs, plans)
+    out = report(config, *serve(model, cfg, config, reqs, plans), warmup=args.warmup)
+    print(json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,322 @@
+"""Continuous batching for the port's serving path — the wave discipline
+of the JAX package's `serving/batching.py` on one instance (the chunked
+scheduler, the cluster and disaggregation are not ported yet).
+
+Each step runs either one whole-prefill batch under a token budget or one
+decode iteration (prefill-prioritized, vLLM's default shape).  The
+backend returns the seconds each step took; the loop adds them to a
+clock that also jumps to the next arrival when idle, so TTFT and
+time-between-tokens are measured on the wall clock of the steps.
+"""
+from __future__ import annotations
+
+import bisect
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.serving.api import GREEDY, SamplingParams, match_stop, sample_token
+from repro_torch.serving.kv_pool import PoolExhausted
+
+
+@dataclass(order=True)
+class PendingRequest:
+    arrival_s: float
+    rid: int = field(compare=False)
+    n_tokens: int = field(compare=False)
+    decode_steps: int = field(compare=False, default=4)
+    tokens: Optional[np.ndarray] = field(compare=False, default=None)
+
+
+@dataclass
+class DecodeEntry:
+    """One running request in the decode set (rid-keyed)."""
+
+    req: PendingRequest
+    ttft_s: float
+    steps_left: int
+
+
+@dataclass
+class Completion:
+    rid: int
+    arrival_s: float
+    first_token_s: float  # TTFT
+    done_s: float
+    worker: int = 0
+    admitted_s: float = 0.0
+    reason: str = "length"
+
+    @property
+    def queue_wait_s(self) -> float:
+        return self.admitted_s - self.arrival_s
+
+    @property
+    def prefill_s(self) -> float:
+        return self.first_token_s - self.admitted_s
+
+    @property
+    def decode_s(self) -> float:
+        return self.done_s - self.first_token_s
+
+
+class TorchEngineBackend:
+    """The port's batched engine behind the batching loop's seam (the
+    counterpart of the JAX package's `JaxEngineBackend`).
+
+    `mode="full"` prefills every prompt exactly; `mode="rcllm"` runs the
+    beyond-prefix selective path and needs `plans` ({rid: (plan,
+    cached_k, cached_v, have)}).  Token selection is greedy unless a
+    request registered `SamplingParams` via `set_session`."""
+
+    def __init__(self, engine, mode: str = "full", plans: Optional[Dict] = None):
+        self.engine = engine
+        self.mode = mode
+        self.plans = plans if plans is not None else {}
+        self.last_token: Dict[int, int] = {}
+        self.generated: Dict[int, List[int]] = {}
+        self.sampling: Dict[int, SamplingParams] = {}
+        self.stop_seqs: Dict[int, tuple] = {}
+        self._rngs: Dict[int, np.random.Generator] = {}
+        self.finish_reason: Dict[int, str] = {}
+
+    def set_session(self, rid: int, sampling: SamplingParams = GREEDY,
+                    stop: Sequence[Sequence[int]] = ()) -> None:
+        """Register sampling and stop sequences before a request is served."""
+        if not sampling.greedy:
+            self.sampling[rid] = sampling
+        if stop:
+            self.stop_seqs[rid] = tuple(tuple(s) for s in stop)
+
+    def _pick(self, rid: int, lg) -> int:
+        params = self.sampling.get(rid, GREEDY)
+        if params.greedy:
+            return int(np.argmax(lg))
+        rng = self._rngs.get(rid)
+        if rng is None:
+            rng = np.random.default_rng((params.seed, rid))
+            self._rngs[rid] = rng
+        return sample_token(np.asarray(lg), params, rng)
+
+    def _append(self, rid: int, tok: int, first: bool = False) -> None:
+        self.last_token[rid] = tok
+        if first:
+            self.generated[rid] = [tok]
+        else:
+            self.generated[rid].append(tok)
+        stops = self.stop_seqs.get(rid)
+        if stops and match_stop(self.generated[rid], stops):
+            self.finish_reason[rid] = "stop"
+
+    def early_stop(self, rid: int) -> bool:
+        """Did this request hit a stop sequence (retire it now)?"""
+        return rid in self.finish_reason
+
+    def _batch_requests(self, batch: Sequence[PendingRequest]):
+        from repro_torch.serving.batch_engine import BatchRequest
+
+        out = []
+        for r in batch:
+            if r.tokens is None:
+                raise ValueError(f"request {r.rid}: the engine needs tokens")
+            # decode appends decode_steps-1 KV slots: the first output
+            # token comes from prefill and the last sampled token is
+            # never written back
+            br = BatchRequest(rid=r.rid, tokens=r.tokens,
+                              n_reserve=max(r.decode_steps - 1, 0))
+            if self.mode == "rcllm":
+                br.plan, br.cached_k, br.cached_v, br.have = self.plans[r.rid]
+            out.append(br)
+        return out
+
+    def prefill(self, batch: Sequence[PendingRequest]) -> float:
+        t0 = time.perf_counter()
+        logits = self.engine.prefill(self._batch_requests(batch), self.mode)
+        for r, lg in zip(batch, logits):
+            self._append(r.rid, self._pick(r.rid, lg), first=True)
+        return time.perf_counter() - t0
+
+    def can_admit(self, req: PendingRequest,
+                  batch: Sequence[PendingRequest] = ()) -> bool:
+        """Pages for the prompt + its decode tokens, on top of what the
+        rest of the forming batch will claim."""
+        pool = self.engine.pool
+        need = sum(pool.pages_for(r.n_tokens + max(r.decode_steps - 1, 0))
+                   for r in (*batch, req))
+        return need <= pool.free_pages
+
+    def decode(self, batch: Sequence[PendingRequest]) -> float:
+        t0 = time.perf_counter()
+        rids = [r.rid for r in batch]
+        logits = self.engine.decode(rids, [self.last_token[r] for r in rids])
+        for rid, lg in zip(rids, logits):
+            self._append(rid, self._pick(rid, lg))
+        return time.perf_counter() - t0
+
+    def finish(self, req: PendingRequest) -> None:
+        self.engine.release(req.rid)
+        self.last_token.pop(req.rid, None)
+        self.sampling.pop(req.rid, None)
+        self.stop_seqs.pop(req.rid, None)
+        self._rngs.pop(req.rid, None)
+
+    def preempt(self, req: PendingRequest) -> None:
+        """Release a mid-decode victim's pages, keeping it re-runnable
+        (plans and sampling kept; the PRNG restarts from its seed)."""
+        self.engine.release(req.rid)
+        self.last_token.pop(req.rid, None)
+        self._rngs.pop(req.rid, None)
+        self.finish_reason.pop(req.rid, None)
+
+
+class WorkerState:
+    """One serving instance: clock, FIFO admission queue, decode set."""
+
+    def __init__(self, backend: TorchEngineBackend, max_batch_tokens: int = 8192,
+                 max_decode_batch: int = 64):
+        self.backend = backend
+        self.max_batch_tokens = max_batch_tokens
+        self.max_decode_batch = max_decode_batch
+        self.clock = 0.0
+        self.busy_seconds = 0.0
+        self.preempted = 0
+        self._preempt_counts: Dict[int, int] = {}
+        self.waiting: List[PendingRequest] = []
+        self.decoding: Dict[int, DecodeEntry] = {}
+        self.done: List[Completion] = []
+        self.tbt: List[float] = []  # time-between-tokens samples
+        self._admit_t: Dict[int, float] = {}
+        self._last_tok_t: Dict[int, float] = {}
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.decoding)
+
+    def ready_time(self) -> float:
+        """Earliest instant this worker can take its next step."""
+        if self.decoding or not self.waiting:
+            return self.clock
+        return max(self.clock, self.waiting[0].arrival_s)
+
+    def step(self) -> None:
+        """A prefill batch if one can form under the token budget and pool
+        capacity, else one decode iteration."""
+        self.clock = self.ready_time()
+        batch: List[PendingRequest] = []
+        tok = 0
+        for r in self.waiting:
+            if r.arrival_s > self.clock:
+                break
+            if tok + r.n_tokens > self.max_batch_tokens and batch:
+                break
+            if not self.backend.can_admit(r, batch):
+                break  # strict FCFS under backpressure
+            batch.append(r)
+            tok += r.n_tokens
+        if not batch and not self.decoding:
+            raise RuntimeError(
+                f"request {self.waiting[0].rid} ({self.waiting[0].n_tokens} "
+                "tokens) can never be admitted: KV pool too small "
+                "even with no other request running")
+        if batch:
+            self._prefill(batch)
+        else:
+            self._decode()
+
+    def _prefill(self, batch: List[PendingRequest]) -> None:
+        admitted = self.clock
+        picked = {r.rid for r in batch}
+        self.waiting = [r for r in self.waiting if r.rid not in picked]
+        dt = self.backend.prefill(batch)
+        self.clock += dt
+        self.busy_seconds += dt
+        for r in batch:
+            stopped = self.backend.early_stop(r.rid)
+            if r.decode_steps <= 1 or stopped:  # the TTFT token was the output
+                self.done.append(Completion(
+                    r.rid, r.arrival_s, self.clock, self.clock,
+                    admitted_s=admitted, reason="stop" if stopped else "length"))
+                self.backend.finish(r)
+            else:
+                self._admit_t[r.rid] = admitted
+                self._last_tok_t[r.rid] = self.clock
+                self.decoding[r.rid] = DecodeEntry(
+                    r, self.clock - r.arrival_s, r.decode_steps - 1)
+
+    def _decode(self) -> None:
+        while True:
+            db = list(self.decoding.values())[: self.max_decode_batch]
+            try:
+                dt = self.backend.decode([e.req for e in db])
+                break
+            except PoolExhausted:
+                # no KV slot for every running request: preempt the
+                # youngest (it re-prefills later) and retry
+                self._preempt_youngest()
+                if not self.decoding:
+                    return
+        self.clock += dt
+        self.busy_seconds += dt
+        for e in db:
+            e.steps_left -= 1
+            if self.backend.early_stop(e.req.rid):
+                e.steps_left = 0
+            last = self._last_tok_t.get(e.req.rid)
+            if last is not None:
+                self.tbt.append(self.clock - last)
+            self._last_tok_t[e.req.rid] = self.clock
+        for rid in [rid for rid, e in self.decoding.items() if e.steps_left <= 0]:
+            e = self.decoding.pop(rid)
+            req = e.req
+            self.done.append(Completion(
+                req.rid, req.arrival_s, req.arrival_s + e.ttft_s, self.clock,
+                admitted_s=self._admit_t.pop(rid, req.arrival_s),
+                reason="stop" if self.backend.early_stop(rid) else "length"))
+            self._last_tok_t.pop(rid, None)
+            self.backend.finish(req)
+
+    def _preempt_youngest(self) -> None:
+        req = max((e.req for e in self.decoding.values()),
+                  key=lambda r: (r.arrival_s, r.rid))
+        self._preempt_counts[req.rid] = self._preempt_counts.get(req.rid, 0) + 1
+        if self._preempt_counts[req.rid] > 8:
+            raise RuntimeError(
+                f"request {req.rid} preempted {self._preempt_counts[req.rid]}"
+                " times: the pool cannot hold its decode tokens even alone")
+        self.decoding.pop(req.rid)
+        self._last_tok_t.pop(req.rid, None)
+        self._admit_t.pop(req.rid, None)
+        self.backend.preempt(req)
+        self.preempted += 1
+        bisect.insort(self.waiting, req)
+
+
+class ContinuousBatcher:
+    """Single-instance continuous batching over a `TorchEngineBackend`."""
+
+    def __init__(self, backend: TorchEngineBackend, max_batch_tokens: int = 8192,
+                 max_decode_batch: int = 64):
+        self.backend = backend
+        self.max_batch_tokens = max_batch_tokens
+        self.max_decode_batch = max_decode_batch
+        self.workers: List[WorkerState] = []
+
+    def run(self, requests: Sequence[PendingRequest]) -> List[Completion]:
+        seen: set = set()
+        for r in requests:
+            if r.rid in seen:
+                raise ValueError(f"duplicate request rid {r.rid}")
+            seen.add(r.rid)
+        w = WorkerState(self.backend, self.max_batch_tokens, self.max_decode_batch)
+        self.workers = [w]
+        pending = sorted(requests)
+        i = 0
+        while i < len(pending) or w.has_work():
+            t_work = w.ready_time() if w.has_work() else float("inf")
+            if i < len(pending) and pending[i].arrival_s <= t_work:
+                w.waiting.append(pending[i])
+                i += 1
+            else:
+                w.step()
+        return sorted(w.done, key=lambda c: c.done_s)

@@ -1,0 +1,332 @@
+"""Paged KV cache pool for the batched serving path (vLLM-style) — the
+port of the JAX package's `serving/kv_pool.py` (request slot tables; the
+block store's sharing and migration export/import are not ported yet).
+
+One preallocated device arena holds every request's per-layer KV in
+fixed-size pages; a free-list allocator hands pages to requests and a
+per-request **slot table** maps logical token positions to physical
+slots (page * page_size + in-page slot).  K and V are stored
+**pre-RoPE**, so decode realigns keys to their request positions with
+one rotation (inside the paged-decode kernel).
+
+The arenas are torch tensors on the serving device and every write
+lands **in place** (`index_put_`), where the JAX package rebuilds them
+functionally.  Slot tables, the free list and the page views stay numpy.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import LMConfig
+
+
+class PoolExhausted(RuntimeError):
+    """No free pages left — caller should defer admission (backpressure)."""
+
+
+@dataclass(frozen=True)
+class PoolStats:
+    n_pages: int
+    page_size: int
+    pages_in_use: int
+    n_requests: int
+    tokens_resident: int
+
+
+class PagedKVPool:
+    """Fixed-page KV arena + free-list allocator + per-request slot tables.
+
+    Arena layout: (n_pages, page_size, n_layers, n_kv_heads, head_dim)
+    for K and V separately, dtype float32 (pre-RoPE values).
+    """
+
+    def __init__(self, n_layers: int, n_kv_heads: int, head_dim: int,
+                 page_size: int = 16, n_pages: int = 512,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        self.page_size = int(page_size)
+        self.n_pages = int(n_pages)
+        self.n_layers = n_layers
+        shape = (self.n_pages, self.page_size, n_layers, n_kv_heads, head_dim)
+        self.arena_k = torch.zeros(shape, dtype=dtype, device=device)
+        self.arena_v = torch.zeros(shape, dtype=dtype, device=device)
+        # page 0 is reserved as scratch: padded slot-table entries and
+        # padded page-view columns point at it (every such slot is dead).
+        # It is never allocated.
+        self._free: List[int] = list(range(self.n_pages - 1, 0, -1))
+        self.page_tables: Dict[int, List[int]] = {}
+        self.slot_tables: Dict[int, np.ndarray] = {}
+        self.seq_lens: Dict[int, int] = {}
+        self._spare: Dict[int, List[int]] = {}
+        self.peak_pages = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.arena_k.device
+
+    # ------------------------------ allocator ------------------------------
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-max(n_tokens, 1) // self.page_size)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def page_slots(self, pages: Sequence[int]) -> np.ndarray:
+        """Physical slot ids covered by `pages`, in page order."""
+        pages = np.asarray(pages, np.int64)
+        return (pages[:, None] * self.page_size
+                + np.arange(self.page_size)[None, :]).reshape(-1)
+
+    def _bump_peak(self) -> None:
+        self.peak_pages = max(self.peak_pages,
+                              self.n_pages - 1 - len(self._free))
+
+    def alloc(self, rid: int, n_tokens: int) -> List[int]:
+        """Reserve private pages for `n_tokens` slots; seq_len starts at 0."""
+        if rid in self.page_tables:
+            raise KeyError(f"request {rid} already allocated")
+        need = self.pages_for(n_tokens)
+        if need > len(self._free):
+            raise PoolExhausted(
+                f"need {need} pages, {len(self._free)} free")
+        pages = [self._free.pop() for _ in range(need)]
+        self.page_tables[rid] = pages
+        self.slot_tables[rid] = self.page_slots(pages).astype(np.int64)
+        self.seq_lens[rid] = 0
+        self._bump_peak()
+        return pages
+
+    def alloc_mapped(self, rid: int, n_tokens: int,
+                     mapped_positions: np.ndarray,
+                     mapped_slots: np.ndarray,
+                     extra_pages: int = 0) -> List[int]:
+        """Reserve capacity for `n_tokens` slots with some logical
+        positions pointing at *shared* physical slots.  Capacity is
+        `pages_for(n_tokens) * page_size` slots — the same formula as
+        `alloc` — but only the non-mapped slots consume private pages,
+        packed densely; ``extra_pages`` claims spare private pages."""
+        if rid in self.page_tables:
+            raise KeyError(f"request {rid} already allocated")
+        mapped_positions = np.asarray(mapped_positions, np.int64)
+        mapped_slots = np.asarray(mapped_slots, np.int64)
+        total_slots = self.pages_for(n_tokens) * self.page_size
+        n_priv = total_slots - len(mapped_positions)
+        need = -(-n_priv // self.page_size) if n_priv > 0 else 0
+        need += max(int(extra_pages), 0)
+        if need > len(self._free):
+            raise PoolExhausted(
+                f"need {need} pages, {len(self._free)} free")
+        pages = [self._free.pop() for _ in range(need)]
+        table = np.full(total_slots, -1, np.int64)
+        table[mapped_positions] = mapped_slots
+        all_slots = self.page_slots(pages)
+        priv = all_slots[:max(n_priv, 0)]
+        table[table < 0] = priv
+        self.page_tables[rid] = pages
+        self.slot_tables[rid] = table
+        self._spare[rid] = list(all_slots[max(n_priv, 0):])
+        self.seq_lens[rid] = (int(mapped_positions.max()) + 1
+                              if len(mapped_positions) else 0)
+        self._bump_peak()
+        return pages
+
+    def free(self, rid: int) -> None:
+        """Release a request's private pages.  Idempotent."""
+        pages = self.page_tables.pop(rid, None)
+        if pages is None:
+            return
+        self._free.extend(pages)
+        self.slot_tables.pop(rid, None)
+        self.seq_lens.pop(rid, None)
+        self._spare.pop(rid, None)
+
+    def stats(self) -> PoolStats:
+        in_use = sum(len(t) for t in self.page_tables.values())
+        return PoolStats(n_pages=self.n_pages, page_size=self.page_size,
+                         pages_in_use=in_use,
+                         n_requests=len(self.page_tables),
+                         tokens_resident=sum(self.seq_lens.values()))
+
+    # ------------------------------- writes --------------------------------
+    def _phys(self, rid: int, positions: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """Logical token slots -> (page ids, in-page slots), growing the
+        slot table by one private page if a position lands past current
+        capacity."""
+        table = self.slot_tables[rid]
+        top = int(positions.max())
+        while top >= len(table):
+            if not self._free:
+                raise PoolExhausted("decode append: no free pages")
+            page = self._free.pop()
+            self.page_tables[rid].append(page)
+            table = np.concatenate([table, self.page_slots([page])])
+            self.slot_tables[rid] = table
+            self._bump_peak()
+        slots = table[positions]
+        return ((slots // self.page_size).astype(np.int64),
+                (slots % self.page_size).astype(np.int64))
+
+    def write_at(self, rid: int, positions: np.ndarray,
+                 k: np.ndarray, v: np.ndarray,
+                 layer: Optional[int] = None) -> None:
+        """Scatter pre-RoPE (k, v) into logical slots.  k/v: (t, L, Hkv,
+        Dh), or (t, Hkv, Dh) when `layer` selects one layer plane."""
+        self.write_at_batch([(rid, positions, k, v)], layer=layer)
+
+    def write_at_batch(self, entries: Sequence[tuple],
+                       layer: Optional[int] = None) -> None:
+        """One in-place arena scatter for any number of requests' writes.
+
+        entries: sequence of (rid, positions, k, v) with host k/v rows.
+        Positions are unique within an entry and entries name distinct
+        requests, so no physical slot is written twice.  Entries with no
+        positions are skipped.
+        """
+        pages_all, slots_all, ks, vs = [], [], [], []
+        for rid, positions, k, v in entries:
+            positions = np.asarray(positions, np.int64)
+            if len(positions) == 0:
+                continue
+            pages, slots = self._phys(rid, positions)
+            pages_all.append(pages)
+            slots_all.append(slots)
+            ks.append(np.asarray(k, np.float32))
+            vs.append(np.asarray(v, np.float32))
+            self.seq_lens[rid] = max(self.seq_lens[rid],
+                                     int(positions.max()) + 1)
+        if not pages_all:
+            return
+        dev = self.device
+        pages = torch.from_numpy(np.concatenate(pages_all)).to(dev)
+        slots = torch.from_numpy(np.concatenate(slots_all)).to(dev)
+        k = torch.from_numpy(np.concatenate(ks)).to(dev, self.arena_k.dtype)
+        v = torch.from_numpy(np.concatenate(vs)).to(dev, self.arena_v.dtype)
+        if layer is None:
+            idx = (pages, slots)
+        else:
+            idx = (pages, slots, torch.full_like(pages, layer))
+        self.arena_k.index_put_(idx, k)
+        self.arena_v.index_put_(idx, v)
+
+    def write_prompt(self, rid: int, k: np.ndarray, v: np.ndarray) -> None:
+        """Insert a full prompt cache (n, L, Hkv, Dh) starting at slot 0."""
+        self.write_at(rid, np.arange(k.shape[0]), k, v)
+
+    def append_slots(self, rids: Sequence[int]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Claim the next physical slot for each request's new decode
+        token, growing slot tables across page boundaries and bumping
+        seq_lens; the decode step writes the KV.  -> (pages, slots) int32.
+
+        Transactional: on `PoolExhausted` every mutation this call made
+        is rolled back before the exception propagates."""
+        pages = np.zeros(len(rids), np.int32)
+        slots = np.zeros(len(rids), np.int32)
+        done: List[tuple] = []          # (rid, n_pages_appended)
+        try:
+            for i, rid in enumerate(rids):
+                before = len(self.page_tables[rid])
+                pos = np.asarray([self.seq_lens[rid]])
+                pg, sl = self._phys(rid, pos)
+                pages[i], slots[i] = pg[0], sl[0]
+                self.seq_lens[rid] += 1
+                done.append((rid, len(self.page_tables[rid]) - before))
+        except PoolExhausted:
+            for rid, n_new in done:
+                self.seq_lens[rid] -= 1
+                for _ in range(n_new):
+                    self._free.append(self.page_tables[rid].pop())
+                    self.slot_tables[rid] = \
+                        self.slot_tables[rid][:-self.page_size]
+            raise
+        return pages, slots
+
+    # -------------------------------- reads --------------------------------
+    def gather(self, rid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side readback of one request's (k, v): (S, L, Hkv, Dh)."""
+        n = self.seq_lens[rid]
+        sl = torch.from_numpy(self.slot_tables[rid][:n]).to(self.device)
+        pages, slots = sl // self.page_size, sl % self.page_size
+        return (self.arena_k[pages, slots].float().cpu().numpy(),
+                self.arena_v[pages, slots].float().cpu().numpy())
+
+    def batch_tables(self, rids: Sequence[int], pad_pages_to: int = 4
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Padded slot-table batch for the decode step.
+        -> (tables (N, S) int32 physical slot ids, seq_lens (N,) int32);
+        pad entries point at slot 0 (the scratch page)."""
+        chunk = pad_pages_to * self.page_size
+        max_s = max(len(self.slot_tables[r]) for r in rids)
+        max_s = -(-max_s // chunk) * chunk
+        tables = np.zeros((len(rids), max_s), np.int32)
+        lens = np.zeros(len(rids), np.int32)
+        for i, r in enumerate(rids):
+            t = self.slot_tables[r]
+            tables[i, :len(t)] = t
+            lens[i] = self.seq_lens[r]
+        return tables, lens
+
+
+def page_views(tables: np.ndarray, lens: np.ndarray,
+               new_pages: np.ndarray, new_slots: np.ndarray,
+               page_size: int, pad_pages_to: int = 4
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Page-granular decode views for the paged-decode kernel (a numpy copy
+    of the JAX package's `serving/kv_pool.py:page_views`).
+
+    tables: (N, S) physical slot ids in logical order; lens: (N,) tokens
+    resident before this step (= the new token's logical position);
+    new_pages/new_slots: (N,) the slot claimed for this step's token —
+    included in the view at position len, so the kernel reads the new
+    token's KV from the arena the decode step just wrote.
+
+    -> (page_ids (N, Pmax) int32, slot_pos (N, Pmax, page_size) int32):
+    `page_ids[i, j]` is the j-th distinct physical page row i touches
+    (first-appearance order); `slot_pos[i, j, t]` is the logical position
+    slot t of that page serves for row i, or -1.  Pmax is padded to a
+    `pad_pages_to` multiple; pad columns reference the scratch page 0
+    with all-(-1) positions.
+    """
+    tables = np.asarray(tables)
+    n = tables.shape[0]
+    lens = np.asarray(lens, np.int64)
+    new_slot_ids = (np.asarray(new_pages, np.int64) * page_size
+                    + np.asarray(new_slots, np.int64))
+    per_row = []
+    for i in range(n):
+        ln = int(lens[i])
+        slots = np.empty(ln + 1, np.int64)
+        slots[:ln] = tables[i, :ln]
+        slots[ln] = new_slot_ids[i]
+        pages = slots // page_size
+        offs = slots % page_size
+        uniq, first, inv = np.unique(pages, return_index=True,
+                                     return_inverse=True)
+        order = np.argsort(first, kind="stable")
+        rank = np.empty(len(uniq), np.int64)
+        rank[order] = np.arange(len(uniq))
+        spos = np.full((len(uniq), page_size), -1, np.int32)
+        # distinct logical positions live in distinct physical slots, so
+        # the (page-rank, offset) pairs are unique — no write collides
+        spos[rank[inv], offs] = np.arange(ln + 1)
+        per_row.append((uniq[order].astype(np.int32), spos))
+    pmax = max(len(p) for p, _ in per_row)
+    pmax = max(-(-pmax // pad_pages_to) * pad_pages_to, pad_pages_to)
+    page_ids = np.zeros((n, pmax), np.int32)
+    slot_pos = np.full((n, pmax, page_size), -1, np.int32)
+    for i, (p, sp) in enumerate(per_row):
+        page_ids[i, :len(p)] = p
+        slot_pos[i, :len(p)] = sp
+    return page_ids, slot_pos
+
+
+def pool_for(cfg: LMConfig, page_size: int = 16, n_pages: int = 512,
+             device="cuda") -> PagedKVPool:
+    """Pool sized from a model config (serving launcher convenience)."""
+    return PagedKVPool(cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim,
+                       page_size=page_size, n_pages=n_pages, device=device)

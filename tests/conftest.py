@@ -7,6 +7,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (tier-1 CI runs -m 'not slow'; the full "
         "suite still covers these)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); skips "
+        "itself where torch.cuda.is_available() is false")
 
 
 @pytest.fixture(scope="session")

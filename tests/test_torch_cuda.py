@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA GPU and skips without one (a CUDA
+kernel has no CPU mode); this file imports no JAX, so it runs on a GPU
+machine with PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+The CPU-side tests (`test_torch_kernels.py`) hold the same plain
+versions to the JAX package's oracles."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention.ops import mha_flash
+from repro_torch.kernels.flash_attention.ref import mha_flash_ref
+from repro_torch.kernels.paged_attention.ops import paged_decode_mha
+from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+from repro_torch.kernels.selective_attention.ops import block_liveness, selective_mha
+from repro_torch.kernels.selective_attention.ref import selective_mha_ref
+from repro_torch.serving.kv_pool import page_views
+
+F32_TOL = 1e-5    # fp32 vs fp32 (TF32 off): summation order only
+BF16_TOL = 2e-2   # bf16 outputs: one bf16 rounding, probabilities rounded apart
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", range(4))
+def test_flash_kernel_matches_plain(cuda, seed, dtype):
+    rng = np.random.default_rng(seed)
+    B, Hkv, G = int(rng.integers(1, 4)), int(rng.choice([1, 2, 8])), int(rng.choice([1, 2, 4]))
+    D = int(rng.choice([16, 64, 128]))
+    Sq = int(rng.integers(1, 150))
+    Skv = Sq if rng.integers(0, 2) else int(rng.integers(Sq, 200))
+    causal = bool(rng.integers(0, 2))
+    g = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dtype)
+    q, k, v = g(B, Sq, Hkv * G, D), g(B, Skv, Hkv, D), g(B, Skv, Hkv, D)
+    valid = torch.from_numpy(rng.random((B, Skv)) < 0.8).to(cuda)
+    valid[:, 0] = True                                  # >= 1 live key per row
+    for kv_valid in (None, valid):
+        before = mha_flash.launches
+        got = mha_flash(q, k, v, kv_valid=kv_valid, causal=causal)
+        assert mha_flash.launches == before + 1
+        _close(got, mha_flash_ref(q, k, v, kv_valid=kv_valid, causal=causal),
+               F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_selective_kernel_matches_plain(cuda, seed):
+    rng = np.random.default_rng(seed)
+    B, Hkv, G, D = 2, int(rng.choice([2, 8])), 4, 128
+    n, R = int(rng.choice([128, 448, 512])), int(rng.choice([64, 128, 256]))
+    window = int(rng.choice([0, 16, 200]))
+    valid = np.zeros((B, n), np.int8)
+    r_pos = np.zeros((B, R), np.int64)
+    for b in range(B):
+        nb = int(rng.integers(R + 1, n + 1))
+        valid[b, :nb] = 1
+        r_pos[b] = np.sort(rng.choice(nb, R, replace=False))
+    hh = valid if window == 0 else (rng.random((B, n)) < 0.2).astype(np.int8)
+    for qd, kd, vd in ((torch.float32,) * 3, (torch.bfloat16, torch.float32, torch.bfloat16)):
+        g = lambda dt, *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dt)
+        q, k, v = g(qd, B, R, Hkv * G, D), g(kd, B, n, Hkv, D), g(vd, B, n, Hkv, D)
+        qp, hht = torch.from_numpy(r_pos).to(cuda), torch.from_numpy(hh).to(cuda)
+        live = block_liveness(r_pos, hh, window=window, q_block=64, kv_block=64)
+        got = selective_mha(q, qp, k, v, hht, live=live, window=window)
+        _close(got, selective_mha_ref(q, qp, k, v, hht, window=window),
+               F32_TOL if qd == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_paged_decode_kernel_matches_plain(cuda, seed):
+    rng = np.random.default_rng(seed)
+    page, n_pages, L, Hkv, G, D = 16, 64, 3, int(rng.choice([2, 8])), 4, 128
+    N = int(rng.integers(1, 9))
+    lens = rng.integers(0, 400, N)
+    tables = np.zeros((N, int(lens.max()) + 1), np.int64)
+    new_pages, new_slots = np.zeros(N, np.int64), np.zeros(N, np.int64)
+    for i in range(N):
+        slots = rng.choice(np.arange(page, n_pages * page), int(lens[i]) + 1, replace=False)
+        tables[i, : lens[i]] = slots[:-1]
+        new_pages[i], new_slots[i] = divmod(slots[-1], page)
+    pg, sp = page_views(tables, lens, new_pages, new_slots, page)
+    pg, sp = torch.from_numpy(pg).to(cuda), torch.from_numpy(sp).to(cuda)
+    arena = lambda: torch.from_numpy(
+        rng.normal(size=(n_pages, page, L, Hkv, D)).astype(np.float32)).to(cuda)
+    ak, av = arena(), arena()
+    for qd in (torch.float32, torch.bfloat16):
+        q = torch.from_numpy(rng.normal(size=(N, Hkv * G, D)).astype(np.float32)).to(cuda, qd)
+        for layer in range(L):
+            got = paged_decode_mha(q, ak, av, pg, sp, layer=layer, rope_theta=1e6)
+            want = paged_decode_ref(q, ak, av, pg, sp, layer=layer, rope_theta=1e6)
+            _close(got, want, F32_TOL if qd == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 8, 4, 128, device=cuda)
+    k = torch.zeros(1, 8, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        mha_flash(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(TypeError, match="dtype"):
+        mha_flash(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="D <= 128"):
+        mha_flash(torch.zeros(1, 8, 4, 256, device=cuda), torch.zeros(1, 8, 2, 256, device=cuda),
+                  torch.zeros(1, 8, 2, 256, device=cuda))
+
+
+@pytest.mark.cuda
+def test_tiny_rcllm_serving_card_equals_cpu(cuda):
+    """The whole serving path on the card decodes the plain versions'
+    greedy tokens on the CPU (same weights, each its own offline cache)."""
+    import copy
+
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.serving.api import ServeConfig
+
+    tokens, model = {}, None
+    for dev in (cuda, torch.device("cpu")):
+        sys_, reqs, plans = SERVE.rcllm_setup(None, dev, 4, 1e6, 4, model=model)
+        _, backend, _, done = SERVE.serve(sys_.model, sys_.cfg, ServeConfig(decode_steps=4),
+                                          reqs, plans)
+        tokens[dev.type] = {r: backend.generated[r] for r in sorted(backend.generated)}
+        model = copy.deepcopy(sys_.model).to("cpu")
+    assert tokens["cuda"] == tokens["cpu"]
