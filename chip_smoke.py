@@ -9,21 +9,28 @@ else (no network, no JAX).  Phases:
 1. set-up: the card's name and power limit, TF32 off, and a build of
    every CUDA kernel of the serving path from the sources in this
    checkout (one `nvcc` per source, all at once);
-2. serving: the rcllm system at the full width of `rcllm-qwen3-8b`
+2. wave serving: the rcllm system at the full width of `rcllm-qwen3-8b`
    (random weights from a seeded generator; the offline KV build runs
-   the flash kernel) serves a few requests through the wave-scheduled
-   continuous batcher (selective kernel in prefill, paged-decode kernel
-   in decode).  Every kernel must have launched in this run;
-   A warm rerun of the same prefill and decode, without the batcher,
-   splits the time by stage (host clock, card synchronised at each
-   span) and reads the card's busy share under torch.profiler;
+   the flash kernel and packs the cached rows into a device pool)
+   serves a few requests through the wave-scheduled continuous batcher
+   (block-gather kernel assembling and realigning the cached KV,
+   selective kernel in prefill, paged-decode kernel in decode).  Every
+   kernel must have launched in this run.  A warm rerun of the same
+   prefill and decode, without the batcher, splits the time by stage
+   (host clock, card synchronised at each span) and reads the card's
+   busy share and host<->card copy time under torch.profiler;
+2c. chunked serving: the same system and trace through the chunked
+   (unified-step) scheduler at full depth; the block-gather, selective
+   and paged-decode kernels must each have launched in this run;
 3. checks: each kernel against its plain PyTorch version on the inputs
-   one of its serving calls saw, in the working dtypes and in fp32; the
-   served logits finite; and the tiny rcllm model served on the card
-   decodes the same tokens as on the CPU (the plain versions);
-4. kernel times (CUDA events, median of 20 after warm-up) beside the
-   plain version, one library call computing the same function where
-   there is one, and the card's bound for the work.
+   one of its serving calls saw, in the working dtypes and in fp32 (the
+   block gather bitwise where it copies); the served logits finite; and
+   the tiny rcllm model served on the card, wave and chunked, decodes
+   the same tokens as on the CPU (the plain versions);
+4. kernel times (CUDA events, median of 20 after warm-up; and the
+   device time alone under torch.profiler) beside the plain version, one
+   library call computing the same function where there is one, and the
+   card's bound for the work.
 
 The line before the last is the per-kernel JSON record; the last line is
 `{"ok": true, "device": {...}}`.  A fuller report goes to
@@ -51,6 +58,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.rcllm_qwen3_8b import CONFIG as QWEN3_8B  # noqa: E402
 from repro_torch.core import engine as ENG  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.block_gather import ops as BO  # noqa: E402
+from repro_torch.kernels.block_gather.ref import block_gather_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mask_rows, mha_flash_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as PO  # noqa: E402
@@ -70,6 +79,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: no TF32
 # relative) plus probabilities rounded at another point; fp32 differs
 # only by summation order over <= 512 keys of O(1) terms
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# block gather, relative to max(1, max|plain|): copies are exact; rotated
+# keys see the same angles (the kernel takes the plain version's
+# frequencies) and differ only by a sin/cos ulp, plus one bf16 rounding
+GATHER_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
 
 KERNELS = {
     "flash_attention": dict(
@@ -83,6 +96,9 @@ KERNELS = {
         fn=PO.paged_decode_mha,
         source="src/repro_torch/kernels/paged_attention/paged_decode.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:112"),
+    "block_gather": dict(
+        fn=BO.assemble_kv, source="src/repro_torch/kernels/block_gather/gather.cu",
+        replaces="src/repro/kernels/block_gather/kernel.py:41"),
 }
 
 
@@ -135,14 +151,34 @@ def _paged_snapshot(args, kwargs):
              inv.to(torch.int32).contiguous(), sp.clone()), dict(kwargs))
 
 
+class GatherRecorder:
+    """Keeps the inputs of the largest rotated (the selective layers') and
+    the largest unrotated (layer 0's Eq. 3 rows) block-gather call.  The
+    pools are planes of the read-only cached-row pool and the tables are
+    never written after the call, so references suffice."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = {}
+
+    def __call__(self, *args, **kwargs):
+        mode = "rotate" if kwargs.get("rotate", True) else "copy"
+        size = args[2].numel()
+        if size > self.calls.get(mode, (-1,))[0]:
+            self.calls[mode] = (size, args, dict(kwargs))
+        return self.fn(*args, **kwargs)
+
+
 def install_recorders():
     rec = {"flash_attention": Recorder(FO.mha_flash),
            "selective_attention": Recorder(SO.selective_mha),
-           "paged_decode_attention": Recorder(PO.paged_decode_mha, _paged_snapshot)}
+           "paged_decode_attention": Recorder(PO.paged_decode_mha, _paged_snapshot),
+           "block_gather": GatherRecorder(BO.assemble_kv)}
     patches = [(ENG, "mha_flash", rec["flash_attention"]),
                (TT, "mha_flash", rec["flash_attention"]),
                (ENG, "selective_mha", rec["selective_attention"]),
-               (BE, "paged_decode_mha", rec["paged_decode_attention"])]
+               (BE, "paged_decode_mha", rec["paged_decode_attention"]),
+               (ENG, "assemble_kv", rec["block_gather"])]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, r in patches:
         setattr(mod, name, r)
@@ -151,6 +187,10 @@ def install_recorders():
 
 # ------------------------------------------- plain versions, library, bound
 def plain_call(name, args, kw):
+    if name == "block_gather":
+        k, v = block_gather_ref(*args, rope_theta=kw.get("rope_theta", 1e4),
+                                rotate=kw.get("rotate", True))
+        return (k, v, args[0][args[2].long()]) if kw.get("keep_raw") else (k, v)
     if name == "flash_attention":
         return mha_flash_ref(*args, **kw)
     if name == "selective_attention":
@@ -176,6 +216,11 @@ def library_call(name, args, kw):
     here; the port never calls it), or None."""
     if name == "paged_decode_attention":
         return None
+    if name == "block_gather":
+        if kw.get("rotate", True):
+            return None           # no one PyTorch call gathers and rotates
+        pk, pv, bt = args[0], args[1], args[2].long()
+        return lambda: (torch.index_select(pk, 0, bt), torch.index_select(pv, 0, bt))
     q = args[0]
     B, Sq, Hq, D = q.shape
     if name == "flash_attention":
@@ -212,6 +257,14 @@ def work(name, args, kw, out):
     """(bytes, flops) the function needs on these inputs: each input read
     once, the output written once, operations over live (query, key)
     pairs only (4*D per pair per head: QK^T and PV)."""
+    if name == "block_gather":
+        # each selected K and V row read once, every output written once;
+        # a rotation is 4 products and 2 sums per key pair (3 per element)
+        pk, pv, bt, pos = args
+        rows = bt.numel() * pk[0].numel()
+        reads = rows * (pk.element_size() + pv.element_size()) + nbytes(bt)
+        rot = kw.get("rotate", True)
+        return reads + (nbytes(pos) if rot else 0) + nbytes(*out), 3 * rows if rot else 0
     q = args[0]
     D = q.shape[-1]
     if name == "flash_attention":
@@ -265,6 +318,22 @@ def time_ms(fn, reps=20, warmup=3):
     return float(statistics.median(times))
 
 
+def device_ms(fn, reps=20):
+    """Mean device time per call: the card's kernel and copy intervals
+    under torch.profiler, so the wrapper's host work between launches
+    (which a CUDA-event time of one short call includes) is left out."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 class Spans:
     """Inclusive host-clock seconds per wrapped function.  The card is
     synchronised at entry and exit, so device work lands in the span
@@ -274,7 +343,7 @@ class Spans:
     def __init__(self):
         self.s, self.saved = {}, []
 
-    def wrap(self, owner, name, label, static=False):
+    def wrap(self, owner, name, label):
         fn = getattr(owner, name)
 
         def timed(*a, **kw):
@@ -285,7 +354,7 @@ class Spans:
             self.s[label] = self.s.get(label, 0.0) + time.perf_counter() - t0
             return out
         self.saved.append((owner, name, owner.__dict__[name]))
-        setattr(owner, name, staticmethod(timed) if static else timed)
+        setattr(owner, name, timed)
 
     def restore(self):
         for owner, name, orig in reversed(self.saved):
@@ -299,7 +368,7 @@ def warm_run(engine, plans, steps):
     that order."""
     rids = sorted(plans)
     brs = [BE.BatchRequest(rid=rid, tokens=plans[rid][0].tokens, plan=plans[rid][0],
-                           cached_k=plans[rid][1], cached_v=plans[rid][2],
+                           block_table=plans[rid][1], positions=plans[rid][2],
                            have=plans[rid][3], n_reserve=steps) for rid in rids]
     state = {}
 
@@ -318,7 +387,8 @@ def warm_run(engine, plans, steps):
 def device_busy(fn):
     """Run `fn` under torch.profiler.  -> (wall s, device-busy s as the
     union of the card's kernel and copy intervals, top device consumers
-    [(name, ms)]); busy is None when the profiler saw no device event."""
+    [(name, ms)], host<->card copy s, number of those copies); busy is
+    None when the profiler saw no device event."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -326,18 +396,23 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, memcpy_us, n_memcpy = [], {}, 0.0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            dur = e.time_range.end - e.time_range.start
             spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+            if "memcpy" in e.name.lower() and "dtod" not in e.name.lower():
+                memcpy_us += dur
+                n_memcpy += 1
     busy, end = 0.0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return wall, (busy / 1e6 if spans else None), [(n[:60], us / 1e3) for n, us in top]
+    return (wall, (busy / 1e6 if spans else None), [(n[:60], us / 1e3) for n, us in top],
+            memcpy_us / 1e6, n_memcpy)
 
 
 def shapes(args, kw):
@@ -346,6 +421,97 @@ def shapes(args, kw):
         if torch.is_tensor(a) or isinstance(a, np.ndarray):
             out.append(f"{tuple(a.shape)}:{str(a.dtype).replace('torch.', '')}")
     return out
+
+
+def counts():
+    return {n: spec["fn"].launches for n, spec in KERNELS.items()}
+
+
+def log_serve(label, rep, peak_gb):
+    log(f"  {label}: TTFT p50 {rep['ttft_p50_s'] * 1e3:.1f} ms p99 "
+        f"{rep['ttft_p99_s'] * 1e3:.1f} ms; TBT p50 {rep['tbt_p50_s'] * 1e3:.1f} ms; "
+        f"decode {rep['throughput_tok_s']:.1f} tok/s"
+        + ("" if peak_gb is None else f"; peak CUDA memory {peak_gb:.1f} GB"))
+
+
+def check_served(label, launched, required, done, backend, args, config, cfg):
+    """Every required kernel launched in the run, every request completed
+    with its full output of valid token ids."""
+    missing = [n for n in required if launched[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the {label} serving path: {missing}")
+    if len(done) != args.requests:
+        raise RuntimeError(f"{label}: {len(done)} of {args.requests} requests completed")
+    for c in done:
+        toks = backend.generated[c.rid]
+        if len(toks) != config.decode_steps or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise RuntimeError(f"{label}: request {c.rid} generated {toks}")
+
+
+def timed_record(name, spec, launches, a, kw, out, err, wdt, extra):
+    """Kernel, plain and library times plus the bound for one call."""
+    fn = spec["fn"]
+    ms = time_ms(lambda: fn(*a, **kw))
+    dev_ms = device_ms(lambda: fn(*a, **kw))
+    plain_ms = time_ms(lambda: plain_call(name, a, kw))
+    lib = library_call(name, a, kw)
+    lib_ms = time_ms(lib) if lib is not None else None
+    b, fl = work(name, a, kw, out)
+    t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[wdt] * 1e3
+    label = name if kw.get("rotate", True) else f"{name}:copy"
+    rec = {"name": label, "route": "cuda", "source": spec["source"],
+           "replaces": spec["replaces"], "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib_ms, "device_ms": dev_ms, "shapes": shapes(a, kw), "bytes": b,
+           "flops": fl, **extra}
+    log(f"time {label}: kernel {ms:.4f} ms (device only {dev_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, library "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def gather_records(calls, spec, launches):
+    """The block gather against its plain version on the inputs of its
+    largest rotated call (the selective layers') and its largest copy
+    (layer 0's Eq. 3 rows): in the pool's serving dtype (fp32) and cast to
+    the model's bf16.  Copies (values, unrotated and raw keys) must be
+    bitwise; rotated keys within GATHER_TOL of max(1, max|plain|)."""
+    fn = spec["fn"]
+    records = []
+    for mode in ("rotate", "copy"):
+        if mode not in calls:
+            raise RuntimeError(f"block_gather: no {mode} call was recorded")
+        _, a, kw = calls[mode]
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            ad = (a[0].to(dt), a[1].to(dt), a[2], a[3])
+            got, want = fn(*ad, **kw), plain_call("block_gather", ad, kw)
+            torch.cuda.synchronize()
+            exact = [torch.equal(g, w) for g, w in zip(got, want)]
+            if mode == "rotate":
+                exact = exact[1:]                    # values and raw keys
+                scale = max(1.0, float(want[0].float().abs().max()))
+                err = float((got[0].float() - want[0].float()).abs().max())
+                if not torch.isfinite(got[0]).all() or err > GATHER_TOL[dt] * scale:
+                    raise RuntimeError(f"block_gather {dt}: rotated keys max|kernel-plain| "
+                                       f"{err} > {GATHER_TOL[dt]} x {scale}")
+            else:
+                err = 0.0
+            if not all(exact):
+                raise RuntimeError(f"block_gather {mode} {dt}: copies not bitwise {exact}")
+            errs[dt] = err
+        log(f"check block_gather {mode}: {shapes(a, kw)} copies bitwise; rotated keys "
+            f"max|kernel-plain| fp32 {errs[torch.float32]:.3g}, bf16 "
+            f"{errs[torch.bfloat16]:.3g} (tol {GATHER_TOL} x max(1, max|k|))")
+        out = fn(*a, **kw)
+        records.append(timed_record("block_gather", spec, launches, a, kw, out,
+                                    errs[torch.float32], torch.float32,
+                                    {"tol": GATHER_TOL[torch.float32],
+                                     "bf16_max_abs_err": errs[torch.bfloat16]}))
+    return records
 
 
 # ------------------------------------------------------------------ main
@@ -381,7 +547,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # ---- phase 2: rcllm serving at Qwen3-8B width ----
+    # ---- phase 2: wave rcllm serving at Qwen3-8B width ----
     cfg = dataclasses.replace(QWEN3_8B, n_layers=args.n_layers)
     config = ServeConfig(decode_steps=args.decode_steps)
     rec, saved = install_recorders()
@@ -392,42 +558,56 @@ def main(argv=None):
                                             config.decode_steps)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    engine, backend, batcher, done = SERVE.serve(system.model, cfg, config, reqs, plans)
+    engine, backend, batcher, done = SERVE.serve(system.model, cfg, config, reqs, plans,
+                                                 system.rows)
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0 - t_build
-    launches = {n: spec["fn"].launches for n, spec in KERNELS.items()}
-    for mod, name, fn in saved:
-        setattr(mod, name, fn)
+    launches = {"wave": counts()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rep = SERVE.report(config, engine, backend, batcher, done, warmup=False)
     log(f"serving: {cfg.name} d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
         f"head_dim {cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
         f"depth {cfg.n_layers} of {QWEN3_8B.n_layers} layers, "
-        f"{cfg.param_count() / 1e9:.2f} B params bf16")
-    log(f"  offline build + workload {t_build:.1f} s, serving {t_serve:.1f} s, "
+        f"{cfg.param_count() / 1e9:.2f} B params bf16; cached-row pool "
+        f"{system.rows.n_rows} rows, {system.rows.nbytes / 1e9:.2f} GB on the card")
+    log(f"  offline build + workload {t_build:.1f} s, wave serving {t_serve:.1f} s, "
         f"{len(done)} requests x {config.decode_steps} tokens")
-    log(f"  TTFT p50 {rep['ttft_p50_s'] * 1e3:.1f} ms p99 {rep['ttft_p99_s'] * 1e3:.1f} ms; "
-        f"TBT p50 {rep['tbt_p50_s'] * 1e3:.1f} ms; decode {rep['throughput_tok_s']:.1f} tok/s; "
-        f"peak CUDA memory {peak_gb:.1f} GB")
-    log(f"  kernel launches in this run: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the serving path: {missing}")
-    if len(done) != args.requests:
-        raise RuntimeError(f"{len(done)} of {args.requests} requests completed")
-    for c in done:
-        toks = backend.generated[c.rid]
-        if len(toks) != config.decode_steps or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise RuntimeError(f"request {c.rid} generated {toks}")
+    log_serve("wave", rep, peak_gb)
+    log(f"  kernel launches in the wave run: {launches['wave']}")
+    check_served("wave", launches["wave"], KERNELS, done, backend, args, config, cfg)
 
-    # ---- phase 2b: where the time goes (warm; the counts are read) ----
+    # ---- phase 2c: the same trace through the chunked scheduler ----
+    cconfig = ServeConfig(decode_steps=args.decode_steps, sched="chunked")
+    reset_counts()
+    t0 = time.perf_counter()
+    c_engine, c_backend, c_batcher, c_done = SERVE.serve(system.model, cfg, cconfig, reqs,
+                                                         plans, system.rows)
+    torch.cuda.synchronize()
+    t_chunked = time.perf_counter() - t0
+    launches["chunked"] = counts()
+    for mod, name, fn in saved:
+        setattr(mod, name, fn)
+    crep = SERVE.report(cconfig, c_engine, c_backend, c_batcher, c_done, warmup=True)
+    ticks = c_batcher.workers[0].ticks
+    same = sum(c_backend.generated[r] == backend.generated[r] for r in backend.generated)
+    log(f"chunked serving (chunk {cconfig.chunk_tokens} tokens, step budget "
+        f"{cconfig.resolved_step_tokens}; depth {cfg.n_layers}): {t_chunked:.1f} s, "
+        f"{len(ticks)} ticks ({sum(t.oversized for t in ticks)} oversized); "
+        f"{same}/{len(backend.generated)} requests decoded the wave run's tokens")
+    log_serve("chunked", crep, None)
+    log(f"  kernel launches in the chunked run: {launches['chunked']}")
+    check_served("chunked", launches["chunked"],
+                 ("block_gather", "selective_attention", "paged_decode_attention"),
+                 c_done, c_backend, args, cconfig, cfg)
+    del c_engine, c_backend, c_batcher
+
+    # ---- phase 2b: where the time goes (warm wave prefill and decode) ----
     spans = Spans()
     spans.wrap(BE.BatchEngine, "prefill", "prefill")
     spans.wrap(ENG, "layer0", "layer0")
     spans.wrap(ENG, "select_recompute", "select_recompute")
     spans.wrap(ENG, "selective_layers_batch", "selective_layers_batch")
     spans.wrap(ENG, "selective_layers", "selective_layers")
-    spans.wrap(BE.BatchEngine, "_selective_rows", "merge_rows", static=True)
     spans.wrap(PagedKVPool, "write_at_batch", "pool_writes")
     spans.wrap(BE.BatchEngine, "decode", "decode")
     spans.wrap(BE, "decode_step", "decode_step")
@@ -441,8 +621,7 @@ def main(argv=None):
         "prefill_s": s["prefill"],
         "prefill": {"layer0_eq3": s["layer0"], "select_recompute_host": s["select_recompute"],
                     "selective_layers_device": s["selective_layers"],
-                    "kv_staging_host_device": s["selective_layers_batch"] - s["selective_layers"],
-                    "merge_rows_host": s["merge_rows"],
+                    "selective_batch_setup": s["selective_layers_batch"] - s["selective_layers"],
                     "pool_writes": s["pool_writes"]},
         "decode_step_ms": s["decode"] / steps * 1e3,
         "decode": {"model_step_ms": s["decode_step"] / steps * 1e3,
@@ -452,10 +631,12 @@ def main(argv=None):
     breakdown["prefill"]["other"] = s["prefill"] - known
     pre, dec = warm_run(engine, plans, steps)
     for phase, fn in (("prefill", pre), ("decode", dec)):
-        wall, busy, top = device_busy(fn)
+        wall, busy, top, memcpy_s, n_memcpy = device_busy(fn)
         breakdown[f"{phase}_profiled_wall_s"] = wall
         breakdown[f"{phase}_device_busy_s"] = busy
         breakdown[f"{phase}_device_idle_share"] = None if busy is None else 1 - busy / wall
+        breakdown[f"{phase}_host_card_memcpy_s"] = memcpy_s
+        breakdown[f"{phase}_host_card_memcpy_count"] = n_memcpy
         breakdown[f"{phase}_top_device"] = top
     log(f"breakdown (warm, {len(plans)} requests in one prefill batch, then {steps} "
         f"decode steps; host clock, card synchronised at each span):")
@@ -467,13 +648,15 @@ def main(argv=None):
         busy = breakdown[f"{phase}_device_busy_s"]
         log(f"  profiled {phase}: wall {breakdown[f'{phase}_profiled_wall_s']:.3f} s, device busy "
             f"{'not measured (no device events)' if busy is None else f'{busy:.3f} s'}, idle share "
-            f"{breakdown[f'{phase}_device_idle_share']}; top device: "
+            f"{breakdown[f'{phase}_device_idle_share']}; host<->card memcpy "
+            f"{breakdown[f'{phase}_host_card_memcpy_s'] * 1e3:.3f} ms in "
+            f"{breakdown[f'{phase}_host_card_memcpy_count']} copies; top device: "
             + "; ".join(f"{n} {ms:.2f} ms" for n, ms in breakdown[f"{phase}_top_device"]))
 
     # ---- phase 3: checks ----
-    plan, ck, cv, have = plans[min(plans)]
-    br = BE.BatchRequest(rid=-1, tokens=plan.tokens, plan=plan, cached_k=ck,
-                         cached_v=cv, have=have)
+    plan, table, positions, have = plans[min(plans)]
+    br = BE.BatchRequest(rid=-1, tokens=plan.tokens, plan=plan, block_table=table,
+                         positions=positions, have=have)
     logits = engine.prefill([br], "rcllm")
     rfrac = engine.last_stats[br.rid].recompute_fraction()
     engine.release(br.rid)
@@ -482,8 +665,12 @@ def main(argv=None):
     log(f"  prefill logits finite, shape {logits.shape}; {plan.n} prompt tokens, "
         f"recompute fraction {rfrac:.3f}")
 
+    total = {n: launches["wave"][n] + launches["chunked"][n] for n in KERNELS}
     records = []
     for name, spec in KERNELS.items():
+        if name == "block_gather":
+            records += gather_records(rec[name].calls, spec, total[name])
+            continue
         r = rec[name]
         a, kw = r.args, r.kwargs
         fn = spec["fn"]
@@ -505,43 +692,35 @@ def main(argv=None):
             raise RuntimeError(f"{name}: fp32 max|kernel-plain| {err32} > {TOL[torch.float32]}")
         log(f"check {name}: {shapes(a, kw)} max|kernel-plain| {err:.3g} (tol {TOL[wdt]}, "
             f"{str(wdt).replace('torch.', '')}); fp32 {err32:.3g} (tol {TOL[torch.float32]})")
-
-        ms = time_ms(lambda: fn(*a, **kw))
-        plain_ms = time_ms(lambda: plain_call(name, a, kw))
-        lib = library_call(name, a, kw)
-        lib_ms = time_ms(lib) if lib is not None else None
-        b, fl = work(name, a, kw, out)
-        t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[wdt] * 1e3
-        records.append({
-            "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "tol": TOL[wdt], "fp32_max_abs_err": err32,
-            "shapes": shapes(a, kw), "bytes": b, "flops": fl})
-        log(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({records[-1]['bound_by']})")
+        records.append(timed_record(name, spec, total[name], a, kw, out, err, wdt,
+                                    {"tol": TOL[wdt], "fp32_max_abs_err": err32}))
     del rec
 
     # small-input reference: the tiny rcllm model served on the card
-    # (kernels) decodes the same greedy tokens as on the CPU (plain)
-    tiny = {}
-    model = None
-    for d in (dev, torch.device("cpu")):
-        tsys, treqs, tplans = SERVE.rcllm_setup(None, d, 4, 1e6, 4, model=model)
-        _, tb, _, _ = SERVE.serve(tsys.model, tsys.cfg, ServeConfig(decode_steps=4),
-                                  treqs, tplans)
-        tiny[d.type] = {r: tb.generated[r] for r in sorted(tb.generated)}
-        model = copy.deepcopy(tsys.model).to("cpu")
-    if tiny["cuda"] != tiny["cpu"]:
-        raise RuntimeError(f"tiny rcllm tokens differ: card {tiny['cuda']} cpu {tiny['cpu']}")
-    log(f"check tiny rcllm serving: card tokens == CPU plain-version tokens {tiny['cuda']}")
+    # (kernels) decodes the same greedy tokens as on the CPU (plain), under
+    # both schedulers
+    for sched in ("wave", "chunked"):
+        tiny = {}
+        model = None
+        tconfig = ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64)
+        for d in (dev, torch.device("cpu")):
+            tsys, treqs, tplans = SERVE.rcllm_setup(None, d, 4, 1e6, 4, model=model)
+            _, tb, _, _ = SERVE.serve(tsys.model, tsys.cfg, tconfig, treqs, tplans, tsys.rows)
+            tiny[d.type] = {r: tb.generated[r] for r in sorted(tb.generated)}
+            model = copy.deepcopy(tsys.model).to("cpu")
+        if tiny["cuda"] != tiny["cpu"]:
+            raise RuntimeError(f"tiny rcllm {sched} tokens differ: card {tiny['cuda']} "
+                               f"cpu {tiny['cpu']}")
+        log(f"check tiny rcllm {sched} serving: card tokens == CPU plain-version tokens "
+            f"{tiny['cuda']}")
 
     report = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "offline_build_s": t_build, "serving_s": t_serve,
-              "peak_cuda_gb": peak_gb, "depth": cfg.n_layers, "serve": rep,
+              "chunked_serving_s": t_chunked, "peak_cuda_gb": peak_gb,
+              "depth": cfg.n_layers, "serve": rep, "serve_chunked": crep,
+              "chunked_ticks": [dataclasses.asdict(t) for t in ticks],
+              "chunked_tokens_equal_wave": same, "launches": launches,
+              "cache_rows": system.rows.n_rows, "cache_rows_gb": system.rows.nbytes / 1e9,
               "recompute_fraction": rfrac, "prompt_tokens": plan.n, "breakdown": breakdown,
               "kernels": records, "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
@@ -555,7 +734,6 @@ def main(argv=None):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-
 
 if __name__ == "__main__":
     main()

@@ -5,8 +5,10 @@ instruction tokens are always recomputed; review tokens resolve to semantic
 prototypes; item tokens resolve to item blocks (local / remote / miss).
 Nothing is physically concatenated here — the plan is an index table
 (logical position → block ref + offset + RoPE delta).  A numpy copy of the
-JAX package's `core/assembly.py`; the port gathers cached KV on the host
-(`gather_cached_kv`) until the block-gather kernel is ported.
+JAX package's `core/assembly.py`, plus `plan_block_table`: the plan as a
+block table into the device pool of cached rows (`core.cache_rows`), which
+the block-gather kernel assembles and realigns on the device.
+`gather_cached_kv` stays as the plain host assembly.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.cache_rows import ZERO_ROW
 from repro_torch.core.item_cache import ItemKVStore
 from repro_torch.core.semantic_cache import (SemanticCache,
                                        embed_tokens_for_match)
@@ -170,7 +173,8 @@ def gather_cached_kv(plan: AssemblyPlan, item_store: Optional[ItemKVStore],
     """Materialize the assembled (pre-RoPE) cached KV for every reuse token.
 
     -> (k, v): (n, L, Hkv, Dh) float arrays (zeros where RECOMPUTE),
-       have_cache: (n,) bool.  The serving path runs this host version.
+       have_cache: (n,) bool.  The plain host version of the device
+       assembly (`plan_block_table` + the block-gather kernel).
     """
     n = plan.n
     k = np.zeros((n, n_layers, n_kv, head_dim), np.float32)
@@ -191,3 +195,35 @@ def gather_cached_kv(plan: AssemblyPlan, item_store: Optional[ItemKVStore],
             v[i] = semantic.proto_v[pid]
             have[i] = True
     return k, v, have
+
+
+def plan_block_table(plan: AssemblyPlan, item_store: Optional[ItemKVStore],
+                     semantic: Optional[SemanticCache], instance: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The plan as a block table into the device pool of cached rows.
+
+    -> (block_table (n,) int32: the pool row of each prompt token, the
+    zero row where `gather_cached_kv` gives zeros; positions (n,) int32:
+    each token's target RoPE position, its prompt position; have (n,)
+    bool, equal to `gather_cached_kv`'s).  Gathering the pool rows by the
+    table reproduces `gather_cached_kv` bit for bit.
+    """
+    n = plan.n
+    table = np.full(n, ZERO_ROW, np.int32)
+    have = np.zeros(n, bool)
+    for i in range(n):
+        if plan.source[i] == FROM_ITEM and item_store is not None:
+            blk = item_store.get_block(int(plan.block_item[i]), instance)
+            off = int(plan.block_offset[i])
+            if blk is not None and off < blk.k.shape[0]:
+                if blk.row < 0:
+                    raise ValueError(f"item {blk.item_id}: block not in the device pool")
+                table[i] = blk.row + off
+                have[i] = True
+        elif plan.source[i] == FROM_SEMANTIC and semantic is not None \
+                and semantic.proto_k is not None:
+            if semantic.proto_row < 0:
+                raise ValueError("semantic prototypes not in the device pool")
+            table[i] = semantic.proto_row + int(plan.proto_id[i])
+            have[i] = True
+    return table, np.arange(n, dtype=np.int32), have

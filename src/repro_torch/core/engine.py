@@ -16,8 +16,12 @@ attention (`kernels.flash_attention`) in the offline KV build and full
 prefill, selective attention (`kernels.selective_attention`) in layers
 1..L−1.  Layer 0 needs the materialised probabilities for Eq. 3, so it
 runs plain torch attention, as the JAX package runs jnp there.  The
-engine runs on the device its model lives on; host arrays (plans,
-cached KV, masks) stay numpy, as in the reference.
+cached KV stays on the model's device (`core.cache_rows`): a request
+brings a block table into that pool, and the block-gather kernel
+(`kernels.block_gather`) assembles the rows layer by layer — copied for
+layer 0's Eq. 3 divergence, rotated to the request positions for layers
+1..L−1.  Only tables, positions, masks and logits cross between host and
+device; plans and the Eq. 3 selection stay numpy, as in the reference.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.assembly import FROM_ITEM, FROM_SEMANTIC, AssemblyPlan
+from repro_torch.core.cache_rows import ZERO_ROW, CacheRows
+from repro_torch.kernels.block_gather.ops import assemble_kv
 from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.kernels.selective_attention.ops import (block_liveness,
                                                          selective_mha)
@@ -198,8 +204,8 @@ def precompute_kv_batch(model: Transformer, cfg: LMConfig, docs,
 @torch.no_grad()
 def batched_prefill(model: Transformer, toks: np.ndarray, last_idx: np.ndarray):
     """Padded multi-request full prefill.  toks: (N, S); last_idx: (N,)
-    index of each request's final real token.  -> (logits (N, V),
-    pre-RoPE k, v (N, S, L, Hkv, Dh)) as host fp32."""
+    index of each request's final real token.  -> (logits (N, V) host
+    fp32, pre-RoPE k, v (N, S, L, Hkv, Dh) on the device)."""
     dev = model.device
     t = torch.from_numpy(np.asarray(toks, np.int64)).to(dev)
     last = torch.from_numpy(np.asarray(last_idx, np.int64)).to(dev)
@@ -208,7 +214,7 @@ def batched_prefill(model: Transformer, toks: np.ndarray, last_idx: np.ndarray):
     x, k_all, v_all = batched_forward(model, t, valid)
     x_last = x[torch.arange(t.shape[0], device=dev), last]
     xf = L.rms_norm(x_last, model.final_norm, model.cfg.norm_eps)
-    return _host(xf @ model.head()), _host(k_all), _host(v_all)
+    return _host(xf @ model.head()), k_all, v_all
 
 
 def full_prefill_logits(model: Transformer, cfg: LMConfig, tokens: np.ndarray,
@@ -226,12 +232,39 @@ def full_prefill_logits(model: Transformer, cfg: LMConfig, tokens: np.ndarray,
 # Selective prefill
 # ---------------------------------------------------------------------------
 
+def _pad_table(table: np.ndarray, positions: np.ndarray, n_pad: int):
+    """A block table and its target positions padded to `n_pad` rows:
+    pad rows read the zero row (the host assembly's zero padding)."""
+    tbl = np.full(n_pad, ZERO_ROW, np.int32)
+    pos = np.arange(n_pad, dtype=np.int32)
+    tbl[:len(table)] = table
+    pos[:len(positions)] = positions
+    return tbl, pos
+
+
+def gather_rows(cache: CacheRows, layer: int, table: torch.Tensor,
+                positions: torch.Tensor, *, rope_theta: float, rotate: bool,
+                keep_raw: bool = False):
+    """One layer plane of the cached rows, gathered by the block-gather
+    kernel.  table/positions: (N,) int32 on the pool's device.  -> (k, v)
+    each (N, Hkv, Dh) in the pool dtype (+ the unrotated keys with
+    `keep_raw`); `rotate=False` is a bitwise copy of the rows."""
+    out = assemble_kv(cache.k[layer], cache.v[layer], table, positions[:, None],
+                      rope_theta=rope_theta, rotate=rotate, keep_raw=keep_raw)
+    return tuple(t[:, 0] for t in out)
+
+
+def _device_table(cache: CacheRows, table: np.ndarray, positions: np.ndarray):
+    t = torch.from_numpy(np.stack([table, positions])).to(cache.k.device)
+    return t[0], t[1]
+
+
 @torch.no_grad()
-def layer0(model: Transformer, toks: np.ndarray, valid: np.ndarray,
-           ck0: np.ndarray, cv0: np.ndarray):
-    """Layer-0 full pass (padded) with the Eq. 3 terms.  -> (x after
-    layer 0 (n, D), attn_mass (n,), divergence (n,), fresh pre-RoPE
-    k0, v0 (n, Hkv, Dh)), all on the model's device."""
+def layer0(model: Transformer, toks: np.ndarray, valid: np.ndarray, ck0, cv0):
+    """Layer-0 full pass (padded) with the Eq. 3 terms.  ck0/cv0: (n,
+    Hkv, Dh) cached layer-0 rows (tensors on the model's device, or host
+    arrays).  -> (x after layer 0 (n, D), attn_mass (n,), divergence
+    (n,), fresh pre-RoPE k0, v0 (n, Hkv, Dh)), all on the model's device."""
     cfg = model.cfg
     dev = model.device
     toks_t = torch.from_numpy(np.asarray(toks, np.int64)).to(dev)
@@ -248,8 +281,8 @@ def layer0(model: Transformer, toks: np.ndarray, valid: np.ndarray,
     o, probs = full_attn(q, k, v, pos, pos, k_valid=valid_t)
     # A_i: attention mass received by key i from *valid* queries
     attn_mass = (probs * valid_t[None, None, :, None]).mean(dim=(0, 1)).sum(dim=0)
-    dk = (k_raw.float() - torch.from_numpy(ck0).to(dev)).abs().sum(dim=(1, 2))
-    dv = (v.float() - torch.from_numpy(cv0).to(dev)).abs().sum(dim=(1, 2))
+    dk = (k_raw.float() - torch.as_tensor(ck0, device=dev)).abs().sum(dim=(1, 2))
+    dv = (v.float() - torch.as_tensor(cv0, device=dev)).abs().sum(dim=(1, 2))
     x = _layer_step(x, lp, cfg, o)
     return x, attn_mass, dk + dv, k_raw, v
 
@@ -296,25 +329,25 @@ def select_recompute(plan: AssemblyPlan, have: np.ndarray,
 
 @torch.no_grad()
 def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
-                     r_valid: np.ndarray, ck: torch.Tensor, cv: torch.Tensor,
-                     valid: np.ndarray, final_slot: np.ndarray,
-                     collect_kv: bool = True):
+                     r_valid: np.ndarray, cache: CacheRows, table: torch.Tensor,
+                     positions: torch.Tensor, valid: np.ndarray,
+                     final_slot: np.ndarray):
     """Batched layers 1..L-1 over the recompute sets.
 
-    x: (B, n, D); r_idx/r_valid: (B, R) host; ck/cv: (B, n, L, Hkv, Dh)
-    fp32 on the device (the assembled pre-RoPE caches); valid: (B, n)
-    host key validity; final_slot: (B,).  -> logits (B, V) [+ merged
-    pre-RoPE (k, v): (B, n, L-1, Hkv, Dh)] on the device.
+    x: (B, n, D); r_idx/r_valid: (B, R) host; table/positions: (B, n)
+    int32 on the device, each key's cached row and target position;
+    valid: (B, n) host key validity; final_slot: (B,).  -> (logits (B, V),
+    merged pre-RoPE k, v (B, n, L-1, Hkv, Dh)) on the device.
 
-    Cached keys are rotated to their request positions (exact realignment);
-    the recomputed tokens' fresh K/V are scattered over them.  Padded
-    recompute rows (`r_valid` False) are masked out of the scatter — the
-    reference's drop-mode scatter at index n.
+    Each layer's cached keys come from the block-gather kernel rotated to
+    their request positions (exact realignment), with the pre-RoPE base
+    from the same launch; the recomputed tokens' fresh K/V are scattered
+    over them.  Padded recompute rows (`r_valid` False) are masked out of
+    the scatter — the reference's drop-mode scatter at index n.
     """
     cfg = model.cfg
     dev = x.device
     B, n, _ = x.shape
-    pos = torch.arange(n, device=dev)
     r_pos_np = np.clip(np.asarray(r_idx, np.int64), 0, n - 1)
     r_pos = torch.from_numpy(r_pos_np).to(dev)                   # (B, R)
     live = block_liveness(r_pos_np, np.asarray(valid, np.int8), window=0,
@@ -323,6 +356,7 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
     rv = torch.from_numpy(np.asarray(r_valid, bool)).to(dev)
     rows = torch.arange(B, device=dev)[:, None].expand_as(r_pos)[rv]
     widx = r_pos[rv]                                             # kept rows only
+    tbl, kpos = table.reshape(-1), positions.reshape(-1)
     xr = torch.gather(x, 1, r_pos[..., None].expand(-1, -1, x.shape[-1]))
     ks, vs = [], []
     for l in range(1, cfg.n_layers):
@@ -334,16 +368,15 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
         qr = L.apply_rope(qr, r_pos, cfg.rope_theta)
         kr = L.apply_rope(kr_raw, r_pos, cfg.rope_theta)
         # assembled keys: cached pre-RoPE keys rotated to request positions
-        k_l = L.apply_rope(ck[:, :, l], pos, cfg.rope_theta)
-        v_l = cv[:, :, l].clone()
+        k_l, v_l, k_m = (t.view(B, n, *t.shape[1:]) for t in gather_rows(
+            cache, l, tbl, kpos, rope_theta=cfg.rope_theta, rotate=True,
+            keep_raw=True))
         k_l[rows, widx] = kr[rv].to(k_l.dtype)
         v_l[rows, widx] = vr[rv].to(v_l.dtype)
-        if collect_kv:
-            # merged pre-RoPE cache: cached blocks + fresh recomputed keys
-            k_m = ck[:, :, l].clone()
-            k_m[rows, widx] = kr_raw[rv].to(k_m.dtype)
-            ks.append(k_m)
-            vs.append(v_l)
+        # merged pre-RoPE cache: cached blocks + fresh recomputed keys
+        k_m[rows, widx] = kr_raw[rv].to(k_m.dtype)
+        ks.append(k_m)
+        vs.append(v_l)
         o = selective_mha(qr, r_pos, k_l, v_l.to(kr.dtype), valid_t, live=live,
                           window=0, q_block=LIVE_Q_BLOCK, kv_block=LIVE_KV_BLOCK)
         xr = _layer_step(xr, lp, cfg, o)
@@ -352,29 +385,27 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
     xf = L.rms_norm(xr[torch.arange(B, device=dev), fs], model.final_norm,
                     cfg.norm_eps)
     logits = xf @ model.head()                                  # (B, V)
-    if collect_kv:
-        return logits, torch.stack(ks, dim=2), torch.stack(vs, dim=2)
-    return logits
+    return logits, torch.stack(ks, dim=2), torch.stack(vs, dim=2)
 
 
 def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
-                           r_bucket: int = 64, return_kv: bool = True):
+                           cache: CacheRows, r_bucket: int = 64):
     """Bucketed batched selective-layer pass (phase 2 of the selective
     prefill): requests are grouped by (padded length, padded recompute
     budget) and ONE selective step runs per bucket.  PyTorch runs eagerly,
-    so the batch axis is not padded to a power of two as under jit.
+    so the batch axis is not padded to a power of two as under jit.  The
+    wave prefill and the chunked finalize both land here.
 
     items: sequence of (plan, x (n_pad, D) device tensor, recompute (n,),
-    ckp, cvp) with ckp/cvp padded to n_pad.  -> list of (logits (V,),
-    k_rest, v_rest) host arrays per item in input order (k_rest/v_rest
-    are the merged pre-RoPE layers 1..L-1, (n_pad, L-1, Hkv, Dh); None
-    unless ``return_kv``).
+    block_table (n,), positions (n,)).  -> list of (logits (V,) host,
+    k_rest, v_rest) per item in input order; k_rest/v_rest are the merged
+    pre-RoPE layers 1..L-1, (n_pad, L-1, Hkv, Dh) on the device.
     """
     dev = model.device
     results = [None] * len(items)
     by_shape: Dict[tuple, list] = {}
-    for i, (plan, x, recompute, ckp, cvp) in enumerate(items):
-        n_pad = ckp.shape[0]
+    for i, (plan, x, recompute, _, _) in enumerate(items):
+        n_pad = x.shape[0]
         r_count = int(recompute.sum())
         r_pad = max(r_bucket, ((r_count + r_bucket - 1) // r_bucket)
                     * r_bucket)
@@ -385,72 +416,242 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
         r_valid = np.zeros((B, r_pad), bool)
         valid = np.zeros((B, n_pad), bool)
         final_slot = np.zeros(B, np.int64)
+        tables = np.zeros((2, B, n_pad), np.int32)
         for bi, i in enumerate(idxs):
-            plan = items[i][0]
-            r_idx = np.where(items[i][2])[0]
+            plan, _, recompute, table, positions = items[i]
+            r_idx = np.where(recompute)[0]
             r_idx_p[bi] = _pad_to(r_idx.astype(np.int32), r_pad,
                                   fill=plan.n - 1)
             r_valid[bi, :len(r_idx)] = True
             valid[bi, :plan.n] = True
             final_slot[bi] = len(r_idx) - 1
+            tables[:, bi] = _pad_table(table, positions, n_pad)
         x = torch.stack([items[i][1] for i in idxs])
-        ck = torch.from_numpy(np.stack([items[i][3] for i in idxs])).to(dev)
-        cv = torch.from_numpy(np.stack([items[i][4] for i in idxs])).to(dev)
-        out = selective_layers(model, x, r_idx_p, r_valid, ck, cv, valid,
-                               final_slot, collect_kv=return_kv)
-        if return_kv:
-            logits, k_rest, v_rest = (_host(t) for t in out)
-        else:
-            logits, k_rest, v_rest = _host(out), None, None
+        tables_t = torch.from_numpy(tables).to(dev)
+        logits, k_rest, v_rest = selective_layers(
+            model, x, r_idx_p, r_valid, cache, tables_t[0], tables_t[1], valid,
+            final_slot)
+        logits = _host(logits)
         for bi, i in enumerate(idxs):
-            results[i] = (logits[bi],
-                          k_rest[bi] if return_kv else None,
-                          v_rest[bi] if return_kv else None)
+            results[i] = (logits[bi], k_rest[bi], v_rest[bi])
     return results
 
 
 def selective_prefill_batch(
     model: Transformer, cfg: LMConfig, items: Sequence, sel: SelectiveConfig,
-    bucket: int = 128, r_bucket: int = 64, return_kv: bool = True,
+    cache: CacheRows, bucket: int = 128, r_bucket: int = 64,
 ):
     """Batched beyond-prefix prefill over many requests at once.
 
-    Phase 1 runs layer 0 + Eq. 3 scoring per request; phase 2 runs the
-    selective layers per (padded length, padded recompute budget) bucket
-    (`selective_layers_batch`).
+    Phase 1 runs layer 0 + Eq. 3 scoring per request, against its cached
+    layer-0 rows copied out of `cache` by the block-gather kernel; phase
+    2 runs the selective layers per (padded length, padded recompute
+    budget) bucket (`selective_layers_batch`).
 
-    items: sequence of (plan, cached_k, cached_v, have) tuples.
-    -> list of (logits (V,), EngineStats, k_all (n, L, Hkv, Dh), v_all)
-    per request, in input order (k_all/v_all None unless ``return_kv``).
+    items: sequence of (plan, block_table, positions, have) tuples (see
+    `assembly.plan_block_table`).  -> list of (logits (V,) host,
+    EngineStats, k_all (n, L, Hkv, Dh), v_all) per request, in input
+    order; k_all/v_all are fp32 on the device.
     """
     if not items:
         return []
     sel_items, stats_of, k0_of, v0_of = [], [], [], []
-    for plan, ck, cv, have in items:
+    for plan, table, positions, have in items:
         n_pad = ((plan.n + bucket - 1) // bucket) * bucket
         toks = _pad_to(plan.tokens.astype(np.int32), n_pad)
         valid = np.zeros(n_pad, bool)
         valid[:plan.n] = True
-        ckp = _pad_to(ck.astype(np.float32), n_pad)
-        cvp = _pad_to(cv.astype(np.float32), n_pad)
-        x, attn_mass, div_raw, k0, v0 = layer0(
-            model, toks, valid, np.ascontiguousarray(ckp[:, 0]),
-            np.ascontiguousarray(cvp[:, 0]))
+        tbl, kpos = _device_table(cache, *_pad_table(table, positions, n_pad))
+        ck0, cv0 = gather_rows(cache, 0, tbl, kpos, rope_theta=cfg.rope_theta,
+                               rotate=False)
+        x, attn_mass, div_raw, k0, v0 = layer0(model, toks, valid, ck0, cv0)
         rec, stats = select_recompute(plan, have, _host(attn_mass),
                                       _host(div_raw), sel)
-        k0_of.append(_host(k0) if return_kv else None)
-        v0_of.append(_host(v0) if return_kv else None)
+        k0_of.append(k0)
+        v0_of.append(v0)
         stats_of.append(stats)
-        sel_items.append((plan, x, rec, ckp, cvp))
+        sel_items.append((plan, x, rec, table, positions))
 
-    sel_out = selective_layers_batch(model, cfg, sel_items,
-                                     r_bucket=r_bucket, return_kv=return_kv)
+    sel_out = selective_layers_batch(model, cfg, sel_items, cache,
+                                     r_bucket=r_bucket)
     results = []
     for i, (logits, k_rest, v_rest) in enumerate(sel_out):
         n = items[i][0].n
-        k_all = v_all = None
-        if return_kv:
-            k_all = np.concatenate([k0_of[i][:, None], k_rest], axis=1)[:n]
-            v_all = np.concatenate([v0_of[i][:, None], v_rest], axis=1)[:n]
+        k_all = torch.cat([k0_of[i][:n, None].float(), k_rest[:n]], dim=1)
+        v_all = torch.cat([v0_of[i][:n, None].float(), v_rest[:n]], dim=1)
         results.append((logits, stats_of[i], k_all, v_all))
     return results
+
+
+# ---------------------------------------------------------------------------
+# Chunk-resumable layer 0 (the unified-step serving path).
+#
+# The monolithic selective prefill runs layer 0 over the whole prompt at
+# once; under load a long prompt then stalls every running request for its
+# full n^2 scan.  The chunked pass scans the prompt in fixed-size query
+# chunks against a key buffer of the monolithic length: chunk c computes
+# q/k/v for its tokens, writes its rotated keys into the buffer and
+# attends causally over everything scanned so far.  Unscanned keys are
+# zeros but causally invisible, so each chunk's rows are the monolithic
+# pass's rows up to the summation order of its products.  The one
+# cross-token reduction, Eq. 3's attention mass (a sum over queries), is
+# kept as per-query rows on the device and reduced once, in one fixed
+# order, when the scan completes.
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def layer0_chunk(model: Transformer, toks_c: np.ndarray, offset: int,
+                 valid: torch.Tensor, ck0_c: torch.Tensor, cv0_c: torch.Tensor,
+                 kbuf: torch.Tensor, vbuf: torch.Tensor):
+    """One layer-0 chunk: queries [offset, offset+C) vs all scanned keys.
+
+    toks_c: (C,) chunk token ids (0-padded past the prompt); valid:
+    (nbuf,) key validity on the device; ck0_c/cv0_c: (C, Hkv, Dh) cached
+    layer-0 rows for the Eq. 3 divergence; kbuf/vbuf: (nbuf, Hkv, Dh)
+    rotated-key / value buffers, updated in place.  -> (x_c, m_c, div_c,
+    k0_c, v0_c): m_c (C, nbuf) holds the per-query head-mean attention
+    probabilities (the Eq. 3 mass rows), k0_c/v0_c the chunk's fresh
+    pre-RoPE layer-0 K/V."""
+    cfg = model.cfg
+    dev = model.device
+    C = len(toks_c)
+    toks_t = torch.from_numpy(np.asarray(toks_c, np.int64)).to(dev)
+    pos_c = torch.arange(offset, offset + C, device=dev)
+    x = model.embed_tokens(toks_t)
+    lp = model.layers[0]
+    h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    q = L.apply_rope(torch.einsum("sd,dhe->she", h, lp.wq)[None], pos_c,
+                     cfg.rope_theta)[0]
+    k_raw, v = layer0_kv(model, toks_t)
+    kbuf[offset:offset + C] = L.apply_rope(k_raw[None], pos_c, cfg.rope_theta)[0]
+    vbuf[offset:offset + C] = v
+    k_pos = torch.arange(kbuf.shape[0], device=dev)
+    o, probs = full_attn(q, kbuf, vbuf, pos_c, k_pos, k_valid=valid)
+    qvalid = valid[offset:offset + C]
+    m_c = (probs * qvalid[None, None, :, None]).mean(dim=(0, 1))
+    dk = (k_raw.float() - ck0_c).abs().sum(dim=(1, 2))
+    dv = (v.float() - cv0_c).abs().sum(dim=(1, 2))
+    x = _layer_step(x, lp, cfg, o)
+    return x, m_c, dk + dv, k_raw, v
+
+
+class ChunkedPrefill:
+    """Resumable selective prefill state for ONE request.
+
+    Drives the prompt scan in `chunk_tokens`-sized steps (`run_chunk`),
+    finalizes Eq. 3 recompute selection once the prompt is fully scanned,
+    and hands the selective-layer pass to the same bucketed dispatch as
+    the wave path (`sel_item` -> `selective_layers_batch`).  Every chunk's
+    cached layer-0 rows come from the block-gather kernel; the per-chunk
+    outputs stay on the device.  The serving engine
+    (`serving.batch_engine.PrefillState`) wraps this with the pool
+    bookkeeping; this class is compute + state only.
+    """
+
+    def __init__(self, model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
+                 table: np.ndarray, positions: np.ndarray, have: np.ndarray,
+                 cache: CacheRows, sel: SelectiveConfig, chunk_tokens: int,
+                 bucket: int = 128):
+        self.model = model
+        self.cfg = cfg
+        self.plan = plan
+        self.table = table
+        self.positions = positions
+        self.have = have
+        self.cache = cache
+        self.sel = sel
+        self.chunk = int(chunk_tokens)
+        n = plan.n
+        self.n = n
+        # the key buffers have the monolithic layer-0 length n_pad; the
+        # scan covers n_pad in `chunk`-wide steps with a ragged tail
+        self.n_pad = ((n + bucket - 1) // bucket) * bucket
+        self.toks = _pad_to(plan.tokens.astype(np.int32), self.n_pad)
+        dev = model.device
+        self.valid = torch.arange(self.n_pad, device=dev) < n
+        self._tbl, self._kpos = _device_table(
+            cache, *_pad_table(table, positions, self.n_pad))
+        w = model.layers[0].wk
+        self.kbuf = torch.zeros((self.n_pad,) + tuple(w.shape[1:]), dtype=w.dtype,
+                                device=dev)
+        self.vbuf = torch.zeros_like(self.kbuf)
+        self.offset = 0
+        self._xs: list = []
+        self._ms: list = []
+        self._divs: list = []
+        self._k0s: list = []
+        self._v0s: list = []
+        self.recompute: Optional[np.ndarray] = None
+        self.stats: Optional[EngineStats] = None
+
+    @property
+    def scan_done(self) -> bool:
+        return self.offset >= self.n_pad
+
+    def next_chunk_tokens(self) -> int:
+        """Dispatch width of the next chunk (ragged at the tail)."""
+        return min(self.chunk, self.n_pad - self.offset)
+
+    def finalize_charge(self) -> int:
+        """Token charge of the selective finalize (the padded recompute
+        budget), known as soon as the scan completes."""
+        if self.recompute is None:
+            raise RuntimeError("finalize_charge before scan completed")
+        r_count = int(self.recompute.sum())
+        return max(64, -(-r_count // 64) * 64)
+
+    def run_chunk(self):
+        """Scan the next chunk.  -> (positions, k0_rows, v0_rows): the real
+        prompt positions covered (host) and their fresh pre-RoPE layer-0
+        K/V (device), ready for pool insertion (empty on an all-pad tail
+        chunk).  Completing the scan finalizes Eq. 3 selection."""
+        if self.scan_done:
+            raise RuntimeError("prompt fully scanned")
+        off = self.offset
+        C = self.next_chunk_tokens()
+        ck0, cv0 = gather_rows(self.cache, 0, self._tbl[off:off + C],
+                               self._kpos[off:off + C],
+                               rope_theta=self.cfg.rope_theta, rotate=False)
+        x_c, m_c, div_c, k0, v0 = layer0_chunk(
+            self.model, self.toks[off:off + C], off, self.valid, ck0, cv0,
+            self.kbuf, self.vbuf)
+        self._xs.append(x_c)
+        self._ms.append(m_c)
+        self._divs.append(div_c)
+        self._k0s.append(k0)
+        self._v0s.append(v0)
+        self.offset = off + C
+        lo, hi = off, min(off + C, self.n)
+        if self.scan_done:
+            self._select()
+        if hi <= lo:
+            return np.zeros(0, np.int64), k0[:0], v0[:0]
+        return np.arange(lo, hi), k0[:hi - lo], v0[:hi - lo]
+
+    def _select(self) -> None:
+        attn_mass = torch.cat(self._ms).sum(dim=0)     # one device reduction
+        div = torch.cat(self._divs)
+        self.recompute, self.stats = select_recompute(
+            self.plan, self.have, _host(attn_mass), _host(div), self.sel)
+        # the mass rows are O(n_pad^2) floats per request: free them once
+        # the scan-wide reduction has consumed them
+        self._ms = []
+        self._divs = []
+
+    def x_full(self) -> torch.Tensor:
+        """Post-layer-0 residual stream (n_pad, D): the selective input."""
+        return torch.cat(self._xs)
+
+    def k0_full(self) -> torch.Tensor:
+        """Fresh pre-RoPE layer-0 K (n, Hkv, Dh) over the real prompt."""
+        return torch.cat(self._k0s)[:self.n]
+
+    def v0_full(self) -> torch.Tensor:
+        return torch.cat(self._v0s)[:self.n]
+
+    def sel_item(self) -> tuple:
+        """This request's `selective_layers_batch` entry."""
+        if self.recompute is None:
+            raise RuntimeError("selective pass before scan completed")
+        return (self.plan, self.x_full(), self.recompute, self.table,
+                self.positions)

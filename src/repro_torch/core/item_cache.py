@@ -14,6 +14,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.cache_rows import CacheRows
 from repro_torch.core.placement import Placement
 
 
@@ -23,6 +24,7 @@ class ItemBlock:
     tokens: np.ndarray                     # block token ids (SEP + item text)
     k: np.ndarray                          # (S, L, Hkv, Dh) pre-RoPE
     v: np.ndarray                          # (S, L, Hkv, Dh)
+    row: int = -1                          # first row in the device pool
 
     def nbytes(self) -> int:
         return self.k.nbytes + self.v.nbytes
@@ -80,9 +82,12 @@ def build_item_store(
     kv_list: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None,
     coverage: float = 1.0,
     seed: int = 0,
+    rows: Optional[CacheRows] = None,
 ) -> ItemKVStore:
     """Precompute KV blocks for (a subset of) the catalog and lay them out
-    by the placement.  `coverage < 1` models a partially-warmed cache."""
+    by the placement.  `coverage < 1` models a partially-warmed cache.
+    With `rows`, every cached block (one object, whichever instances
+    hold it) also registers its rows for the device pool."""
     rng = np.random.default_rng(seed)
     n = len(item_tokens)
     cached = np.ones(n, bool) if coverage >= 1.0 else \
@@ -97,6 +102,8 @@ def build_item_store(
         k, v = kv_list[it] if kv_list is not None \
             else kv_of_sequence(item_tokens[it])
         blk = ItemBlock(item_id=it, tokens=item_tokens[it], k=k, v=v)
+        if rows is not None:
+            blk.row = rows.add(k, v)
         for holder in placement.holders(it):
             shards[holder].blocks[it] = blk
     return ItemKVStore(placement=placement, shards=shards,

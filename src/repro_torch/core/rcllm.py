@@ -1,7 +1,9 @@
 """RcLLM system façade for the port: the offline build (both cache pools +
 placement) and the per-request plan / cached-KV lookup the serving path
 needs.  The port of `repro/core/rcllm.py` (ranking and the baselines are
-not ported yet)."""
+not ported yet).  The offline caches' rows are also packed into one pool
+on the model's device (`core.cache_rows`), and a request's cached KV is
+its plan's block table into that pool."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +19,7 @@ from repro_torch.core import engine as ENG
 from repro_torch.core import item_cache as IC
 from repro_torch.core import placement as PL
 from repro_torch.core import semantic_cache as SC
+from repro_torch.core.cache_rows import CacheRows
 from repro_torch.data import synth as SY
 from repro_torch.models.transformer import Transformer, init_params
 
@@ -45,6 +48,7 @@ class RcLLMSystem:
     semantic: Optional[SC.SemanticCache]
     item_store: Optional[IC.ItemKVStore]
     placement: PL.Placement
+    rows: Optional[CacheRows] = None        # both caches' rows, on the device
 
     # ----------------------------- offline -----------------------------
     @staticmethod
@@ -61,12 +65,13 @@ class RcLLMSystem:
         placement = PL.place(catalog.n_items, req_items, k_instances)
 
         # batched, length-bucketed offline KV materialization
+        rows = CacheRows(cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim)
         corpus_kv = ENG.precompute_kv_batch(model, cfg, review_corpus)
         semantic = SC.build_semantic_cache(
             review_corpus, token_embed, n_bits=lsh_bits, seed=seed)
         SC.materialize_kv(semantic, review_corpus,
                           lambda toks, _i=None: None,
-                          kv_by_doc=lambda i: corpus_kv[i])
+                          kv_by_doc=lambda i: corpus_kv[i], rows=rows)
 
         item_docs = [np.concatenate([[SY.ITEM_SEP], t]).astype(np.int32)
                      for t in catalog.item_tokens]
@@ -74,11 +79,11 @@ class RcLLMSystem:
         item_store = IC.build_item_store(
             item_docs, placement,
             kv_of_sequence=None, kv_list=item_kv,
-            coverage=item_coverage, seed=seed)
+            coverage=item_coverage, seed=seed, rows=rows)
         return RcLLMSystem(cfg=cfg, model=model, catalog=catalog,
                            instruction=instruction, token_embed=token_embed,
                            semantic=semantic, item_store=item_store,
-                           placement=placement)
+                           placement=placement, rows=rows.to_device(model.device))
 
     # ----------------------------- online ------------------------------
     def plan_for(self, request: SY.Request, instance: int = 0
@@ -92,11 +97,10 @@ class RcLLMSystem:
             token_embed=self.token_embed, instance=instance)
 
     def cached_kv(self, plan: ASM.AssemblyPlan, instance: int = 0):
-        """Materialized assembled (k, v, have) for a plan on one instance."""
-        return ASM.gather_cached_kv(
-            plan, self.item_store, self.semantic, instance,
-            self.cfg.n_layers, self.cfg.n_kv_heads,
-            self.cfg.resolved_head_dim)
+        """A plan's cached KV on one instance, as (block_table, positions,
+        have) into `self.rows` (see `assembly.plan_block_table`)."""
+        return ASM.plan_block_table(plan, self.item_store, self.semantic,
+                                    instance)
 
     def best_instance(self, request: SY.Request) -> int:
         """Affinity routing (idle cluster → pure cache affinity)."""

@@ -18,6 +18,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.cache_rows import CacheRows
+
 
 def position_features(positions: np.ndarray, n_feat: int = 8,
                       base: float = 10_000.0) -> np.ndarray:
@@ -54,6 +56,7 @@ class SemanticCache:
     # layer-wise KV of representatives: (P, L, Hkv, Dh), pre-RoPE keys
     proto_k: Optional[np.ndarray] = None
     proto_v: Optional[np.ndarray] = None
+    proto_row: int = -1                     # first row in the device pool
 
     @property
     def n_prototypes(self) -> int:
@@ -132,11 +135,13 @@ def build_semantic_cache(
 def materialize_kv(cache: SemanticCache, corpus_tokens: List[np.ndarray],
                    kv_of_sequence: Optional[Callable] = None,
                    kv_by_doc: Optional[Callable[[int], Tuple[np.ndarray, np.ndarray]]] = None,
-                   ) -> None:
+                   rows: Optional[CacheRows] = None) -> None:
     """Stage 3: run the model over each representative's original review and
     keep the representative token's per-layer (pre-RoPE) K/V.
 
     Pass either `kv_of_sequence(tokens)` or a precomputed `kv_by_doc(idx)`.
+    With `rows`, the prototypes also register their rows (prototype p at
+    row `proto_row + p`) for the device pool.
     """
     ks, vs = [], []
     doc_cache: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
@@ -151,6 +156,8 @@ def materialize_kv(cache: SemanticCache, corpus_tokens: List[np.ndarray],
         vs.append(v_all[off])
     cache.proto_k = np.stack(ks) if ks else None
     cache.proto_v = np.stack(vs) if vs else None
+    if rows is not None and ks:
+        cache.proto_row = rows.add(cache.proto_k, cache.proto_v)
 
 
 def embed_tokens_for_match(tokens: np.ndarray, positions: np.ndarray,

@@ -1,0 +1,46 @@
+"""Plain PyTorch version of the paged block gather with RoPE realignment
+(the JAX package's `kernels/block_gather/ref.py`).
+
+Physical pages are gathered by a block table into logical order; when
+`rotate`, the pre-RoPE keys are rotated to their target positions
+(half-split RoPE in fp32, cast back to the pool dtype) and values are
+copied.  A slot may carry trailing (Hkv, Dh) heads: each head rotates
+over its own Dh, at its slot's position.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def rope_freqs(d: int, theta: float, device=None) -> torch.Tensor:
+    """(d/2,) fp32 rotation frequencies 1 / theta**(i / (d/2))."""
+    half = d // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_rotate(k: torch.Tensor, positions: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """k: (..., d) pre-RoPE keys; positions broadcastable to k[..., 0]."""
+    half = k.shape[-1] // 2
+    ang = positions[..., None].float() * rope_freqs(k.shape[-1], theta, k.device)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    k1, k2 = k[..., :half].float(), k[..., half:].float()
+    out = torch.cat([k1 * cos - k2 * sin, k1 * sin + k2 * cos], dim=-1)
+    return out.to(k.dtype)
+
+
+def block_gather_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                     block_table: torch.Tensor, positions: torch.Tensor, *,
+                     rope_theta: float = 10_000.0, rotate: bool = True):
+    """pool_k/pool_v: (n_pages, page, d) or (n_pages, page, Hkv, Dh), keys
+    pre-RoPE; block_table: (n_logical,) physical page per logical page;
+    positions: (n_logical, page) target positions.  -> (k, v) of shape
+    (n_logical, page, ...) in the pool dtypes."""
+    idx = block_table.long()
+    k = pool_k[idx]
+    v = pool_v[idx]
+    if rotate:
+        pos = positions.reshape(tuple(positions.shape) + (1,) * (k.dim() - 3))
+        k = rope_rotate(k, pos, rope_theta)
+    return k, v

@@ -12,23 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.block_gather.ref import rope_rotate
+
 # large enough that exp underflows to exactly 0.0 in fp32, small enough
 # not to overflow to -inf when scores are added to it
 NEG_INF = -1e30
-
-
-def rope_rotate(k: torch.Tensor, positions: torch.Tensor,
-                theta: float) -> torch.Tensor:
-    """k: (..., d) pre-RoPE keys; positions broadcastable to k[..., 0]."""
-    d = k.shape[-1]
-    half = d // 2
-    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                          device=k.device) / half))
-    ang = positions[..., None].float() * freqs
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    k1, k2 = k[..., :half].float(), k[..., half:].float()
-    out = torch.cat([k1 * cos - k2 * sin, k1 * sin + k2 * cos], dim=-1)
-    return out.to(k.dtype)
 
 
 def masked_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,

@@ -1,11 +1,16 @@
-"""Serving launcher of the port: continuous batching (wave scheduler) over
-the batched engine and the paged KV pool on one device.
+"""Serving launcher of the port: continuous batching (wave or chunked
+unified-step scheduler) over the batched engine and the paged KV pool on
+one device.
 
     # rcllm serving of the tiny model on the card (kernels built at first use)
     PYTHONPATH=src python -m repro_torch.launch.serve --mode rcllm --requests 8
 
     # the same on the CPU, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 3
+
+    # the chunked scheduler: layer-0 chunks of 128 tokens, 512-token ticks
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --sched chunked \\
+        --requests 3
 
     # Qwen3-8B width (random weights), depth cut to 4 layers
     PYTHONPATH=src python -m repro_torch.launch.serve --model rcllm-qwen3-8b \\
@@ -91,10 +96,11 @@ def full_setup(device, n_requests: int, qps: float, decode_steps: int,
     return model, reqs
 
 
-def serve(model, cfg: LMConfig, config: ServeConfig, reqs, plans=None):
-    """One closed-loop run.  -> (engine, backend, batcher, completions)."""
+def serve(model, cfg: LMConfig, config: ServeConfig, reqs, plans=None, cache=None):
+    """One closed-loop run; rcllm mode needs the system's cached-row pool
+    `cache`.  -> (engine, backend, batcher, completions)."""
     sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev, window=16)
-    engine = API.build_engine(model, cfg, config, sel=sel)
+    engine = API.build_engine(model, cfg, config, sel=sel, cache=cache)
     backend = API.build_backend(engine, config, plans=plans)
     batcher = API.build_batcher(backend, config)
     done = sorted(batcher.run(list(reqs)), key=lambda c: c.rid)
@@ -153,12 +159,24 @@ def report(config: ServeConfig, engine, backend, batcher, done,
     tbt = [dt for w in batcher.workers for dt in w.tbt]
     out.update({f"tbt_{k}": v for k, v in _percentiles(tbt).items()})
     out["tbt_samples"] = len(tbt)
+    if config.sched == "chunked":
+        ticks = [t for w in batcher.workers for t in w.ticks]
+        out.update({"chunk_tokens": config.chunk_tokens,
+                    "step_tokens": config.resolved_step_tokens,
+                    "ticks": len(ticks),
+                    "oversized_ticks": sum(t.oversized for t in ticks)})
     return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="rcllm", choices=list(API.MODES))
+    ap.add_argument("--sched", default="wave", choices=list(API.SCHEDS),
+                    help="wave: whole-prefill batches; chunked: unified ticks of "
+                    "decode + layer-0 chunks + selective finalizes (rcllm only)")
+    ap.add_argument("--chunk-tokens", type=int, default=128)
+    ap.add_argument("--step-tokens", type=int, default=None,
+                    help="per-tick token budget (default max(4 * chunk, 512))")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--qps", type=float, default=8.0)
     ap.add_argument("--decode-steps", type=int, default=4)
@@ -178,26 +196,30 @@ def main(argv=None):
                     "kernel builds and first-call set-up")
     args = ap.parse_args(argv)
     try:
-        config = ServeConfig(mode=args.mode, decode_steps=args.decode_steps,
+        config = ServeConfig(mode=args.mode, sched=args.sched,
+                             chunk_tokens=args.chunk_tokens,
+                             step_tokens=args.step_tokens,
+                             decode_steps=args.decode_steps,
                              n_pages=args.pages, page_size=args.page_size,
                              max_batch_tokens=args.max_batch_tokens,
                              r_item=args.r_item, r_rev=args.r_rev)
     except ValueError as e:
         raise SystemExit(str(e))
     device = torch.device(args.device)
-    plans = None
+    plans = cache = None
     if config.mode == "rcllm":
         system, reqs, plans = rcllm_setup(model_config(args.model, args.n_layers),
                                           device, args.requests, args.qps,
                                           config.decode_steps)
-        model, cfg = system.model, system.cfg
+        model, cfg, cache = system.model, system.cfg, system.rows
     else:
         model, reqs = full_setup(device, args.requests, args.qps,
                                  config.decode_steps, args.prompt_tokens)
         cfg = model.cfg
     if args.warmup:
-        serve(model, cfg, config, reqs, plans)
-    out = report(config, *serve(model, cfg, config, reqs, plans), warmup=args.warmup)
+        serve(model, cfg, config, reqs, plans, cache)
+    out = report(config, *serve(model, cfg, config, reqs, plans, cache),
+                 warmup=args.warmup)
     print(json.dumps(out, indent=1))
 
 

@@ -1,7 +1,7 @@
 """Typed serving API of the port — the subset of the JAX package's
-`serving/api.py` that the wave-scheduled single-instance path needs:
-`ServeConfig`, greedy/temperature sampling, stop sequences, and the
-sliced builders (engine -> backend -> batcher)."""
+`serving/api.py` that the single-instance path needs under the wave and
+chunked schedulers: `ServeConfig`, greedy/temperature sampling, stop
+sequences, and the sliced builders (engine -> backend -> batcher)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -11,18 +11,22 @@ import numpy as np
 
 ENGINES = ("torch",)
 MODES = ("rcllm", "full")
-SCHEDS = ("wave",)
+SCHEDS = ("wave", "chunked")
 
 
 @dataclass(frozen=True)
 class ServeConfig:
     """Every serving knob the port has, validated once.  ``engine`` is
-    the port's own name; the chunked scheduler, block store, cluster and
-    mesh knobs of the reference are not ported yet."""
+    the port's own name; the block store, cluster and mesh knobs of the
+    reference are not ported yet.  ``step_tokens=None`` resolves to
+    ``max(4 * chunk_tokens, 512)`` (`resolved_step_tokens`), the chunked
+    scheduler's default budget."""
 
     engine: str = "torch"
     mode: str = "rcllm"
     sched: str = "wave"
+    chunk_tokens: int = 128
+    step_tokens: Optional[int] = None
     max_batch_tokens: int = 4096
     max_decode_batch: int = 64
     page_size: int = 16
@@ -42,6 +46,13 @@ class ServeConfig:
         ):
             if val not in choices:
                 bad(f"{name}={val!r} not in {choices}")
+        if self.sched == "chunked" and self.mode != "rcllm":
+            bad("sched='chunked' drives the beyond-prefix selective prefill; "
+                f"mode={self.mode!r} has no chunk-resumable path")
+        if self.chunk_tokens < 1:
+            bad(f"chunk_tokens={self.chunk_tokens} must be >= 1")
+        if self.step_tokens is not None and self.step_tokens < 1:
+            bad(f"step_tokens={self.step_tokens} must be >= 1 (or None)")
         if self.page_size < 1 or self.n_pages < 2:
             bad(f"page_size={self.page_size} must be >= 1 and "
                 f"n_pages={self.n_pages} >= 2 (page 0 is the scratch page)")
@@ -49,6 +60,12 @@ class ServeConfig:
             bad(f"decode_steps={self.decode_steps} must be >= 1")
         if not (0.0 <= self.r_item <= 1.0 and 0.0 <= self.r_rev <= 1.0):
             bad(f"r_item={self.r_item}/r_rev={self.r_rev} must be in [0, 1]")
+
+    @property
+    def resolved_step_tokens(self) -> int:
+        if self.step_tokens is not None:
+            return self.step_tokens
+        return max(4 * self.chunk_tokens, 512)
 
 
 # ------------------------------------------------------------- sampling
@@ -103,8 +120,11 @@ def match_stop(generated: Sequence[int], stops: Sequence[Tuple[int, ...]]) -> bo
 
 
 # ------------------------------------------------------- sliced builders
-def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None):
-    """`BatchEngine` on the model's device from the config's pool slice."""
+def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
+                 cache=None):
+    """`BatchEngine` on the model's device from the config's pool slice;
+    `cache` is the device pool of cached rows (`RcLLMSystem.rows`) that
+    rcllm requests' block tables index."""
     from repro_torch.core import engine as ENG
     from repro_torch.serving.batch_engine import BatchEngine
     from repro_torch.serving.kv_pool import pool_for
@@ -114,7 +134,8 @@ def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None):
                         n_pages=config.n_pages, device=model.device)
     if sel is None:
         sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev)
-    return BatchEngine(model, lm_cfg, pool=pool, sel=sel)
+    return BatchEngine(model, lm_cfg, pool=pool, sel=sel, cache=cache,
+                       chunk_tokens=config.chunk_tokens)
 
 
 def build_backend(engine, config: ServeConfig, plans=None):
@@ -129,4 +150,6 @@ def build_batcher(backend, config: ServeConfig):
     from repro_torch.serving.batching import ContinuousBatcher
 
     return ContinuousBatcher(backend, max_batch_tokens=config.max_batch_tokens,
-                             max_decode_batch=config.max_decode_batch)
+                             max_decode_batch=config.max_decode_batch,
+                             sched=config.sched, chunk_tokens=config.chunk_tokens,
+                             step_tokens=config.resolved_step_tokens)

@@ -1,10 +1,16 @@
-"""Continuous batching for the port's serving path — the wave discipline
-of the JAX package's `serving/batching.py` on one instance (the chunked
-scheduler, the cluster and disaggregation are not ported yet).
+"""Continuous batching for the port's serving path — the wave and chunked
+disciplines of the JAX package's `serving/batching.py` on one instance
+(the cluster and disaggregation are not ported yet).
 
-Each step runs either one whole-prefill batch under a token budget or one
-decode iteration (prefill-prioritized, vLLM's default shape).  The
-backend returns the seconds each step took; the loop adds them to a
+* ``sched="wave"``: each step runs either one whole-prefill batch under a
+  token budget or one decode iteration (prefill-prioritized, vLLM's
+  default shape).
+* ``sched="chunked"``: each step is one unified tick under
+  `step_tokens`: decode for every running request plus layer-0 chunks
+  and selective finalizes of the admitted prompts (`BatchEngine.step`),
+  so a long prompt never stalls the decode set for its whole scan.
+
+The backend returns the seconds each step took; the loop adds them to a
 clock that also jumps to the next arrival when idle, so TTFT and
 time-between-tokens are measured on the wall clock of the steps.
 """
@@ -28,6 +34,18 @@ class PendingRequest:
     n_tokens: int = field(compare=False)
     decode_steps: int = field(compare=False, default=4)
     tokens: Optional[np.ndarray] = field(compare=False, default=None)
+
+
+@dataclass(frozen=True)
+class TickRecord:
+    """One scheduling tick's token accounting (chunked sched)."""
+
+    t: float  # clock when the tick completed
+    seconds: float  # backend-reported step time
+    decode_tokens: int
+    chunk_tokens: int
+    finalize_tokens: int
+    oversized: bool  # a single indivisible item exceeded the budget
 
 
 @dataclass
@@ -68,8 +86,9 @@ class TorchEngineBackend:
 
     `mode="full"` prefills every prompt exactly; `mode="rcllm"` runs the
     beyond-prefix selective path and needs `plans` ({rid: (plan,
-    cached_k, cached_v, have)}).  Token selection is greedy unless a
-    request registered `SamplingParams` via `set_session`."""
+    block_table, positions, have)}, `serving.workload.rcllm_workload`).
+    Token selection is greedy unless a request registered
+    `SamplingParams` via `set_session`."""
 
     def __init__(self, engine, mode: str = "full", plans: Optional[Dict] = None):
         self.engine = engine
@@ -127,7 +146,7 @@ class TorchEngineBackend:
             br = BatchRequest(rid=r.rid, tokens=r.tokens,
                               n_reserve=max(r.decode_steps - 1, 0))
             if self.mode == "rcllm":
-                br.plan, br.cached_k, br.cached_v, br.have = self.plans[r.rid]
+                br.plan, br.block_table, br.positions, br.have = self.plans[r.rid]
             out.append(br)
         return out
 
@@ -170,36 +189,87 @@ class TorchEngineBackend:
         self._rngs.pop(req.rid, None)
         self.finish_reason.pop(req.rid, None)
 
+    # ------------------------- chunked discipline -------------------------
+    def begin_prefill(self, req: PendingRequest) -> None:
+        """Admit one request into chunk-resumable prefill (claims its pool
+        pages, see `BatchEngine.begin_prefill`)."""
+        if self.mode != "rcllm":
+            raise ValueError("sched='chunked' drives the beyond-prefix selective "
+                             "prefill; mode='full' has no chunk-resumable path")
+        self.engine.begin_prefill(self._batch_requests([req])[0])
+
+    def step(self, budget: int, decode_batch: Sequence[PendingRequest],
+             prefill_queue: Sequence[PendingRequest]):
+        """One unified engine tick.  -> (StepReport, seconds).  Picks tokens
+        for whatever the tick produced: decode logits of the running set,
+        first tokens of the finalized prefills."""
+        t0 = time.perf_counter()
+        rids = [r.rid for r in decode_batch]
+        rep = self.engine.step(budget, rids, [self.last_token[r] for r in rids],
+                               [r.rid for r in prefill_queue])
+        if rep.decode_logits is not None:
+            for rid, lg in zip(rids, rep.decode_logits):
+                self._append(rid, self._pick(rid, lg))
+        for rid, lg in rep.finalized.items():
+            self._append(rid, self._pick(rid, lg), first=True)
+        return rep, time.perf_counter() - t0
+
+    def preempt_prefill(self, req: PendingRequest) -> None:
+        """Roll back a mid-prefill victim: the engine drops its chunk state
+        and pages; the plan is kept for the re-prefill."""
+        self.engine.abort_prefill(req.rid)
+        self.last_token.pop(req.rid, None)
+        self._rngs.pop(req.rid, None)
+        self.finish_reason.pop(req.rid, None)
+
 
 class WorkerState:
-    """One serving instance: clock, FIFO admission queue, decode set."""
+    """One serving instance: clock, FIFO admission queue, prefilling set
+    (chunked sched) and decode set."""
 
     def __init__(self, backend: TorchEngineBackend, max_batch_tokens: int = 8192,
-                 max_decode_batch: int = 64):
+                 max_decode_batch: int = 64, sched: str = "wave",
+                 chunk_tokens: int = 128, step_tokens: Optional[int] = None):
+        if sched not in ("wave", "chunked"):
+            raise ValueError(f"unknown sched {sched!r}")
         self.backend = backend
         self.max_batch_tokens = max_batch_tokens
         self.max_decode_batch = max_decode_batch
+        self.sched = sched
+        # the per-tick token budget: room for one chunk per default decode
+        # batch plus slack, so decode alone cannot starve prefill
+        self.step_tokens = (step_tokens if step_tokens is not None
+                            else max(4 * chunk_tokens, 512))
         self.clock = 0.0
         self.busy_seconds = 0.0
         self.preempted = 0
         self._preempt_counts: Dict[int, int] = {}
         self.waiting: List[PendingRequest] = []
+        self.prefilling: List[PendingRequest] = []  # chunked sched only
         self.decoding: Dict[int, DecodeEntry] = {}
         self.done: List[Completion] = []
+        self.ticks: List[TickRecord] = []
         self.tbt: List[float] = []  # time-between-tokens samples
         self._admit_t: Dict[int, float] = {}
         self._last_tok_t: Dict[int, float] = {}
 
     def has_work(self) -> bool:
-        return bool(self.waiting or self.decoding)
+        return bool(self.waiting or self.prefilling or self.decoding)
 
     def ready_time(self) -> float:
         """Earliest instant this worker can take its next step."""
-        if self.decoding or not self.waiting:
+        if self.decoding or self.prefilling or not self.waiting:
             return self.clock
         return max(self.clock, self.waiting[0].arrival_s)
 
     def step(self) -> None:
+        if self.sched == "chunked":
+            self._step_chunked()
+        else:
+            self._step_wave()
+
+    # ------------------------------ wave sched ------------------------------
+    def _step_wave(self) -> None:
         """A prefill batch if one can form under the token budget and pool
         capacity, else one decode iteration."""
         self.clock = self.ready_time()
@@ -232,17 +302,24 @@ class WorkerState:
         self.clock += dt
         self.busy_seconds += dt
         for r in batch:
-            stopped = self.backend.early_stop(r.rid)
-            if r.decode_steps <= 1 or stopped:  # the TTFT token was the output
-                self.done.append(Completion(
-                    r.rid, r.arrival_s, self.clock, self.clock,
-                    admitted_s=admitted, reason="stop" if stopped else "length"))
-                self.backend.finish(r)
-            else:
-                self._admit_t[r.rid] = admitted
-                self._last_tok_t[r.rid] = self.clock
-                self.decoding[r.rid] = DecodeEntry(
-                    r, self.clock - r.arrival_s, r.decode_steps - 1)
+            self._admit_t[r.rid] = admitted
+            self._first_token(r)
+
+    def _first_token(self, r: PendingRequest) -> None:
+        """A prefill produced `r`'s first token at `self.clock`: retire it
+        if that was its whole output, else move it into the decode set."""
+        admitted = self._admit_t.get(r.rid, r.arrival_s)
+        stopped = self.backend.early_stop(r.rid)
+        if r.decode_steps <= 1 or stopped:  # the TTFT token was the output
+            self._admit_t.pop(r.rid, None)
+            self.done.append(Completion(
+                r.rid, r.arrival_s, self.clock, self.clock,
+                admitted_s=admitted, reason="stop" if stopped else "length"))
+            self.backend.finish(r)
+        else:
+            self._last_tok_t[r.rid] = self.clock
+            self.decoding[r.rid] = DecodeEntry(
+                r, self.clock - r.arrival_s, r.decode_steps - 1)
 
     def _decode(self) -> None:
         while True:
@@ -258,6 +335,11 @@ class WorkerState:
                     return
         self.clock += dt
         self.busy_seconds += dt
+        self._decoded(db)
+
+    def _decoded(self, db: List[DecodeEntry]) -> None:
+        """Book one decode token for every entry of `db` and retire the
+        requests whose output is complete."""
         for e in db:
             e.steps_left -= 1
             if self.backend.early_stop(e.req.rid):
@@ -276,30 +358,97 @@ class WorkerState:
             self._last_tok_t.pop(rid, None)
             self.backend.finish(req)
 
+    # ---------------------------- chunked sched ----------------------------
+    def _step_chunked(self) -> None:
+        """One unified tick: admit what fits, then one budgeted engine step
+        packing decode tokens for every running request plus prefill
+        chunks and finalizes for the admitted set."""
+        self.clock = self.ready_time()
+        self._admit_chunked()
+        while True:
+            db = list(self.decoding.values())[: self.max_decode_batch]
+            try:
+                rep, dt = self.backend.step(self.step_tokens, [e.req for e in db],
+                                            self.prefilling)
+                break
+            except PoolExhausted:
+                # the wave loop's retry contract, per tick: evict the
+                # youngest request (a mid-prefill victim rolls its chunk
+                # state back) and retry before any prefill work runs
+                self._preempt_youngest()
+                if not self.decoding and not self.prefilling:
+                    return
+        self.clock += dt
+        self.busy_seconds += dt
+        self.ticks.append(TickRecord(
+            t=self.clock, seconds=dt, decode_tokens=rep.charge_decode,
+            chunk_tokens=rep.charge_chunks, finalize_tokens=rep.charge_finalize,
+            oversized=rep.oversized))
+        if rep.decode_logits is not None:
+            self._decoded(db)
+        finalized = [r for r in self.prefilling if r.rid in rep.finalized]
+        self.prefilling = [r for r in self.prefilling if r.rid not in rep.finalized]
+        for r in finalized:
+            self._first_token(r)
+
+    def _admit_chunked(self) -> None:
+        """Move due arrivals into the prefilling set, FIFO, while pool
+        capacity allows: an admitted request competes for the step budget
+        from this tick on."""
+        while self.waiting:
+            r = self.waiting[0]
+            if r.arrival_s > self.clock or not self.backend.can_admit(r):
+                break
+            try:
+                self.backend.begin_prefill(r)
+            except PoolExhausted:
+                break
+            self.waiting.pop(0)
+            self.prefilling.append(r)
+            self._admit_t[r.rid] = self.clock
+        if not self.decoding and not self.prefilling and self.waiting:
+            raise RuntimeError(
+                f"request {self.waiting[0].rid} ({self.waiting[0].n_tokens} "
+                "tokens) can never be admitted: KV pool too small "
+                "even with no other request running")
+
     def _preempt_youngest(self) -> None:
-        req = max((e.req for e in self.decoding.values()),
-                  key=lambda r: (r.arrival_s, r.rid))
+        """Evict the youngest running request under pool pressure and
+        requeue it: a mid-decode victim frees its pages, a mid-prefill one
+        also drops its chunk state; the plan is kept, and greedy decode
+        regenerates the same tokens."""
+        cands = [e.req for e in self.decoding.values()] + list(self.prefilling)
+        req = max(cands, key=lambda r: (r.arrival_s, r.rid))
         self._preempt_counts[req.rid] = self._preempt_counts.get(req.rid, 0) + 1
         if self._preempt_counts[req.rid] > 8:
             raise RuntimeError(
                 f"request {req.rid} preempted {self._preempt_counts[req.rid]}"
                 " times: the pool cannot hold its decode tokens even alone")
-        self.decoding.pop(req.rid)
-        self._last_tok_t.pop(req.rid, None)
         self._admit_t.pop(req.rid, None)
-        self.backend.preempt(req)
+        if any(r.rid == req.rid for r in self.prefilling):
+            self.prefilling = [r for r in self.prefilling if r.rid != req.rid]
+            self.backend.preempt_prefill(req)
+        else:
+            self.decoding.pop(req.rid)
+            self._last_tok_t.pop(req.rid, None)
+            self.backend.preempt(req)
         self.preempted += 1
         bisect.insort(self.waiting, req)
 
 
 class ContinuousBatcher:
-    """Single-instance continuous batching over a `TorchEngineBackend`."""
+    """Single-instance continuous batching over a `TorchEngineBackend`,
+    under the wave or the chunked (unified-step) discipline."""
 
     def __init__(self, backend: TorchEngineBackend, max_batch_tokens: int = 8192,
-                 max_decode_batch: int = 64):
+                 max_decode_batch: int = 64, sched: str = "wave",
+                 chunk_tokens: int = 128, step_tokens: Optional[int] = None):
         self.backend = backend
         self.max_batch_tokens = max_batch_tokens
         self.max_decode_batch = max_decode_batch
+        self.sched = sched
+        self.chunk_tokens = chunk_tokens
+        self.step_tokens = step_tokens
         self.workers: List[WorkerState] = []
 
     def run(self, requests: Sequence[PendingRequest]) -> List[Completion]:
@@ -308,7 +457,9 @@ class ContinuousBatcher:
             if r.rid in seen:
                 raise ValueError(f"duplicate request rid {r.rid}")
             seen.add(r.rid)
-        w = WorkerState(self.backend, self.max_batch_tokens, self.max_decode_batch)
+        w = WorkerState(self.backend, self.max_batch_tokens, self.max_decode_batch,
+                        sched=self.sched, chunk_tokens=self.chunk_tokens,
+                        step_tokens=self.step_tokens)
         self.workers = [w]
         pending = sorted(requests)
         i = 0

@@ -1,6 +1,7 @@
 """Paged KV cache pool for the batched serving path (vLLM-style) — the
-port of the JAX package's `serving/kv_pool.py` (request slot tables; the
-block store's sharing and migration export/import are not ported yet).
+port of the JAX package's `serving/kv_pool.py` (request slot tables, mapped
+allocation and private remapping; the block store's sharing and migration
+export/import are not ported yet).
 
 One preallocated device arena holds every request's per-layer KV in
 fixed-size pages; a free-list allocator hands pages to requests and a
@@ -11,7 +12,8 @@ one rotation (inside the paged-decode kernel).
 
 The arenas are torch tensors on the serving device and every write
 lands **in place** (`index_put_`), where the JAX package rebuilds them
-functionally.  Slot tables, the free list and the page views stay numpy.
+functionally; the rows written come from the device.  Slot tables, the
+free list and the page views stay numpy.
 """
 from __future__ import annotations
 
@@ -134,6 +136,30 @@ class PagedKVPool:
         self._bump_peak()
         return pages
 
+    def remap_private(self, rid: int, positions: np.ndarray) -> None:
+        """Point mapped logical `positions` at this request's own private
+        slots instead (the mid-prefill un-sharing of positions Eq. 3
+        selects for recomputation: their fresh KV must land privately).
+        Draws from the spare slots reserved at `alloc_mapped` first and
+        only then claims new pages, so a request that reserved its bound
+        as ``extra_pages`` never fails here."""
+        positions = np.asarray(positions, np.int64)
+        if len(positions) == 0:
+            return
+        spare = self._spare.setdefault(rid, [])
+        short = len(positions) - len(spare)
+        if short > 0:
+            n_new = -(-short // self.page_size)
+            if n_new > len(self._free):
+                raise PoolExhausted(
+                    f"remap needs {n_new} pages, {len(self._free)} free")
+            pages = [self._free.pop() for _ in range(n_new)]
+            self.page_tables[rid].extend(pages)
+            spare.extend(self.page_slots(pages))
+            self._bump_peak()
+        table = self.slot_tables[rid]
+        table[positions] = [spare.pop(0) for _ in range(len(positions))]
+
     def free(self, rid: int) -> None:
         """Release a request's private pages.  Idempotent."""
         pages = self.page_tables.pop(rid, None)
@@ -171,23 +197,26 @@ class PagedKVPool:
         return ((slots // self.page_size).astype(np.int64),
                 (slots % self.page_size).astype(np.int64))
 
-    def write_at(self, rid: int, positions: np.ndarray,
-                 k: np.ndarray, v: np.ndarray,
+    def write_at(self, rid: int, positions: np.ndarray, k, v,
                  layer: Optional[int] = None) -> None:
         """Scatter pre-RoPE (k, v) into logical slots.  k/v: (t, L, Hkv,
         Dh), or (t, Hkv, Dh) when `layer` selects one layer plane."""
         self.write_at_batch([(rid, positions, k, v)], layer=layer)
 
     def write_at_batch(self, entries: Sequence[tuple],
-                       layer: Optional[int] = None) -> None:
+                       layer: Optional[int] = None, deep: bool = False) -> None:
         """One in-place arena scatter for any number of requests' writes.
 
-        entries: sequence of (rid, positions, k, v) with host k/v rows.
-        Positions are unique within an entry and entries name distinct
-        requests, so no physical slot is written twice.  Entries with no
-        positions are skipped.
+        entries: sequence of (rid, positions, k, v): host int positions and
+        k/v rows as tensors on the arena's device (the serving path: no
+        KV crosses PCIe) or host arrays.  ``deep`` writes only layer
+        planes 1..L-1 from (t, L-1, Hkv, Dh) rows.  Positions are unique
+        within an entry and entries name distinct requests, so no
+        physical slot is written twice.  Entries with no positions are
+        skipped.
         """
         pages_all, slots_all, ks, vs = [], [], [], []
+        dev = self.device
         for rid, positions, k, v in entries:
             positions = np.asarray(positions, np.int64)
             if len(positions) == 0:
@@ -195,17 +224,20 @@ class PagedKVPool:
             pages, slots = self._phys(rid, positions)
             pages_all.append(pages)
             slots_all.append(slots)
-            ks.append(np.asarray(k, np.float32))
-            vs.append(np.asarray(v, np.float32))
+            ks.append(torch.as_tensor(k, device=dev))
+            vs.append(torch.as_tensor(v, device=dev))
             self.seq_lens[rid] = max(self.seq_lens[rid],
                                      int(positions.max()) + 1)
         if not pages_all:
             return
-        dev = self.device
         pages = torch.from_numpy(np.concatenate(pages_all)).to(dev)
         slots = torch.from_numpy(np.concatenate(slots_all)).to(dev)
-        k = torch.from_numpy(np.concatenate(ks)).to(dev, self.arena_k.dtype)
-        v = torch.from_numpy(np.concatenate(vs)).to(dev, self.arena_v.dtype)
+        k = torch.cat(ks).to(self.arena_k.dtype)
+        v = torch.cat(vs).to(self.arena_v.dtype)
+        if deep:
+            self.arena_k[:, :, 1:].index_put_((pages, slots), k)
+            self.arena_v[:, :, 1:].index_put_((pages, slots), v)
+            return
         if layer is None:
             idx = (pages, slots)
         else:
@@ -213,7 +245,7 @@ class PagedKVPool:
         self.arena_k.index_put_(idx, k)
         self.arena_v.index_put_(idx, v)
 
-    def write_prompt(self, rid: int, k: np.ndarray, v: np.ndarray) -> None:
+    def write_prompt(self, rid: int, k, v) -> None:
         """Insert a full prompt cache (n, L, Hkv, Dh) starting at slot 0."""
         self.write_at(rid, np.arange(k.shape[0]), k, v)
 

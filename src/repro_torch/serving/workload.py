@@ -1,7 +1,7 @@
 """Serving workload construction: a synthetic request trace becomes
 batcher requests plus the per-request assembly artifacts the rcllm
-prefill path needs (the port of the JAX package's `serving/workload.py`
-single-instance producers)."""
+prefill path needs, its plan and block table (the port of the JAX
+package's `serving/workload.py` single-instance producers)."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
@@ -12,16 +12,16 @@ from repro_torch.serving.batching import PendingRequest
 def rcllm_workload(
     system, trace: Sequence, decode_steps: int = 4
 ) -> Tuple[List[PendingRequest], Dict[int, tuple]]:
-    """Route each traced request, build its assembly plan and gather its
-    cached KV.  -> (pending requests for `ContinuousBatcher`,
-    {rid: (plan, cached_k, cached_v, have)} for `TorchEngineBackend`)."""
+    """Route each traced request, build its assembly plan and its block
+    table into the system's device pool of cached rows.  -> (pending
+    requests for `ContinuousBatcher`, {rid: (plan, block_table,
+    positions, have)} for `TorchEngineBackend`)."""
     plans: Dict[int, tuple] = {}
     pend: List[PendingRequest] = []
     for rid, rq in enumerate(trace):
         inst = system.best_instance(rq)
         plan = system.plan_for(rq, inst)
-        ck, cv, have = system.cached_kv(plan, inst)
-        plans[rid] = (plan, ck, cv, have)
+        plans[rid] = (plan, *system.cached_kv(plan, inst))
         pend.append(PendingRequest(arrival_s=float(rq.arrival_s), rid=rid,
                                    n_tokens=plan.n, decode_steps=decode_steps,
                                    tokens=plan.tokens))

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.block_gather.ops import assemble_kv
+from repro_torch.kernels.block_gather.ref import block_gather_ref
 from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.kernels.flash_attention.ref import mha_flash_ref
 from repro_torch.kernels.paged_attention.ops import paged_decode_mha
@@ -111,6 +113,34 @@ def test_paged_decode_kernel_matches_plain(cuda, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", range(4))
+def test_block_gather_kernel_matches_plain(cuda, seed, dtype):
+    """Unrotated gathers and every value are bitwise copies; rotated keys
+    differ from the plain version only by sin/cos rounding (the angles are
+    bitwise equal: the kernel takes the plain version's frequencies)."""
+    rng = np.random.default_rng(seed)
+    n_pages, page = int(rng.integers(2, 300)), int(rng.choice([1, 4, 16]))
+    tail = ((int(rng.choice([16, 64])),) if seed % 2 else
+            (int(rng.choice([1, 2, 8])), int(rng.choice([16, 64, 128]))))
+    pk = torch.from_numpy(rng.normal(size=(n_pages, page) + tail).astype(np.float32))
+    pk, pv = pk.to(cuda, dtype), (-pk).to(cuda, dtype)
+    n_logical = int(rng.integers(1, 2 * n_pages))
+    bt = torch.from_numpy(rng.integers(0, n_pages, n_logical).astype(np.int32)).to(cuda)
+    pos = torch.from_numpy(rng.integers(0, 4096, (n_logical, page)).astype(np.int32)).to(cuda)
+    before = assemble_kv.launches
+    k, v = assemble_kv(pk, pv, bt, pos, rotate=False)
+    kr, vr, kraw = assemble_kv(pk, pv, bt, pos, rotate=True, keep_raw=True)
+    assert assemble_kv.launches == before + 2
+    want_k, want_v = block_gather_ref(pk, pv, bt, pos, rotate=False)
+    torch.cuda.synchronize()
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    assert torch.equal(kraw, want_k) and torch.equal(vr, want_v)
+    _close(kr, block_gather_ref(pk, pv, bt, pos, rotate=True)[0],
+           1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 128, device=cuda)
     k = torch.zeros(1, 8, 2, 128, device=cuda)
@@ -121,22 +151,44 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="D <= 128"):
         mha_flash(torch.zeros(1, 8, 4, 256, device=cuda), torch.zeros(1, 8, 2, 256, device=cuda),
                   torch.zeros(1, 8, 2, 256, device=cuda))
+    pool = torch.zeros(4, 1, 2, 16, device=cuda)
+    table = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        assemble_kv(pool, pool, table.long(), table[:, None])
+    with pytest.raises(ValueError, match="positions"):
+        assemble_kv(pool, pool, table, table)
 
 
-@pytest.mark.cuda
-def test_tiny_rcllm_serving_card_equals_cpu(cuda):
-    """The whole serving path on the card decodes the plain versions'
-    greedy tokens on the CPU (same weights, each its own offline cache)."""
+def _tiny_tokens(cuda, sched):
     import copy
 
     from repro_torch.launch import serve as SERVE
     from repro_torch.serving.api import ServeConfig
 
     tokens, model = {}, None
+    config = ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64)
     for dev in (cuda, torch.device("cpu")):
         sys_, reqs, plans = SERVE.rcllm_setup(None, dev, 4, 1e6, 4, model=model)
-        _, backend, _, done = SERVE.serve(sys_.model, sys_.cfg, ServeConfig(decode_steps=4),
-                                          reqs, plans)
+        _, backend, _, done = SERVE.serve(sys_.model, sys_.cfg, config, reqs, plans,
+                                          sys_.rows)
         tokens[dev.type] = {r: backend.generated[r] for r in sorted(backend.generated)}
         model = copy.deepcopy(sys_.model).to("cpu")
+    return tokens
+
+
+@pytest.mark.cuda
+def test_tiny_rcllm_serving_card_equals_cpu(cuda):
+    """The whole serving path on the card decodes the plain versions'
+    greedy tokens on the CPU (same weights, each its own offline cache)."""
+    tokens = _tiny_tokens(cuda, "wave")
+    assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.cuda
+def test_tiny_rcllm_chunked_serving_card_equals_cpu(cuda):
+    """The same under the chunked scheduler (block gather, selective and
+    paged decode kernels on the card)."""
+    before = assemble_kv.launches
+    tokens = _tiny_tokens(cuda, "chunked")
+    assert assemble_kv.launches > before
     assert tokens["cuda"] == tokens["cpu"]

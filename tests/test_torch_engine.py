@@ -11,6 +11,7 @@ import torch
 from repro.core import engine as JENG
 from repro.data import synth as JSY
 from repro.serving.workload import rcllm_batch_requests
+from repro_torch.core import assembly as TA
 from repro_torch.core import engine as TENG
 from repro_torch.core.rcllm import make_tiny_system, tiny_config
 from repro_torch.models.convert import params_from_numpy
@@ -59,9 +60,20 @@ def test_precompute_kv_batch_ragged_docs(systems):
         np.testing.assert_allclose(vt, vj, atol=KV_ATOL)
 
 
+def _assembled(tsys, table, layers=None):
+    """The port's device pool of cached rows gathered by a block table
+    through the block-gather wrapper, unrotated: (n, L, Hkv, Dh) k and v."""
+    t = torch.from_numpy(np.asarray(table, np.int32))
+    planes = [TENG.gather_rows(tsys.rows, l, t, t, rope_theta=1e4, rotate=False)
+              for l in (range(tsys.cfg.n_layers) if layers is None else layers)]
+    return (torch.stack([k for k, _ in planes], dim=1).numpy(),
+            torch.stack([v for _, v in planes], dim=1).numpy())
+
+
 def test_plans_and_cached_kv_equal(systems):
     """The port's system plans every request exactly as the reference's
-    (numpy, equal) and assembles allclose cached KV (offline-build KV)."""
+    (numpy, equal) and assembles allclose cached KV (offline-build KV),
+    gathered from its device pool by the plan's block table."""
     jsys, tsys, brs = systems
     from repro_torch.data import synth as TSY
     trace_t = TSY.make_trace(tsys.catalog, _REVIEWS[0], _REVIEWS[1], 4, qps=2.0,
@@ -74,7 +86,9 @@ def test_plans_and_cached_kv_equal(systems):
             np.testing.assert_array_equal(getattr(pt, f), getattr(br.plan, f), err_msg=f)
         assert (pt.n_local, pt.n_remote, pt.n_miss) == \
             (br.plan.n_local, br.plan.n_remote, br.plan.n_miss)
-        kt, vt, ht = tsys.cached_kv(pt, inst)
+        table, positions, ht = tsys.cached_kv(pt, inst)
+        np.testing.assert_array_equal(positions, np.arange(pt.n))
+        kt, vt = _assembled(tsys, table)
         np.testing.assert_array_equal(ht, br.have)
         np.testing.assert_allclose(kt, br.cached_k, atol=KV_ATOL)
         np.testing.assert_allclose(vt, br.cached_v, atol=KV_ATOL)
@@ -126,12 +140,9 @@ def test_select_recompute_equal_on_same_scores(systems, i):
 
 
 def _own_items(tsys, brs):
-    """The port's own (plan, cached KV, have) for the fixture's requests."""
-    out = []
-    for br in brs:
-        ck, cv, have = tsys.cached_kv(br.plan, 0)
-        out.append((br.plan, ck, cv, have))
-    return out
+    """The port's own (plan, block_table, positions, have) for the
+    fixture's requests."""
+    return [(br.plan, *tsys.cached_kv(br.plan, 0)) for br in brs]
 
 
 def test_layer0_divergence_is_zero_for_cached_items(systems):
@@ -141,14 +152,12 @@ def test_layer0_divergence_is_zero_for_cached_items(systems):
     up to O(1) by Eq. 3's normalisation)."""
     from repro_torch.core.assembly import FROM_ITEM
     _, tsys, brs = systems
-    for plan, ck, cv, have in _own_items(tsys, brs):
+    for plan, table, _, have in _own_items(tsys, brs):
         n = plan.n
         toks = JENG._pad_to(plan.tokens.astype(np.int32), -(-n // 64) * 64)
         valid = np.arange(len(toks)) < n
-        _, _, div, _, _ = TENG.layer0(
-            tsys.model, toks, valid,
-            np.ascontiguousarray(JENG._pad_to(ck, len(toks))[:, 0]),
-            np.ascontiguousarray(JENG._pad_to(cv, len(toks))[:, 0]))
+        ck0, cv0 = _assembled(tsys, JENG._pad_to(table, len(toks)), layers=[0])
+        _, _, div, _, _ = TENG.layer0(tsys.model, toks, valid, ck0[:, 0], cv0[:, 0])
         items = (plan.source == FROM_ITEM) & have
         assert items.any()
         np.testing.assert_array_equal(div.numpy()[:n][items], 0.0)
@@ -162,13 +171,13 @@ def test_selective_prefill_batch_matches_jax(systems):
         jsys.params, jsys.cfg, [(r.plan, r.cached_k, r.cached_v, r.have) for r in brs],
         JENG.SelectiveConfig(), bucket=64)
     got = TENG.selective_prefill_batch(tsys.model, tsys.cfg, _own_items(tsys, brs),
-                                       TENG.SelectiveConfig(), bucket=64)
+                                       TENG.SelectiveConfig(), tsys.rows, bucket=64)
     for (lj, sj, kj, vj), (lt, st, kt, vt) in zip(want, got):
         np.testing.assert_array_equal(st.recompute_mask, sj.recompute_mask)
         assert st.recompute_mask.any() and not st.recompute_mask.all()
         np.testing.assert_allclose(lt, np.asarray(lj), atol=LOGIT_ATOL, rtol=LOGIT_ATOL)
-        np.testing.assert_allclose(kt, kj, atol=KV_ATOL, rtol=KV_ATOL)
-        np.testing.assert_allclose(vt, vj, atol=KV_ATOL, rtol=KV_ATOL)
+        np.testing.assert_allclose(kt.numpy(), kj, atol=KV_ATOL, rtol=KV_ATOL)
+        np.testing.assert_allclose(vt.numpy(), vj, atol=KV_ATOL, rtol=KV_ATOL)
 
 
 def test_full_prefill_logits_match_jax(systems):
@@ -181,13 +190,15 @@ def test_full_prefill_logits_match_jax(systems):
 
 def test_selective_pad_rows_are_dropped(systems):
     """Padded recompute rows must not write: the merged caches at
-    non-recomputed positions keep the cached values exactly."""
+    non-recomputed positions keep the cached values exactly (the host
+    assembly of the same plan)."""
     _, tsys, brs = systems
-    br = brs[0]
+    item, = _own_items(tsys, brs[:1])
     (_, st, k_all, v_all), = TENG.selective_prefill_batch(
-        tsys.model, tsys.cfg, [(br.plan, br.cached_k, br.cached_v, br.have)],
-        TENG.SelectiveConfig(), bucket=64)
+        tsys.model, tsys.cfg, [item], TENG.SelectiveConfig(), tsys.rows, bucket=64)
+    ck, cv, _ = TA.gather_cached_kv(item[0], tsys.item_store, tsys.semantic, 0,
+                                    2, 2, 16)
     keep = ~st.recompute_mask
-    np.testing.assert_array_equal(k_all[keep, 1:], br.cached_k[keep, 1:])
-    np.testing.assert_array_equal(v_all[keep, 1:], br.cached_v[keep, 1:])
+    np.testing.assert_array_equal(k_all.numpy()[keep, 1:], ck[keep, 1:])
+    np.testing.assert_array_equal(v_all.numpy()[keep, 1:], cv[keep, 1:])
     assert torch.is_tensor(tsys.model.embed)

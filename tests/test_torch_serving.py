@@ -69,7 +69,8 @@ def test_wave_serving_tokens_equal_reference(systems):
     reqs_t, plans_t = rcllm_workload(tsys, _trace(TSY, tsys, pool_rv, prof),
                                      decode_steps=DECODE_STEPS)
     engine, backend, batcher, done = PS.serve(
-        tsys.model, tsys.cfg, ServeConfig(decode_steps=DECODE_STEPS), reqs_t, plans_t)
+        tsys.model, tsys.cfg, ServeConfig(decode_steps=DECODE_STEPS), reqs_t, plans_t,
+        tsys.rows)
     assert len(done) == len(done_j) == N_REQ
     assert {r: backend.generated[r] for r in range(N_REQ)} == \
         {r: backend_j.generated[r] for r in range(N_REQ)}
