@@ -22,11 +22,21 @@ else (no network, no JAX).  Phases:
 2c. chunked serving: the same system and trace through the chunked
    (unified-step) scheduler at full depth; the block-gather, selective
    and paged-decode kernels must each have launched in this run;
+2d. recsys scoring and retrieval: Wide&Deep, AutoInt, DIEN and BERT4Rec
+   at their published widths (random weights from a seeded generator)
+   score a serve_p99 batch (512) and one retrieval_cand query against
+   1,000,000 candidates, and Wide&Deep also a serve_bulk batch (262,144);
+   Wide&Deep's wide sum must have launched the embedding-bag kernel.
+   It runs after the rcllm kernels' checks and times of phases 3 and 4,
+   so that no recsys model is on the card while the rcllm path runs;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies); the served logits finite; and
    the tiny rcllm model served on the card, wave and chunked, decodes
-   the same tokens as on the CPU (the plain versions);
+   the same tokens as on the CPU (the plain versions); the embedding bag
+   on its serve_p99 and serve_bulk inputs, also with a bf16 and a d = 32
+   table; and each recsys model at full width scores and retrieves the
+   same on the card as a CPU copy of it;
 4. kernel times (CUDA events, median of 20 after warm-up; and the
    device time alone under torch.profiler) beside the plain version, one
    library call computing the same function where there is one, and the
@@ -55,11 +65,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import registry as RREG  # noqa: E402
 from repro_torch.configs.rcllm_qwen3_8b import CONFIG as QWEN3_8B  # noqa: E402
 from repro_torch.core import engine as ENG  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gather import ops as BO  # noqa: E402
 from repro_torch.kernels.block_gather.ref import block_gather_ref  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as EO  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mask_rows, mha_flash_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as PO  # noqa: E402
@@ -67,7 +80,9 @@ from repro_torch.kernels.paged_attention.ref import paged_decode_ref  # noqa: E4
 from repro_torch.kernels.selective_attention import ops as SO  # noqa: E402
 from repro_torch.kernels.selective_attention.ref import selective_mha_ref  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
+from repro_torch.launch import steps as STEPS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.recsys import models as RM  # noqa: E402
 from repro_torch.serving import batch_engine as BE  # noqa: E402
 from repro_torch.serving.api import ServeConfig  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
@@ -83,6 +98,21 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # keys see the same angles (the kernel takes the plain version's
 # frequencies) and differ only by a sin/cos ulp, plus one bf16 rounding
 GATHER_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
+# embedding bag, relative to max(1, max|plain|): both sum in fp32, so fp32
+# outputs differ only by summation order and bf16 ones by the one rounding
+BAG_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
+# recsys models on the card against a CPU copy (fp32, TF32 off): only the
+# order of sums differs, carried through DIEN's 2 x 100 GRU steps
+RECSYS_TOL = 1e-4
+# the recsys cells run at full width on one card; the other archs'
+# serve_bulk cells were sized for a pod (BERT4Rec's attention scores alone
+# ~84 GB in fp32) and wait for the tensor-parallel slice
+RECSYS_CELLS = {"wide-deep": ("serve_p99", "serve_bulk", "retrieval_cand"),
+                "autoint": ("serve_p99", "retrieval_cand"),
+                "dien": ("serve_p99", "retrieval_cand"),
+                "bert4rec": ("serve_p99", "retrieval_cand")}
+RCLLM_KERNELS = ("flash_attention", "selective_attention", "paged_decode_attention",
+                 "block_gather")
 
 KERNELS = {
     "flash_attention": dict(
@@ -99,6 +129,9 @@ KERNELS = {
     "block_gather": dict(
         fn=BO.assemble_kv, source="src/repro_torch/kernels/block_gather/gather.cu",
         replaces="src/repro/kernels/block_gather/kernel.py:41"),
+    "embedding_bag": dict(
+        fn=EO.bag_sum, source="src/repro_torch/kernels/embedding_bag/bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:35"),
 }
 
 
@@ -169,6 +202,20 @@ class GatherRecorder:
         return self.fn(*args, **kwargs)
 
 
+class BagRecorder:
+    """Keeps the inputs of the latest embedding-bag call per batch size
+    (serve_p99, serve_bulk, retrieval).  The table is a model parameter
+    and the ids are made anew for each call, so references suffice."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = {}
+
+    def __call__(self, table, ids):
+        self.calls[ids.shape[0]] = (table, ids)
+        return self.fn(table, ids)
+
+
 def install_recorders():
     rec = {"flash_attention": Recorder(FO.mha_flash),
            "selective_attention": Recorder(SO.selective_mha),
@@ -187,6 +234,8 @@ def install_recorders():
 
 # ------------------------------------------- plain versions, library, bound
 def plain_call(name, args, kw):
+    if name == "embedding_bag":
+        return embedding_bag_ref(*args)
     if name == "block_gather":
         k, v = block_gather_ref(*args, rope_theta=kw.get("rope_theta", 1e4),
                                 rotate=kw.get("rotate", True))
@@ -216,6 +265,9 @@ def library_call(name, args, kw):
     here; the port never calls it), or None."""
     if name == "paged_decode_attention":
         return None
+    if name == "embedding_bag":
+        table, ids = args
+        return lambda: F.embedding_bag(ids, table, mode="sum")
     if name == "block_gather":
         if kw.get("rotate", True):
             return None           # no one PyTorch call gathers and rotates
@@ -257,6 +309,12 @@ def work(name, args, kw, out):
     """(bytes, flops) the function needs on these inputs: each input read
     once, the output written once, operations over live (query, key)
     pairs only (4*D per pair per head: QK^T and PV)."""
+    if name == "embedding_bag":
+        # ids read once, each bag's rows read once, the sums written once;
+        # one add per row element
+        table, ids = args
+        rows = ids.numel() * table.shape[1]
+        return nbytes(ids) + rows * table.element_size() + nbytes(out), rows
     if name == "block_gather":
         # each selected K and V row read once, every output written once;
         # a rotation is 4 products and 2 sums per key pair (3 per element)
@@ -448,7 +506,7 @@ def check_served(label, launched, required, done, backend, args, config, cfg):
             raise RuntimeError(f"{label}: request {c.rid} generated {toks}")
 
 
-def timed_record(name, spec, launches, a, kw, out, err, wdt, extra):
+def timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=None):
     """Kernel, plain and library times plus the bound for one call."""
     fn = spec["fn"]
     ms = time_ms(lambda: fn(*a, **kw))
@@ -458,7 +516,7 @@ def timed_record(name, spec, launches, a, kw, out, err, wdt, extra):
     lib_ms = time_ms(lib) if lib is not None else None
     b, fl = work(name, a, kw, out)
     t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[wdt] * 1e3
-    label = name if kw.get("rotate", True) else f"{name}:copy"
+    label = label or (name if kw.get("rotate", True) else f"{name}:copy")
     rec = {"name": label, "route": "cuda", "source": spec["source"],
            "replaces": spec["replaces"], "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -512,6 +570,133 @@ def gather_records(calls, spec, launches):
                                     {"tol": GATHER_TOL[torch.float32],
                                      "bf16_max_abs_err": errs[torch.bfloat16]}))
     return records
+
+
+# ---------------------------------------------------------------- recsys
+def recsys_phase(dev, repeats=5):
+    """Every recsys cell of RECSYS_CELLS at its published width, through
+    the launcher's step functions.  -> (cells, models, recorded
+    embedding-bag calls); the models stay on the card for the checks."""
+    bag = BagRecorder(EO.bag_sum)
+    saved, RM.bag_sum = RM.bag_sum, bag
+    cells, models = [], {}
+    try:
+        for arch, shapes in RECSYS_CELLS.items():
+            cfg = RREG.get_config(arch)
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            t0 = time.perf_counter()
+            model = models[arch] = RM.init_params(cfg, gen, dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            param_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+            for shape in shapes:
+                torch.cuda.reset_peak_memory_stats()
+                batch = RREG.make_batch(cfg, shape, gen, dev)
+                fn = STEPS.step_of(shape)
+                out, times = STEPS.time_step(fn, model, batch, repeats)
+                wall, busy, top, _, _ = device_busy(lambda: fn(model, batch))
+                n = batch[next(iter(batch))].shape[0]
+                want = (n, RREG.RECSYS_SHAPES[shape].dims["n_candidates"]) \
+                    if shape == "retrieval_cand" else (n,)
+                finite = bool(torch.isfinite(out).all())
+                cell = {"arch": arch, "shape": shape, "batch": int(n),
+                        "ms_per_call": statistics.median(times) * 1e3,
+                        "ms_min": min(times) * 1e3, "repeats": repeats,
+                        "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                        "param_gb": param_gb, "init_s": init_s,
+                        "profiled_wall_ms": wall * 1e3,
+                        "device_busy_ms": None if busy is None else busy * 1e3,
+                        "device_idle_share": None if busy is None else 1 - busy / wall,
+                        "top_device": top, "out_shape": list(out.shape), "finite": finite}
+                cells.append(cell)
+                log(f"  recsys {arch} {shape}: batch {n}, {cell['ms_per_call']:.3f} ms per call "
+                    f"(median of {repeats}), peak {cell['peak_gb']:.2f} GB above the phase's "
+                    f"start (params {param_gb:.3f} GB), output {tuple(out.shape)} "
+                    f"{'finite' if finite else 'NOT finite'}; profiled call: wall "
+                    f"{wall * 1e3:.3f} ms, device busy "
+                    f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms'}; top device: "
+                    + "; ".join(f"{k} {ms:.3f} ms" for k, ms in top[:4]))
+                if tuple(out.shape) != want or not finite:
+                    raise RuntimeError(f"recsys {arch} {shape}: output {tuple(out.shape)} "
+                                       f"(want {want}), finite {finite}")
+                del batch, out
+    finally:
+        RM.bag_sum = saved
+    return cells, models, bag.calls
+
+
+def bag_records(calls, spec, launches, models):
+    """The embedding bag against its plain version on the inputs of
+    Wide&Deep's serve_bulk and serve_p99 calls: the wide table in fp32 and
+    in bf16, and the same ids into the (rows, 32) deep table.  Each within
+    BAG_TOL of max(1, max|plain|)."""
+    fn = spec["fn"]
+    records = []
+    deep_table = models["wide-deep"].table
+    for shape in ("serve_bulk", "serve_p99"):
+        b = RREG.RECSYS_SHAPES[shape].dims["batch"]
+        if b not in calls:
+            raise RuntimeError(f"embedding_bag: no call of batch {b} ({shape}) was recorded")
+        table, ids = calls[b]
+        errs = {}
+        for label, t in (("fp32 d=1", table), ("bf16 d=1", table.to(torch.bfloat16)),
+                         ("fp32 d=32", deep_table)):
+            got, want = fn(t, ids), embedding_bag_ref(t, ids)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(want.float().abs().max()))
+            err = float((got.float() - want.float()).abs().max())
+            tol = BAG_TOL[t.dtype] * scale
+            if got.dtype != t.dtype or not torch.isfinite(got).all() or err > tol:
+                raise RuntimeError(f"embedding_bag {shape} {label}: max|kernel-plain| "
+                                   f"{err} > {tol}")
+            errs[label] = err
+            del got, want
+        log(f"check embedding_bag {shape}: ids {tuple(ids.shape)} into {tuple(table.shape)}; "
+            "max|kernel-plain| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (tol {BAG_TOL} x max(1, max|plain|))")
+        a = (table, ids)
+        out = fn(*a)
+        # rows narrower than a 32-byte sector cost the card a whole sector
+        row = table.shape[1] * table.element_size()
+        sector_bytes = nbytes(ids) + ids.numel() * max(32, -(-row // 32) * 32) + nbytes(out)
+        extra = {"tol": BAG_TOL[torch.float32], "bf16_max_abs_err": errs["bf16 d=1"],
+                 "d32_max_abs_err": errs["fp32 d=32"],
+                 "sector_bound_ms": sector_bytes / HBM_BYTES_S * 1e3}
+        records.append(timed_record("embedding_bag", spec, launches, a, {}, out,
+                                    errs["fp32 d=1"], torch.float32, extra,
+                                    label="embedding_bag" if shape == "serve_bulk"
+                                    else f"embedding_bag:{shape}"))
+    return records
+
+
+def recsys_card_vs_cpu(models, dev, batch=64, n_candidates=4096):
+    """Each model at full width scores a batch of `batch` and retrieves
+    against `n_candidates` candidates on the card (kernel) and on a CPU
+    copy of itself (plain versions): allclose within RECSYS_TOL."""
+    out = {}
+    for arch, model in models.items():
+        cpu = copy.deepcopy(model).to("cpu")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        errs = {}
+        for shape in ("serve_p99", "retrieval_cand"):
+            b = RREG.make_batch(model.cfg, shape, gen, dev, batch=batch)
+            if shape == "retrieval_cand":
+                b["candidate_ids"] = b["candidate_ids"][:n_candidates]
+            fn = STEPS.step_of(shape)
+            got = fn(model, b).cpu()
+            want = fn(cpu, {k: v.cpu() for k, v in b.items()})
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=RECSYS_TOL, atol=RECSYS_TOL):
+                raise RuntimeError(f"recsys {arch} {shape}: card vs CPU max abs diff {err} "
+                                   f"beyond rtol=atol={RECSYS_TOL}")
+            errs[shape] = err
+        out[arch] = errs
+        log(f"check recsys {arch} at full width, card == CPU copy: max abs diff "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (batch {batch}, {n_candidates} candidates; rtol=atol={RECSYS_TOL})")
+        del cpu
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -574,7 +759,7 @@ def main(argv=None):
         f"{len(done)} requests x {config.decode_steps} tokens")
     log_serve("wave", rep, peak_gb)
     log(f"  kernel launches in the wave run: {launches['wave']}")
-    check_served("wave", launches["wave"], KERNELS, done, backend, args, config, cfg)
+    check_served("wave", launches["wave"], RCLLM_KERNELS, done, backend, args, config, cfg)
 
     # ---- phase 2c: the same trace through the chunked scheduler ----
     cconfig = ServeConfig(decode_steps=args.decode_steps, sched="chunked")
@@ -665,12 +850,14 @@ def main(argv=None):
     log(f"  prefill logits finite, shape {logits.shape}; {plan.n} prompt tokens, "
         f"recompute fraction {rfrac:.3f}")
 
-    total = {n: launches["wave"][n] + launches["chunked"][n] for n in KERNELS}
+    total = {n: sum(run[n] for run in launches.values()) for n in KERNELS}
     records = []
     for name, spec in KERNELS.items():
         if name == "block_gather":
             records += gather_records(rec[name].calls, spec, total[name])
             continue
+        if name == "embedding_bag":
+            continue    # recorded after the recsys phase below
         r = rec[name]
         a, kw = r.args, r.kwargs
         fn = spec["fn"]
@@ -694,7 +881,25 @@ def main(argv=None):
             f"{str(wdt).replace('torch.', '')}); fp32 {err32:.3g} (tol {TOL[torch.float32]})")
         records.append(timed_record(name, spec, total[name], a, kw, out, err, wdt,
                                     {"tol": TOL[wdt], "fp32_max_abs_err": err32}))
-    del rec
+
+    # ---- phase 2d: recsys scoring and retrieval at published widths ----
+    # (after the rcllm checks and times, so that no recsys model is on the
+    # card while the rcllm path runs)
+    log("recsys scoring and retrieval (published widths, seeded random weights):")
+    reset_counts()
+    t0 = time.perf_counter()
+    recsys_cells, recsys_models, bag_calls = recsys_phase(dev)
+    torch.cuda.synchronize()
+    t_recsys = time.perf_counter() - t0
+    launches["recsys"] = counts()
+    log(f"  recsys phase {t_recsys:.1f} s; kernel launches: {launches['recsys']}")
+    if launches["recsys"]["embedding_bag"] == 0:
+        raise RuntimeError("embedding_bag never launched on the recsys path")
+    bag_total = sum(run["embedding_bag"] for run in launches.values())
+    records += bag_records(bag_calls, KERNELS["embedding_bag"], bag_total, recsys_models)
+    del rec, bag_calls
+    recsys_checks = recsys_card_vs_cpu(recsys_models, dev)
+    del recsys_models
 
     # small-input reference: the tiny rcllm model served on the card
     # (kernels) decodes the same greedy tokens as on the CPU (plain), under
@@ -716,12 +921,13 @@ def main(argv=None):
 
     report = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "offline_build_s": t_build, "serving_s": t_serve,
-              "chunked_serving_s": t_chunked, "peak_cuda_gb": peak_gb,
+              "chunked_serving_s": t_chunked, "recsys_s": t_recsys, "peak_cuda_gb": peak_gb,
               "depth": cfg.n_layers, "serve": rep, "serve_chunked": crep,
               "chunked_ticks": [dataclasses.asdict(t) for t in ticks],
               "chunked_tokens_equal_wave": same, "launches": launches,
               "cache_rows": system.rows.n_rows, "cache_rows_gb": system.rows.nbytes / 1e9,
               "recompute_fraction": rfrac, "prompt_tokens": plan.n, "breakdown": breakdown,
+              "recsys_cells": recsys_cells, "recsys_card_vs_cpu": recsys_checks,
               "kernels": records, "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -27,6 +27,7 @@ SOURCES = {
     "selective": KERNEL_DIR / "selective_attention" / "selective.cu",
     "paged_decode": KERNEL_DIR / "paged_attention" / "paged_decode.cu",
     "block_gather": KERNEL_DIR / "block_gather" / "gather.cu",
+    "embedding_bag": KERNEL_DIR / "embedding_bag" / "bag.cu",
 }
 HEADERS = (KERNEL_DIR / "attn_common.cuh",)
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",

@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.kernels.block_gather.ops import assemble_kv
 from repro_torch.kernels.block_gather.ref import block_gather_ref
+from repro_torch.kernels.embedding_bag.ops import bag_sum
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.kernels.flash_attention.ref import mha_flash_ref
 from repro_torch.kernels.paged_attention.ops import paged_decode_mha
@@ -141,6 +143,70 @@ def test_block_gather_kernel_matches_plain(cuda, seed, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 8, 32, 128, 33])
+def test_embedding_bag_kernel_matches_plain(cuda, d, dtype):
+    """Both sum each bag's rows in fp32: fp32 outputs differ only by the
+    plain version's summation order (1e-5 of max(1, max|out|)); bf16
+    outputs by at most the one final rounding (2^-7 relative)."""
+    rng = np.random.default_rng(d)
+    rows = 5000
+    table = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(cuda, dtype)
+    for F in (1, 13, 40):
+        for B in (1, 512, 4097):
+            ids = torch.from_numpy(rng.integers(0, rows, (B, F)).astype(np.int32)).to(cuda)
+            before = bag_sum.launches
+            got = bag_sum(table, ids)
+            assert bag_sum.launches == before + 1
+            want = embedding_bag_ref(table, ids)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (B, d)
+            assert torch.isfinite(got).all()
+            if dtype == torch.float32:
+                tol = 1e-5 * max(1.0, float(want.abs().max()))
+                torch.testing.assert_close(got, want, rtol=0, atol=tol)
+            else:
+                torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 33])
+def test_embedding_bag_kernel_accumulates_bf16_in_fp32(cuda, d):
+    """100 rows of 1 + 2^-7 in bf16 sum to exactly 101.0 when summed in
+    fp32 and rounded once; a running bf16 sum would end at 100.5, which
+    the 2^-7 relative tolerance above would let pass."""
+    table = torch.full((4, d), 1 + 2 ** -7, dtype=torch.bfloat16, device=cuda)
+    ids = torch.zeros((3, 100), dtype=torch.int32, device=cuda)
+    got = bag_sum(table, ids)
+    assert got.dtype == torch.bfloat16
+    assert (got.float().cpu() == 101.0).all()
+
+
+@pytest.mark.cuda
+def test_widedeep_reduced_card_equals_cpu(cuda):
+    """Wide&Deep at reduced() width scores and retrieves the same on the
+    card (wide sum through the kernel) as on the CPU (plain version)."""
+    import copy
+
+    from repro_torch.configs import registry as R
+    from repro_torch.launch import steps as S
+    from repro_torch.recsys import models as RM
+
+    cfg = R.get_config("wide-deep", smoke=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = RM.init_params(cfg, gen, cuda)
+    cpu = copy.deepcopy(model).to("cpu")
+    for shape in ("serve_p99", "retrieval_cand"):
+        batch = R.make_batch(cfg, shape, gen, cuda, batch=64)
+        before = bag_sum.launches
+        fn = S.step_of(shape)
+        got = fn(model, batch)
+        assert bag_sum.launches == before + 1
+        want = fn(cpu, {k: v.cpu() for k, v in batch.items()})
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 128, device=cuda)
     k = torch.zeros(1, 8, 2, 128, device=cuda)
@@ -157,6 +223,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         assemble_kv(pool, pool, table.long(), table[:, None])
     with pytest.raises(ValueError, match="positions"):
         assemble_kv(pool, pool, table, table)
+    with pytest.raises(TypeError, match="dtype"):
+        bag_sum(torch.zeros(4, 1, device=cuda), table[None].long())
+    with pytest.raises(ValueError, match="need"):
+        bag_sum(torch.zeros(4, 1, 1, device=cuda), table[None])
 
 
 def _tiny_tokens(cuda, sched):
