@@ -15,13 +15,15 @@ else (no network, no JAX).  Phases:
    serves a few requests through the wave-scheduled continuous batcher
    (block-gather kernel assembling and realigning the cached KV,
    selective kernel in prefill, paged-decode kernel in decode).  Every
-   kernel must have launched in this run.  A warm rerun of the same
+   kernel must have launched in this run, the flash and selective
+   kernels on their tensor-core (bf16) routes.  A warm rerun of the same
    prefill and decode, without the batcher, splits the time by stage
    (host clock, card synchronised at each span) and reads the card's
    busy share and host<->card copy time under torch.profiler;
 2c. chunked serving: the same system and trace through the chunked
    (unified-step) scheduler at full depth; the block-gather, selective
-   and paged-decode kernels must each have launched in this run;
+   (tensor-core route) and paged-decode kernels must each have launched
+   in this run;
 2d. recsys scoring and retrieval: Wide&Deep, AutoInt, DIEN and BERT4Rec
    at their published widths (random weights from a seeded generator)
    score a serve_p99 batch (512) and one retrieval_cand query against
@@ -33,8 +35,13 @@ else (no network, no JAX).  Phases:
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies); the served logits finite; and
    the tiny rcllm model served on the card, wave and chunked, decodes
-   the same tokens as on the CPU (the plain versions); the embedding bag
-   on its serve_p99 and serve_bulk inputs, also with a bf16 and a d = 32
+   the same tokens as on the CPU (the plain versions).  The flash and
+   selective kernels have two routes each: the tensor-core route is
+   held to its plain version at the largest served call (the records
+   "flash_attention" and "selective_attention"), the SIMT kernel at the
+   largest fp32 call of the tiny runs (the records "...:fp32", whose
+   launches are those runs') and at the served call cast to fp32.  The
+   embedding bag on its serve_p99 and serve_bulk inputs, also with a bf16 and a d = 32
    table; and each recsys model at full width scores and retrieves the
    same on the card as a CPU copy of it;
 4. kernel times (CUDA events, median of 20 after warm-up; and the
@@ -113,6 +120,10 @@ RECSYS_CELLS = {"wide-deep": ("serve_p99", "serve_bulk", "retrieval_cand"),
                 "bert4rec": ("serve_p99", "retrieval_cand")}
 RCLLM_KERNELS = ("flash_attention", "selective_attention", "paged_decode_attention",
                  "block_gather")
+# kernels with two routes: "<name>" counts and records the tensor-core route
+# (bf16, the served path at full width), "<name>:fp32" the SIMT kernel
+# (fp32, the tiny card == CPU path)
+TWO_ROUTES = ("flash_attention", "selective_attention")
 
 KERNELS = {
     "flash_attention": dict(
@@ -140,8 +151,10 @@ def log(*a):
 
 
 def reset_counts():
-    for spec in KERNELS.values():
+    for name, spec in KERNELS.items():
         spec["fn"].launches = 0
+        if name in TWO_ROUTES:
+            spec["fn"].tc_launches = 0
 
 
 # ------------------------------------------------------------- recording
@@ -165,7 +178,7 @@ class Recorder:
 
     def __call__(self, *args, **kwargs):
         size = args[0].numel()
-        if size > self.size:
+        if args[0].is_cuda and size > self.size:
             self.size = size
             if self.snapshot is not None:
                 self.args, self.kwargs = self.snapshot(args, kwargs)
@@ -482,7 +495,33 @@ def shapes(args, kw):
 
 
 def counts():
-    return {n: spec["fn"].launches for n, spec in KERNELS.items()}
+    """Launches per kernel since the last reset_counts(), the two routes of
+    TWO_ROUTES apart."""
+    out = {}
+    for n, spec in KERNELS.items():
+        fn = spec["fn"]
+        if n in TWO_ROUTES:
+            out[n] = fn.tc_launches
+            out[f"{n}:fp32"] = fn.launches - fn.tc_launches
+        else:
+            out[n] = fn.launches
+    return out
+
+
+def route_of(name, a, kw):
+    """The route ("tc" or "simt") the wrapper takes for this call."""
+    if name == "flash_attention":
+        kvv = kw.get("kv_valid")
+        return FO._route(a[0], a[1], a[2], 1 if kvv is None else kvv.shape[0])
+    qp = torch.as_tensor(a[1])
+    return SO._route(a[0], a[2], a[3], qp.shape[0] if qp.dim() == 2 else 1)
+
+
+def check_route(name, a, kw, want):
+    route = route_of(name, a, kw)
+    if route != want:
+        raise RuntimeError(f"{name}: the recorded call took the {route} route, want {want}")
+    return route
 
 
 def log_serve(label, rep, peak_gb):
@@ -570,6 +609,55 @@ def gather_records(calls, spec, launches):
                                     {"tol": GATHER_TOL[torch.float32],
                                      "bf16_max_abs_err": errs[torch.bfloat16]}))
     return records
+
+
+def device_inputs(name, a, kw, dev):
+    """A recorded call's inputs with the selective kernel's mask operands
+    on the card, as the engine passes them."""
+    if name == "selective_attention":
+        kw = dict(kw, live=torch.as_tensor(kw["live"], dtype=torch.int32, device=dev))
+        a = (a[0], torch.as_tensor(a[1], device=dev), a[2], a[3],
+             torch.as_tensor(a[4], device=dev))
+    return a, kw
+
+
+def selective_host_inputs_ms(a, kw):
+    """CUDA-event ms of the selective wrapper when its mask operands arrive
+    as the engine passed them before it made them once per call: int64
+    positions, int8 validity and the liveness map in host memory, which
+    the wrapper copies and converts on every call."""
+    q, qp, k, v, hh = a
+    qp64, hh8 = qp.long(), hh.to(torch.int8)
+    live = kw["live"].cpu().numpy()
+    return time_ms(lambda: SO.selective_mha(q, qp64, k, v, hh8, **dict(kw, live=live)))
+
+
+def checked_record(name, spec, launches, a, kw, extra, fp32_too=False, label=None):
+    """The kernel against its plain version on these inputs (within
+    TOL of their working dtype; with `fp32_too` also the same call cast to
+    fp32, which takes the SIMT route), then its timed record."""
+    fn = spec["fn"]
+    out = fn(*a, **kw)
+    plain = plain_call(name, a, kw)
+    torch.cuda.synchronize()
+    wdt = a[0].dtype
+    err = float((out.float() - plain.float()).abs().max())
+    if not torch.isfinite(out).all() or err > TOL[wdt]:
+        raise RuntimeError(f"{label or name}: max|kernel-plain| {err} > {TOL[wdt]} ({wdt})")
+    extra = dict(extra, tol=TOL[wdt])
+    msg = ""
+    if fp32_too:
+        a32, kw32 = to_fp32(name, a, kw)
+        out32 = fn(*a32, **kw32)
+        err32 = float((out32 - plain_call(name, a32, kw32)).abs().max())
+        if err32 > TOL[torch.float32]:
+            raise RuntimeError(f"{name}: fp32 max|kernel-plain| {err32} > {TOL[torch.float32]}")
+        extra["fp32_max_abs_err"] = err32
+        msg = f"; same call in fp32 {err32:.3g} (tol {TOL[torch.float32]})"
+    route = f" ({extra['kernel_route']} route)" if "kernel_route" in extra else ""
+    log(f"check {label or name}{route}: {shapes(a, kw)} max|kernel-plain| {err:.3g} "
+        f"(tol {TOL[wdt]}, {str(wdt).replace('torch.', '')}){msg}")
+    return timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=label)
 
 
 # ---------------------------------------------------------------- recsys
@@ -850,7 +938,7 @@ def main(argv=None):
     log(f"  prefill logits finite, shape {logits.shape}; {plan.n} prompt tokens, "
         f"recompute fraction {rfrac:.3f}")
 
-    total = {n: sum(run[n] for run in launches.values()) for n in KERNELS}
+    total = {n: sum(run[n] for run in launches.values()) for n in launches["wave"]}
     records = []
     for name, spec in KERNELS.items():
         if name == "block_gather":
@@ -858,30 +946,13 @@ def main(argv=None):
             continue
         if name == "embedding_bag":
             continue    # recorded after the recsys phase below
-        r = rec[name]
-        a, kw = r.args, r.kwargs
-        fn = spec["fn"]
+        a, kw = device_inputs(name, rec[name].args, rec[name].kwargs, dev)
+        extra = {}
+        if name in TWO_ROUTES:
+            extra["kernel_route"] = check_route(name, a, kw, "tc")
         if name == "selective_attention":
-            kw = dict(kw, live=torch.as_tensor(kw["live"], dtype=torch.int32, device=dev))
-            a = (a[0], torch.as_tensor(a[1], device=dev), a[2], a[3],
-                 torch.as_tensor(a[4], device=dev))
-        out = fn(*a, **kw)
-        plain = plain_call(name, a, kw)
-        torch.cuda.synchronize()
-        wdt = a[0].dtype
-        err = float((out.float() - plain.float()).abs().max())
-        if not torch.isfinite(out).all() or err > TOL[wdt]:
-            raise RuntimeError(f"{name}: max|kernel-plain| {err} > {TOL[wdt]} ({wdt})")
-        a32, kw32 = to_fp32(name, a, kw)
-        out32 = fn(*a32, **kw32)
-        err32 = float((out32 - plain_call(name, a32, kw32)).abs().max())
-        if err32 > TOL[torch.float32]:
-            raise RuntimeError(f"{name}: fp32 max|kernel-plain| {err32} > {TOL[torch.float32]}")
-        log(f"check {name}: {shapes(a, kw)} max|kernel-plain| {err:.3g} (tol {TOL[wdt]}, "
-            f"{str(wdt).replace('torch.', '')}); fp32 {err32:.3g} (tol {TOL[torch.float32]})")
-        records.append(timed_record(name, spec, total[name], a, kw, out, err, wdt,
-                                    {"tol": TOL[wdt], "fp32_max_abs_err": err32}))
-
+            extra["ms_host_inputs"] = selective_host_inputs_ms(a, kw)
+        records.append(checked_record(name, spec, total[name], a, kw, extra, fp32_too=True))
     # ---- phase 2d: recsys scoring and retrieval at published widths ----
     # (after the rcllm checks and times, so that no recsys model is on the
     # card while the rcllm path runs)
@@ -903,21 +974,40 @@ def main(argv=None):
 
     # small-input reference: the tiny rcllm model served on the card
     # (kernels) decodes the same greedy tokens as on the CPU (plain), under
-    # both schedulers
-    for sched in ("wave", "chunked"):
-        tiny = {}
-        model = None
-        tconfig = ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64)
-        for d in (dev, torch.device("cpu")):
-            tsys, treqs, tplans = SERVE.rcllm_setup(None, d, 4, 1e6, 4, model=model)
-            _, tb, _, _ = SERVE.serve(tsys.model, tsys.cfg, tconfig, treqs, tplans, tsys.rows)
-            tiny[d.type] = {r: tb.generated[r] for r in sorted(tb.generated)}
-            model = copy.deepcopy(tsys.model).to("cpu")
-        if tiny["cuda"] != tiny["cpu"]:
-            raise RuntimeError(f"tiny rcllm {sched} tokens differ: card {tiny['cuda']} "
-                               f"cpu {tiny['cpu']}")
-        log(f"check tiny rcllm {sched} serving: card tokens == CPU plain-version tokens "
-            f"{tiny['cuda']}")
+    # both schedulers.  Its fp32 calls are the SIMT routes of B1 and B2.
+    reset_counts()
+    tiny_rec, tiny_saved = install_recorders()
+    try:
+        for sched in ("wave", "chunked"):
+            tiny = {}
+            model = None
+            tconfig = ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64)
+            for d in (dev, torch.device("cpu")):
+                tsys, treqs, tplans = SERVE.rcllm_setup(None, d, 4, 1e6, 4, model=model)
+                _, tb, _, _ = SERVE.serve(tsys.model, tsys.cfg, tconfig, treqs, tplans,
+                                          tsys.rows)
+                tiny[d.type] = {r: tb.generated[r] for r in sorted(tb.generated)}
+                model = copy.deepcopy(tsys.model).to("cpu")
+            if tiny["cuda"] != tiny["cpu"]:
+                raise RuntimeError(f"tiny rcllm {sched} tokens differ: card {tiny['cuda']} "
+                                   f"cpu {tiny['cpu']}")
+            log(f"check tiny rcllm {sched} serving: card tokens == CPU plain-version tokens "
+                f"{tiny['cuda']}")
+    finally:
+        for mod, name, fn in tiny_saved:
+            setattr(mod, name, fn)
+    launches["tiny"] = counts()
+    log(f"  kernel launches in the tiny card runs (wave + chunked): {launches['tiny']}")
+    for name in TWO_ROUTES:
+        label = f"{name}:fp32"
+        if launches["tiny"][label] == 0:
+            raise RuntimeError(f"the SIMT route of {name} never launched on the tiny fp32 path")
+        a, kw = device_inputs(name, tiny_rec[name].args, tiny_rec[name].kwargs, dev)
+        extra = {"kernel_route": check_route(name, a, kw, "simt")}
+        records.append(checked_record(name, KERNELS[name],
+                                      sum(run[label] for run in launches.values()), a, kw,
+                                      extra, label=label))
+    del tiny_rec
 
     report = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "offline_build_s": t_build, "serving_s": t_serve,

@@ -350,9 +350,15 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
     B, n, _ = x.shape
     r_pos_np = np.clip(np.asarray(r_idx, np.int64), 0, n - 1)
     r_pos = torch.from_numpy(r_pos_np).to(dev)                   # (B, R)
-    live = block_liveness(r_pos_np, np.asarray(valid, np.int8), window=0,
-                          q_block=LIVE_Q_BLOCK, kv_block=LIVE_KV_BLOCK)
-    valid_t = torch.from_numpy(np.asarray(valid, np.int8)).to(dev)
+    # the selective kernel's mask operands, on the device once for all
+    # layers and in the kernel's dtypes (int32 positions, uint8 validity,
+    # int32 liveness), so no layer's call copies or converts them
+    valid_u8 = np.asarray(valid, np.uint8)
+    live = torch.from_numpy(block_liveness(
+        r_pos_np, valid_u8, window=0, q_block=LIVE_Q_BLOCK,
+        kv_block=LIVE_KV_BLOCK)).to(dev)
+    r_pos32 = r_pos.to(torch.int32)
+    valid_t = torch.from_numpy(valid_u8).to(dev)
     rv = torch.from_numpy(np.asarray(r_valid, bool)).to(dev)
     rows = torch.arange(B, device=dev)[:, None].expand_as(r_pos)[rv]
     widx = r_pos[rv]                                             # kept rows only
@@ -377,7 +383,7 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
         k_m[rows, widx] = kr_raw[rv].to(k_m.dtype)
         ks.append(k_m)
         vs.append(v_l)
-        o = selective_mha(qr, r_pos, k_l, v_l.to(kr.dtype), valid_t, live=live,
+        o = selective_mha(qr, r_pos32, k_l, v_l.to(kr.dtype), valid_t, live=live,
                           window=0, q_block=LIVE_Q_BLOCK, kv_block=LIVE_KV_BLOCK)
         xr = _layer_step(xr, lp, cfg, o)
 

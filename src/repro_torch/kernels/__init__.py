@@ -5,7 +5,8 @@ tensor runs the plain version, a CUDA tensor launches the kernel (or
 raises) — there is no fallback from one to the other."""
 from __future__ import annotations
 
-import ctypes
+import contextlib
+from typing import Optional
 
 import torch
 
@@ -31,15 +32,35 @@ def check_cuda_operand(name: str, t: torch.Tensor, dtypes=None) -> None:
         raise TypeError(f"{name} dtype {t.dtype} not in {tuple(dtypes)}")
 
 
+def as_operand(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`x` (a tensor, array or sequence) as a contiguous tensor of `dtype`
+    on `device`; a tensor that already is one is returned as it is."""
+    if (isinstance(x, torch.Tensor) and x.dtype == dtype and x.device == device
+            and x.is_contiguous()):
+        return x
+    return torch.as_tensor(x, device=device).to(dtype).contiguous()
+
+
 def dtype_code(name: str, t: torch.Tensor) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} dtype {t.dtype}: the kernels take float32 or bfloat16")
     return DTYPE_CODES[t.dtype]
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t) -> Optional[int]:
+    """The address of a tensor's data as a ctypes pointer argument (None for
+    NULL)."""
+    return None if t is None else t.data_ptr()
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on `t`'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes `t`'s device current for a launch (nothing to
+    do, the common case, when it already is)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

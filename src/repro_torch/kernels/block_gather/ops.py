@@ -75,7 +75,7 @@ def assemble_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
     vec = int((D // 2) % nk == 0 and (H * D) % nv == 0 and all(
         t.data_ptr() % 16 == 0 for t in (pool_k, pool_v, k_out, v_out)))
     lib = _build.library("block_gather", _SIGNATURES)
-    with torch.cuda.device(pool_k.device):
+    with K.on_device(pool_k):
         err = lib.rt_block_gather(
             K.ptr(pool_k), K.ptr(pool_v), K.ptr(block_table), K.ptr(positions),
             K.ptr(freqs), K.ptr(k_out), K.ptr(v_out), K.ptr(k_raw), n_pages,

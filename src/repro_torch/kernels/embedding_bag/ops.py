@@ -38,7 +38,7 @@ def bag_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     n = 16 // table.element_size()
     vec = int(d % n == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     lib = _build.library("embedding_bag", _SIGNATURES)
-    with torch.cuda.device(table.device):
+    with K.on_device(table):
         err = lib.rt_embedding_bag(K.ptr(table), K.ptr(ids), K.ptr(out), B, F, d,
                                    K.dtype_code("table", table), vec,
                                    K.stream_of(table))

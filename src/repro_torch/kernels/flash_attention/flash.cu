@@ -11,18 +11,26 @@
 // `kv_valid` has NB rows; flattened head row b*Hq+h reads row
 // (b*Hq+h)*NB / (B*Hq), as in the TPU kernel's BlockSpec.
 //
-// Design: one block of 4 warps per (16-row query tile, head, batch row);
-// each warp owns 4 query rows and carries their running (m, l, acc) in
-// registers while the block streams 32-key tiles of K and V through
-// shared memory (fp32, rows padded against bank conflicts).  In a score
-// pass each lane owns one key; in the PV pass each lane owns D/32
-// output columns.  Causal blocks stop at their last query's key.
+// Two routes, chosen by the wrapper (`ops.py:_route`) from dtypes and
+// shapes alone:
 //
-// Bound on the card: at the offline build's shapes (S <= a few hundred,
-// D = 128) the FLOPs per byte are high, so the kernel is bound by
-// operations; with CUDA-core FMAs it runs far below the tensor-core
-// peak.  Moving the two products onto wgmma tiles is the next step.
+// * tensor cores (`rt_flash_attention_tc`): bf16 q, k, v, D in {64, 128},
+//   G = Hq / Hkv in {1, 2, 4, 8}, NB dividing B*Hkv.  The tile routine of
+//   `attn_tile.cuh`: one warpgroup per 64 rows = 64/G queries x G heads,
+//   so each K/V tile read serves the G heads of its kv group; wgmma for
+//   Q K^T and P V; 64-key tiles through a 2-stage TMA + mbarrier
+//   ring (one stage when Skv <= 64, as in the offline build: four blocks
+//   per SM); causal blocks stop at the diagonal tile.  Bound on the card at
+//   the offline build (q (64, 64, 32, 128), k/v (64, 64, 8, 128) bf16):
+//   bytes, Q, K, V and O read or written once, 0.025 ms; the packing of G
+//   heads is what lets a block read K and V once for all of them.
+// * SIMT (the CUDA-core kernel, everything else: fp32 inputs such as the tiny
+//   card == CPU models, held to 1e-5 that one bf16 product cannot meet):
+//   one block of 4 warps per (16-row query tile, head, batch row), each
+//   warp carrying 4 rows' running (m, l, acc) in registers while 32-key
+//   K/V tiles stream through shared memory in fp32; CUDA-core FMAs.
 #include "../attn_common.cuh"
+#include "../attn_tile.cuh"
 
 namespace {
 
@@ -163,4 +171,52 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
       });
     });
   });
+}
+
+namespace {
+
+// Mask of the tensor-core route: keys below Skv with their kv_valid bit,
+// and at most the query index when causal.
+struct FlashPolicy {
+  const uint8_t* kv_valid;
+  int Skv, NB, groups, Hkv, causal;
+  const uint8_t* valid_row;
+
+  __device__ void init(int b, int hk, int) {
+    valid_row = kv_valid == nullptr
+                    ? nullptr
+                    : kv_valid + (long long)(b * Hkv + hk) * NB / groups * Skv;
+  }
+  __device__ int n_tiles(int q0, int qr) const {
+    const int end = causal ? min(Skv, q0 + qr) : Skv;
+    return (end + rt::tc::kN - 1) / rt::tc::kN;
+  }
+  __device__ bool tile_live(int) const { return true; }
+  __device__ int pos(int qi) const { return qi; }
+  __device__ uint32_t flag(int key) const { return valid_row == nullptr ? 1u : valid_row[key]; }
+  // valid keys, at most the query index when causal
+  __device__ uint64_t row_mask(int p, int k0, uint64_t valid) const {
+    return causal ? valid & rt::tc::bits_below(p - k0 + 1) : valid;
+  }
+};
+
+}  // namespace
+
+// The tensor-core route: q, k, v bf16.
+extern "C" int rt_flash_attention_tc(const void* q, const void* k, const void* v,
+                                     const void* kv_valid, void* o, int B, int Sq, int Skv,
+                                     int Hq, int Hkv, int D, int NB, int causal, float scale,
+                                     void* stream) {
+  const int log2g = Hkv < 1 || Hq % Hkv != 0 ? -1 : rt::tc::log2_group(Hq / Hkv);
+  if (log2g < 0 || (D != 64 && D != 128) || NB < 1 || B < 1 || Sq < 1 || Skv < 1 ||
+      (B * Hkv) % NB != 0)
+    return cudaErrorInvalidValue;
+  const FlashPolicy pol{static_cast<const uint8_t*>(kv_valid), Skv, NB, B * Hkv, Hkv, causal,
+                        nullptr};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using rt::tc::launch_tc;
+  return D == 128 ? launch_tc<FlashPolicy, __nv_bfloat16, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
+                                                               log2g, scale, pol, st)
+                  : launch_tc<FlashPolicy, __nv_bfloat16, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
+                                                              log2g, scale, pol, st);
 }

@@ -49,7 +49,7 @@ def paged_decode_mha(q: torch.Tensor, arena_k: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _build.library("paged_decode", _SIGNATURES)
-    with torch.cuda.device(q.device):
+    with K.on_device(q):
         err = lib.rt_paged_decode(
             K.ptr(q), K.ptr(arena_k), K.ptr(arena_v), K.ptr(page_ids),
             K.ptr(slot_pos), K.ptr(out), N, Hq, Hkv, D, page, L, int(layer),

@@ -1,8 +1,10 @@
 """Selective-attention wrapper and its host-side block-liveness map.
 
 A CPU tensor runs the plain version (`ref.selective_mha_ref`); a CUDA
-tensor launches the hand-written kernel (`selective.cu`) or raises.
-`selective_mha.launches` counts kernel launches and nothing else."""
+tensor launches the route of the hand-written kernel (`selective.cu`)
+that `_route` names, or raises.  `selective_mha.launches` counts kernel
+launches of either route and nothing else; `selective_mha.tc_launches`
+counts those of the tensor-core route."""
 from __future__ import annotations
 
 import ctypes
@@ -16,7 +18,36 @@ from repro_torch.kernels.selective_attention.ref import selective_mha_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"rt_selective_attention": [_P] * 7 + [_I] * 12 + [_F]
-               + [_I] * 3 + [_P]}
+               + [_I] * 3 + [_P],
+               "rt_selective_attention_tc": [_P] * 7 + [_I] * 12 + [_F, _I, _P]}
+# what the tensor-core route takes besides bf16 q and v
+TC_HEAD_DIMS = (64, 128)
+TC_GROUPS = (1, 2, 4, 8)
+TC_ROWS = 64        # rows of a tensor-core tile: 64 / G queries x G heads
+TC_KEYS = 64        # keys per tensor-core tile
+
+
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nb: int) -> str:
+    """Which kernel route takes these operands, from dtypes and shapes
+    alone: "tc" (tensor cores) for bf16 q and v, bf16 or fp32 k, D in
+    TC_HEAD_DIMS, G = Hq / Hkv in TC_GROUPS and NB | B*Hkv (the G heads
+    of a kv group read one mask row); "simt" (the CUDA-core kernel) for
+    every other float32/bfloat16 case with Hkv | Hq, D <= 128 and
+    NB | B*Hq.  Raises for what neither route takes."""
+    B, R, Hq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    Hkv = k.shape[2]
+    if Hq % Hkv or D > 128:
+        raise ValueError(f"Hq={Hq} Hkv={Hkv} D={D}: need Hkv | Hq and D <= 128")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        K.dtype_code(name, t)
+    if nb < 1 or (B * Hq) % nb:
+        raise ValueError(f"NB={nb} mask rows: need NB | B*Hq = {B * Hq}")
+    if (q.dtype == v.dtype == torch.bfloat16 and D in TC_HEAD_DIMS
+            and Hq // Hkv in TC_GROUPS and (B * Hkv) % nb == 0):
+        return "tc"
+    return "simt"
 
 
 def block_liveness(q_positions, hh_mask, *, window: int,
@@ -67,6 +98,17 @@ def block_liveness(q_positions, hh_mask, *, window: int,
     return live
 
 
+def check_live_tiles(route: str, group: int, q_block: int, kv_block: int) -> None:
+    """Raise unless `route` can honour (q_block, kv_block) liveness tiles:
+    each of its query tiles must lie inside one liveness row and each of
+    its key tiles inside one liveness column (tensor cores: 64 / G queries
+    and 64 keys; SIMT: 16 queries and 32 keys)."""
+    tile_q, tile_k = (TC_ROWS // group, TC_KEYS) if route == "tc" else (16, 32)
+    if q_block % tile_q or kv_block % tile_k:
+        raise ValueError(f"liveness tiles ({q_block}, {kv_block}) must be multiples of "
+                         f"({tile_q}, {tile_k}) for the {route} route")
+
+
 def selective_mha(q: torch.Tensor, q_positions, k: torch.Tensor,
                   v: torch.Tensor, hh_mask, *, live=None, window: int = 256,
                   q_block: int = 64, kv_block: int = 64) -> torch.Tensor:
@@ -74,51 +116,54 @@ def selective_mha(q: torch.Tensor, q_positions, k: torch.Tensor,
     (NB, R) int; hh_mask: (S,) or (NB, S); NB divides B*Hq.  `live`: the
     (NB, nq, nk) map from `block_liveness` over (q_block, kv_block) tiles,
     computed here from the positions and mask when omitted.  The CPU
-    path ignores it (dead tiles contribute nothing).  -> (B, R, Hq, D)."""
-    q_positions = torch.as_tensor(q_positions, device=q.device)
-    hh_mask = torch.as_tensor(hh_mask, device=q.device)
+    path ignores it (dead tiles contribute nothing).  A CUDA call takes
+    the route `_route` names.  -> (B, R, Hq, D)."""
     if not K.on_cuda(q, k, v):
-        return selective_mha_ref(q, q_positions, k, v, hh_mask, window=window)
+        return selective_mha_ref(q, torch.as_tensor(q_positions, device=q.device), k, v,
+                                 torch.as_tensor(hh_mask, device=q.device), window=window)
     B, R, Hq, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
-    S, Hkv = k.shape[1], k.shape[2]
-    if Hq % Hkv or D > 128:
-        raise ValueError(f"Hq={Hq} Hkv={Hkv} D={D}: need Hkv | Hq and D <= 128")
-    qp = q_positions if q_positions.dim() == 2 else q_positions[None]
-    hh = hh_mask if hh_mask.dim() == 2 else hh_mask[None]
+    # in the kernel's dtypes; the engine passes them so, and then nothing
+    # is copied or converted here
+    qp = K.as_operand(q_positions, torch.int32, q.device)
+    hh = K.as_operand(hh_mask, torch.uint8, q.device)
+    qp = qp if qp.dim() == 2 else qp[None]
+    hh = hh if hh.dim() == 2 else hh[None]
     nb = qp.shape[0]
-    if qp.shape != (nb, R) or hh.shape != (nb, S) or (B * Hq) % nb:
+    route = _route(q, k, v, nb)
+    S, Hkv = k.shape[1], k.shape[2]
+    if qp.shape != (nb, R) or hh.shape != (nb, S):
         raise ValueError(f"q_positions {tuple(qp.shape)} / hh_mask {tuple(hh.shape)}: "
                          f"want ({nb}, {R}) / ({nb}, {S}) with NB | {B * Hq}")
-    if q_block % 16 or kv_block % 32:
-        raise ValueError(f"liveness tiles ({q_block}, {kv_block}) must be multiples of (16, 32)")
+    check_live_tiles(route, Hq // Hkv, q_block, kv_block)
     if live is None:
         live = block_liveness(qp.cpu().numpy(), hh.cpu().numpy(), window=window,
                               q_block=q_block, kv_block=kv_block)
-    live = torch.as_tensor(live, dtype=torch.int32, device=q.device)
+    live = K.as_operand(live, torch.int32, q.device)
     if live.dim() == 2:
         live = live[None]
     nq, nk = -(-R // q_block), -(-S // kv_block)
     if live.shape != (nb, nq, nk):
         raise ValueError(f"live shape {tuple(live.shape)}: want ({nb}, {nq}, {nk})")
-    qp = qp.to(torch.int32).contiguous()
-    hh = hh.to(torch.uint8).contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("live", live)):
         K.check_cuda_operand(name, t)
     out = torch.empty_like(q)
     if out.numel() == 0 or S == 0:
         return out.zero_()
     lib = _build.library("selective", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.rt_selective_attention(
-            K.ptr(q), K.ptr(qp), K.ptr(k), K.ptr(v), K.ptr(hh), K.ptr(live),
-            K.ptr(out), B, R, S, Hq, Hkv, D, nb, int(window), q_block, kv_block,
-            nq, nk, 1.0 / D ** 0.5, K.dtype_code("q", q), K.dtype_code("k", k),
-            K.dtype_code("v", v), K.stream_of(q))
-    _build.check(lib, err, "selective_attention")
+    args = (K.ptr(q), K.ptr(qp), K.ptr(k), K.ptr(v), K.ptr(hh), K.ptr(live), K.ptr(out),
+            B, R, S, Hq, Hkv, D, nb, int(window), q_block, kv_block, nq, nk, 1.0 / D ** 0.5)
+    with K.on_device(q):
+        if route == "tc":
+            err = lib.rt_selective_attention_tc(*args, K.dtype_code("k", k), K.stream_of(q))
+        else:
+            err = lib.rt_selective_attention(
+                *args, K.dtype_code("q", q), K.dtype_code("k", k), K.dtype_code("v", v),
+                K.stream_of(q))
+    _build.check(lib, err, f"selective_attention ({route})")
     selective_mha.launches += 1
+    selective_mha.tc_launches += int(route == "tc")
     return out
 
 
 selective_mha.launches = 0
+selective_mha.tc_launches = 0

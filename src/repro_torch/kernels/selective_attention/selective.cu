@@ -14,17 +14,31 @@
 // tiles.  Flattened head row b*Hq+h reads mask row (b*Hq+h)*NB/(B*Hq).
 // GQA by index: query head h reads kv head h / (Hq / Hkv).
 //
-// Design: as the flash kernel (4 warps x 4 query rows, 32-key tiles in
-// shared memory, running (m, l, acc) in registers), plus a skip of every
-// key tile whose liveness entry is 0 — the block-sparse pattern that is
-// the point of the TPU kernel.  Each 16-row block lies inside one
-// liveness row and each 32-key tile inside one liveness column (the
-// wrapper checks the divisibility).
+// Two routes, chosen by the wrapper (`ops.py:_route`) from dtypes and
+// shapes alone:
 //
-// Bound on the card: operations at serving shapes (R ~ 200-300 queries
-// per request against S ~ 450-512 keys, D = 128); the CUDA-core FMAs
-// leave the tensor cores idle, which wgmma tiles would fix later.
+// * tensor cores (`rt_selective_attention_tc`, the served bf16 call):
+//   bf16 q and v, bf16 or fp32 k, D in {64, 128}, G = Hq / Hkv in
+//   {1, 2, 4, 8}, NB dividing B*Hkv (so the G heads of a kv group share
+//   one mask row).  The tile routine of `attn_tile.cuh`: one warpgroup
+//   per 64 rows = 64/G queries x G heads, wgmma for Q K^T and P V, 64-key
+//   K/V tiles through a 2-stage TMA + mbarrier ring, and a skip of
+//   every 64-key tile whose liveness entry is 0 (the block-sparse pattern
+//   that is the point of the TPU kernel; live_qb must be a multiple of
+//   64/G and live_kb of 64).  fp32 keys (the served call's, from the
+//   block gather's rotation) are split into bf16 hi + lo planes and take
+//   two products, so the scores stay near the fp32 product the plain
+//   version takes.  Bound on the card at the served call (q (5, 320, 32,
+//   128) bf16, k (5, 448, 8, 128) fp32): bytes, ~40 MB over 3.35 TB/s =
+//   0.012 ms; the live pairs' products, hi/lo split included, take less
+//   at the bf16 tensor-core peak.
+// * SIMT (`rt_selective_attention`, the CUDA-core kernel, everything else:
+//   fp32 queries such as the tiny card == CPU models, which are held to
+//   1e-5 that one bf16 product cannot meet): 4 warps x 4 query rows,
+//   32-key tiles in shared memory, CUDA-core FMAs, the same liveness skip
+//   (live_qb a multiple of 16, live_kb of 32).
 #include "../attn_common.cuh"
+#include "../attn_tile.cuh"
 
 namespace {
 
@@ -174,4 +188,65 @@ extern "C" int rt_selective_attention(const void* q, const void* q_pos,
       });
     });
   });
+}
+
+namespace {
+
+// Mask of the tensor-core route: liveness skip per 64-key tile, then
+// causal AND (window OR heavy hitter) per key, 64 keys at a time.
+struct SelectivePolicy {
+  const int* q_pos;
+  const uint8_t* hh;
+  const int* live;
+  int R, S, NB, groups, Hkv, window, live_qb, live_kb, live_nq, live_nk;
+  const int* pos_row;
+  const uint8_t* hh_row;
+  const int* live_row;
+
+  __device__ void init(int b, int hk, int q0) {
+    const long long mrow = (long long)(b * Hkv + hk) * NB / groups;
+    pos_row = q_pos + mrow * R;
+    hh_row = hh + mrow * S;
+    live_row = live + (mrow * live_nq + q0 / live_qb) * live_nk;
+  }
+  __device__ int n_tiles(int, int) const { return (S + rt::tc::kN - 1) / rt::tc::kN; }
+  __device__ bool tile_live(int kt) const { return live_row[kt * rt::tc::kN / live_kb] != 0; }
+  __device__ int pos(int qi) const { return pos_row[qi]; }
+  __device__ uint32_t flag(int key) const { return hh_row[key]; }
+  // keys k <= p, and p - k < window or heavy
+  __device__ uint64_t row_mask(int p, int k0, uint64_t heavy) const {
+    return rt::tc::bits_below(p - k0 + 1) & (~rt::tc::bits_below(p - window + 1 - k0) | heavy);
+  }
+};
+
+}  // namespace
+
+// The tensor-core route: q, v bf16; k bf16 or fp32 (k_dtype).
+extern "C" int rt_selective_attention_tc(const void* q, const void* q_pos, const void* k,
+                                         const void* v, const void* hh, const void* live,
+                                         void* o, int B, int R, int S, int Hq, int Hkv, int D,
+                                         int NB, int window, int live_qb, int live_kb,
+                                         int live_nq, int live_nk, float scale, int k_dtype,
+                                         void* stream) {
+  const int log2g = Hkv < 1 || Hq % Hkv != 0 ? -1 : rt::tc::log2_group(Hq / Hkv);
+  if (log2g < 0 || (D != 64 && D != 128) || NB < 1 || B < 1 || R < 1 || S < 1 ||
+      (B * Hkv) % NB != 0 || live_qb % (rt::tc::kM >> log2g) != 0 ||
+      live_kb % rt::tc::kN != 0 || live_nq * live_qb < R || live_nk * live_kb < S)
+    return cudaErrorInvalidValue;
+  const SelectivePolicy pol{static_cast<const int*>(q_pos), static_cast<const uint8_t*>(hh),
+                            static_cast<const int*>(live), R, S, NB, B * Hkv, Hkv, window,
+                            live_qb, live_kb, live_nq, live_nk, nullptr, nullptr, nullptr};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using rt::tc::launch_tc;
+  if (k_dtype == rt::kF32)
+    return D == 128 ? launch_tc<SelectivePolicy, float, 128>(q, k, v, o, B, R, S, Hq, Hkv, log2g,
+                                                             scale, pol, st)
+                    : launch_tc<SelectivePolicy, float, 64>(q, k, v, o, B, R, S, Hq, Hkv, log2g,
+                                                            scale, pol, st);
+  if (k_dtype == rt::kBF16)
+    return D == 128 ? launch_tc<SelectivePolicy, __nv_bfloat16, 128>(q, k, v, o, B, R, S, Hq, Hkv,
+                                                                     log2g, scale, pol, st)
+                    : launch_tc<SelectivePolicy, __nv_bfloat16, 64>(q, k, v, o, B, R, S, Hq, Hkv,
+                                                                    log2g, scale, pol, st);
+  return cudaErrorInvalidValue;
 }

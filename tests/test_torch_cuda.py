@@ -15,10 +15,12 @@ from repro_torch.kernels.block_gather.ops import assemble_kv
 from repro_torch.kernels.block_gather.ref import block_gather_ref
 from repro_torch.kernels.embedding_bag.ops import bag_sum
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.flash_attention.ops import _route as _flash_route
 from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.kernels.flash_attention.ref import mha_flash_ref
 from repro_torch.kernels.paged_attention.ops import paged_decode_mha
 from repro_torch.kernels.paged_attention.ref import paged_decode_ref
+from repro_torch.kernels.selective_attention.ops import _route as _selective_route
 from repro_torch.kernels.selective_attention.ops import block_liveness, selective_mha
 from repro_torch.kernels.selective_attention.ref import selective_mha_ref
 from repro_torch.serving.kv_pool import page_views
@@ -42,35 +44,44 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _launched(wrapper, route, before):
+    """The wrapper launched once more, on the tensor-core route iff
+    `route` says "tc"."""
+    launches, tc = before
+    assert wrapper.launches == launches + 1
+    assert wrapper.tc_launches == tc + (route == "tc")
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("seed", range(4))
-def test_flash_kernel_matches_plain(cuda, seed, dtype):
-    rng = np.random.default_rng(seed)
-    B, Hkv, G = int(rng.integers(1, 4)), int(rng.choice([1, 2, 8])), int(rng.choice([1, 2, 4]))
-    D = int(rng.choice([16, 64, 128]))
-    Sq = int(rng.integers(1, 150))
-    Skv = Sq if rng.integers(0, 2) else int(rng.integers(Sq, 200))
-    causal = bool(rng.integers(0, 2))
+@pytest.mark.parametrize("seed", range(2))
+def test_flash_kernel_matches_plain(cuda, seed, dtype, G, D):
+    """bf16 with D in {64, 128} runs the tensor-core route, everything else
+    the SIMT kernel; causal and not, with and without kv_valid, Sq up to
+    512 (several 64-row tiles and 64-key tiles, ragged edges)."""
+    rng = np.random.default_rng(seed * 1000 + G * 10 + D)
+    B, Hkv = int(rng.integers(1, 4)), int(rng.choice([1, 2, 8]))
+    Sq = int(rng.integers(1, 513))
+    Skv = Sq if rng.integers(0, 2) else int(rng.integers(Sq, 600))
     g = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dtype)
     q, k, v = g(B, Sq, Hkv * G, D), g(B, Skv, Hkv, D), g(B, Skv, Hkv, D)
     valid = torch.from_numpy(rng.random((B, Skv)) < 0.8).to(cuda)
     valid[:, 0] = True                                  # >= 1 live key per row
-    for kv_valid in (None, valid):
-        before = mha_flash.launches
-        got = mha_flash(q, k, v, kv_valid=kv_valid, causal=causal)
-        assert mha_flash.launches == before + 1
-        _close(got, mha_flash_ref(q, k, v, kv_valid=kv_valid, causal=causal),
-               F32_TOL if dtype == torch.float32 else BF16_TOL)
+    want_route = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    for causal in (True, False):
+        for kv_valid in (None, valid):
+            route = _flash_route(q, k, v, 1 if kv_valid is None else B)
+            assert route == want_route
+            before = (mha_flash.launches, mha_flash.tc_launches)
+            got = mha_flash(q, k, v, kv_valid=kv_valid, causal=causal)
+            _launched(mha_flash, route, before)
+            _close(got, mha_flash_ref(q, k, v, kv_valid=kv_valid, causal=causal),
+                   F32_TOL if dtype == torch.float32 else BF16_TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", range(4))
-def test_selective_kernel_matches_plain(cuda, seed):
-    rng = np.random.default_rng(seed)
-    B, Hkv, G, D = 2, int(rng.choice([2, 8])), 4, 128
-    n, R = int(rng.choice([128, 448, 512])), int(rng.choice([64, 128, 256]))
-    window = int(rng.choice([0, 16, 200]))
+def _selective_case(rng, cuda, B, Hkv, G, D, n, R, window, dtypes, kscale=1.0):
     valid = np.zeros((B, n), np.int8)
     r_pos = np.zeros((B, R), np.int64)
     for b in range(B):
@@ -78,14 +89,98 @@ def test_selective_kernel_matches_plain(cuda, seed):
         valid[b, :nb] = 1
         r_pos[b] = np.sort(rng.choice(nb, R, replace=False))
     hh = valid if window == 0 else (rng.random((B, n)) < 0.2).astype(np.int8)
-    for qd, kd, vd in ((torch.float32,) * 3, (torch.bfloat16, torch.float32, torch.bfloat16)):
-        g = lambda dt, *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dt)
-        q, k, v = g(qd, B, R, Hkv * G, D), g(kd, B, n, Hkv, D), g(vd, B, n, Hkv, D)
-        qp, hht = torch.from_numpy(r_pos).to(cuda), torch.from_numpy(hh).to(cuda)
-        live = block_liveness(r_pos, hh, window=window, q_block=64, kv_block=64)
+    g = lambda dt, *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dt)
+    qd, kd, vd = dtypes
+    q, k, v = g(qd, B, R, Hkv * G, D), kscale * g(kd, B, n, Hkv, D), g(vd, B, n, Hkv, D)
+    qp, hht = torch.from_numpy(r_pos).to(cuda), torch.from_numpy(hh).to(cuda)
+    live = block_liveness(r_pos, hh, window=window, q_block=64, kv_block=64)
+    return q, qp, k, v, hht, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("seed", range(4))
+def test_selective_kernel_matches_plain(cuda, seed, G):
+    """fp32 queries run the SIMT kernel; bf16 q and v with bf16 or fp32
+    keys the tensor-core route (one mask row per batch row); bf16 with a
+    mask row per head (NB = B*Hq, which the G heads of a kv group do not
+    share unless G = 1) the SIMT kernel again."""
+    rng = np.random.default_rng(seed * 10 + G)
+    B, Hkv, D = 2, int(rng.choice([2, 8])), int(rng.choice([64, 128]))
+    n = int(rng.choice([128, 448, 512]))
+    R = int(rng.choice([r for r in (64, 128, 256) if r < n]))
+    window = int(rng.choice([0, 16, 200]))
+    bf, f32 = torch.bfloat16, torch.float32
+    for dtypes, want_route in (((f32,) * 3, "simt"), ((bf, f32, bf), "tc"),
+                               ((bf,) * 3, "tc")):
+        q, qp, k, v, hht, live = _selective_case(rng, cuda, B, Hkv, G, D, n, R, window,
+                                                 dtypes)
+        assert _selective_route(q, k, v, qp.shape[0]) == want_route
+        before = (selective_mha.launches, selective_mha.tc_launches)
         got = selective_mha(q, qp, k, v, hht, live=live, window=window)
+        _launched(selective_mha, want_route, before)
         _close(got, selective_mha_ref(q, qp, k, v, hht, window=window),
-               F32_TOL if qd == torch.float32 else BF16_TOL)
+               F32_TOL if dtypes[0] == f32 else BF16_TOL)
+    # one mask row per (batch row, query head)
+    Hq = Hkv * G
+    qp = qp.repeat_interleave(Hq, dim=0)
+    hht = hht.repeat_interleave(Hq, dim=0)
+    live = block_liveness(qp.cpu().numpy(), hht.cpu().numpy(), window=window,
+                          q_block=64, kv_block=64)
+    route = _selective_route(q, k, v, qp.shape[0])
+    assert route == ("tc" if G == 1 else "simt")
+    before = (selective_mha.launches, selective_mha.tc_launches)
+    got = selective_mha(q, qp, k, v, hht, live=live, window=window)
+    _launched(selective_mha, route, before)
+    _close(got, selective_mha_ref(q, qp, k, v, hht, window=window), BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kd", [torch.float32, torch.bfloat16])
+def test_selective_kernel_skips_dead_leading_tiles(cuda, kd):
+    """No heavy hitter among the first 128 keys and every query past them
+    with a short window: the leading key tiles are dead for every query
+    tile, which the tensor-core route must drain and skip (it starts
+    loading tile 0 before it reads the liveness map)."""
+    rng = np.random.default_rng(11)
+    B, Hkv, G, D, n, R, window = 2, 2, 4, 128, 448, 64, 16
+    hh = (rng.random((B, n)) < 0.3).astype(np.int8)
+    hh[:, :128] = 0
+    r_pos = np.stack([np.sort(rng.choice(np.arange(200, n), R, replace=False))
+                      for _ in range(B)])
+    live = block_liveness(r_pos, hh, window=window, q_block=64, kv_block=64)
+    assert not live[:, :, :2].any() and live.any()
+    g = lambda dt, *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dt)
+    q, k, v = g(torch.bfloat16, B, R, Hkv * G, D), g(kd, B, n, Hkv, D), g(torch.bfloat16, B, n, Hkv, D)
+    qp, hht = torch.from_numpy(r_pos).to(cuda), torch.from_numpy(hh).to(cuda)
+    before = (selective_mha.launches, selective_mha.tc_launches)
+    got = selective_mha(q, qp, k, v, hht, live=live, window=window)
+    _launched(selective_mha, "tc", before)
+    _close(got, selective_mha_ref(q, qp, k, v, hht, window=window), BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_selective_kernel_keeps_fp32_keys(cuda):
+    """The served call's keys are fp32 (the block gather's rotation).  At
+    scores of about +-50, rounding them to bf16 moves the plain version's
+    output beyond BF16_TOL (so these inputs tell the two apart); the
+    tensor-core route, which splits each key into bf16 hi + lo, stays
+    within it."""
+    rng = np.random.default_rng(7)
+    q, qp, k, v, hht, live = _selective_case(
+        rng, cuda, 1, 8, 4, 128, 448, 256, 0, (torch.bfloat16, torch.float32, torch.bfloat16),
+        kscale=10.0)
+    want = selective_mha_ref(q, qp, k, v, hht, window=0)
+    s = torch.einsum("brd,bkd->brk", q[0, :, ::4].float().transpose(0, 1),
+                     k[0].float().transpose(0, 1)) / 128 ** 0.5
+    assert float(s.abs().max()) > 40
+    moved = selective_mha_ref(q, qp, k.to(torch.bfloat16).float(), v, hht, window=0)
+    assert not torch.allclose(moved.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    assert _selective_route(q, k, v, 1) == "tc"
+    before = (selective_mha.launches, selective_mha.tc_launches)
+    got = selective_mha(q, qp, k, v, hht, live=live, window=0)
+    _launched(selective_mha, "tc", before)
+    _close(got, want, BF16_TOL)
 
 
 @pytest.mark.cuda
