@@ -41,11 +41,14 @@ else (no network, no JAX).  Phases:
    "flash_attention" and "selective_attention"), the SIMT kernel at the
    largest fp32 call of the tiny runs (the records "...:fp32", whose
    launches are those runs') and at the served call cast to fp32.  The
+   paged-decode kernel also against its split-K plain version at the
+   split it chose, and it must run at least two blocks per SM.  The
    embedding bag on its serve_p99 and serve_bulk inputs, also with a bf16 and a d = 32
    table; and each recsys model at full width scores and retrieves the
    same on the card as a CPU copy of it;
 4. kernel times (CUDA events, median of 20 after warm-up; and the
-   device time alone under torch.profiler) beside the plain version, one
+   device time alone under torch.profiler; for the paged-decode kernel
+   also with the L2 flushed before each call) beside the plain version, one
    library call computing the same function where there is one, and the
    card's bound for the work.
 
@@ -83,7 +86,10 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E40
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mask_rows, mha_flash_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as PO  # noqa: E402
-from repro_torch.kernels.paged_attention.ref import paged_decode_ref  # noqa: E402
+from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
+    paged_decode_ref,
+    paged_decode_split_ref,
+)
 from repro_torch.kernels.selective_attention import ops as SO  # noqa: E402
 from repro_torch.kernels.selective_attention.ref import selective_mha_ref  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
@@ -389,20 +395,32 @@ def time_ms(fn, reps=20, warmup=3):
     return float(statistics.median(times))
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, flush=None):
     """Mean device time per call: the card's kernel and copy intervals
     under torch.profiler, so the wrapper's host work between launches
-    (which a CUDA-event time of one short call includes) is left out."""
+    (which a CUDA-event time of one short call includes) is left out.
+    With `flush` (a buffer larger than the 50 MB L2), the buffer is
+    written before each call, so the call finds its inputs out of L2;
+    the writes themselves are not counted."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3
+
+    def run(cold):
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(reps):
+                if cold:
+                    flush.fill_(i & 0xFF)
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    dur = lambda e: e.time_range.end - e.time_range.start
+    warm = run(False)
+    if flush is None:
+        return sum(map(dur, warm)) / reps / 1e3
+    names = {e.name for e in warm}
+    return sum(dur(e) for e in run(True) if e.name in names) / reps / 1e3
 
 
 class Spans:
@@ -630,6 +648,37 @@ def selective_host_inputs_ms(a, kw):
     qp64, hh8 = qp.long(), hh.to(torch.int8)
     live = kw["live"].cpu().numpy()
     return time_ms(lambda: SO.selective_mha(q, qp64, k, v, hh8, **dict(kw, live=live)))
+
+
+def paged_split_record(a, kw):
+    """B3 at the served call: the kernel's split choice (pages per split,
+    splits, blocks: at least two per SM), the kernel against the split-K
+    plain version at the same split (within TOL), and its device time with
+    the L2 flushed before each call by writing a 256 MB buffer (a decode
+    step reaches each layer's K/V after the other layers' weights)."""
+    fn = PO.paged_decode_mha
+    q, ak = a[0], a[1]
+    out = fn(*a, **kw)
+    pps, splits = fn.last_splits
+    blocks = q.shape[0] * ak.shape[3] * splits
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if blocks < 2 * sms:
+        raise RuntimeError(f"paged_decode_attention: {blocks} blocks at the served call, "
+                           f"fewer than two per SM ({sms} SMs)")
+    split = paged_decode_split_ref(*a, **kw, pages_per_split=pps)
+    torch.cuda.synchronize()
+    err = float((out.float() - split.float()).abs().max())
+    if not torch.isfinite(out).all() or err > TOL[q.dtype]:
+        raise RuntimeError(f"paged_decode_attention: max|kernel - split plain| {err} > "
+                           f"{TOL[q.dtype]}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=q.device)
+    cold = device_ms(lambda: fn(*a, **kw), flush=flush)
+    del flush
+    log(f"check paged_decode_attention split-K: {splits} splits of {pps} pages, {blocks} "
+        f"blocks on {sms} SMs; max|kernel - split plain| {err:.3g}; device time with the "
+        f"L2 flushed {cold:.4f} ms")
+    return {"pages_per_split": pps, "splits": splits, "blocks": blocks,
+            "split_ref_max_abs_err": err, "device_cold_ms": cold, "flush_mb": 256}
 
 
 def checked_record(name, spec, launches, a, kw, extra, fp32_too=False, label=None):
@@ -907,6 +956,7 @@ def main(argv=None):
         wall, busy, top, memcpy_s, n_memcpy = device_busy(fn)
         breakdown[f"{phase}_profiled_wall_s"] = wall
         breakdown[f"{phase}_device_busy_s"] = busy
+        breakdown[f"{phase}_device_busy_share"] = None if busy is None else busy / wall
         breakdown[f"{phase}_device_idle_share"] = None if busy is None else 1 - busy / wall
         breakdown[f"{phase}_host_card_memcpy_s"] = memcpy_s
         breakdown[f"{phase}_host_card_memcpy_count"] = n_memcpy
@@ -917,6 +967,9 @@ def main(argv=None):
         f"{k} {v:.3f} s" for k, v in breakdown["prefill"].items()))
     log(f"  decode step {breakdown['decode_step_ms']:.2f} ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in breakdown["decode"].items()))
+    log("  device-busy / idle share of the profiled wall: " + "; ".join(
+        f"{phase} {breakdown[f'{phase}_device_busy_share']} / "
+        f"{breakdown[f'{phase}_device_idle_share']}" for phase in ("prefill", "decode")))
     for phase in ("prefill", "decode"):
         busy = breakdown[f"{phase}_device_busy_s"]
         log(f"  profiled {phase}: wall {breakdown[f'{phase}_profiled_wall_s']:.3f} s, device busy "
@@ -952,6 +1005,8 @@ def main(argv=None):
             extra["kernel_route"] = check_route(name, a, kw, "tc")
         if name == "selective_attention":
             extra["ms_host_inputs"] = selective_host_inputs_ms(a, kw)
+        if name == "paged_decode_attention":
+            extra.update(paged_split_record(a, kw))
         records.append(checked_record(name, spec, total[name], a, kw, extra, fp32_too=True))
     # ---- phase 2d: recsys scoring and retrieval at published widths ----
     # (after the rcllm checks and times, so that no recsys model is on the

@@ -21,7 +21,7 @@ _SIGNATURES = {"rt_block_gather": [_P] * 8 + [_I] * 9 + [_P]}
 _FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
 
 
-def _freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
+def device_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
     """The plain version's frequencies, computed once per (d, theta,
     device) by the same PyTorch expression, so kernel and plain version
     rotate by bitwise the same angles."""
@@ -70,7 +70,7 @@ def assemble_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,
     k_raw = torch.empty_like(k_out) if keep_raw else None
     if n_logical == 0:
         return (k_out, v_out, k_raw) if keep_raw else (k_out, v_out)
-    freqs = _freqs(D, rope_theta, pool_k.device)
+    freqs = device_freqs(D, rope_theta, pool_k.device)
     nk, nv = 16 // pool_k.element_size(), 16 // pool_v.element_size()
     vec = int((D // 2) % nk == 0 and (H * D) % nv == 0 and all(
         t.data_ptr() % 16 == 0 for t in (pool_k, pool_v, k_out, v_out)))

@@ -183,30 +183,127 @@ def test_selective_kernel_keeps_fp32_keys(cuda):
     _close(got, want, BF16_TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", range(4))
-def test_paged_decode_kernel_matches_plain(cuda, seed):
-    rng = np.random.default_rng(seed)
-    page, n_pages, L, Hkv, G, D = 16, 64, 3, int(rng.choice([2, 8])), 4, 128
-    N = int(rng.integers(1, 9))
-    lens = rng.integers(0, 400, N)
-    tables = np.zeros((N, int(lens.max()) + 1), np.int64)
-    new_pages, new_slots = np.zeros(N, np.int64), np.zeros(N, np.int64)
-    for i in range(N):
-        slots = rng.choice(np.arange(page, n_pages * page), int(lens[i]) + 1, replace=False)
-        tables[i, : lens[i]] = slots[:-1]
-        new_pages[i], new_slots[i] = divmod(slots[-1], page)
+def _paged_inputs(cuda, rng, lens, page, n_pages, L, Hkv, G, D, qd, ad):
+    """q, arenas and the page view of rows of the given lengths, each with
+    its slots drawn at random (never page-aligned) plus the new token's."""
+    lens = np.asarray(lens, np.int64)
+    tables = np.zeros((len(lens), max(int(lens.max()), 1)), np.int64)
+    new_pages, new_slots = np.zeros(len(lens), np.int64), np.zeros(len(lens), np.int64)
+    for i, ln in enumerate(lens):
+        slots = rng.choice(np.arange(page, n_pages * page), int(ln) + 1, replace=False)
+        tables[i, :ln] = slots[:-1]
+        new_pages[i], new_slots[i] = divmod(int(slots[-1]), page)
     pg, sp = page_views(tables, lens, new_pages, new_slots, page)
-    pg, sp = torch.from_numpy(pg).to(cuda), torch.from_numpy(sp).to(cuda)
-    arena = lambda: torch.from_numpy(
-        rng.normal(size=(n_pages, page, L, Hkv, D)).astype(np.float32)).to(cuda)
-    ak, av = arena(), arena()
-    for qd in (torch.float32, torch.bfloat16):
-        q = torch.from_numpy(rng.normal(size=(N, Hkv * G, D)).astype(np.float32)).to(cuda, qd)
-        for layer in range(L):
-            got = paged_decode_mha(q, ak, av, pg, sp, layer=layer, rope_theta=1e6)
-            want = paged_decode_ref(q, ak, av, pg, sp, layer=layer, rope_theta=1e6)
-            _close(got, want, F32_TOL if qd == torch.float32 else BF16_TOL)
+    g = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+    ak, av = g(n_pages, page, L, Hkv, D).to(ad), g(n_pages, page, L, Hkv, D).to(ad)
+    q = g(len(lens), Hkv * G, D).to(qd)
+    return q, ak, av, torch.from_numpy(pg).to(cuda), torch.from_numpy(sp).to(cuda)
+
+
+def _paged_check(q, ak, av, pg, sp, layer):
+    """The kernel against the plain version; -> the launch's (pages per
+    split, splits)."""
+    before = paged_decode_mha.launches
+    got = paged_decode_mha(q, ak, av, pg, sp, layer=layer, rope_theta=1e6)
+    assert paged_decode_mha.launches == before + 1
+    want = paged_decode_ref(q, ak, av, pg, sp, layer=layer, rope_theta=1e6)
+    exact = q.dtype == ak.dtype == torch.float32
+    _close(got, want, F32_TOL if exact else BF16_TOL)
+    return paged_decode_mha.last_splits
+
+
+_PAGED_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                 (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _PAGED_DTYPES, ids=["q32-kv32", "q32-kv16", "q16-kv32",
+                                                      "q16-kv16"])
+@pytest.mark.parametrize("page", [1, 4, 16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_paged_decode_kernel_matches_plain(cuda, G, D, page, dtypes):
+    """Mixed long and short rows in one batch, among them rows whose only
+    live slot is the new token; both layers of a two-layer arena."""
+    qd, ad = dtypes
+    rng = np.random.default_rng(G * 1000 + D * 10 + page)
+    lens = [0, 1200, 37, 0, 400, 5]
+    q, ak, av, pg, sp = _paged_inputs(cuda, rng, lens, page, 2048 // page, 2, 2, G, D, qd, ad)
+    for layer in range(2):
+        pps, splits = _paged_check(q, ak, av, pg, sp, layer)
+        assert pps * splits >= pg.shape[1] > pps * (splits - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _PAGED_DTYPES[:1] + _PAGED_DTYPES[2:3])
+@pytest.mark.parametrize("G", [3, 5, 6, 12])
+def test_paged_decode_kernel_uneven_groups(cuda, G, dtypes):
+    """Groups that are not a power of two run padded to the next one; the
+    pad heads are never written."""
+    rng = np.random.default_rng(G)
+    q, ak, av, pg, sp = _paged_inputs(cuda, rng, [0, 300, 41], 16, 64, 2, 2, G, 128, *dtypes)
+    _paged_check(q, ak, av, pg, sp, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _PAGED_DTYPES[:1] + _PAGED_DTYPES[2:3])
+def test_paged_decode_kernel_long_row(cuda, dtypes):
+    """N = 1 with a ~4,000-token row (Pmax 252): many splits."""
+    rng = np.random.default_rng(5)
+    q, ak, av, pg, sp = _paged_inputs(cuda, rng, [4000], 16, 300, 2, 8, 4, 128, *dtypes)
+    _, splits = _paged_check(q, ak, av, pg, sp, 1)
+    assert splits > 8
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_served_shape_splits(cuda):
+    """The served call (8 rows of ~430-460 tokens, 32 / 8 heads, head dim
+    128, bf16 q over an fp32 arena, page 16) runs split-K with at least
+    two blocks per SM of an H100."""
+    rng = np.random.default_rng(6)
+    lens = rng.integers(430, 461, 8)
+    q, ak, av, pg, sp = _paged_inputs(cuda, rng, lens, 16, 512, 2, 8, 4, 128,
+                                      torch.bfloat16, torch.float32)
+    pps, splits = _paged_check(q, ak, av, pg, sp, 1)
+    assert splits > 1 and 8 * 8 * splits >= 264
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _PAGED_DTYPES, ids=["q32-kv32", "q32-kv16", "q16-kv32",
+                                                      "q16-kv16"])
+@pytest.mark.parametrize("D", [2, 6, 10, 16])
+def test_paged_decode_kernel_narrow_and_unaligned_rows(cuda, D, dtypes):
+    """Rows whose width is not a multiple of 16 bytes, and arenas 4 bytes
+    off a 16-byte boundary, take the kernel's 4-byte copies."""
+    qd, ad = dtypes
+    rng = np.random.default_rng(D)
+    q, ak, av, pg, sp = _paged_inputs(cuda, rng, [0, 70, 9], 4, 64, 2, 2, 4, D, qd, ad)
+    _paged_check(q, ak, av, pg, sp, 1)
+    shift = 4 // ak.element_size()
+
+    def unaligned(t):
+        v = torch.empty(t.numel() + shift, dtype=t.dtype, device=cuda)[shift:].view(t.shape)
+        return v.copy_(t)
+
+    ak4, av4 = unaligned(ak), unaligned(av)
+    assert ak4.data_ptr() % 16 == 4 and av4.data_ptr() % 16 == 4
+    _paged_check(q, ak4, av4, pg, sp, 1)
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_dead_row_gives_zero(cuda):
+    """A row with no live slot gives exactly 0, as the TPU kernel does (it
+    skips every page; the plain version would average the masked values);
+    the other rows match the plain version."""
+    rng = np.random.default_rng(7)
+    q, ak, av, pg, sp = _paged_inputs(cuda, rng, [90, 3, 200], 16, 64, 1, 2, 4, 128,
+                                      torch.float32, torch.float32)
+    sp[1] = -1
+    got = paged_decode_mha(q, ak, av, pg, sp, layer=0, rope_theta=1e6)
+    want = paged_decode_ref(q, ak, av, pg, sp, layer=0, rope_theta=1e6)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    _close(got[[0, 2]], want[[0, 2]], F32_TOL)
 
 
 @pytest.mark.cuda
