@@ -80,7 +80,7 @@ from repro_torch.configs.rcllm_qwen3_8b import CONFIG as QWEN3_8B  # noqa: E402
 from repro_torch.core import engine as ENG  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gather import ops as BO  # noqa: E402
-from repro_torch.kernels.block_gather.ref import block_gather_ref  # noqa: E402
+from repro_torch.kernels.block_gather.ref import block_gather_ref, gather_pages  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as EO  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
@@ -96,8 +96,12 @@ from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import steps as STEPS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.recsys import models as RM  # noqa: E402
+from repro_torch.serving import api as API  # noqa: E402
 from repro_torch.serving import batch_engine as BE  # noqa: E402
-from repro_torch.serving.api import ServeConfig  # noqa: E402
+from repro_torch.serving import block_store as BS  # noqa: E402
+from repro_torch.serving import workload as WL  # noqa: E402
+from repro_torch.serving.api import ServeConfig, StoreConfig  # noqa: E402
+from repro_torch.serving.batching import TorchEngineBackend  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
@@ -126,6 +130,23 @@ RECSYS_CELLS = {"wide-deep": ("serve_p99", "serve_bulk", "retrieval_cand"),
                 "bert4rec": ("serve_p99", "retrieval_cand")}
 RCLLM_KERNELS = ("flash_attention", "selective_attention", "paged_decode_attention",
                  "block_gather")
+# phase 2e: the repeat-user trace (12 requests over 4 users, Zipf), and the
+# int8 run's store: a page budget small enough to force evictions and a
+# host spill tier.  In the int8 run the trace's second half arrives
+# INT8_WAVE_GAP_S later on the batcher's clock, after the first half has
+# released its blocks: returning users and items then find their blocks
+# evicted to the spill tier and promote them back (with all 12 requests in
+# flight at once every block stays referenced, so nothing can be evicted)
+KV_REQUESTS, KV_USERS = 12, 4
+INT8_STORE_PAGES, INT8_SPILL_MB = 96, 256
+INT8_WAVE_GAP_S = 60.0
+# a greedy pick whose top-1 minus top-2 logit gap is at most this many bf16
+# ulps of the top-1 logit counts as a near-tie in the reuse on/off gate
+# (twice the largest top-1 logit difference seen before a divergence, 2
+# ulps, in the first runs on the card).  Phase 2e serves the reuse-off
+# trace twice and prints the same reading for that pair: the control
+# for what timing-dependent batching alone changes
+GAP_ULPS = 4
 # kernels with two routes: "<name>" counts and records the tensor-core route
 # (bf16, the served path at full width), "<name>:fp32" the SIMT kernel
 # (fp32, the tiny card == CPU path)
@@ -152,6 +173,11 @@ KERNELS = {
 }
 
 
+# seconds by phase of this run (and, summed over device_busy's calls, the
+# profiled spans and the reading of the profiler's events)
+PHASE_S = {}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -161,6 +187,7 @@ def reset_counts():
         spec["fn"].launches = 0
         if name in TWO_ROUTES:
             spec["fn"].tc_launches = 0
+    BO.assemble_kv.pool2_launches = 0
 
 
 # ------------------------------------------------------------- recording
@@ -203,11 +230,45 @@ def _paged_snapshot(args, kwargs):
              inv.to(torch.int32).contiguous(), sp.clone()), dict(kwargs))
 
 
+def store_view(pg, sp):
+    """How a decode view lays rows over store-shared pages.  -> (physical
+    pages read by two or more rows, rows with a dead (-1) slot in a page
+    before their last); a private, page-aligned view has neither."""
+    pg, sp = pg.cpu().numpy(), sp.cpu().numpy()
+    live = (sp >= 0).any(-1)
+    seen = np.concatenate([np.unique(pg[i][live[i]]) for i in range(len(pg))])
+    _, per_page = np.unique(seen, return_counts=True)
+    dead_inside = sum(bool((sp[i, np.where(live[i])[0][:-1]] < 0).any())
+                      for i in range(len(pg)))
+    return int((per_page >= 2).sum()), int(dead_inside)
+
+
+class StoreDecodeRecorder(Recorder):
+    """The paged-decode wrapper in the reuse-on runs: keeps the largest call
+    (by query size) whose view has a page shared by two rows and a dead
+    slot inside a row (`store_view`)."""
+
+    def __init__(self, fn):
+        super().__init__(fn, _paged_snapshot)
+        self.view = None
+
+    def __call__(self, *args, **kwargs):
+        if args[0].is_cuda and args[0].numel() > self.size:
+            view = store_view(args[3], args[4])
+            if min(view) > 0:
+                self.size, self.view = args[0].numel(), view
+                self.args, self.kwargs = self.snapshot(args, kwargs)
+        return self.fn(*args, **kwargs)
+
+
 class GatherRecorder:
     """Keeps the inputs of the largest rotated (the selective layers') and
-    the largest unrotated (layer 0's Eq. 3 rows) block-gather call.  The
-    pools are planes of the read-only cached-row pool and the tables are
-    never written after the call, so references suffice."""
+    the largest unrotated (layer 0's Eq. 3 rows) block-gather call, and of
+    the largest rotated call that also reads the second pool (store-shared
+    prefix rows, "prefix").  The pools are planes of the read-only
+    cached-row pool, or of the arena at store-owned slots that no request
+    writes, and the tables are never written after the call, so
+    references suffice."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -215,6 +276,8 @@ class GatherRecorder:
 
     def __call__(self, *args, **kwargs):
         mode = "rotate" if kwargs.get("rotate", True) else "copy"
+        if kwargs.get("pool2_k") is not None:
+            mode = "prefix" if mode == "rotate" else "prefix_copy"
         size = args[2].numel()
         if size > self.calls.get(mode, (-1,))[0]:
             self.calls[mode] = (size, args, dict(kwargs))
@@ -256,9 +319,12 @@ def plain_call(name, args, kw):
     if name == "embedding_bag":
         return embedding_bag_ref(*args)
     if name == "block_gather":
+        k2, v2 = kw.get("pool2_k"), kw.get("pool2_v")
         k, v = block_gather_ref(*args, rope_theta=kw.get("rope_theta", 1e4),
-                                rotate=kw.get("rotate", True))
-        return (k, v, args[0][args[2].long()]) if kw.get("keep_raw") else (k, v)
+                                rotate=kw.get("rotate", True), pool2_k=k2, pool2_v=v2)
+        if not kw.get("keep_raw"):
+            return k, v
+        return k, v, gather_pages(args[0], args[2].long(), k2)
     if name == "flash_attention":
         return mha_flash_ref(*args, **kw)
     if name == "selective_attention":
@@ -288,8 +354,9 @@ def library_call(name, args, kw):
         table, ids = args
         return lambda: F.embedding_bag(ids, table, mode="sum")
     if name == "block_gather":
-        if kw.get("rotate", True):
-            return None           # no one PyTorch call gathers and rotates
+        if kw.get("rotate", True) or kw.get("pool2_k") is not None:
+            return None           # no one PyTorch call gathers and rotates, or
+                                  # gathers from two pools
         pk, pv, bt = args[0], args[1], args[2].long()
         return lambda: (torch.index_select(pk, 0, bt), torch.index_select(pv, 0, bt))
     q = args[0]
@@ -373,8 +440,14 @@ def work(name, args, kw, out):
     ak, av, pg, sp = args[1], args[2], args[3], args[4]
     N, Hq, _ = q.shape
     Hkv = ak.shape[3]
-    live_slots = int((sp >= 0).sum())
-    kv_bytes = 2 * live_slots * Hkv * D * ak.element_size()
+    live = sp >= 0
+    live_slots = int(live.sum())
+    # K/V bytes: each physical slot a live position reads, once (rows that
+    # share a store page need its bytes once); operations per (row, slot)
+    slot_ids = pg.long()[:, :, None] * sp.shape[2] + torch.arange(sp.shape[2],
+                                                                  device=sp.device)
+    read_slots = int(torch.unique(slot_ids[live]).numel())
+    kv_bytes = 2 * read_slots * Hkv * D * ak.element_size()
     flops = 4 * D * Hq * live_slots + 3 * D * Hkv * live_slots   # + rotation
     return nbytes(q, pg, sp, out) + kv_bytes, flops
 
@@ -413,14 +486,13 @@ def device_ms(fn, reps=20, flush=None):
                     flush.fill_(i & 0xFF)
                 fn()
             torch.cuda.synchronize()
-        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return device_events(prof)
 
-    dur = lambda e: e.time_range.end - e.time_range.start
     warm = run(False)
     if flush is None:
-        return sum(map(dur, warm)) / reps / 1e3
-    names = {e.name for e in warm}
-    return sum(dur(e) for e in run(True) if e.name in names) / reps / 1e3
+        return sum(e - s for _, s, e in warm) / reps / 1e6
+    names = {n for n, _, _ in warm}
+    return sum(e - s for n, s, e in run(True) if n in names) / reps / 1e6
 
 
 class Spans:
@@ -450,15 +522,16 @@ class Spans:
             setattr(owner, name, orig)
 
 
-def warm_run(engine, plans, steps):
+def warm_run(engine, plans, steps, reuse=None):
     """The serving path without the batcher: one rcllm prefill of every
-    request's plan in one batch, then `steps` greedy decode steps and
-    the release of every request.  -> (prefill, decode), to be called in
-    that order."""
+    request's plan in one batch (with its `reuse` metadata for a
+    store-backed engine), then `steps` greedy decode steps and the release
+    of every request.  -> (prefill, decode), to be called in that order."""
     rids = sorted(plans)
     brs = [BE.BatchRequest(rid=rid, tokens=plans[rid][0].tokens, plan=plans[rid][0],
                            block_table=plans[rid][1], positions=plans[rid][2],
-                           have=plans[rid][3], n_reserve=steps) for rid in rids]
+                           have=plans[rid][3], n_reserve=steps,
+                           reuse=None if reuse is None else reuse[rid]) for rid in rids]
     state = {}
 
     def prefill():
@@ -473,6 +546,18 @@ def warm_run(engine, plans, steps):
     return prefill, decode
 
 
+def device_events(prof):
+    """The card's kernel, copy and set intervals of a finished
+    torch.profiler run: [(name, start ns, end ns)].  Read from the raw
+    Kineto events: `prof.events()` would first build the host op tree,
+    tens of seconds for one profiled decode of a 36-layer model."""
+    cuda = torch.autograd.DeviceType.CUDA
+    skip = getattr(torch.autograd.profiler, "_filter_name", lambda name: False)
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_hidden_event() and not skip(e.name())]
+
+
 def device_busy(fn):
     """Run `fn` under torch.profiler.  -> (wall s, device-busy s as the
     union of the card's kernel and copy intervals, top device consumers
@@ -485,28 +570,30 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name, memcpy_us, n_memcpy = [], {}, 0.0, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dur = e.time_range.end - e.time_range.start
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + dur
-            if "memcpy" in e.name.lower() and "dtod" not in e.name.lower():
-                memcpy_us += dur
-                n_memcpy += 1
-    busy, end = 0.0, float("-inf")
+    t_post = time.perf_counter()
+    spans, by_name, memcpy_ns, n_memcpy = [], {}, 0, 0
+    for name, s, e in device_events(prof):
+        spans.append((s, e))
+        by_name[name] = by_name.get(name, 0) + e - s
+        if "memcpy" in name.lower() and "dtod" not in name.lower():
+            memcpy_ns += e - s
+            n_memcpy += 1
+    busy, end = 0, float("-inf")
     for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return (wall, (busy / 1e6 if spans else None), [(n[:60], us / 1e3) for n, us in top],
-            memcpy_us / 1e6, n_memcpy)
+    PHASE_S["profiler_total"] = PHASE_S.get("profiler_total", 0.0) + time.perf_counter() - t0
+    PHASE_S["profiler_events"] = (PHASE_S.get("profiler_events", 0.0)
+                                  + time.perf_counter() - t_post)
+    return (wall, (busy / 1e9 if spans else None), [(n[:60], ns / 1e6) for n, ns in top],
+            memcpy_ns / 1e9, n_memcpy)
 
 
 def shapes(args, kw):
     out = []
-    for a in list(args) + [kw.get("kv_valid"), kw.get("live")]:
+    for a in list(args) + [kw.get("kv_valid"), kw.get("live"), kw.get("pool2_k")]:
         if torch.is_tensor(a) or isinstance(a, np.ndarray):
             out.append(f"{tuple(a.shape)}:{str(a.dtype).replace('torch.', '')}")
     return out
@@ -523,6 +610,7 @@ def counts():
             out[f"{n}:fp32"] = fn.launches - fn.tc_launches
         else:
             out[n] = fn.launches
+    out["block_gather:prefix"] = BO.assemble_kv.pool2_launches
     return out
 
 
@@ -584,29 +672,34 @@ def timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=None):
     log(f"time {label}: kernel {ms:.4f} ms (device only {dev_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({rec['bound_by']})")
+        f"{max(t_bytes, t_ops):.4f} ms ({rec['bound_by']}; {b / 1e6:.1f} MB)")
     return rec
 
 
-def gather_records(calls, spec, launches):
+def gather_records(calls, spec, launches, modes=("rotate", "copy")):
     """The block gather against its plain version on the inputs of its
-    largest rotated call (the selective layers') and its largest copy
-    (layer 0's Eq. 3 rows): in the pool's serving dtype (fp32) and cast to
-    the model's bf16.  Copies (values, unrotated and raw keys) must be
-    bitwise; rotated keys within GATHER_TOL of max(1, max|plain|)."""
+    largest rotated call (the selective layers'), its largest copy (layer
+    0's Eq. 3 rows) or, for mode "prefix", its largest rotated call with
+    the second pool (store-shared prefix rows): in the pool's serving dtype
+    (fp32) and cast to the model's bf16.  Copies (values, unrotated and raw
+    keys) must be bitwise; rotated keys within GATHER_TOL of max(1,
+    max|plain|)."""
     fn = spec["fn"]
     records = []
-    for mode in ("rotate", "copy"):
+    for mode in modes:
         if mode not in calls:
             raise RuntimeError(f"block_gather: no {mode} call was recorded")
         _, a, kw = calls[mode]
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
             ad = (a[0].to(dt), a[1].to(dt), a[2], a[3])
-            got, want = fn(*ad, **kw), plain_call("block_gather", ad, kw)
+            kwd = dict(kw)
+            if kw.get("pool2_k") is not None:
+                kwd.update(pool2_k=kw["pool2_k"].to(dt), pool2_v=kw["pool2_v"].to(dt))
+            got, want = fn(*ad, **kwd), plain_call("block_gather", ad, kwd)
             torch.cuda.synchronize()
             exact = [torch.equal(g, w) for g, w in zip(got, want)]
-            if mode == "rotate":
+            if mode in ("rotate", "prefix"):
                 exact = exact[1:]                    # values and raw keys
                 scale = max(1.0, float(want[0].float().abs().max()))
                 err = float((got[0].float() - want[0].float()).abs().max())
@@ -622,10 +715,13 @@ def gather_records(calls, spec, launches):
             f"max|kernel-plain| fp32 {errs[torch.float32]:.3g}, bf16 "
             f"{errs[torch.bfloat16]:.3g} (tol {GATHER_TOL} x max(1, max|k|))")
         out = fn(*a, **kw)
-        records.append(timed_record("block_gather", spec, launches, a, kw, out,
+        label = {"copy": "block_gather:copy", "prefix": "block_gather:prefix"}.get(
+            mode, "block_gather")
+        records.append(timed_record("block_gather", spec, launches[mode], a, kw, out,
                                     errs[torch.float32], torch.float32,
                                     {"tol": GATHER_TOL[torch.float32],
-                                     "bf16_max_abs_err": errs[torch.bfloat16]}))
+                                     "bf16_max_abs_err": errs[torch.bfloat16]},
+                                    label=label))
     return records
 
 
@@ -836,6 +932,348 @@ def recsys_card_vs_cpu(models, dev, batch=64, n_candidates=4096):
     return out
 
 
+# ------------------------------------------------------------- kv reuse
+class LogitTap:
+    """Per request, for every logits row the backend picks a token from:
+    (greedy token, top-1 logit, top-1 minus top-2 gap)."""
+
+    def __init__(self):
+        self.rows = {}
+        self.saved = TorchEngineBackend._pick
+
+    def __enter__(self):
+        tap, pick = self, self.saved
+
+        def tapped(backend, rid, lg):
+            lg = np.asarray(lg, np.float64)
+            top = np.partition(lg, -2)[-2:]
+            tap.rows.setdefault(rid, []).append((int(np.argmax(lg)), float(top[1]),
+                                                 float(top[1] - top[0])))
+            return pick(backend, rid, lg)
+        TorchEngineBackend._pick = tapped
+        return self
+
+    def __exit__(self, *exc):
+        TorchEngineBackend._pick = self.saved
+
+
+class PrefixRowTap:
+    """Keeps each request's first `n` arena rows (the instruction's KV as
+    the request wrote it privately) when the engine releases it."""
+
+    def __init__(self, n):
+        self.n, self.rows = n, {}
+        self.saved = BE.BatchEngine.release
+
+    def __enter__(self):
+        tap, release = self, self.saved
+
+        def tapped(engine, rid):
+            table = engine.pool.slot_tables.get(rid)
+            if table is not None and rid not in tap.rows:
+                sl = torch.from_numpy(table[:tap.n]).to(engine.pool.device)
+                p, o = sl // engine.pool.page_size, sl % engine.pool.page_size
+                tap.rows[rid] = (engine.pool.arena_k[p, o].clone(),
+                                 engine.pool.arena_v[p, o].clone())
+            return release(engine, rid)
+        BE.BatchEngine.release = tapped
+        return self
+
+    def __exit__(self, *exc):
+        BE.BatchEngine.release = self.saved
+
+
+def gap_tol(top1):
+    """Logit gap under which a greedy pick counts as a tie: GAP_ULPS bf16
+    ulps at the top-1 logit (the bf16 model's logits are bf16)."""
+    e = np.floor(np.log2(max(abs(top1), 2.0 ** -126)))
+    return GAP_ULPS * 2.0 ** (e - 7)
+
+
+def token_gate(on, off, on_rows, off_rows, strict=True):
+    """Greedy tokens with reuse on must equal those with reuse off until a
+    position where the off run's top-1 minus top-2 gap is at most
+    `gap_tol` (a near-tie that summation order may flip; after it the
+    contexts differ).  -> report; with `strict`, raises on a diverging
+    request whose first difference is not such a near-tie (the control,
+    two reuse-off runs, only reports them under "above_tol")."""
+    under = sum(gap <= gap_tol(t1) for rows in off_rows.values() for _, t1, gap in rows)
+    diverged, bad, noise = [], [], 0.0
+    for rid in sorted(off):
+        j = next((i for i, (a, b) in enumerate(zip(on[rid], off[rid])) if a != b), None)
+        stop = len(off[rid]) if j is None else j
+        for (_, t_on, _), (_, t_off, _) in zip(on_rows[rid][:stop], off_rows[rid][:stop]):
+            noise = max(noise, abs(t_on - t_off))
+        if j is not None:
+            _, top1, gap = off_rows[rid][j]
+            diverged.append({"rid": rid, "position": j, "gap": gap, "tol": gap_tol(top1)})
+            if gap > gap_tol(top1):
+                bad.append(rid)
+    rep = {"positions": sum(len(r) for r in off_rows.values()),
+           "positions_under_gap": int(under), "diverged": diverged,
+           "max_top1_logit_diff_before_divergence": noise, "gap_ulps": GAP_ULPS,
+           "above_tol": bad}
+    if bad and strict:
+        raise RuntimeError(f"kv_reuse token gate: requests {bad} decode other tokens with "
+                           f"reuse on than off where the off run's gap exceeds its "
+                           f"tolerance: {diverged}")
+    return rep
+
+
+class AdmitTap:
+    """Copies, on the card, the fp32 bytes the store writes for each block
+    at its admission (an fp32 block keeps no payload of its own: its arena
+    slots are its bytes), for `store_checks` to hold the arena against."""
+
+    def __init__(self):
+        self.bytes = {}
+        self.saved = BS.SharedBlockStore._admit
+
+    def __enter__(self):
+        tap, admit = self, self.saved
+
+        def tapped(store, key, kind, data_k, data_v, scale_k, scale_v, *a, **kw):
+            blk = admit(store, key, kind, data_k, data_v, scale_k, scale_v, *a, **kw)
+            if blk is not None:
+                tap.bytes[key] = tuple(
+                    (d if s is None else BS.dequantize_rows(d, s)).to(
+                        store.pool.device, torch.float32, copy=True)
+                    for d, s in ((data_k, scale_k), (data_v, scale_v)))
+            return blk
+        BS.SharedBlockStore._admit = tapped
+        return self
+
+    def __exit__(self, *exc):
+        BS.SharedBlockStore._admit = self.saved
+
+
+def store_checks(label, engine, admitted):
+    """No page leaked, no reference held, the ownership partition intact,
+    and every resident block's arena slots still hold the bytes the store
+    wrote at its admission (`admitted`, from `AdmitTap`)."""
+    pool, store = engine.pool, engine.store
+    if pool.stats().pages_in_use or engine.prefill_states:
+        raise RuntimeError(f"{label}: {pool.stats().pages_in_use} pages still held after "
+                           "the run")
+    if any(b.refcount for b in store.blocks.values()):
+        raise RuntimeError(f"{label}: store references still held after the run")
+    BS.check_partition(pool, store)
+    for blk in store.blocks.values():
+        sl = torch.from_numpy(blk.slots).to(pool.device)
+        p, o = sl // pool.page_size, sl % pool.page_size
+        want_k, want_v = admitted[blk.key]
+        if not (torch.equal(pool.arena_k[p, o], want_k)
+                and torch.equal(pool.arena_v[p, o], want_v)):
+            raise RuntimeError(f"{label}: store block {blk.key} overwritten in the arena")
+
+
+def prefix_rows_vs_private(engine, plans, reuse, private):
+    """The prefix tier's stored rows against the rows each request of the
+    same key wrote privately in the reuse-off run.  -> (pairs compared,
+    pairs bitwise equal, max abs diff)."""
+    store = engine.store
+    pairs = equal = 0
+    diff = 0.0
+    for rid, (plan, _, _, have) in plans.items():
+        ru = reuse[rid]
+        key = ru.prefix_key + BS.shape_bucket(plan, have, engine.sel, engine.bucket)
+        blk = store.peek(key)
+        if blk is None or rid not in private:
+            continue
+        sl = torch.from_numpy(blk.slots).to(engine.pool.device)
+        p, o = sl // engine.pool.page_size, sl % engine.pool.page_size
+        for arena, mine in zip((engine.pool.arena_k, engine.pool.arena_v), private[rid]):
+            stored = arena[p, o]
+            pairs += 1
+            equal += bool(torch.equal(stored, mine))
+            diff = max(diff, float((stored - mine).abs().max()))
+    return pairs, equal, diff
+
+
+def kv_reuse_phase(system, pool_rv, prof, cfg, dev, args):
+    """Phase 2e: the shared block store on the serving path at full width
+    and depth.  A repeat-user Zipf trace is served with reuse off twice
+    (the control) and on, wave then chunked (fp32 store), then chunked
+    with int8 payloads, a spill tier and a store page budget that forces
+    evictions.  -> (report, block-gather recorder, B3 recorder of the
+    reuse-on runs, launches per run)."""
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    trace = WL.zipf_repeat_trace(system.catalog, pool_rv, prof, KV_REQUESTS, qps=args.qps,
+                                 n_users=KV_USERS, n_candidates=8)
+    reqs, plans, reuse = SERVE.rcllm_requests(system, trace, args.decode_steps)
+    n_instr = len(system.instruction)
+    log(f"kv_reuse (phase 2e): {len(reqs)} requests over {len(set(r.user_id for r in trace))} "
+        f"of {KV_USERS} users (Zipf), 8 candidates each from the {system.catalog.n_items}-item "
+        f"catalog, {args.decode_steps} output tokens, prompts "
+        f"{min(r.n_tokens for r in reqs)}-{max(r.n_tokens for r in reqs)} tokens; pool "
+        f"512 pages x 16 slots; depth {cfg.n_layers}")
+    lap("trace")
+    gather_rec = GatherRecorder(BO.assemble_kv)
+    store_rec = StoreDecodeRecorder(PO.paged_decode_mha)
+    saved = [(ENG, "assemble_kv", ENG.assemble_kv), (BE, "paged_decode_mha", BE.paged_decode_mha)]
+    ENG.assemble_kv = gather_rec
+    out, launches = {"runs": {}}, {}
+    try:
+        for sched in ("wave", "chunked"):
+            gen, rows = {}, {}
+            for kind in ("off", "off2", "on"):
+                kv = kind == "on"
+                config = ServeConfig(decode_steps=args.decode_steps, sched=sched, kv_reuse=kv)
+                # B3 is recorded over store-shared pages only: in the reuse-on runs
+                BE.paged_decode_mha = store_rec if kv else saved[1][2]
+                reset_counts()
+                t0 = time.perf_counter()
+                with LogitTap() as tap, PrefixRowTap(n_instr) as ptap, AdmitTap() as admitted:
+                    engine, backend, batcher, done = SERVE.serve(
+                        system.model, cfg, config, reqs, plans, system.rows, reuse)
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                label = f"kv_reuse_{sched}_{kind}"
+                launches[label] = counts()
+                rep = SERVE.report(config, engine, backend, batcher, done, warmup=True)
+                log_serve(f"{sched} reuse {kind} ({wall:.1f} s)", rep, None)
+                check_served(label, launches[label], RCLLM_KERNELS[1:], done, backend,
+                             argparse.Namespace(requests=len(reqs)), config, cfg)
+                gen[kind], rows[kind] = dict(backend.generated), tap.rows
+                run = {"serve": rep, "wall_s": wall, "launches": launches[label]}
+                if kv:
+                    st = engine.store.stats()
+                    store_checks(label, engine, admitted.bytes)
+                    if not (st["hits_user"] and st["hits_item"] and st["hits_prefix"]):
+                        raise RuntimeError(f"{label}: a tier saw no hit: {st}")
+                    run["store"] = st
+                    run["gate"] = token_gate(gen["on"], gen["off"], rows["on"], rows["off"])
+                    pairs, equal, diff = prefix_rows_vs_private(engine, plans, reuse,
+                                                                private)
+                    run["prefix_rows"] = {"pairs": pairs, "bitwise_equal": equal,
+                                          "max_abs_diff": diff}
+                    log(f"  store: {st}")
+                    log(f"  kernel launches: {launches[label]}")
+                    log_gate("token gate (reuse on vs off)", run["gate"], len(reqs))
+                    log(f"  prefix rows: {equal} of {pairs} (stored block, private rows of "
+                        f"the off run) K/V pairs bitwise equal; max abs diff {diff:.3g}")
+                elif kind == "off":
+                    private = ptap.rows
+                else:
+                    run["control"] = token_gate(gen["off2"], gen["off"], rows["off2"],
+                                                rows["off"], strict=False)
+                    log_gate("control (reuse off twice)", run["control"], len(reqs))
+                out["runs"][label] = run
+                del engine, backend, batcher
+                torch.cuda.empty_cache()
+                lap(label)
+        # int8 payloads, a host spill tier, a small store budget
+        store = StoreConfig(kv_store_dtype="int8", spill_mb=INT8_SPILL_MB)
+        config = ServeConfig(decode_steps=args.decode_steps, sched="chunked", kv_reuse=True,
+                             store=store)
+        BE.paged_decode_mha = store_rec
+        reset_counts()
+        t0 = time.perf_counter()
+        late = [dataclasses.replace(r, arrival_s=r.arrival_s + INT8_WAVE_GAP_S)
+                if r.rid >= len(reqs) // 2 else r for r in reqs]
+        with AdmitTap() as admitted:
+            engine, backend, batcher, done = serve_store_budget(system, cfg, config, late,
+                                                                plans, reuse, INT8_STORE_PAGES)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = "kv_reuse_chunked_int8"
+        launches[label] = counts()
+        rep = SERVE.report(config, engine, backend, batcher, done, warmup=True)
+        st = engine.store.stats()
+        log_serve(f"chunked reuse on, int8 + spill {INT8_SPILL_MB} MB, store budget "
+                  f"{INT8_STORE_PAGES} pages, second half {INT8_WAVE_GAP_S:.0f} s later on "
+                  f"the batcher's clock ({wall:.1f} s)", rep, None)
+        log(f"  store: {st}")
+        check_served(label, launches[label], RCLLM_KERNELS[1:], done, backend,
+                     argparse.Namespace(requests=len(reqs)), config, cfg)
+        store_checks(label, engine, admitted.bytes)
+        if not st["spills"] or not st["spill_hits"]:
+            raise RuntimeError(f"{label}: no spill or no promotion from the spill tier: {st}")
+        same = sum(backend.generated[r] == gen["off"][r] for r in gen["off"])
+        out["runs"][label] = {"serve": rep, "wall_s": wall, "store": st,
+                              "launches": launches[label], "tokens_equal_off": same}
+        log(f"  {same}/{len(reqs)} requests decoded the reuse-off tokens (int8 payloads "
+            "change the cached bytes)")
+        del engine, backend, batcher
+        torch.cuda.empty_cache()
+        lap(label)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    if not sum(launches[f"kv_reuse_{s}_on"]["block_gather:prefix"] for s in ("wave", "chunked")):
+        raise RuntimeError("no prefix-tier hit reached the selective layers through the "
+                           "block gather's second pool")
+    if store_rec.args is None:
+        raise RuntimeError("no paged-decode call of the reuse-on runs read a view with a "
+                           "page shared by two rows and a dead slot inside a row")
+
+    # where the time goes: prefill then decode of every request in one batch,
+    # reuse off, reuse on over a cold store (every block inserted, the item
+    # inserts copies on the card) and over the warm store it left
+    steps = args.decode_steps - 1
+    sel = ENG.SelectiveConfig(window=16)
+    profiles = {}
+    for label, kv in (("off", False), ("on_cold", True)):
+        engine = API.build_engine(system.model, cfg, ServeConfig(kv_reuse=kv), sel=sel,
+                                        cache=system.rows)
+        passes = [(label, kv)] + ([("on_warm", True)] if kv else [])
+        for name, _ in passes:
+            for phase, fn in zip(("prefill", "decode"),
+                                 warm_run(engine, plans, steps, reuse if kv else None)):
+                wall, busy, top, memcpy_s, n_memcpy = device_busy(fn)
+                profiles[f"{name}_{phase}"] = {
+                    "wall_s": wall, "device_busy_s": busy,
+                    "device_busy_share": None if busy is None else busy / wall,
+                    "host_card_memcpy_s": memcpy_s, "host_card_memcpy_count": n_memcpy,
+                    "top_device": top}
+        if kv:
+            profiles["on_store"] = engine.store.stats()
+        del engine
+        torch.cuda.empty_cache()
+    lap("profiles")
+    for name in ("off", "on_cold", "on_warm"):
+        for phase in ("prefill", "decode"):
+            p = profiles[f"{name}_{phase}"]
+            busy = p["device_busy_s"]
+            log(f"  profiled {phase}, reuse {name} ({len(plans)} requests, one batch): wall "
+                f"{p['wall_s']:.3f} s, device busy "
+                f"{'not measured' if busy is None else f'{busy:.3f} s'}, busy share "
+                f"{p['device_busy_share']}; host<->card memcpy "
+                f"{p['host_card_memcpy_s'] * 1e3:.3f} ms in {p['host_card_memcpy_count']} "
+                "copies")
+    out["profiles"] = profiles
+    out["seconds"] = laps
+    log("  phase 2e seconds by step: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
+    return out, gather_rec, store_rec, launches
+
+
+def log_gate(title, g, n_req):
+    where = "; ".join(f"rid {d['rid']} at {d['position']} (gap {d['gap']:.4g}, tol "
+                      f"{d['tol']:.4g})" for d in g["diverged"])
+    log(f"  {title}: {len(g['diverged'])} of {n_req} requests diverge"
+        f"{', ' + str(len(g['above_tol'])) + ' above the tolerance' if g['above_tol'] else ''}"
+        f" [{where}]; {g['positions_under_gap']} of {g['positions']} positions under the "
+        f"{GAP_ULPS}-bf16-ulp gap; max |top-1 logit difference| before divergence "
+        f"{g['max_top1_logit_diff_before_divergence']:.4g}")
+
+
+def serve_store_budget(system, cfg, config, reqs, plans, reuse, max_pages):
+    """`SERVE.serve` with the store's page budget cut to `max_pages`."""
+    sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev, window=16)
+    engine = API.build_engine(system.model, cfg, config, sel=sel, cache=system.rows)
+    engine.store.max_pages = max_pages
+    backend = API.build_backend(engine, config, plans=plans, reuse=reuse)
+    batcher = API.build_batcher(backend, config)
+    done = sorted(batcher.run(list(reqs)), key=lambda c: c.rid)
+    return engine, backend, batcher, done
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -876,8 +1314,10 @@ def main(argv=None):
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    system, reqs, plans = SERVE.rcllm_setup(cfg, dev, args.requests, args.qps,
-                                            config.decode_steps)
+    system, pool_rv, prof = SERVE.rcllm_system(cfg, dev)
+    reqs, plans, _ = SERVE.rcllm_requests(
+        system, SERVE.launcher_trace(system, pool_rv, prof, args.requests, args.qps),
+        config.decode_steps)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     engine, backend, batcher, done = SERVE.serve(system.model, cfg, config, reqs, plans,
@@ -892,6 +1332,8 @@ def main(argv=None):
         f"depth {cfg.n_layers} of {QWEN3_8B.n_layers} layers, "
         f"{cfg.param_count() / 1e9:.2f} B params bf16; cached-row pool "
         f"{system.rows.n_rows} rows, {system.rows.nbytes / 1e9:.2f} GB on the card")
+    PHASE_S.update({"1 build": build_s, "2 offline build + workload": t_build,
+                    "2 wave": t_serve})
     log(f"  offline build + workload {t_build:.1f} s, wave serving {t_serve:.1f} s, "
         f"{len(done)} requests x {config.decode_steps} tokens")
     log_serve("wave", rep, peak_gb)
@@ -906,6 +1348,7 @@ def main(argv=None):
                                                          plans, system.rows)
     torch.cuda.synchronize()
     t_chunked = time.perf_counter() - t0
+    PHASE_S["2c"] = t_chunked
     launches["chunked"] = counts()
     for mod, name, fn in saved:
         setattr(mod, name, fn)
@@ -924,6 +1367,7 @@ def main(argv=None):
     del c_engine, c_backend, c_batcher
 
     # ---- phase 2b: where the time goes (warm wave prefill and decode) ----
+    t_2b = time.perf_counter()
     spans = Spans()
     spans.wrap(BE.BatchEngine, "prefill", "prefill")
     spans.wrap(ENG, "layer0", "layer0")
@@ -979,6 +1423,18 @@ def main(argv=None):
             f"{breakdown[f'{phase}_host_card_memcpy_count']} copies; top device: "
             + "; ".join(f"{n} {ms:.2f} ms" for n, ms in breakdown[f"{phase}_top_device"]))
 
+    PHASE_S["2b"] = time.perf_counter() - t_2b
+
+    # ---- phase 2e: the shared block store (kv_reuse) at full width and depth ----
+    t0 = time.perf_counter()
+    kv_report, kv_gather, kv_decode, kv_launches = kv_reuse_phase(system, pool_rv, prof,
+                                                                   cfg, dev, args)
+    t_kv = time.perf_counter() - t0
+    launches.update(kv_launches)
+    log(f"  kv_reuse phase {t_kv:.1f} s")
+    PHASE_S["2e"] = t_kv
+    t_3 = time.perf_counter()
+
     # ---- phase 3: checks ----
     plan, table, positions, have = plans[min(plans)]
     br = BE.BatchRequest(rid=-1, tokens=plan.tokens, plan=plan, block_table=table,
@@ -995,7 +1451,8 @@ def main(argv=None):
     records = []
     for name, spec in KERNELS.items():
         if name == "block_gather":
-            records += gather_records(rec[name].calls, spec, total[name])
+            records += gather_records(rec[name].calls, spec,
+                                      {"rotate": total[name], "copy": total[name]})
             continue
         if name == "embedding_bag":
             continue    # recorded after the recsys phase below
@@ -1008,6 +1465,23 @@ def main(argv=None):
         if name == "paged_decode_attention":
             extra.update(paged_split_record(a, kw))
         records.append(checked_record(name, spec, total[name], a, kw, extra, fp32_too=True))
+    # the store path's B4 call with store-shared prefix rows and its
+    # largest B3 call (rows over interleaved store-shared pages)
+    records += gather_records(kv_gather.calls, KERNELS["block_gather"],
+                              {"prefix": total["block_gather:prefix"]}, modes=("prefix",))
+    spec = KERNELS["paged_decode_attention"]
+    a, kw = kv_decode.args, kv_decode.kwargs
+    extra = dict(paged_split_record(a, kw), shared_pages=kv_decode.view[0],
+                 rows_with_dead_slots=kv_decode.view[1])
+    log(f"  B3 store call: {kv_decode.view[0]} pages read by two or more rows, "
+        f"{kv_decode.view[1]} of {a[0].shape[0]} rows with a dead slot inside")
+    records.append(checked_record(
+        "paged_decode_attention", spec,
+        sum(run["paged_decode_attention"] for label, run in kv_launches.items()
+            if label.endswith(("_on", "_int8"))), a, kw, extra,
+        fp32_too=True, label="paged_decode_attention:store"))
+    del kv_gather, kv_decode
+    PHASE_S["3-4 rcllm checks and times"] = time.perf_counter() - t_3
     # ---- phase 2d: recsys scoring and retrieval at published widths ----
     # (after the rcllm checks and times, so that no recsys model is on the
     # card while the rcllm path runs)
@@ -1018,9 +1492,11 @@ def main(argv=None):
     torch.cuda.synchronize()
     t_recsys = time.perf_counter() - t0
     launches["recsys"] = counts()
+    PHASE_S["2d"] = t_recsys
     log(f"  recsys phase {t_recsys:.1f} s; kernel launches: {launches['recsys']}")
     if launches["recsys"]["embedding_bag"] == 0:
         raise RuntimeError("embedding_bag never launched on the recsys path")
+    t_tiny = time.perf_counter()
     bag_total = sum(run["embedding_bag"] for run in launches.values())
     records += bag_records(bag_calls, KERNELS["embedding_bag"], bag_total, recsys_models)
     del rec, bag_calls
@@ -1038,7 +1514,7 @@ def main(argv=None):
             model = None
             tconfig = ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64)
             for d in (dev, torch.device("cpu")):
-                tsys, treqs, tplans = SERVE.rcllm_setup(None, d, 4, 1e6, 4, model=model)
+                tsys, treqs, tplans, _ = SERVE.rcllm_setup(None, d, 4, 1e6, 4, model=model)
                 _, tb, _, _ = SERVE.serve(tsys.model, tsys.cfg, tconfig, treqs, tplans,
                                           tsys.rows)
                 tiny[d.type] = {r: tb.generated[r] for r in sorted(tb.generated)}
@@ -1063,20 +1539,24 @@ def main(argv=None):
                                       sum(run[label] for run in launches.values()), a, kw,
                                       extra, label=label))
     del tiny_rec
+    PHASE_S["recsys records and tiny runs"] = time.perf_counter() - t_tiny
 
     report = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "offline_build_s": t_build, "serving_s": t_serve,
-              "chunked_serving_s": t_chunked, "recsys_s": t_recsys, "peak_cuda_gb": peak_gb,
+              "chunked_serving_s": t_chunked, "kv_reuse_s": t_kv, "kv_reuse": kv_report,
+              "recsys_s": t_recsys, "peak_cuda_gb": peak_gb,
               "depth": cfg.n_layers, "serve": rep, "serve_chunked": crep,
               "chunked_ticks": [dataclasses.asdict(t) for t in ticks],
               "chunked_tokens_equal_wave": same, "launches": launches,
               "cache_rows": system.rows.n_rows, "cache_rows_gb": system.rows.nbytes / 1e9,
               "recompute_fraction": rfrac, "prompt_tokens": plan.n, "breakdown": breakdown,
               "recsys_cells": recsys_cells, "recsys_card_vs_cpu": recsys_checks,
-              "kernels": records, "total_s": time.perf_counter() - t_start}
+              "kernels": records, "phase_s": PHASE_S,
+              "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()))
     log(f"total {report['total_s']:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

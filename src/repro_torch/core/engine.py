@@ -22,6 +22,12 @@ brings a block table into that pool, and the block-gather kernel
 layer 0's Eq. 3 divergence, rotated to the request positions for layers
 1..L−1.  Only tables, positions, masks and logits cross between host and
 device; plans and the Eq. 3 selection stay numpy, as in the reference.
+
+A request whose instruction rows are shared by the serving block store's
+prefix tier carries them in the same block table: its entries from
+`cache.n_rows` on address the serving arena's layer planes (`shared`,
+`kv_pool.PagedKVPool.plane`), which the block-gather kernel reads as its
+second pool.
 """
 from __future__ import annotations
 
@@ -244,13 +250,17 @@ def _pad_table(table: np.ndarray, positions: np.ndarray, n_pad: int):
 
 def gather_rows(cache: CacheRows, layer: int, table: torch.Tensor,
                 positions: torch.Tensor, *, rope_theta: float, rotate: bool,
-                keep_raw: bool = False):
+                keep_raw: bool = False, shared=None):
     """One layer plane of the cached rows, gathered by the block-gather
-    kernel.  table/positions: (N,) int32 on the pool's device.  -> (k, v)
-    each (N, Hkv, Dh) in the pool dtype (+ the unrotated keys with
-    `keep_raw`); `rotate=False` is a bitwise copy of the rows."""
+    kernel.  table/positions: (N,) int32 on the pool's device; entries
+    from `cache.n_rows` on read slot (entry - n_rows) of `shared`'s layer
+    plane (`shared.plane(layer)`).  -> (k, v) each (N, Hkv, Dh) in the
+    pool dtype (+ the unrotated keys with `keep_raw`); `rotate=False` is a
+    bitwise copy of the rows."""
+    k2, v2 = shared.plane(layer) if shared is not None else (None, None)
     out = assemble_kv(cache.k[layer], cache.v[layer], table, positions[:, None],
-                      rope_theta=rope_theta, rotate=rotate, keep_raw=keep_raw)
+                      rope_theta=rope_theta, rotate=rotate, keep_raw=keep_raw,
+                      pool2_k=k2, pool2_v=v2)
     return tuple(t[:, 0] for t in out)
 
 
@@ -331,11 +341,12 @@ def select_recompute(plan: AssemblyPlan, have: np.ndarray,
 def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
                      r_valid: np.ndarray, cache: CacheRows, table: torch.Tensor,
                      positions: torch.Tensor, valid: np.ndarray,
-                     final_slot: np.ndarray):
+                     final_slot: np.ndarray, shared=None):
     """Batched layers 1..L-1 over the recompute sets.
 
     x: (B, n, D); r_idx/r_valid: (B, R) host; table/positions: (B, n)
-    int32 on the device, each key's cached row and target position;
+    int32 on the device, each key's cached row (or store-shared slot, see
+    `gather_rows`) and target position;
     valid: (B, n) host key validity; final_slot: (B,).  -> (logits (B, V),
     merged pre-RoPE k, v (B, n, L-1, Hkv, Dh)) on the device.
 
@@ -376,7 +387,7 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
         # assembled keys: cached pre-RoPE keys rotated to request positions
         k_l, v_l, k_m = (t.view(B, n, *t.shape[1:]) for t in gather_rows(
             cache, l, tbl, kpos, rope_theta=cfg.rope_theta, rotate=True,
-            keep_raw=True))
+            keep_raw=True, shared=shared))
         k_l[rows, widx] = kr[rv].to(k_l.dtype)
         v_l[rows, widx] = vr[rv].to(v_l.dtype)
         # merged pre-RoPE cache: cached blocks + fresh recomputed keys
@@ -395,7 +406,7 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
 
 
 def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
-                           cache: CacheRows, r_bucket: int = 64):
+                           cache: CacheRows, r_bucket: int = 64, shared=None):
     """Bucketed batched selective-layer pass (phase 2 of the selective
     prefill): requests are grouped by (padded length, padded recompute
     budget) and ONE selective step runs per bucket.  PyTorch runs eagerly,
@@ -406,6 +417,7 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
     block_table (n,), positions (n,)).  -> list of (logits (V,) host,
     k_rest, v_rest) per item in input order; k_rest/v_rest are the merged
     pre-RoPE layers 1..L-1, (n_pad, L-1, Hkv, Dh) on the device.
+    `shared`: the arena whose slots tables may address (`gather_rows`).
     """
     dev = model.device
     results = [None] * len(items)
@@ -436,7 +448,7 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
         tables_t = torch.from_numpy(tables).to(dev)
         logits, k_rest, v_rest = selective_layers(
             model, x, r_idx_p, r_valid, cache, tables_t[0], tables_t[1], valid,
-            final_slot)
+            final_slot, shared=shared)
         logits = _host(logits)
         for bi, i in enumerate(idxs):
             results[i] = (logits[bi], k_rest[bi], v_rest[bi])
@@ -445,7 +457,7 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
 
 def selective_prefill_batch(
     model: Transformer, cfg: LMConfig, items: Sequence, sel: SelectiveConfig,
-    cache: CacheRows, bucket: int = 128, r_bucket: int = 64,
+    cache: CacheRows, bucket: int = 128, r_bucket: int = 64, shared=None,
 ):
     """Batched beyond-prefix prefill over many requests at once.
 
@@ -455,7 +467,8 @@ def selective_prefill_batch(
     budget) bucket (`selective_layers_batch`).
 
     items: sequence of (plan, block_table, positions, have) tuples (see
-    `assembly.plan_block_table`).  -> list of (logits (V,) host,
+    `assembly.plan_block_table`; entries past the cached rows address
+    `shared`, see `gather_rows`).  -> list of (logits (V,) host,
     EngineStats, k_all (n, L, Hkv, Dh), v_all) per request, in input
     order; k_all/v_all are fp32 on the device.
     """
@@ -469,7 +482,7 @@ def selective_prefill_batch(
         valid[:plan.n] = True
         tbl, kpos = _device_table(cache, *_pad_table(table, positions, n_pad))
         ck0, cv0 = gather_rows(cache, 0, tbl, kpos, rope_theta=cfg.rope_theta,
-                               rotate=False)
+                               rotate=False, shared=shared)
         x, attn_mass, div_raw, k0, v0 = layer0(model, toks, valid, ck0, cv0)
         rec, stats = select_recompute(plan, have, _host(attn_mass),
                                       _host(div_raw), sel)
@@ -479,7 +492,7 @@ def selective_prefill_batch(
         sel_items.append((plan, x, rec, table, positions))
 
     sel_out = selective_layers_batch(model, cfg, sel_items, cache,
-                                     r_bucket=r_bucket)
+                                     r_bucket=r_bucket, shared=shared)
     results = []
     for i, (logits, k_rest, v_rest) in enumerate(sel_out):
         n = items[i][0].n
@@ -551,13 +564,14 @@ class ChunkedPrefill:
     cached layer-0 rows come from the block-gather kernel; the per-chunk
     outputs stay on the device.  The serving engine
     (`serving.batch_engine.PrefillState`) wraps this with the pool
-    bookkeeping; this class is compute + state only.
+    bookkeeping; this class is compute + state only.  `shared`: the arena
+    whose slots the table may address (`gather_rows`).
     """
 
     def __init__(self, model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
                  table: np.ndarray, positions: np.ndarray, have: np.ndarray,
                  cache: CacheRows, sel: SelectiveConfig, chunk_tokens: int,
-                 bucket: int = 128):
+                 bucket: int = 128, shared=None):
         self.model = model
         self.cfg = cfg
         self.plan = plan
@@ -565,6 +579,7 @@ class ChunkedPrefill:
         self.positions = positions
         self.have = have
         self.cache = cache
+        self.shared = shared
         self.sel = sel
         self.chunk = int(chunk_tokens)
         n = plan.n
@@ -617,7 +632,8 @@ class ChunkedPrefill:
         C = self.next_chunk_tokens()
         ck0, cv0 = gather_rows(self.cache, 0, self._tbl[off:off + C],
                                self._kpos[off:off + C],
-                               rope_theta=self.cfg.rope_theta, rotate=False)
+                               rope_theta=self.cfg.rope_theta, rotate=False,
+                               shared=self.shared)
         x_c, m_c, div_c, k0, v0 = layer0_chunk(
             self.model, self.toks[off:off + C], off, self.valid, ck0, cv0,
             self.kbuf, self.vbuf)

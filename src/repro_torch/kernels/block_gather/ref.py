@@ -9,6 +9,8 @@ over its own Dh, at its slot's position.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -30,16 +32,34 @@ def rope_rotate(k: torch.Tensor, positions: torch.Tensor,
     return out.to(k.dtype)
 
 
+def gather_pages(pool: torch.Tensor, idx: torch.Tensor,
+                 pool2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pages of `pool` by `idx`; entries idx >= pool.shape[0] read page
+    idx - pool.shape[0] of `pool2`."""
+    n1 = pool.shape[0]
+    if pool2 is None:
+        return pool[idx]
+    in2 = idx >= n1
+    out = pool[torch.where(in2, torch.zeros_like(idx), idx)]
+    if bool(in2.any()):
+        out[in2] = pool2[idx[in2] - n1]
+    return out
+
+
 def block_gather_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
                      block_table: torch.Tensor, positions: torch.Tensor, *,
-                     rope_theta: float = 10_000.0, rotate: bool = True):
+                     rope_theta: float = 10_000.0, rotate: bool = True,
+                     pool2_k: Optional[torch.Tensor] = None,
+                     pool2_v: Optional[torch.Tensor] = None):
     """pool_k/pool_v: (n_pages, page, d) or (n_pages, page, Hkv, Dh), keys
-    pre-RoPE; block_table: (n_logical,) physical page per logical page;
-    positions: (n_logical, page) target positions.  -> (k, v) of shape
-    (n_logical, page, ...) in the pool dtypes."""
+    pre-RoPE; block_table: (n_logical,) physical page per logical page,
+    entries from n_pages on reading page (entry - n_pages) of
+    `pool2_k`/`pool2_v` when given; positions: (n_logical, page) target
+    positions.  -> (k, v) of shape (n_logical, page, ...) in the pool
+    dtypes."""
     idx = block_table.long()
-    k = pool_k[idx]
-    v = pool_v[idx]
+    k = gather_pages(pool_k, idx, pool2_k)
+    v = gather_pages(pool_v, idx, pool2_v)
     if rotate:
         pos = positions.reshape(tuple(positions.shape) + (1,) * (k.dim() - 3))
         k = rope_rotate(k, pos, rope_theta)

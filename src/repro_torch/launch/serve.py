@@ -16,8 +16,15 @@ one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --model rcllm-qwen3-8b \\
         --n-layers 4 --requests 8 --decode-steps 8
 
+    # cross-request KV reuse through the shared block store, on a
+    # repeat-user trace; int8 payloads and a 64 MB host spill tier
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --kv-reuse on \\
+        --zipf-users 1.4 --requests 6 --sched chunked --kv-store-dtype int8 \\
+        --spill-mb 64 --pages 120
+
 The JSON printed carries the keys of the JAX launcher's engine report
-(`repro/launch/serve.py:_engine_report`) with ``"engine": "torch"``,
+(`repro/launch/serve.py:_engine_report`, with its ``store`` settings and
+``block_store`` counters under kv_reuse) with ``"engine": "torch"``,
 plus the device and model that ran.
 """
 from __future__ import annotations
@@ -52,14 +59,12 @@ def model_config(name: str, n_layers: Optional[int] = None) -> Optional[LMConfig
     return QWEN3_8B if n_layers is None else dataclasses.replace(QWEN3_8B, n_layers=n_layers)
 
 
-def rcllm_setup(cfg: Optional[LMConfig], device, n_requests: int, qps: float,
-                decode_steps: int, seed: int = 0, model=None):
-    """The rcllm serving run's system and trace, built as the JAX
-    launcher builds its single-instance trace (weights from a seeded
-    generator unless `model` is given).  -> (system, requests, plans)."""
+def rcllm_system(cfg: Optional[LMConfig], device, seed: int = 0, model=None):
+    """The rcllm serving run's system (the tiny model when `cfg` is None;
+    weights from a seeded generator unless `model` is given), built as the
+    JAX launcher builds its single-instance system.  -> (system, review
+    pool, profile): what traces over its catalog are drawn from."""
     from repro_torch.core.rcllm import make_system, make_tiny_system
-    from repro_torch.data import synth as SY
-    from repro_torch.serving.workload import rcllm_workload
 
     kw = dict(n_items=80, n_requests_hist=40, k_instances=1, seed=seed, device=device,
               model=model)
@@ -67,11 +72,37 @@ def rcllm_setup(cfg: Optional[LMConfig], device, n_requests: int, qps: float,
         system, pool_rv, prof, _ = make_tiny_system(n_layers=2, d_model=32, **kw)
     else:
         system, pool_rv, prof, _ = make_system(cfg, **kw)
-    trace = SY.make_trace(system.catalog, pool_rv, prof, n_requests, qps=qps,
-                          n_users=max(3, n_requests // 2), n_candidates=8,
-                          reviews_per_user=1, seed=2)
+    return system, pool_rv, prof
+
+
+def rcllm_requests(system, trace, decode_steps: int):
+    """-> (requests, plans, reuse metadata for a store-backed engine) of a
+    trace over `system`'s catalog."""
+    from repro_torch.serving.workload import rcllm_reuse_info, rcllm_workload
+
     reqs, plans = rcllm_workload(system, trace, decode_steps=decode_steps)
-    return system, reqs, plans
+    return reqs, plans, rcllm_reuse_info(system, trace, plans)
+
+
+def rcllm_setup(cfg: Optional[LMConfig], device, n_requests: int, qps: float,
+                decode_steps: int, seed: int = 0, model=None,
+                zipf_users: Optional[float] = None):
+    """The rcllm serving run's system and the JAX launcher's
+    single-instance trace over it (`zipf_users` draws users Zipf(a)
+    instead of uniformly).  -> (system, requests, plans, reuse)."""
+    system, pool_rv, prof = rcllm_system(cfg, device, seed, model)
+    trace = launcher_trace(system, pool_rv, prof, n_requests, qps, zipf_users)
+    return (system, *rcllm_requests(system, trace, decode_steps))
+
+
+def launcher_trace(system, pool_rv, prof, n_requests: int, qps: float,
+                   zipf_users: Optional[float] = None):
+    """The JAX launcher's single-instance rcllm trace over `system`."""
+    from repro_torch.data import synth as SY
+
+    return SY.make_trace(system.catalog, pool_rv, prof, n_requests, qps=qps,
+                         n_users=max(3, n_requests // 2), n_candidates=8,
+                         reviews_per_user=1, seed=2, user_zipf_a=zipf_users)
 
 
 def full_setup(device, n_requests: int, qps: float, decode_steps: int,
@@ -96,12 +127,15 @@ def full_setup(device, n_requests: int, qps: float, decode_steps: int,
     return model, reqs
 
 
-def serve(model, cfg: LMConfig, config: ServeConfig, reqs, plans=None, cache=None):
+def serve(model, cfg: LMConfig, config: ServeConfig, reqs, plans=None, cache=None,
+          reuse=None):
     """One closed-loop run; rcllm mode needs the system's cached-row pool
-    `cache`.  -> (engine, backend, batcher, completions)."""
+    `cache`, and kv_reuse the requests' `reuse` metadata.  -> (engine,
+    backend, batcher, completions)."""
     sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev, window=16)
     engine = API.build_engine(model, cfg, config, sel=sel, cache=cache)
-    backend = API.build_backend(engine, config, plans=plans)
+    backend = API.build_backend(engine, config, plans=plans,
+                                reuse=reuse if config.kv_reuse else None)
     batcher = API.build_batcher(backend, config)
     done = sorted(batcher.run(list(reqs)), key=lambda c: c.rid)
     return engine, backend, batcher, done
@@ -129,7 +163,8 @@ def report(config: ServeConfig, engine, backend, batcher, done,
         "attn_backend": "cuda" if dev.type == "cuda" else "plain",
         "decode_kernel": "paged",
         "requests": len(done),
-        "kv_reuse": "off",
+        "kv_reuse": "on" if config.kv_reuse else "off",
+        "store": (dataclasses.asdict(config.store) if config.store.enabled else None),
         "mesh": None,
         "decode_steps": config.decode_steps,
         "includes_jit_compile": not warmup,
@@ -156,6 +191,8 @@ def report(config: ServeConfig, engine, backend, batcher, done,
         "model": engine.cfg.name,
         "n_layers": engine.cfg.n_layers,
     }
+    if engine.store is not None:
+        out["block_store"] = engine.store.stats()
     tbt = [dt for w in batcher.workers for dt in w.tbt]
     out.update({f"tbt_{k}": v for k, v in _percentiles(tbt).items()})
     out["tbt_samples"] = len(tbt)
@@ -191,6 +228,14 @@ def main(argv=None):
     ap.add_argument("--max-batch-tokens", type=int, default=4096)
     ap.add_argument("--r-item", type=float, default=0.3)
     ap.add_argument("--r-rev", type=float, default=0.3)
+    ap.add_argument("--kv-reuse", default="off", choices=["on", "off"],
+                    help="cross-request KV reuse through the shared block store")
+    ap.add_argument("--kv-store-dtype", default="fp32", choices=["fp32", "int8"],
+                    help="store payloads of the user and item tiers")
+    ap.add_argument("--spill-mb", type=int, default=0,
+                    help="host-RAM spill tier for evicted blocks (0: drop them)")
+    ap.add_argument("--zipf-users", type=float, default=None,
+                    help="draw the trace's users Zipf(a) (repeat users), rcllm only")
     ap.add_argument("--warmup", action="store_true",
                     help="run the trace once first, so reported times exclude "
                     "kernel builds and first-call set-up")
@@ -202,23 +247,30 @@ def main(argv=None):
                              decode_steps=args.decode_steps,
                              n_pages=args.pages, page_size=args.page_size,
                              max_batch_tokens=args.max_batch_tokens,
-                             r_item=args.r_item, r_rev=args.r_rev)
+                             r_item=args.r_item, r_rev=args.r_rev,
+                             kv_reuse=args.kv_reuse == "on",
+                             store=API.StoreConfig(
+                                 kv_store_dtype=args.kv_store_dtype,
+                                 spill_mb=args.spill_mb))
     except ValueError as e:
         raise SystemExit(str(e))
+    if args.zipf_users is not None and config.mode != "rcllm":
+        raise SystemExit("--zipf-users shapes the rcllm trace; it has no effect on "
+                         "mode=full prompts")
     device = torch.device(args.device)
-    plans = cache = None
+    plans = cache = reuse = None
     if config.mode == "rcllm":
-        system, reqs, plans = rcllm_setup(model_config(args.model, args.n_layers),
-                                          device, args.requests, args.qps,
-                                          config.decode_steps)
+        system, reqs, plans, reuse = rcllm_setup(
+            model_config(args.model, args.n_layers), device, args.requests, args.qps,
+            config.decode_steps, zipf_users=args.zipf_users)
         model, cfg, cache = system.model, system.cfg, system.rows
     else:
         model, reqs = full_setup(device, args.requests, args.qps,
                                  config.decode_steps, args.prompt_tokens)
         cfg = model.cfg
     if args.warmup:
-        serve(model, cfg, config, reqs, plans, cache)
-    out = report(config, *serve(model, cfg, config, reqs, plans, cache),
+        serve(model, cfg, config, reqs, plans, cache, reuse)
+    out = report(config, *serve(model, cfg, config, reqs, plans, cache, reuse),
                  warmup=args.warmup)
     print(json.dumps(out, indent=1))
 

@@ -1,10 +1,11 @@
 """Typed serving API of the port — the subset of the JAX package's
 `serving/api.py` that the single-instance path needs under the wave and
-chunked schedulers: `ServeConfig`, greedy/temperature sampling, stop
+chunked schedulers: `ServeConfig` with the block store's knobs
+(`kv_reuse`, `StoreConfig`), greedy/temperature sampling, stop
 sequences, and the sliced builders (engine -> backend -> batcher)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -15,16 +16,49 @@ SCHEDS = ("wave", "chunked")
 
 
 @dataclass(frozen=True)
+class StoreConfig:
+    """How the shared block store holds its payloads and what happens to
+    evicted blocks.
+
+    ``kv_store_dtype='int8'`` quantizes user/item block payloads to
+    symmetric per-(row, kv-head)-scaled int8 (the arena holds the
+    dequantized bytes).  ``spill_mb`` bounds a host-RAM spill tier that
+    device-tier evictions demote to instead of dropping; 0 drops.  The
+    default ``StoreConfig()`` is disabled: fp32 payloads, drop-on-evict.
+    The reference's ``prefetch_pages_per_tick`` budgets promotions the
+    cluster router hints; it comes with the cluster (not ported)."""
+
+    kv_store_dtype: str = "fp32"
+    spill_mb: int = 0
+
+    def __post_init__(self):
+        def bad(msg: str):
+            raise ValueError(f"invalid StoreConfig: {msg}")
+
+        if self.kv_store_dtype not in ("fp32", "int8"):
+            bad(f"kv_store_dtype={self.kv_store_dtype!r} not in ('fp32', 'int8')")
+        if self.spill_mb < 0:
+            bad(f"spill_mb={self.spill_mb} must be >= 0")
+
+    @property
+    def enabled(self) -> bool:
+        """Does this config change the store at all?"""
+        return self.kv_store_dtype != "fp32" or self.spill_mb > 0
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """Every serving knob the port has, validated once.  ``engine`` is
-    the port's own name; the block store, cluster and mesh knobs of the
-    reference are not ported yet.  ``step_tokens=None`` resolves to
+    the port's own name; the cluster and mesh knobs of the reference are
+    not ported yet.  ``kv_reuse`` turns on the shared block store and
+    ``store`` configures its tiers.  ``step_tokens=None`` resolves to
     ``max(4 * chunk_tokens, 512)`` (`resolved_step_tokens`), the chunked
     scheduler's default budget."""
 
     engine: str = "torch"
     mode: str = "rcllm"
     sched: str = "wave"
+    kv_reuse: bool = False
     chunk_tokens: int = 128
     step_tokens: Optional[int] = None
     max_batch_tokens: int = 4096
@@ -34,6 +68,7 @@ class ServeConfig:
     decode_steps: int = 4
     r_item: float = 0.3
     r_rev: float = 0.3
+    store: StoreConfig = field(default_factory=StoreConfig)
 
     def __post_init__(self):
         def bad(msg: str):
@@ -46,6 +81,9 @@ class ServeConfig:
         ):
             if val not in choices:
                 bad(f"{name}={val!r} not in {choices}")
+        if self.kv_reuse and self.mode != "rcllm":
+            bad(f"kv_reuse=True needs mode='rcllm' (the shared block store holds "
+                f"beyond-prefix blocks), got mode={self.mode!r}")
         if self.sched == "chunked" and self.mode != "rcllm":
             bad("sched='chunked' drives the beyond-prefix selective prefill; "
                 f"mode={self.mode!r} has no chunk-resumable path")
@@ -60,6 +98,11 @@ class ServeConfig:
             bad(f"decode_steps={self.decode_steps} must be >= 1")
         if not (0.0 <= self.r_item <= 1.0 and 0.0 <= self.r_rev <= 1.0):
             bad(f"r_item={self.r_item}/r_rev={self.r_rev} must be in [0, 1]")
+        if not isinstance(self.store, StoreConfig):
+            bad(f"store must be a StoreConfig, got {type(self.store).__name__}")
+        if self.store.enabled and not self.kv_reuse:
+            bad("store tiering configures the shared block store: set "
+                "kv_reuse=on (the default store config is a no-op without it)")
 
     @property
     def resolved_step_tokens(self) -> int:
@@ -122,11 +165,12 @@ def match_stop(generated: Sequence[int], stops: Sequence[Tuple[int, ...]]) -> bo
 # ------------------------------------------------------- sliced builders
 def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
                  cache=None):
-    """`BatchEngine` on the model's device from the config's pool slice;
-    `cache` is the device pool of cached rows (`RcLLMSystem.rows`) that
-    rcllm requests' block tables index."""
+    """`BatchEngine` on the model's device from the config's pool and
+    reuse slices; `cache` is the device pool of cached rows
+    (`RcLLMSystem.rows`) that rcllm requests' block tables index."""
     from repro_torch.core import engine as ENG
     from repro_torch.serving.batch_engine import BatchEngine
+    from repro_torch.serving.block_store import SharedBlockStore
     from repro_torch.serving.kv_pool import pool_for
 
     if pool is None:
@@ -134,15 +178,21 @@ def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
                         n_pages=config.n_pages, device=model.device)
     if sel is None:
         sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev)
+    store = None
+    if config.kv_reuse:
+        store = SharedBlockStore(
+            pool, kv_store_dtype=config.store.kv_store_dtype,
+            spill_mb=config.store.spill_mb)
     return BatchEngine(model, lm_cfg, pool=pool, sel=sel, cache=cache,
-                       chunk_tokens=config.chunk_tokens)
+                       chunk_tokens=config.chunk_tokens, store=store)
 
 
-def build_backend(engine, config: ServeConfig, plans=None):
-    """`TorchEngineBackend` over a built engine (mode slice)."""
+def build_backend(engine, config: ServeConfig, plans=None, reuse=None):
+    """`TorchEngineBackend` over a built engine (mode slice); `reuse` is
+    read only by a store-backed engine."""
     from repro_torch.serving.batching import TorchEngineBackend
 
-    return TorchEngineBackend(engine, mode=config.mode, plans=plans)
+    return TorchEngineBackend(engine, mode=config.mode, plans=plans, reuse=reuse)
 
 
 def build_batcher(backend, config: ServeConfig):

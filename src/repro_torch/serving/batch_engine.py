@@ -1,6 +1,6 @@
 """Batched prefill / paged decode over the port's engine — the port of the
-JAX package's `serving/batch_engine.py` (the store-free paths: the block
-store and migration are not ported yet).
+JAX package's `serving/batch_engine.py`, with the shared block store
+(cross-request KV reuse); KV migration is not ported yet.
 
 * **prefill** — ``mode="full"`` runs a padded full-recompute batch
   (flash-attention kernel); ``mode="rcllm"`` runs the beyond-prefix
@@ -18,6 +18,16 @@ store and migration are not ported yet).
   same bucketed selective dispatch as the wave path, `abort_prefill`
   rolls a mid-prefill request back.  Each chunk's layer-0 KV is written
   into the pool in place as the chunk completes.
+
+* **cross-request reuse** — with a `block_store.SharedBlockStore`, pool
+  insertion maps store-resident blocks (user, item and prefix tiers) at
+  the store's slots and writes only the private rest; a prefix-tier hit
+  also drops the instruction from the recompute set, its rows read from
+  the store's arena slots by the block-gather kernel.  No write of a
+  request ever lands in a shared slot: mapped positions are skipped by
+  the wave write, the chunk writes and the finalize writes, and a mapped
+  position Eq. 3 selects for recompute is first moved to a private slot
+  (`kv_pool.remap_private`).  Decoded tokens equal those without reuse.
 
 * **decode** — one token per running request, K/V read through the
   paged-decode kernel over per-request page views
@@ -39,7 +49,8 @@ from repro_torch.core.cache_rows import CacheRows
 from repro_torch.kernels.paged_attention.ops import paged_decode_mha
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Transformer
-from repro_torch.serving.kv_pool import PagedKVPool, page_views, pool_for
+from repro_torch.serving import block_store as BS
+from repro_torch.serving.kv_pool import PagedKVPool, PoolExhausted, page_views, pool_for
 
 
 @dataclass
@@ -48,7 +59,9 @@ class BatchRequest:
     the engine's cached-row pool (`block_table`, `positions`, `have`, see
     `assembly.plan_block_table`) are required for the selective (rcllm)
     path and ignored for full prefill.  `n_reserve` pre-reserves page
-    capacity for that many decode tokens."""
+    capacity for that many decode tokens.  `reuse` names the request's
+    shareable blocks for a store-backed engine; without it the request
+    stays fully private."""
 
     rid: int
     tokens: np.ndarray
@@ -57,16 +70,23 @@ class BatchRequest:
     positions: Optional[np.ndarray] = None
     have: Optional[np.ndarray] = None
     n_reserve: int = 0
+    reuse: Optional[BS.RequestReuse] = None
 
 
 @dataclass
 class PrefillState:
-    """One request's chunk-resumable prefill, engine-side: the request and
-    its `engine.ChunkedPrefill` (store-free, so no position is mapped at
-    shared slots and no insert is owed)."""
+    """One request's chunk-resumable prefill, engine-side: the request, its
+    `engine.ChunkedPrefill`, which logical positions were mapped at store
+    slots at admission (`mapped_mask`: skipped by every write, un-shared
+    at finalize where Eq. 3 recomputes them), and the store inserts still
+    owed once its fresh bytes exist (prefix and user tiers need computed
+    KV, so their misses insert at finalize)."""
 
     req: BatchRequest
     cp: ENG.ChunkedPrefill
+    mapped_mask: np.ndarray
+    pending_prefix: Optional[tuple] = None
+    pending_user: Optional[tuple] = None  # (key, u_pos)
 
 
 @dataclass
@@ -129,13 +149,16 @@ class BatchEngine:
     """Multi-request prefill + paged continuous decode on one device.
 
     `cache` is the device pool of cached rows that rcllm requests' block
-    tables index (`RcLLMSystem.rows`); full prefill needs none."""
+    tables index (`RcLLMSystem.rows`); full prefill needs none.  `store`
+    (a `block_store.SharedBlockStore` over this engine's pool) turns on
+    cross-request KV reuse for the rcllm path."""
 
     def __init__(self, model: Transformer, cfg: LMConfig,
                  pool: Optional[PagedKVPool] = None,
                  sel: Optional[ENG.SelectiveConfig] = None,
                  bucket: int = 64, cache: Optional[CacheRows] = None,
-                 chunk_tokens: int = 128):
+                 chunk_tokens: int = 128,
+                 store: Optional[BS.SharedBlockStore] = None):
         self.model = model
         self.cfg = cfg
         self.pool = pool if pool is not None else pool_for(cfg, device=model.device)
@@ -143,6 +166,8 @@ class BatchEngine:
         self.bucket = bucket
         self.cache = cache
         self.chunk_tokens = chunk_tokens
+        self.store = store
+        self.store_refs: Dict[int, list] = {}
         self.last_stats: Dict[int, ENG.EngineStats] = {}
         self.prefill_states: Dict[int, PrefillState] = {}
 
@@ -152,8 +177,16 @@ class BatchEngine:
         if mode == "full":
             return self._prefill_full(reqs)
         if mode == "rcllm":
+            if self.store is not None:
+                return self._prefill_selective_shared(reqs)
             return self._prefill_selective_batch(reqs)
         raise ValueError(mode)
+
+    def admission_pages(self, r: BatchRequest) -> tuple:
+        """(private-page bound, possible inserts) for one request — the
+        batcher's admission accounting under cross-request reuse."""
+        return BS.admission_pages(self.pool, self.store, r.plan, r.have, self.sel,
+                                  r.reuse, r.n_reserve, bucket=self.bucket)
 
     def _prefill_full(self, reqs: Sequence[BatchRequest]) -> np.ndarray:
         lens = [len(r.tokens) for r in reqs]
@@ -197,49 +230,371 @@ class BatchEngine:
         self.pool.write_at_batch(entries)
         return np.stack(out)
 
+    # --------------------------- shared insertion ---------------------------
+    def _index(self, positions: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(positions, np.int64)).to(self.pool.device)
+
+    def _rows_at(self, positions: np.ndarray, *rows: torch.Tensor):
+        """`rows` at host `positions`: the tensors themselves when the
+        positions are all of them in order, else one device gather each."""
+        n = rows[0].shape[0]
+        if len(positions) == n and np.array_equal(positions, np.arange(n)):
+            return rows
+        idx = self._index(positions)
+        return tuple(t[idx] for t in rows)
+
+    def _item_rows(self, ref: BS.BlockRef):
+        """An item block's bytes (t, L, Hkv, Dh) on the device: its rows of
+        the pool of cached rows, as views the store's insert copies."""
+        rows = slice(ref.row, ref.row + len(ref.tokens))
+        return (self.cache.k[:, rows, 0].transpose(0, 1),
+                self.cache.v[:, rows, 0].transpose(0, 1))
+
+    def _user_rows(self, r: BatchRequest, u_pos: np.ndarray, k0: torch.Tensor,
+                   v0: torch.Tensor):
+        """A user block's bytes (u, L, Hkv, Dh) on the device: the fresh
+        layer-0 plane at `u_pos` (k0/v0: (n, Hkv, Dh)) and the deep layers
+        of the cached rows there (the semantic prototypes)."""
+        idx = self._index(u_pos)
+        rows = self._index(r.block_table[u_pos])
+        return tuple(torch.cat([l0[idx, None].float(), pool[1:, rows, 0].transpose(0, 1)],
+                               dim=1)
+                     for l0, pool in ((k0, self.cache.k), (v0, self.cache.v)))
+
+    def _prefix_full_key(self, r: BatchRequest):
+        """The prefix tier's content key for one request: instruction
+        digest + the (n_pad, r_pad) bucket of its original plan shape, so
+        hit and miss requests derive the same key."""
+        reuse = r.reuse
+        if reuse is None or reuse.prefix_key is None or not reuse.prefix_len:
+            return None
+        return reuse.prefix_key + BS.shape_bucket(r.plan, r.have, self.sel, self.bucket)
+
+    def _inject_prefix(self, r: BatchRequest, blk: BS.StoredBlock):
+        """(block table, have) with a prefix-tier hit injected: the first
+        positions read the block's arena slots (table entries past the
+        cached rows, `engine.gather_rows`) and count as cached, so Eq. 3
+        drops them from the recompute set."""
+        npfx = min(blk.n_tokens, r.plan.n)
+        table, have = r.block_table.copy(), r.have.copy()
+        table[:npfx] = self.cache.n_rows + blk.slots[:npfx]
+        have[:npfx] = True
+        return table, have
+
+    def _prefill_selective_shared(self, reqs: Sequence[BatchRequest]) -> np.ndarray:
+        """rcllm prefill against the shared block store.  A prefix-tier
+        hit is injected before compute (`_inject_prefix`); every other
+        tier leaves the compute as it is, and pool insertion maps
+        store-resident blocks instead of writing their bytes."""
+        for r in reqs:
+            self._check_plan(r)
+        store = self.store
+        prefix_hits: Dict[int, tuple] = {}
+        items_in = []
+        for r in reqs:
+            table, have = r.block_table, r.have
+            key = self._prefix_full_key(r)
+            blk = store.get(key) if key is not None else None
+            if blk is not None:
+                # held until release(rid), recorded through prefix_hits
+                blk.refcount += 1
+                prefix_hits[r.rid] = (key, blk)
+                table, have = self._inject_prefix(r, blk)
+            items_in.append((r.plan, table, r.positions, have))
+        results = ENG.selective_prefill_batch(
+            self.model, self.cfg, items_in, self.sel, self.cache, bucket=self.bucket,
+            shared=self.pool if prefix_hits else None)
+        return self._insert_batch_shared(reqs, results, prefix_hits)
+
+    def _insert_batch_shared(self, reqs, results, prefix_hits) -> np.ndarray:
+        """Map store hits, insert missing blocks, write the private rest.
+
+        Phase A takes a reference on every resident block any request of
+        the batch will map, before any insert can trigger LRU eviction;
+        phase B then, per request, inserts missing blocks (optional, gated
+        so the batch's remaining mandatory private pages stay free), maps
+        the hit positions that survived recompute selection, allocates the
+        private remainder and stages its rows for one write.
+        """
+        store = self.store
+        held: Dict[int, list] = {r.rid: [] for r in reqs}
+        blocks: Dict[int, dict] = {r.rid: {} for r in reqs}
+        for rid, (key, blk) in prefix_hits.items():
+            held[rid].append(key)
+            blocks[rid][key] = blk
+        # phase A: silent references, batch-wide, before any insert evicts
+        for r in reqs:
+            reuse = r.reuse if r.reuse is not None else BS.RequestReuse()
+            keys = [ref.key for ref in reuse.blocks]
+            if reuse.user_key is not None and len(
+                    BS.user_reuse_positions(r.plan, r.have, reuse.prefix_end)):
+                keys.append(reuse.user_key)
+            for key in keys:
+                blk = store.get(key)
+                if blk is not None:
+                    blk.refcount += 1
+                    held[r.rid].append(key)
+                    blocks[r.rid][key] = blk
+        # private pages still owed to unprocessed batch members: optional
+        # inserts must never eat into them
+        bounds = {r.rid: self.admission_pages(r)[0] for r in reqs}
+        remaining = sum(bounds.values())
+        out, entries = [], []
+        for r, (logits, stats, k_all, v_all) in zip(reqs, results):
+            self.last_stats[r.rid] = stats
+            n = r.plan.n
+            rec = stats.recompute_mask
+            reuse = r.reuse if r.reuse is not None else BS.RequestReuse()
+            pos_parts, slot_parts = [], []
+            # --- prefix tier: the instruction's recomputed rows, pinned ---
+            key = self._prefix_full_key(r)
+            if key is not None:
+                if r.rid in prefix_hits:
+                    pblk = prefix_hits[r.rid][1]
+                    store.count_hit(pblk)
+                else:
+                    pblk = store.acquire(key)
+                    if pblk is not None:
+                        held[r.rid].append(key)
+                    else:
+                        # this request recomputed the rows: they become the
+                        # shared block
+                        npfx = min(reuse.prefix_len, n)
+                        pblk = store.insert(key, BS.PREFIX_TIER, k_all[:npfx],
+                                            v_all[:npfx], pinned=True,
+                                            keep_free=remaining, defer_write=True)
+                        if pblk is not None:
+                            pblk.refcount += 1
+                            held[r.rid].append(key)
+                if pblk is not None:
+                    npfx = min(pblk.n_tokens, n)
+                    pos_parts.append(np.arange(npfx))
+                    slot_parts.append(pblk.slots[:npfx])
+            # --- item tier: offline block bytes, LRU-evictable ---
+            for ref in reuse.blocks:
+                blk = blocks[r.rid].get(ref.key)
+                if blk is not None:
+                    store.count_hit(blk)
+                else:
+                    # an earlier request of this batch may have inserted it
+                    blk = store.acquire(ref.key)
+                    if blk is not None:
+                        held[r.rid].append(ref.key)
+                    elif ref.row >= 0:
+                        blk = store.insert(ref.key, BS.ITEM_TIER, *self._item_rows(ref),
+                                           tokens=ref.tokens, keep_free=remaining,
+                                           defer_write=True)
+                        if blk is not None:
+                            blk.refcount += 1
+                            held[r.rid].append(ref.key)
+                if blk is None:
+                    continue
+                use = ~rec[ref.positions]
+                pos_parts.append(ref.positions[use])
+                slot_parts.append(blk.slots[ref.offsets[use]])
+            # --- user tier: fresh layer-0 + semantic deep layers, pinned ---
+            u_pos = None
+            if reuse.user_key is not None:
+                u_pos = BS.user_reuse_positions(r.plan, r.have, reuse.prefix_end)
+            if u_pos is not None and len(u_pos):
+                ublk = blocks[r.rid].get(reuse.user_key)
+                if ublk is not None:
+                    store.count_hit(ublk)
+                else:
+                    ublk = store.acquire(reuse.user_key)
+                    if ublk is not None:
+                        held[r.rid].append(reuse.user_key)
+                    else:
+                        ublk = store.insert(
+                            reuse.user_key, BS.USER_TIER,
+                            *self._user_rows(r, u_pos, k_all[:, 0], v_all[:, 0]),
+                            positions=u_pos, pinned=True, keep_free=remaining,
+                            defer_write=True)
+                        if ublk is not None:
+                            ublk.refcount += 1
+                            held[r.rid].append(reuse.user_key)
+                if ublk is not None:
+                    common = np.intersect1d(u_pos, ublk.positions)
+                    common = common[~rec[common]]
+                    pos_parts.append(common)
+                    slot_parts.append(ublk.slots[np.searchsorted(ublk.positions, common)])
+            mapped_pos, mapped_slots = _concat(pos_parts), _concat(slot_parts)
+            cap = self.pool.pages_for(n + r.n_reserve) * self.pool.page_size
+            need = -(-(cap - len(mapped_pos)) // self.pool.page_size)
+            if self.pool.free_pages < need:
+                store.evict_for(need)
+            self.pool.alloc_mapped(r.rid, n + r.n_reserve, mapped_pos, mapped_slots)
+            remaining -= bounds[r.rid]
+            self.store_refs[r.rid] = held[r.rid]
+            mapped = np.zeros(n, bool)
+            mapped[mapped_pos] = True
+            keep = np.where(~mapped)[0]
+            entries.append((r.rid, keep, *self._rows_at(keep, k_all, v_all)))
+            out.append(logits)
+        store.flush_writes()
+        self.pool.write_at_batch(entries)
+        return np.stack(out)
+
     # ------------------------ chunk-resumable prefill ------------------------
     def begin_prefill(self, r: BatchRequest) -> None:
-        """Admit one request into chunk-resumable prefill: claim its pool
-        pages (prompt + reserved decode tokens) up front, so neither the
-        incremental chunk writes nor the finalize can hit `PoolExhausted`
-        mid-prefill."""
+        """Admit one request into chunk-resumable prefill.
+
+        Resolves the shared block store now (a prefix-tier hit is injected
+        before any compute, as on the wave path; item and user hits map
+        their positions at store slots) and claims the request's full
+        admission-bound private pages up front, so neither the chunk
+        writes nor the finalize remap can hit `PoolExhausted` mid-prefill.
+        """
         self._check_plan(r)
         if r.rid in self.prefill_states:
             raise KeyError(f"request {r.rid} already prefilling")
         n = r.plan.n
-        empty = np.zeros(0, np.int64)
-        self.pool.alloc_mapped(r.rid, n + r.n_reserve, empty, empty)
+        table, have = r.block_table, r.have
+        store = self.store
+        held: List = []
+        pos_parts, slot_parts = [], []
+        pending_prefix = pending_user = None
+        shared = None
+        if store is not None:
+            reuse = r.reuse if r.reuse is not None else BS.RequestReuse()
+            # --- prefix tier: inject a hit before compute ---
+            key = self._prefix_full_key(r)
+            if key is not None:
+                pblk = store.acquire(key)
+                if pblk is not None:
+                    held.append(key)
+                    table, have = self._inject_prefix(r, pblk)
+                    shared = self.pool
+                    npfx = min(pblk.n_tokens, n)
+                    pos_parts.append(np.arange(npfx))
+                    slot_parts.append(pblk.slots[:npfx])
+                else:
+                    pending_prefix = key
+            # --- item tier: the offline bytes exist now, so misses insert
+            # at admission and later arrivals hit them
+            for ref in reuse.blocks:
+                blk = store.acquire(ref.key)
+                if blk is None and ref.row >= 0:
+                    blk = store.insert(ref.key, BS.ITEM_TIER, *self._item_rows(ref),
+                                       tokens=ref.tokens, defer_write=True)
+                    if blk is not None:
+                        blk.refcount += 1
+                if blk is not None:
+                    held.append(ref.key)
+                    pos_parts.append(ref.positions)
+                    slot_parts.append(blk.slots[ref.offsets])
+            # --- user tier (fresh bytes needed: a miss inserts at finalize)
+            if reuse.user_key is not None:
+                u_pos = BS.user_reuse_positions(r.plan, r.have, reuse.prefix_end)
+                if len(u_pos):
+                    ublk = store.acquire(reuse.user_key)
+                    if ublk is not None:
+                        held.append(reuse.user_key)
+                        common = np.intersect1d(u_pos, ublk.positions)
+                        pos_parts.append(common)
+                        slot_parts.append(
+                            ublk.slots[np.searchsorted(ublk.positions, common)])
+                    else:
+                        pending_user = (reuse.user_key, u_pos)
+        mapped_pos, mapped_slots = _concat(pos_parts), _concat(slot_parts)
+        # claim the full admission bound: the pages needed now plus spare
+        # headroom covering the worst-case finalize remap
+        bound, _ = self.admission_pages(r)
+        total_slots = self.pool.pages_for(n + r.n_reserve) * self.pool.page_size
+        begin_need = -(-max(total_slots - len(mapped_pos), 0) // self.pool.page_size)
+        extra = max(bound - begin_need, 0)
+        if store is not None and self.pool.free_pages < begin_need + extra:
+            store.evict_for(begin_need + extra)
+        try:
+            self.pool.alloc_mapped(r.rid, n + r.n_reserve, mapped_pos, mapped_slots,
+                                   extra_pages=extra)
+        except PoolExhausted:
+            if store is not None:
+                store.release_all(held)
+            raise
+        if store is not None:
+            self.store_refs[r.rid] = held
+        mapped_mask = np.zeros(n, bool)
+        mapped_mask[mapped_pos[mapped_pos < n]] = True
         cp = ENG.ChunkedPrefill(
-            self.model, self.cfg, r.plan, r.block_table, r.positions, r.have,
-            self.cache, self.sel, chunk_tokens=self.chunk_tokens,
-            bucket=self.bucket)
-        self.prefill_states[r.rid] = PrefillState(req=r, cp=cp)
+            self.model, self.cfg, r.plan, table, r.positions, have, self.cache,
+            self.sel, chunk_tokens=self.chunk_tokens, bucket=self.bucket, shared=shared)
+        self.prefill_states[r.rid] = PrefillState(
+            req=r, cp=cp, mapped_mask=mapped_mask, pending_prefix=pending_prefix,
+            pending_user=pending_user)
 
     def abort_prefill(self, rid: int) -> None:
         """Roll back a mid-prefill preemption: drop the chunk state and
-        release the pages.  The caller keeps the plan, so the victim can
-        re-prefill from scratch (greedy decode regenerates the same
-        tokens)."""
+        release the pages and store references.  The caller keeps the
+        plan, so the victim can re-prefill from scratch (greedy decode
+        regenerates the same tokens)."""
         self.prefill_states.pop(rid, None)
         self.release(rid)
+
+    def _finalize_store(self, st: PrefillState, k0, v0, k_rest, v_rest,
+                        rec: np.ndarray) -> np.ndarray:
+        """Store bookkeeping for one finalizing request: insert the tiers
+        whose keys missed at admission, then un-share every mapped position
+        Eq. 3 selected for recompute (its fresh KV must land privately:
+        writing through the shared slot would corrupt the store's block).
+        k0/v0: (n, Hkv, Dh) fresh layer 0; k_rest/v_rest: (n_pad, L-1,
+        Hkv, Dh).  -> remapped positions."""
+        store, r = self.store, st.req
+        n = st.cp.n
+        reuse = r.reuse if r.reuse is not None else BS.RequestReuse()
+        held = self.store_refs.setdefault(r.rid, [])
+        if st.pending_prefix is not None:
+            npfx = min(reuse.prefix_len, n)
+            rows = [torch.cat([l0[:npfx, None].float(), deep[:npfx]], dim=1)
+                    for l0, deep in ((k0, k_rest), (v0, v_rest))]
+            pblk = store.insert(st.pending_prefix, BS.PREFIX_TIER, *rows, pinned=True,
+                                defer_write=True)
+            if pblk is not None:
+                pblk.refcount += 1
+                held.append(st.pending_prefix)
+        if st.pending_user is not None:
+            ukey, u_pos = st.pending_user
+            ublk = store.insert(ukey, BS.USER_TIER, *self._user_rows(r, u_pos, k0, v0),
+                                positions=u_pos, pinned=True, defer_write=True)
+            if ublk is not None:
+                ublk.refcount += 1
+                held.append(ukey)
+        remap = np.where(st.mapped_mask & rec)[0]
+        self.pool.remap_private(r.rid, remap)
+        st.mapped_mask[remap] = False
+        return remap
 
     def finalize_prefill(self, rids: Sequence[int]) -> Dict[int, np.ndarray]:
         """Selective layers + pool insertion for fully-scanned requests:
         one bucketed dispatch (`engine.selective_layers_batch`, as the
-        wave path), then one fused deep-layer pool scatter for the whole
-        batch; the layer-0 plane already landed as chunks completed."""
+        wave path), then one deep-layer pool write for the whole batch;
+        the layer-0 plane already landed as chunks completed (positions
+        un-shared here get theirs now)."""
         states = [self.prefill_states[rid] for rid in rids]
+        shared = self.pool if any(st.cp.shared is not None for st in states) else None
         sel_out = ENG.selective_layers_batch(
-            self.model, self.cfg, [st.cp.sel_item() for st in states], self.cache)
+            self.model, self.cfg, [st.cp.sel_item() for st in states], self.cache,
+            shared=shared)
         out: Dict[int, np.ndarray] = {}
-        entries_deep = []
+        entries_deep, entries_l0 = [], []
         for st, (logits, k_rest, v_rest) in zip(states, sel_out):
             r, cp = st.req, st.cp
             self.last_stats[r.rid] = cp.stats
-            entries_deep.append((r.rid, np.arange(cp.n), k_rest[:cp.n], v_rest[:cp.n]))
+            if self.store is not None:
+                k0, v0 = cp.k0_full(), cp.v0_full()
+                remap = self._finalize_store(st, k0, v0, k_rest, v_rest,
+                                             cp.stats.recompute_mask)
+                if len(remap):
+                    entries_l0.append((r.rid, remap, *self._rows_at(remap, k0, v0)))
+            keep = np.where(~st.mapped_mask)[0]
+            entries_deep.append((r.rid, keep,
+                                 *self._rows_at(keep, k_rest[:cp.n], v_rest[:cp.n])))
             out[r.rid] = logits
             del self.prefill_states[r.rid]
+        if self.store is not None:
+            self.store.flush_writes()
         self.pool.write_at_batch(entries_deep, deep=True)
+        self.pool.write_at_batch(entries_l0, layer=0)
         return out
 
     def step(self, budget: int, decode_rids: Sequence[int],
@@ -260,6 +615,9 @@ class BatchEngine:
         budget and must not starve.
         """
         rep = StepReport()
+        if self.store is not None:
+            # land the admissions' deferred inserts
+            self.store.flush_writes()
         if decode_rids:
             rep.decode_logits = self.decode(decode_rids, decode_tokens)
             rep.charge_decode = len(decode_rids)
@@ -299,6 +657,10 @@ class BatchEngine:
                 if c > left:
                     rep.oversized = True
                 positions, k0, v0 = st.cp.run_chunk()
+                keep = ~st.mapped_mask[positions]
+                if not keep.all():    # never write into a store-shared slot
+                    positions, (k0, v0) = positions[keep], self._rows_at(
+                        np.where(keep)[0], k0, v0)
                 l0_entries.append((rid, positions, k0, v0))
                 rep.charge_chunks += c
                 left -= c
@@ -325,6 +687,14 @@ class BatchEngine:
                            pages, slots, pg_ids, sl_pos, self.pool)
 
     def release(self, rid: int) -> None:
-        """Free a request's pages.  Idempotent."""
+        """Free a request's private pages and drop its shared-block
+        references.  Idempotent."""
         self.pool.free(rid)
+        if self.store is not None:
+            self.store.release_all(self.store_refs.pop(rid, []))
         self.last_stats.pop(rid, None)
+
+
+def _concat(parts: List[np.ndarray]) -> np.ndarray:
+    return (np.concatenate(parts).astype(np.int64) if parts
+            else np.zeros(0, np.int64))

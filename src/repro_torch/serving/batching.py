@@ -1,6 +1,7 @@
 """Continuous batching for the port's serving path — the wave and chunked
-disciplines of the JAX package's `serving/batching.py` on one instance
-(the cluster and disaggregation are not ported yet).
+disciplines of the JAX package's `serving/batching.py` on one instance,
+with the block store's admission accounting (the cluster and
+disaggregation are not ported yet).
 
 * ``sched="wave"``: each step runs either one whole-prefill batch under a
   token budget or one decode iteration (prefill-prioritized, vLLM's
@@ -86,14 +87,21 @@ class TorchEngineBackend:
 
     `mode="full"` prefills every prompt exactly; `mode="rcllm"` runs the
     beyond-prefix selective path and needs `plans` ({rid: (plan,
-    block_table, positions, have)}, `serving.workload.rcllm_workload`).
-    Token selection is greedy unless a request registered
-    `SamplingParams` via `set_session`."""
+    block_table, positions, have)}, `serving.workload.rcllm_workload`)
+    and, for a store-backed engine, `reuse` ({rid:
+    `block_store.RequestReuse`}, `workload.rcllm_reuse_info`).  Token
+    selection is greedy unless a request registered `SamplingParams` via
+    `set_session`."""
 
-    def __init__(self, engine, mode: str = "full", plans: Optional[Dict] = None):
+    def __init__(self, engine, mode: str = "full", plans: Optional[Dict] = None,
+                 reuse: Optional[Dict] = None):
         self.engine = engine
         self.mode = mode
         self.plans = plans if plans is not None else {}
+        self.reuse = reuse if reuse is not None else {}
+        # rid -> (store.version, bound): admission bounds hold until the
+        # store's resident set changes
+        self._admit_cache: Dict[int, tuple] = {}
         self.last_token: Dict[int, int] = {}
         self.generated: Dict[int, List[int]] = {}
         self.sampling: Dict[int, SamplingParams] = {}
@@ -147,6 +155,7 @@ class TorchEngineBackend:
                               n_reserve=max(r.decode_steps - 1, 0))
             if self.mode == "rcllm":
                 br.plan, br.block_table, br.positions, br.have = self.plans[r.rid]
+                br.reuse = self.reuse.get(r.rid)
             out.append(br)
         return out
 
@@ -160,11 +169,37 @@ class TorchEngineBackend:
     def can_admit(self, req: PendingRequest,
                   batch: Sequence[PendingRequest] = ()) -> bool:
         """Pages for the prompt + its decode tokens, on top of what the
-        rest of the forming batch will claim."""
+        rest of the forming batch will claim.  Under cross-request reuse
+        only private pages count, against the free pages plus what LRU
+        eviction could reclaim (not counting the blocks these very
+        requests will map); store inserts are optional and not charged."""
         pool = self.engine.pool
-        need = sum(pool.pages_for(r.n_tokens + max(r.decode_steps - 1, 0))
-                   for r in (*batch, req))
-        return need <= pool.free_pages
+        store = getattr(self.engine, "store", None)
+        if store is None or self.mode != "rcllm":
+            need = sum(pool.pages_for(r.n_tokens + max(r.decode_steps - 1, 0))
+                       for r in (*batch, req))
+            return need <= pool.free_pages
+        from repro_torch.serving import block_store as BS
+
+        need = 0
+        hit_keys = set()
+        for r in (*batch, req):
+            reuse = self.reuse.get(r.rid)
+            entry = self._admit_cache.get(r.rid)
+            if entry is not None and entry[0] == store.version:
+                bound = entry[1]
+            else:
+                plan, _, _, have = self.plans[r.rid]
+                bound, _ = BS.admission_pages(pool, store, plan, have, self.engine.sel,
+                                              reuse, max(r.decode_steps - 1, 0),
+                                              bucket=self.engine.bucket)
+                self._admit_cache[r.rid] = (store.version, bound)
+            need += bound
+            if reuse is not None:
+                hit_keys.update(ref.key for ref in reuse.blocks if store.has(ref.key))
+                if reuse.user_key is not None and store.has(reuse.user_key):
+                    hit_keys.add(reuse.user_key)
+        return need <= pool.free_pages + store.reclaimable_pages(exclude=hit_keys)
 
     def decode(self, batch: Sequence[PendingRequest]) -> float:
         t0 = time.perf_counter()
@@ -177,6 +212,7 @@ class TorchEngineBackend:
     def finish(self, req: PendingRequest) -> None:
         self.engine.release(req.rid)
         self.last_token.pop(req.rid, None)
+        self._admit_cache.pop(req.rid, None)
         self.sampling.pop(req.rid, None)
         self.stop_seqs.pop(req.rid, None)
         self._rngs.pop(req.rid, None)
@@ -186,6 +222,7 @@ class TorchEngineBackend:
         (plans and sampling kept; the PRNG restarts from its seed)."""
         self.engine.release(req.rid)
         self.last_token.pop(req.rid, None)
+        self._admit_cache.pop(req.rid, None)
         self._rngs.pop(req.rid, None)
         self.finish_reason.pop(req.rid, None)
 
@@ -219,6 +256,7 @@ class TorchEngineBackend:
         and pages; the plan is kept for the re-prefill."""
         self.engine.abort_prefill(req.rid)
         self.last_token.pop(req.rid, None)
+        self._admit_cache.pop(req.rid, None)
         self._rngs.pop(req.rid, None)
         self.finish_reason.pop(req.rid, None)
 

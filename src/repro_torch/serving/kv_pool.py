@@ -1,7 +1,7 @@
 """Paged KV cache pool for the batched serving path (vLLM-style) — the
 port of the JAX package's `serving/kv_pool.py` (request slot tables, mapped
-allocation and private remapping; the block store's sharing and migration
-export/import are not ported yet).
+allocation and private remapping, and the raw page and slot interface of
+the shared block store; migration export/import is not ported yet).
 
 One preallocated device arena holds every request's per-layer KV in
 fixed-size pages; a free-list allocator hands pages to requests and a
@@ -86,6 +86,19 @@ class PagedKVPool:
     def _bump_peak(self) -> None:
         self.peak_pages = max(self.peak_pages,
                               self.n_pages - 1 - len(self._free))
+
+    def alloc_pages(self, n: int) -> List[int]:
+        """Raw page grab with no request bookkeeping — the block store's
+        allocation path.  The caller owns the pages until it hands them
+        back through `release_pages`."""
+        if n > len(self._free):
+            raise PoolExhausted(f"need {n} pages, {len(self._free)} free")
+        pages = [self._free.pop() for _ in range(n)]
+        self._bump_peak()
+        return pages
+
+    def release_pages(self, pages: Sequence[int]) -> None:
+        self._free.extend(pages)
 
     def alloc(self, rid: int, n_tokens: int) -> List[int]:
         """Reserve private pages for `n_tokens` slots; seq_len starts at 0."""
@@ -244,6 +257,38 @@ class PagedKVPool:
             idx = (pages, slots, torch.full_like(pages, layer))
         self.arena_k.index_put_(idx, k)
         self.arena_v.index_put_(idx, v)
+
+    def write_slots(self, slot_ids: np.ndarray, k, v) -> None:
+        """Direct physical-slot write (no request bookkeeping) — the block
+        store's insertion path.  k/v: (t, L, Hkv, Dh)."""
+        self.write_slots_batch([(slot_ids, k, v)])
+
+    def write_slots_batch(self, entries: Sequence[tuple]) -> None:
+        """ONE in-place arena write for any number of (slot_ids, k, v)
+        blocks: the store lands a whole prefill's inserts through here.
+        k/v are tensors on the arena's device (or host arrays)."""
+        entries = [e for e in entries if len(e[0])]
+        if not entries:
+            return
+        dev = self.device
+        slot_ids = torch.from_numpy(np.concatenate(
+            [np.asarray(s, np.int64) for s, _, _ in entries])).to(dev)
+        k = torch.cat([torch.as_tensor(k, device=dev) for _, k, _ in entries])
+        v = torch.cat([torch.as_tensor(v, device=dev) for _, _, v in entries])
+        idx = (slot_ids // self.page_size, slot_ids % self.page_size)
+        self.arena_k.index_put_(idx, k.to(self.arena_k.dtype))
+        self.arena_v.index_put_(idx, v.to(self.arena_v.dtype))
+
+    def plane(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer `layer` of both arenas as pools of one-slot pages: (k, v)
+        views of shape (n_pages * page_size, 1, Hkv, Dh), row i being
+        physical slot i.  Strided (slots are L planes apart), not copied:
+        the block-gather kernel's second pool, through which the
+        selective layers read store-shared prefix rows."""
+        n, ps, L = self.n_pages, self.page_size, self.n_layers
+        tail = tuple(self.arena_k.shape[3:])
+        return tuple(a.view(n * ps, 1, L, *tail)[:, :, layer]
+                     for a in (self.arena_k, self.arena_v))
 
     def write_prompt(self, rid: int, k, v) -> None:
         """Insert a full prompt cache (n, L, Hkv, Dh) starting at slot 0."""

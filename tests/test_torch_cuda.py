@@ -421,18 +421,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         bag_sum(torch.zeros(4, 1, 1, device=cuda), table[None])
 
 
-def _tiny_tokens(cuda, sched):
+def _tiny_tokens(cuda, sched, kv_reuse=False):
+    """Greedy tokens of the tiny rcllm model served on the card and on the
+    CPU.  With `kv_reuse`, a repeat-user trace in two arrival waves (the
+    second meets a warm store: prefix-tier hits injected before compute);
+    both runs must end with the partition intact and no page held."""
     import copy
 
     from repro_torch.launch import serve as SERVE
     from repro_torch.serving.api import ServeConfig
+    from repro_torch.serving.batching import PendingRequest
+    from repro_torch.serving.block_store import check_partition
 
     tokens, model = {}, None
-    config = ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64)
+    config = ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64, kv_reuse=kv_reuse)
+    n, zipf = (8, 1.4) if kv_reuse else (4, None)
     for dev in (cuda, torch.device("cpu")):
-        sys_, reqs, plans = SERVE.rcllm_setup(None, dev, 4, 1e6, 4, model=model)
-        _, backend, _, done = SERVE.serve(sys_.model, sys_.cfg, config, reqs, plans,
-                                          sys_.rows)
+        sys_, reqs, plans, reuse = SERVE.rcllm_setup(None, dev, n, 1e6, 4, model=model,
+                                                     zipf_users=zipf)
+        if kv_reuse:
+            reqs = [PendingRequest(0.0 if r.rid < n // 2 else 1e3, r.rid, r.n_tokens,
+                                   r.decode_steps, r.tokens) for r in reqs]
+        engine, backend, _, done = SERVE.serve(sys_.model, sys_.cfg, config, reqs, plans,
+                                               sys_.rows, reuse)
+        assert len(done) == n and engine.pool.stats().pages_in_use == 0
+        check_partition(engine.pool, engine.store)
         tokens[dev.type] = {r: backend.generated[r] for r in sorted(backend.generated)}
         model = copy.deepcopy(sys_.model).to("cpu")
     return tokens
@@ -454,3 +467,102 @@ def test_tiny_rcllm_chunked_serving_card_equals_cpu(cuda):
     tokens = _tiny_tokens(cuda, "chunked")
     assert assemble_kv.launches > before
     assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sched", ["wave", "chunked"])
+def test_tiny_rcllm_kv_reuse_serving_card_equals_cpu(cuda, sched):
+    """Serving through the shared block store on the card decodes the plain
+    versions' tokens on the CPU; the prefix tier's hits reach the selective
+    layers through the block gather's second pool."""
+    before = assemble_kv.pool2_launches
+    tokens = _tiny_tokens(cuda, sched, kv_reuse=True)
+    assert assemble_kv.pool2_launches > before
+    assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rotate", [False, True])
+def test_block_gather_kernel_second_pool(cuda, dtype, rotate):
+    """Table entries past the first pool read a second pool laid out as a
+    layer plane of the serving arena (one-slot pages L planes apart): the
+    kernel against the plain version, copies bitwise, the launch counted
+    on the second-pool route; an entry past both pools gives zeros."""
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    rng = np.random.default_rng(int(rotate) + 2 * (dtype == torch.bfloat16))
+    arena = PagedKVPool(5, 8, 128, page_size=16, n_pages=40, device=cuda, dtype=dtype)
+    arena.arena_k.normal_()
+    arena.arena_v.normal_()
+    pk = torch.from_numpy(rng.normal(size=(300, 1, 8, 128)).astype(np.float32))
+    pk, pv = pk.to(cuda, dtype), (-pk).to(cuda, dtype)
+    k2, v2 = arena.plane(3)
+    n2 = k2.shape[0]
+    table = rng.integers(0, 300 + n2, 700).astype(np.int32)
+    table[:5] = 300 + n2 + np.arange(5)            # past both pools
+    bt = torch.from_numpy(table).to(cuda)
+    pos = torch.from_numpy(rng.integers(0, 4096, (700, 1)).astype(np.int32)).to(cuda)
+    before = (assemble_kv.launches, assemble_kv.pool2_launches)
+    got = assemble_kv(pk, pv, bt, pos, rotate=rotate, keep_raw=rotate, pool2_k=k2,
+                      pool2_v=v2)
+    assert (assemble_kv.launches, assemble_kv.pool2_launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    safe = bt.clone()
+    safe[:5] = 0
+    want = block_gather_ref(pk, pv, safe, pos, rotate=rotate, pool2_k=k2, pool2_v=v2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1][5:], want[1][5:])
+    assert not got[0][:5].any() and not got[1][:5].any()
+    if rotate:
+        raw = torch.cat([pk, k2])[safe.long()]
+        assert torch.equal(got[2][5:], raw[5:])
+        _close(got[0][5:], want[0][5:], 1e-5 if dtype == torch.float32 else 1e-2)
+    else:
+        assert torch.equal(got[0][5:], want[0][5:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _PAGED_DTYPES[:1] + _PAGED_DTYPES[2:3])
+def test_paged_decode_kernel_store_shared_pages(cuda, dtypes):
+    """Page views as the block store makes them: each row maps shared store
+    blocks (several rows read the same physical pages, from any offset)
+    between its own private pages, so a row touches many pages full of
+    dead (-1) slots and whole splits of them; kernel against the plain
+    version (and the served shape's split choice)."""
+    rng = np.random.default_rng(13)
+    page, n_pages = 16, 512
+    store_blocks = [np.arange(p * page, p * page + int(rng.integers(5, 40)))
+                    for p in range(1, 120, 3)]
+    tables, lens = [], []
+    free = iter(range(130, n_pages))
+    for _ in range(8):
+        pieces, n = [], 0
+        for b in rng.choice(len(store_blocks), 12, replace=False):
+            blk = store_blocks[b]
+            off = np.sort(rng.choice(len(blk), int(rng.integers(1, len(blk) + 1)),
+                                     replace=False))
+            pieces.append(blk[off])                      # shared, any alignment
+            priv = next(free) * page + np.arange(int(rng.integers(1, page)))
+            pieces.append(priv)                          # private, partly used
+        row = np.concatenate(pieces)
+        tables.append(row)
+        lens.append(len(row))
+    table = np.zeros((8, max(lens)), np.int64)
+    for i, row in enumerate(tables):
+        table[i, :len(row)] = row
+    new = np.asarray([next(free) for _ in range(8)])
+    pg, sp = page_views(table, np.asarray(lens), new, np.zeros(8, np.int64), page)
+    assert pg.shape[1] > 24 and (sp < 0).mean() > 0.3
+    shared = np.intersect1d(pg[0], pg[1])
+    assert len(shared[shared > 0])                  # rows share physical pages
+    g = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+    ak, av = g(n_pages, page, 2, 8, 128), g(n_pages, page, 2, 8, 128)
+    q = g(8, 32, 128).to(dtypes[0])
+    ak, av = ak.to(dtypes[1]), av.to(dtypes[1])
+    pgt, spt = torch.from_numpy(pg).to(cuda), torch.from_numpy(sp).to(cuda)
+    # a split whose pages are all dead: blank out a run of page columns
+    spt[:, 4:12] = -1
+    _, splits = _paged_check(q, ak, av, pgt, spt, 1)
+    assert splits > 1
+
