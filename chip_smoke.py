@@ -102,6 +102,7 @@ from repro_torch.serving import block_store as BS  # noqa: E402
 from repro_torch.serving import workload as WL  # noqa: E402
 from repro_torch.serving.api import ServeConfig, StoreConfig  # noqa: E402
 from repro_torch.serving.batching import TorchEngineBackend  # noqa: E402
+from repro_torch.serving.cluster import ClusterEngine  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W).
@@ -147,6 +148,19 @@ INT8_WAVE_GAP_S = 60.0
 # trace twice and prints the same reading for that pair: the control
 # for what timing-dependent batching alone changes
 GAP_ULPS = 4
+# phase 2f: the cluster (k = 2 workers on the card) serves the launcher trace
+# of CLUSTER_REQUESTS requests in five runs.  In the int8 run the second
+# half arrives INT8_WAVE_GAP_S later, after the first has churned the
+# stores, and each worker has a pool of CLUSTER_INT8_PAGES pages and a
+# store budget of CLUSTER_INT8_STORE_PAGES (the pinned prefix block takes
+# 13): a request that cannot be admitted at once waits while the router's
+# prefetch hints promote its spilled blocks (one admitted at once promotes
+# them on demand instead).  On the CPU with the tiny model (the same
+# catalog, so the same page counts) these sizes promote under any step
+# time tried, 0 to 0.4 s a tick
+CLUSTER_REQUESTS = 12
+CLUSTER_INT8_PAGES, CLUSTER_INT8_STORE_PAGES = 64, 24
+
 # kernels with two routes: "<name>" counts and records the tensor-core route
 # (bf16, the served path at full width), "<name>:fp32" the SIMT kernel
 # (fp32, the tiny card == CPU path)
@@ -1274,6 +1288,207 @@ def serve_store_budget(system, cfg, config, reqs, plans, reuse, max_pages):
     return engine, backend, batcher, done
 
 
+# ---------------------------------------------------------------- cluster
+class CopyTimer:
+    """CUDA events around every migration's pool export (the private
+    pages gathered on the card) and import (scattered into the other
+    worker's arena), as served: the card is synchronised before each call,
+    so the events bracket that call alone, its host bookkeeping and any
+    allocation included.  Also keeps the pages each export moved."""
+
+    def __init__(self):
+        self.ms, self.calls, self.pages = 0.0, 0, []
+        self.saved = [(PagedKVPool, n, getattr(PagedKVPool, n))
+                      for n in ("export_request", "import_request")]
+
+    def __enter__(self):
+        tap = self
+        for cls, name, fn in self.saved:
+            def timed(pool, *a, _fn=fn, **kw):
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = _fn(pool, *a, **kw)
+                ev[1].record()
+                torch.cuda.synchronize()
+                tap.ms += ev[0].elapsed_time(ev[1])
+                tap.calls += 1
+                if _fn.__name__ == "export_request":
+                    tap.pages.append(out.n_pages)
+                return out
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+def copy_kernels_ms(pool, n_pages):
+    """The page copies of one migration of `n_pages` pages alone, warm
+    (CUDA events, median of 20): the export's gather of both arenas and
+    the import's scatter of them, here back into the same pages (a
+    drained pool: the bytes do not change)."""
+    pages = list(range(1, n_pages + 1))
+    idx = torch.tensor(pages, device=pool.device)
+    slots = pool.page_slots(pages)
+
+    def one():
+        k, v = pool.arena_k.index_select(0, idx), pool.arena_v.index_select(0, idx)
+        tail = tuple(k.shape[2:])
+        pool.write_slots(slots, k.reshape(-1, *tail), v.reshape(-1, *tail))
+    return time_ms(one)
+
+
+def cluster_checks(label, cluster, admitted):
+    """Every worker: no page held, the partition intact, each store
+    block's slots still its admission bytes, nothing the cluster bound
+    kept alive."""
+    for w, backend in enumerate(cluster.backends):
+        engine = backend.engine
+        if engine.store is not None:
+            store_checks(f"{label} worker {w}", engine, admitted)
+        elif engine.pool.stats().pages_in_use or engine.prefill_states:
+            raise RuntimeError(f"{label} worker {w}: pages still held after the run")
+        else:
+            BS.check_partition(engine.pool)
+        if backend.plans or backend.reuse or backend.pending_transfer_s:
+            raise RuntimeError(f"{label} worker {w}: plans kept after the run")
+
+
+def cluster_phase(system2, pool_rv, prof, cfg, args):
+    """Phase 2f: the multi-instance cluster at full width and depth.  Two
+    engine workers over the same model object and cached rows, the item
+    caches sharded by the placement, serve the launcher trace five times:
+    wave under the Eq. 2 affinity router and under round robin (reuse
+    off), chunked with the fp32 block store unified and disaggregated (one
+    prefill, one decode worker: every request's KV migrates), and chunked
+    with int8 payloads, a spill tier and prefetch, the trace's second half
+    60 s later on the batcher's clock.  -> (report, launches per run)."""
+    trace = SERVE.launcher_trace(system2, pool_rv, prof, CLUSTER_REQUESTS, args.qps)
+    half = len(trace) // 2
+    late = [dataclasses.replace(r, arrival_s=r.arrival_s + INT8_WAVE_GAP_S) if i >= half
+            else r for i, r in enumerate(trace)]
+    base = ServeConfig(k=2, decode_steps=args.decode_steps)
+    runs = [
+        ("wave_affinity", base, trace),
+        ("wave_round_robin", base.replace(policy="round_robin"), trace),
+        ("chunked_reuse", base.replace(sched="chunked", kv_reuse=True), trace),
+        ("chunked_reuse_disagg", base.replace(
+            sched="chunked", kv_reuse=True,
+            disagg=API.DisaggConfig(prefill_workers=1, decode_workers=1)), trace),
+        ("chunked_int8_prefetch", base.replace(
+            sched="chunked", kv_reuse=True, n_pages=CLUSTER_INT8_PAGES,
+            store=StoreConfig(kv_store_dtype="int8", spill_mb=INT8_SPILL_MB,
+                              prefetch_pages_per_tick=8)), late),
+    ]
+    log(f"cluster (phase 2f): k = 2 workers on one card, {len(trace)} requests of the "
+        f"launcher trace at {args.qps:g}/s, {args.decode_steps} output tokens, prompts "
+        f"{min(len(r.history_tokens) for r in trace)}+ history tokens; depth {cfg.n_layers}; "
+        "transfers and migrations billed from the cost model (H100 SXM rates, 100 Gbps "
+        "network), the on-card migration copies timed with CUDA events")
+    out, launches, gen, rows = {"runs": {}}, {}, {}, {}
+    hot = set(int(h) for h in system2.placement.hot_items)
+    for label, config, tr in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with LogitTap() as tap, AdmitTap() as admitted, CopyTimer() as copies:
+            cluster = ClusterEngine(system2, config)
+            if label == "chunked_int8_prefetch":
+                for b in cluster.backends:
+                    b.engine.store.max_pages = CLUSTER_INT8_STORE_PAGES
+            crep = cluster.run(tr, decode_steps=config.decode_steps)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rep = SERVE.cluster_report(config, cluster, crep, warmup=True)
+        if rep["requests"] != len(tr) or any(
+                len(crep.generated[r]) != config.decode_steps for r in range(len(tr))):
+            raise RuntimeError(f"cluster {label}: {rep['requests']} of {len(tr)} requests "
+                               "completed with their full output")
+        cluster_checks(f"cluster {label}", cluster, admitted.bytes)
+        gen[label], rows[label] = dict(crep.generated), tap.rows
+        ws = crep.workers
+        line = {
+            "ttft_p50_ms": rep["ttft_p50_s"] * 1e3, "ttft_p99_ms": rep["ttft_p99_s"] * 1e3,
+            "tbt_p50_ms": (None if rep["tbt_p50_s"] is None else rep["tbt_p50_s"] * 1e3),
+            "tok_s": rep["throughput_tok_s"], "mean_hit_rate": rep["mean_hit_rate"],
+            "transfer_blocks": sum(w.transfer_blocks for w in ws),
+            "transfer_mb": sum(w.transfer_bytes for w in ws) / 1e6,
+            "transfer_billed_s": sum(w.transfer_seconds for w in ws),
+            "migrations": sum(w.migrations for w in ws),
+            "migration_mb": sum(w.migration_bytes for w in ws) / 1e6,
+            "migration_billed_s": sum(w.migration_s for w in ws),
+            "migration_digest_hits": sum(w.migration_digest_hits for w in ws),
+            "migration_copy_ms_measured": copies.ms, "migration_copy_calls": copies.calls,
+            "migration_pages_exported": sum(copies.pages),
+            "prefetch_promotions": sum(w.prefetch_promotions for w in ws),
+            "spill_hits": sum(w.spill_hits for w in ws),
+            "transfers_avoided": sum((w.kv_reuse or {}).get("transfers_avoided", 0)
+                                     for w in ws),
+            "peak_gb": peak, "wall_s": wall, "assigned_per_worker": [w.n_requests for w in ws]}
+        log(f"  {label} ({wall:.1f} s): TTFT p50 {line['ttft_p50_ms']:.1f} ms p99 "
+            f"{line['ttft_p99_ms']:.1f} ms; TBT p50 {line['tbt_p50_ms']:.1f} ms; "
+            f"{line['tok_s']:.1f} tok/s; hit rate {line['mean_hit_rate']:.3f}; transfers "
+            f"{line['transfer_blocks']} blocks {line['transfer_mb']:.2f} MB billed "
+            f"{line['transfer_billed_s'] * 1e3:.3f} ms; migrations {line['migrations']} "
+            f"({line['migration_mb']:.2f} MB billed {line['migration_billed_s'] * 1e3:.3f} ms, "
+            f"{line['migration_digest_hits']} digest hits; measured on-card copy "
+            f"{copies.ms:.3f} ms in {copies.calls} calls); prefetch promotions "
+            f"{line['prefetch_promotions']}, spill hits {line['spill_hits']}, transfers "
+            f"avoided {line['transfers_avoided']}; peak {peak:.1f} GB; per worker "
+            f"{line['assigned_per_worker']}")
+        log(f"    kernel launches: {launches[label]}")
+        out["runs"][label] = {"line": line, "serve": rep}
+        if label == "wave_round_robin":
+            recs = [(w, t) for w, b in enumerate(cluster.backends) for t in b.shard.transfers]
+            bad = [(w, t) for w, t in recs if t.item_id in hot or t.src_instance == w]
+            if not recs or bad:
+                raise RuntimeError(f"cluster {label}: transfer ledger {len(recs)} records, "
+                                   f"naming hot items or the worker's own shard: {bad}")
+        if label == "chunked_reuse_disagg":
+            pre, dec = ws
+            decode_ticks = sum(t.decode_tokens > 0 for t in cluster.batcher.workers[1].ticks)
+            if not (pre.migrated_out > 0 and dec.migrations == pre.migrated_out
+                    and dec.migration_digest_hits > 0 and decode_ticks > 0):
+                raise RuntimeError(f"cluster {label}: migrated_out {pre.migrated_out}, "
+                                   f"migrations {dec.migrations}, digest hits "
+                                   f"{dec.migration_digest_hits}, decode ticks on the decode "
+                                   f"worker {decode_ticks}")
+            line["decode_worker_decode_ticks"] = decode_ticks
+            n = round(float(np.mean(copies.pages)))
+            line["copy_kernels_ms_per_migration"] = copy_kernels_ms(
+                cluster.backends[1].engine.pool, n)
+            line["copy_kernels_pages"] = n
+            log(f"    the page copies alone at the mean migration's {n} pages "
+                f"({n * cluster.backends[1].engine.pool.page_size} slots), warm: "
+                f"{line['copy_kernels_ms_per_migration']:.4f} ms per migration "
+                f"(gather + scatter, both arenas)")
+        if label == "chunked_int8_prefetch" and not line["prefetch_promotions"]:
+            raise RuntimeError(f"cluster {label}: no prefetch promotion: "
+                               f"{[w.kv_reuse for w in ws]}")
+        del cluster, crep
+    first, second = out["runs"]["wave_affinity"]["line"], out["runs"]["wave_round_robin"]["line"]
+    if first["mean_hit_rate"] < second["mean_hit_rate"]:
+        raise RuntimeError(f"affinity hit rate {first['mean_hit_rate']} below round robin's "
+                           f"{second['mean_hit_rate']}")
+    for on, off in (("wave_round_robin", "wave_affinity"),
+                    ("chunked_reuse_disagg", "chunked_reuse")):
+        g = token_gate(gen[on], gen[off], rows[on], rows[off])
+        out["runs"][on]["gate_vs_" + off] = g
+        log_gate(f"token gate ({on} vs {off})", g, len(trace))
+    used = {n: sum(run[n] for run in launches.values())
+            for n in ("selective_attention", "paged_decode_attention", "block_gather",
+                      "block_gather:prefix")}
+    missing = [n for n, c in used.items() if c == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched in the cluster phase: {missing}")
+    return out, launches
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -1433,6 +1648,21 @@ def main(argv=None):
     launches.update(kv_launches)
     log(f"  kv_reuse phase {t_kv:.1f} s")
     PHASE_S["2e"] = t_kv
+
+    # ---- phase 2f: the cluster (k = 2 workers) at full width and depth ----
+    t0 = time.perf_counter()
+    system2, _, _ = SERVE.rcllm_system(cfg, dev, model=system.model, k_instances=2)
+    torch.cuda.synchronize()
+    t_build2 = time.perf_counter() - t0
+    log(f"cluster system: the same model object and 80-item catalog, placement over 2 "
+        f"shards, offline build {t_build2:.1f} s")
+    cluster_report, cluster_launches = cluster_phase(system2, pool_rv, prof, cfg, args)
+    del system2
+    torch.cuda.empty_cache()
+    t_cluster = time.perf_counter() - t0
+    launches.update(cluster_launches)
+    log(f"  cluster phase {t_cluster:.1f} s")
+    PHASE_S["2f"] = t_cluster
     t_3 = time.perf_counter()
 
     # ---- phase 3: checks ----
@@ -1544,6 +1774,7 @@ def main(argv=None):
     report = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "offline_build_s": t_build, "serving_s": t_serve,
               "chunked_serving_s": t_chunked, "kv_reuse_s": t_kv, "kv_reuse": kv_report,
+              "cluster_s": t_cluster, "cluster": cluster_report,
               "recsys_s": t_recsys, "peak_cuda_gb": peak_gb,
               "depth": cfg.n_layers, "serve": rep, "serve_chunked": crep,
               "chunked_ticks": [dataclasses.asdict(t) for t in ticks],

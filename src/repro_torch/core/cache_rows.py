@@ -15,6 +15,7 @@ at it, which reproduces the host assembly's zero rows.
 """
 from __future__ import annotations
 
+import copy
 from typing import List, Optional
 
 import numpy as np
@@ -55,6 +56,15 @@ class CacheRows:
                 setattr(self, name, pool.unsqueeze(2))             # (L, n, 1, H, D)
             self._k = self._v = []
         return self
+
+    def with_rows(self, k: torch.Tensor, v: torch.Tensor) -> "CacheRows":
+        """A device pool holding this pool's rows followed by `k`/`v`
+        ((L, t, 1, Hkv, Dh) on its device): the new rows start at this
+        pool's `n_rows`.  This pool is left as it is."""
+        out = copy.copy(self)
+        out.k, out.v = torch.cat([self.k, k], dim=1), torch.cat([self.v, v], dim=1)
+        out.n_rows = self.n_rows + k.shape[1]
+        return out
 
     @property
     def nbytes(self) -> int:

@@ -609,6 +609,14 @@ class ChunkedPrefill:
     def scan_done(self) -> bool:
         return self.offset >= self.n_pad
 
+    def rebind(self, table: np.ndarray, shared) -> None:
+        """Read the cached rows through `table` and `shared`'s arena from
+        now on: a chunk-partial prefill migrated to another engine, whose
+        store holds the injected prefix rows at other slots."""
+        self.table, self.shared = table, shared
+        self._tbl, self._kpos = _device_table(
+            self.cache, *_pad_table(table, self.positions, self.n_pad))
+
     def next_chunk_tokens(self) -> int:
         """Dispatch width of the next chunk (ragged at the tail)."""
         return min(self.chunk, self.n_pad - self.offset)

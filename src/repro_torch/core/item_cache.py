@@ -75,6 +75,96 @@ class ItemKVStore:
         return None
 
 
+@dataclass(frozen=True)
+class TransferRecord:
+    """One explicit cross-shard block movement, the unit the cluster's
+    transfer step is billed in (`cost_model.fetch_time_s`).  On one card
+    the bytes are already resident, so a record is a ledger entry: no
+    copy is made (the reference's measured mesh copy is not ported)."""
+    item_id: int
+    src_instance: int
+    n_tokens: int
+    n_bytes: int
+
+
+class ShardClient:
+    """Runtime-facing handle on one instance's resident item shard.
+
+    `ItemKVStore.get_block` falls back to peer shards silently; a
+    ShardClient makes residency explicit: `resident()` answers from this
+    shard only, and every non-resident access goes through `pull()`,
+    which finds the block on its holder and records a `TransferRecord`.
+    Blocks no shard holds stay misses (the engine recomputes them).
+    """
+
+    def __init__(self, store: ItemKVStore, instance: int):
+        self.store = store
+        self.instance = instance
+        self.transfers: List[TransferRecord] = []
+        self.n_local_blocks = 0
+        self.n_miss_blocks = 0
+
+    def resident(self, item: int) -> bool:
+        return int(item) in self.store.shards[self.instance].blocks
+
+    def local_block(self, item: int) -> Optional[ItemBlock]:
+        return self.store.shards[self.instance].blocks.get(int(item))
+
+    def pull(self, item: int) -> Optional[ItemBlock]:
+        """Cross-shard fetch of a non-resident block (recorded)."""
+        it = int(item)
+        for h in self.store.placement.holders(it):
+            if h == self.instance:
+                continue
+            blk = self.store.shards[h].blocks.get(it)
+            if blk is not None:
+                self.transfers.append(TransferRecord(
+                    item_id=it, src_instance=h, n_tokens=len(blk.tokens),
+                    n_bytes=blk.nbytes()))
+                return blk
+        return None
+
+    def stage(self, items: Sequence[int]) -> Tuple[Dict[int, ItemBlock], int]:
+        """Resolve one request's unique item set against this shard:
+        resident blocks come straight from it, the others through `pull()`.
+        -> ({item: block}, tokens moved over the network)."""
+        staged: Dict[int, ItemBlock] = {}
+        moved_tokens = 0
+        for it in items:
+            it = int(it)
+            if it in staged:
+                continue
+            blk = self.local_block(it)
+            if blk is not None:
+                self.n_local_blocks += 1
+            else:
+                blk = self.pull(it)
+                if blk is None:
+                    self.n_miss_blocks += 1
+                    continue
+                moved_tokens += len(blk.tokens)
+            staged[it] = blk
+        return staged, moved_tokens
+
+    def transferred_bytes(self) -> int:
+        return sum(t.n_bytes for t in self.transfers)
+
+    def transferred_tokens(self) -> int:
+        return sum(t.n_tokens for t in self.transfers)
+
+
+class StagedBlocks:
+    """A request's staged item blocks behind the `get_block` interface
+    `assembly.plan_block_table` reads: only what `ShardClient.stage`
+    resolved is visible, so nothing is reached silently."""
+
+    def __init__(self, blocks: Dict[int, ItemBlock]):
+        self.blocks = blocks
+
+    def get_block(self, item: int, instance: int = 0) -> Optional[ItemBlock]:
+        return self.blocks.get(int(item))
+
+
 def build_item_store(
     item_tokens: List[np.ndarray],
     placement: Placement,

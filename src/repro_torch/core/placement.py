@@ -31,6 +31,20 @@ class Placement:
             return range(self.k)
         return (int(self.shard_of[item]),)
 
+    def is_local(self, item: int, instance: int) -> bool:
+        s = self.shard_of[item]
+        return s < 0 or s == instance
+
+    def items_on(self, instance: int) -> np.ndarray:
+        return np.where((self.shard_of == instance) | (self.shard_of < 0))[0]
+
+    def hit_rate(self, items: Sequence[int], instance: int) -> float:
+        """Fraction of `items` resident on `instance` (hot replicas hit
+        everywhere); 1.0 for no items."""
+        if len(items) == 0:
+            return 1.0
+        return float(np.mean([self.is_local(int(i), instance) for i in items]))
+
 
 def popularity_from_requests(n_items: int,
                              request_items: Sequence[np.ndarray]) -> np.ndarray:

@@ -18,24 +18,11 @@ from repro_torch.core import assembly as ASM
 from repro_torch.core import engine as ENG
 from repro_torch.core import item_cache as IC
 from repro_torch.core import placement as PL
+from repro_torch.core import scheduler as SCH
 from repro_torch.core import semantic_cache as SC
 from repro_torch.core.cache_rows import CacheRows
 from repro_torch.data import synth as SY
 from repro_torch.models.transformer import Transformer, init_params
-
-
-def hit_vector(items: np.ndarray, placement: PL.Placement) -> np.ndarray:
-    """Hit(R, p) for all instances p at once (`core/scheduler.py`)."""
-    k = placement.k
-    hits = np.zeros(k)
-    n = max(len(items), 1)
-    for it in items:
-        s = placement.shard_of[int(it)]
-        if s < 0:
-            hits += 1.0
-        else:
-            hits[s] += 1.0
-    return hits / n
 
 
 @dataclass
@@ -104,7 +91,7 @@ class RcLLMSystem:
 
     def best_instance(self, request: SY.Request) -> int:
         """Affinity routing (idle cluster → pure cache affinity)."""
-        return int(np.argmax(hit_vector(request.candidate_items,
+        return int(np.argmax(SCH.hit_vector(request.candidate_items,
                                         self.placement)))
 
 

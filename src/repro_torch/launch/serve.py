@@ -1,6 +1,7 @@
 """Serving launcher of the port: continuous batching (wave or chunked
 unified-step scheduler) over the batched engine and the paged KV pool on
-one device.
+one device, as one instance or as a cluster of K engine workers on that
+device (``--k``, `serving.cluster`).
 
     # rcllm serving of the tiny model on the card (kernels built at first use)
     PYTHONPATH=src python -m repro_torch.launch.serve --mode rcllm --requests 8
@@ -22,10 +23,22 @@ one device.
         --zipf-users 1.4 --requests 6 --sched chunked --kv-store-dtype int8 \\
         --spill-mb 64 --pages 120
 
-The JSON printed carries the keys of the JAX launcher's engine report
-(`repro/launch/serve.py:_engine_report`, with its ``store`` settings and
-``block_store`` counters under kv_reuse) with ``"engine": "torch"``,
-plus the device and model that ran.
+    # two workers behind the Eq. 2 affinity router, sharded item caches
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --k 2 --requests 6
+
+    # prefill/decode disaggregation: worker 0 prefills, worker 1 decodes
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6 \
+        --config k=2,disagg.prefill_workers=1,disagg.decode_workers=1,sched=chunked,kv_reuse=on
+
+Serving knobs come from ``--config key=value,...`` (`ServeConfig.parse`)
+and the per-knob flags, which override it.  The JSON printed carries the
+keys of the JAX launcher's engine report (`repro/launch/serve.py:
+_engine_report`, with its ``store`` settings and ``block_store`` counters
+under kv_reuse) with ``"engine": "torch"``, plus the device and model
+that ran; with ``k > 1`` those of its cluster report (`run_jax_cluster`,
+``"engine": "torch-cluster"``, without ``mesh``), with
+``"transfer_billing": "modeled"``: cross-shard pulls and migrations are
+billed from the cost model, since the workers share one card.
 """
 from __future__ import annotations
 
@@ -59,15 +72,17 @@ def model_config(name: str, n_layers: Optional[int] = None) -> Optional[LMConfig
     return QWEN3_8B if n_layers is None else dataclasses.replace(QWEN3_8B, n_layers=n_layers)
 
 
-def rcllm_system(cfg: Optional[LMConfig], device, seed: int = 0, model=None):
+def rcllm_system(cfg: Optional[LMConfig], device, seed: int = 0, model=None,
+                 k_instances: int = 1):
     """The rcllm serving run's system (the tiny model when `cfg` is None;
     weights from a seeded generator unless `model` is given), built as the
-    JAX launcher builds its single-instance system.  -> (system, review
-    pool, profile): what traces over its catalog are drawn from."""
+    JAX launcher builds its system, its placement over `k_instances`
+    shards.  -> (system, review pool, profile): what traces over its
+    catalog are drawn from."""
     from repro_torch.core.rcllm import make_system, make_tiny_system
 
-    kw = dict(n_items=80, n_requests_hist=40, k_instances=1, seed=seed, device=device,
-              model=model)
+    kw = dict(n_items=80, n_requests_hist=40, k_instances=k_instances, seed=seed,
+              device=device, model=model)
     if cfg is None:
         system, pool_rv, prof, _ = make_tiny_system(n_layers=2, d_model=32, **kw)
     else:
@@ -86,23 +101,26 @@ def rcllm_requests(system, trace, decode_steps: int):
 
 def rcllm_setup(cfg: Optional[LMConfig], device, n_requests: int, qps: float,
                 decode_steps: int, seed: int = 0, model=None,
-                zipf_users: Optional[float] = None):
+                zipf_users: Optional[float] = None, long_prompt_frac: float = 0.0):
     """The rcllm serving run's system and the JAX launcher's
     single-instance trace over it (`zipf_users` draws users Zipf(a)
-    instead of uniformly).  -> (system, requests, plans, reuse)."""
+    instead of uniformly, `long_prompt_frac` gives that fraction of users
+    long histories).  -> (system, requests, plans, reuse)."""
     system, pool_rv, prof = rcllm_system(cfg, device, seed, model)
-    trace = launcher_trace(system, pool_rv, prof, n_requests, qps, zipf_users)
+    trace = launcher_trace(system, pool_rv, prof, n_requests, qps, zipf_users,
+                           long_prompt_frac)
     return (system, *rcllm_requests(system, trace, decode_steps))
 
 
 def launcher_trace(system, pool_rv, prof, n_requests: int, qps: float,
-                   zipf_users: Optional[float] = None):
-    """The JAX launcher's single-instance rcllm trace over `system`."""
+                   zipf_users: Optional[float] = None, long_prompt_frac: float = 0.0):
+    """The JAX launcher's rcllm trace over `system`."""
     from repro_torch.data import synth as SY
 
     return SY.make_trace(system.catalog, pool_rv, prof, n_requests, qps=qps,
                          n_users=max(3, n_requests // 2), n_candidates=8,
-                         reviews_per_user=1, seed=2, user_zipf_a=zipf_users)
+                         reviews_per_user=1, seed=2, user_zipf_a=zipf_users,
+                         long_prompt_frac=long_prompt_frac)
 
 
 def full_setup(device, n_requests: int, qps: float, decode_steps: int,
@@ -148,26 +166,11 @@ def _percentiles(xs, qs=(50, 90, 99)) -> dict:
     return {f"p{q}_s": float(np.percentile(xs, q)) for q in qs}
 
 
-def report(config: ServeConfig, engine, backend, batcher, done,
-           warmup: bool) -> dict:
-    """The JAX launcher's engine-report keys for one run."""
-    total = max((c.done_s for c in done), default=0.0)
-    n_toks = sum(len(backend.generated[c.rid]) for c in done)
-    stats = engine.pool.stats()
+def _latency_split(done) -> dict:
+    """Per-request latency attribution and its aggregates (`done` sorted
+    by rid)."""
     ttft = np.asarray([c.first_token_s - c.arrival_s for c in done])
-    dev = engine.model.device
-    out = {
-        "engine": "torch",
-        "mode": config.mode,
-        "sched": config.sched,
-        "attn_backend": "cuda" if dev.type == "cuda" else "plain",
-        "decode_kernel": "paged",
-        "requests": len(done),
-        "kv_reuse": "on" if config.kv_reuse else "off",
-        "store": (dataclasses.asdict(config.store) if config.store.enabled else None),
-        "mesh": None,
-        "decode_steps": config.decode_steps,
-        "includes_jit_compile": not warmup,
+    return {
         "ttft_p50_s": float(np.percentile(ttft, 50)),
         "ttft_p90_s": float(np.percentile(ttft, 90)),
         "ttft_p99_s": float(np.percentile(ttft, 99)),
@@ -182,20 +185,54 @@ def report(config: ServeConfig, engine, backend, batcher, done,
              "prefill_s": round(float(c.prefill_s), 4),
              "decode_s": round(float(c.decode_s), 4)}
             for c in done],
-        "decode_tokens": int(n_toks),
-        "throughput_tok_s": float(n_toks / max(total, 1e-9)),
+    }
+
+
+def _throughput(done, generated) -> dict:
+    total = max((c.done_s for c in done), default=0.0)
+    n_toks = sum(len(generated[c.rid]) for c in done)
+    return {"decode_tokens": int(n_toks),
+            "throughput_tok_s": float(n_toks / max(total, 1e-9))}
+
+
+def _tbt_stats(workers) -> dict:
+    tbt = [dt for w in workers for dt in w.tbt]
+    out = {f"tbt_{k}": v for k, v in _percentiles(tbt).items()}
+    out["tbt_samples"] = len(tbt)
+    return out
+
+
+def _device_info(model, cfg: LMConfig) -> dict:
+    return {"device": str(model.device), "model": cfg.name, "n_layers": cfg.n_layers}
+
+
+def report(config: ServeConfig, engine, backend, batcher, done,
+           warmup: bool) -> dict:
+    """The JAX launcher's engine-report keys for one run."""
+    stats = engine.pool.stats()
+    dev = engine.model.device
+    out = {
+        "engine": "torch",
+        "mode": config.mode,
+        "sched": config.sched,
+        "attn_backend": "cuda" if dev.type == "cuda" else "plain",
+        "decode_kernel": "paged",
+        "requests": len(done),
+        "kv_reuse": "on" if config.kv_reuse else "off",
+        "store": (dataclasses.asdict(config.store) if config.store.enabled else None),
+        "mesh": None,
+        "decode_steps": config.decode_steps,
+        "includes_jit_compile": not warmup,
+        **_latency_split(done),
+        **_throughput(done, backend.generated),
         "pool_peak_pages": engine.pool.peak_pages,
         "pool_peak_utilization": round(
             engine.pool.peak_pages / max(stats.n_pages - 1, 1), 4),
-        "device": str(dev),
-        "model": engine.cfg.name,
-        "n_layers": engine.cfg.n_layers,
+        **_device_info(engine.model, engine.cfg),
     }
     if engine.store is not None:
         out["block_store"] = engine.store.stats()
-    tbt = [dt for w in batcher.workers for dt in w.tbt]
-    out.update({f"tbt_{k}": v for k, v in _percentiles(tbt).items()})
-    out["tbt_samples"] = len(tbt)
+    out.update(_tbt_stats(batcher.workers))
     if config.sched == "chunked":
         ticks = [t for w in batcher.workers for t in w.ticks]
         out.update({"chunk_tokens": config.chunk_tokens,
@@ -205,64 +242,161 @@ def report(config: ServeConfig, engine, backend, batcher, done,
     return out
 
 
+def cluster_report(config: ServeConfig, cluster, rep, warmup: bool) -> dict:
+    """The JAX launcher's cluster-report keys for one run (`run_jax_cluster`,
+    without ``mesh``)."""
+    done = sorted(rep.completions, key=lambda c: c.rid)
+    workers = cluster.batcher.workers
+    ticks = [t for w in workers for t in w.ticks]
+    return {
+        "engine": "torch-cluster",
+        "k": config.k,
+        "mode": config.mode,
+        "sched": config.sched,
+        "attn_backend": "cuda" if cluster.system.model.device.type == "cuda" else "plain",
+        "decode_kernel": "paged",
+        "kv_reuse": "on" if config.kv_reuse else "off",
+        "disagg": (dataclasses.asdict(config.disagg) if config.disagg.enabled else None),
+        "store": (dataclasses.asdict(config.store) if config.store.enabled else None),
+        "policy": rep.policy,
+        "requests": len(done),
+        "decode_steps": config.decode_steps,
+        "includes_jit_compile": not warmup,
+        "transfer_billing": "modeled",
+        "per_request_ttft_s": [round(float(x), 4) for x in rep.ttft()],
+        **_latency_split(done),
+        **_throughput(done, rep.generated),
+        **_tbt_stats(workers),
+        **({"ticks": len(ticks), "oversized_ticks": sum(t.oversized for t in ticks),
+            "mean_tick_tokens": float(np.mean([t.decode_tokens + t.chunk_tokens
+                                               + t.finalize_tokens for t in ticks]))}
+           if ticks else {}),
+        "mean_hit_rate": rep.mean_hit_rate(),
+        "per_worker": [
+            {"worker": w.worker,
+             "role": workers[w.worker].role,
+             "requests": w.n_requests,
+             "mean_hit_rate": (round(w.mean_hit_rate, 4)
+                               if w.mean_hit_rate is not None else None),
+             "transfer_blocks": w.transfer_blocks,
+             "transfer_tokens": w.transfer_tokens,
+             "transfer_mbytes": round(w.transfer_bytes / 1e6, 3),
+             "transfer_seconds": round(w.transfer_seconds, 6),
+             "pool_peak_pages": w.pool_peak_pages,
+             "busy_seconds": round(w.busy_seconds, 4),
+             "preempted": w.preempted,
+             "migrations": w.migrations,
+             "migrated_out": w.migrated_out,
+             "migrated_pages": w.migrated_pages,
+             "migration_mbytes": round(w.migration_bytes / 1e6, 3),
+             "migration_s": round(w.migration_s, 6),
+             "migration_digest_hits": w.migration_digest_hits,
+             "device_blocks": w.device_blocks,
+             "spill_blocks": w.spill_blocks,
+             "spill_hits": w.spill_hits,
+             "prefetch_promotions": w.prefetch_promotions,
+             "dequant_s": round(w.dequant_s, 6),
+             "kv_reuse": w.kv_reuse}
+            for w in rep.workers],
+        **_device_info(cluster.system.model, cluster.system.cfg),
+    }
+
+
+def run_cluster(config: ServeConfig, args, device) -> dict:
+    """K engine workers on `device` behind the Eq. 2 router
+    (`serving.cluster`), serving the launcher trace."""
+    from repro_torch.serving.cluster import ClusterEngine
+
+    system, pool_rv, prof = rcllm_system(model_config(args.model, args.n_layers), device,
+                                         k_instances=config.k)
+    trace = launcher_trace(system, pool_rv, prof, args.requests, args.qps,
+                           args.zipf_users, args.long_prompt_frac)
+    if args.warmup:
+        ClusterEngine(system, config).run(trace, decode_steps=config.decode_steps)
+    cluster = ClusterEngine(system, config)
+    rep = cluster.run(trace, decode_steps=config.decode_steps)
+    return cluster_report(config, cluster, rep, args.warmup)
+
+
+def build_config(args) -> ServeConfig:
+    """``--config`` with the per-knob flags typed on top of it."""
+    base = ServeConfig.parse(args.config or "")
+    config = ServeConfig.from_args(args, base=base)
+    store = {k: v for k, v in (("kv_store_dtype", args.kv_store_dtype),
+                               ("spill_mb", args.spill_mb),
+                               ("prefetch_pages_per_tick", args.prefetch_pages_per_tick))
+             if v is not None}
+    if store:
+        config = config.replace(store=dataclasses.replace(config.store, **store))
+    return config
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="rcllm", choices=list(API.MODES))
-    ap.add_argument("--sched", default="wave", choices=list(API.SCHEDS),
+    ap.add_argument("--config", default=None,
+                    help="serving knobs as key=value[,key=value...] over "
+                    "serving.api.ServeConfig, e.g. k=2,disagg.prefill_workers=1,"
+                    "disagg.decode_workers=1; the flags below override it")
+    ap.add_argument("--k", type=int, default=None,
+                    help="engine workers; k > 1 serves a cluster on the one device")
+    ap.add_argument("--policy", default=None,
+                    help="cluster dispatch: affinity (Eq. 2), hit_only, load_only, "
+                    "round_robin, least_loaded, random")
+    ap.add_argument("--mode", default=None, choices=list(API.MODES))
+    ap.add_argument("--sched", default=None, choices=list(API.SCHEDS),
                     help="wave: whole-prefill batches; chunked: unified ticks of "
                     "decode + layer-0 chunks + selective finalizes (rcllm only)")
-    ap.add_argument("--chunk-tokens", type=int, default=128)
+    ap.add_argument("--chunk-tokens", type=int, default=None)
     ap.add_argument("--step-tokens", type=int, default=None,
                     help="per-tick token budget (default max(4 * chunk, 512))")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--qps", type=float, default=8.0)
-    ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--decode-steps", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--model", default="tiny",
                     help=f"tiny (the tiny rcllm model) or {QWEN3_8B.name}")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the named model's depth (width is never cut)")
     ap.add_argument("--prompt-tokens", type=int, default=160)
-    ap.add_argument("--pages", type=int, default=512)
-    ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--max-batch-tokens", type=int, default=4096)
-    ap.add_argument("--r-item", type=float, default=0.3)
-    ap.add_argument("--r-rev", type=float, default=0.3)
-    ap.add_argument("--kv-reuse", default="off", choices=["on", "off"],
+    ap.add_argument("--pages", type=int, default=None)
+    ap.add_argument("--page-size", type=int, default=None)
+    ap.add_argument("--max-batch-tokens", type=int, default=None)
+    ap.add_argument("--r-item", type=float, default=None)
+    ap.add_argument("--r-rev", type=float, default=None)
+    ap.add_argument("--kv-reuse", default=None, choices=["on", "off"],
                     help="cross-request KV reuse through the shared block store")
-    ap.add_argument("--kv-store-dtype", default="fp32", choices=["fp32", "int8"],
+    ap.add_argument("--kv-store-dtype", default=None, choices=["fp32", "int8"],
                     help="store payloads of the user and item tiers")
-    ap.add_argument("--spill-mb", type=int, default=0,
+    ap.add_argument("--spill-mb", type=int, default=None,
                     help="host-RAM spill tier for evicted blocks (0: drop them)")
+    ap.add_argument("--prefetch-pages-per-tick", type=int, default=None,
+                    help="pages of router-hinted spill blocks promoted per tick")
     ap.add_argument("--zipf-users", type=float, default=None,
                     help="draw the trace's users Zipf(a) (repeat users), rcllm only")
+    ap.add_argument("--long-prompt-frac", type=float, default=0.0,
+                    help="rcllm trace: the fraction of users with a heavy tail of "
+                    "extra reviews (long prompts)")
     ap.add_argument("--warmup", action="store_true",
                     help="run the trace once first, so reported times exclude "
                     "kernel builds and first-call set-up")
     args = ap.parse_args(argv)
     try:
-        config = ServeConfig(mode=args.mode, sched=args.sched,
-                             chunk_tokens=args.chunk_tokens,
-                             step_tokens=args.step_tokens,
-                             decode_steps=args.decode_steps,
-                             n_pages=args.pages, page_size=args.page_size,
-                             max_batch_tokens=args.max_batch_tokens,
-                             r_item=args.r_item, r_rev=args.r_rev,
-                             kv_reuse=args.kv_reuse == "on",
-                             store=API.StoreConfig(
-                                 kv_store_dtype=args.kv_store_dtype,
-                                 spill_mb=args.spill_mb))
+        config = build_config(args)
     except ValueError as e:
         raise SystemExit(str(e))
     if args.zipf_users is not None and config.mode != "rcllm":
         raise SystemExit("--zipf-users shapes the rcllm trace; it has no effect on "
                          "mode=full prompts")
     device = torch.device(args.device)
+    if config.k > 1:
+        print(json.dumps(run_cluster(config, args, device), indent=1))
+        return
     plans = cache = reuse = None
     if config.mode == "rcllm":
         system, reqs, plans, reuse = rcllm_setup(
             model_config(args.model, args.n_layers), device, args.requests, args.qps,
-            config.decode_steps, zipf_users=args.zipf_users)
+            config.decode_steps, zipf_users=args.zipf_users,
+            long_prompt_frac=args.long_prompt_frac)
         model, cfg, cache = system.model, system.cfg, system.rows
     else:
         model, reqs = full_setup(device, args.requests, args.qps,

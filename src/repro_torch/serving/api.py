@@ -1,18 +1,71 @@
-"""Typed serving API of the port — the subset of the JAX package's
-`serving/api.py` that the single-instance path needs under the wave and
-chunked schedulers: `ServeConfig` with the block store's knobs
-(`kv_reuse`, `StoreConfig`), greedy/temperature sampling, stop
-sequences, and the sliced builders (engine -> backend -> batcher)."""
+"""Typed serving API of the port — the JAX package's `serving/api.py`
+without the mesh and the session protocol: `ServeConfig` with the block
+store's knobs (`kv_reuse`, `StoreConfig`), the cluster's (`k`, `policy`)
+and disaggregation's (`DisaggConfig`), the ``--config key=value,...``
+grammar (`ServeConfig.parse` / `render`, `from_args` for launcher flags),
+greedy/temperature sampling, stop sequences, and the sliced builders
+(engine -> backend -> batcher)."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.core.scheduler import POLICIES
 
 ENGINES = ("torch",)
 MODES = ("rcllm", "full")
 SCHEDS = ("wave", "chunked")
+
+
+@dataclass(frozen=True)
+class DisaggConfig:
+    """How many cluster workers serve each role, and how migration routing
+    trades affinity against bytes.
+
+    ``prefill_workers`` / ``decode_workers`` split the cluster's ``k``
+    workers: prefill workers admit and prefill (sampling each request's
+    first token), then hand the finished (or chunk-partial) KV to a decode
+    worker; decode workers never admit.  The default ``DisaggConfig()`` is
+    disabled: every worker is ``unified``.  ``mig_gamma`` weights the
+    migration-byte term added to the Eq. 2 score when choosing the decode
+    worker (one already holding the request's store blocks by digest
+    moves fewer bytes and scores higher)."""
+
+    prefill_workers: int = 0
+    decode_workers: int = 0
+    mig_gamma: float = 0.25
+
+    def __post_init__(self):
+        def bad(msg: str):
+            raise ValueError(f"invalid DisaggConfig: {msg}")
+
+        if self.prefill_workers < 0 or self.decode_workers < 0:
+            bad(f"prefill_workers={self.prefill_workers}/"
+                f"decode_workers={self.decode_workers} must be >= 0")
+        if (self.prefill_workers > 0) != (self.decode_workers > 0):
+            bad(f"prefill_workers={self.prefill_workers} and "
+                f"decode_workers={self.decode_workers}: both roles need at least "
+                "one worker (0/0 disables disaggregation)")
+        if self.mig_gamma < 0:
+            bad(f"mig_gamma={self.mig_gamma} must be >= 0")
+
+    @property
+    def enabled(self) -> bool:
+        return self.prefill_workers > 0
+
+    @property
+    def n_workers(self) -> int:
+        return self.prefill_workers + self.decode_workers
+
+    def role_of(self, wid: int) -> str:
+        """Worker role by cluster index: the first ``prefill_workers`` ids
+        prefill, the rest decode; 'unified' when disabled."""
+        if not self.enabled:
+            return "unified"
+        return "prefill" if wid < self.prefill_workers else "decode"
 
 
 @dataclass(frozen=True)
@@ -23,13 +76,16 @@ class StoreConfig:
     ``kv_store_dtype='int8'`` quantizes user/item block payloads to
     symmetric per-(row, kv-head)-scaled int8 (the arena holds the
     dequantized bytes).  ``spill_mb`` bounds a host-RAM spill tier that
-    device-tier evictions demote to instead of dropping; 0 drops.  The
-    default ``StoreConfig()`` is disabled: fp32 payloads, drop-on-evict.
-    The reference's ``prefetch_pages_per_tick`` budgets promotions the
-    cluster router hints; it comes with the cluster (not ported)."""
+    device-tier evictions demote to instead of dropping; 0 drops.
+    ``prefetch_pages_per_tick`` budgets the promotion of router-hinted
+    spill blocks back to device pages, per engine tick (0: no prefetch;
+    a spilled block then promotes when a request inserts it).  The
+    default ``StoreConfig()`` is disabled: fp32 payloads, drop-on-evict,
+    no prefetch."""
 
     kv_store_dtype: str = "fp32"
     spill_mb: int = 0
+    prefetch_pages_per_tick: int = 0
 
     def __post_init__(self):
         def bad(msg: str):
@@ -39,6 +95,11 @@ class StoreConfig:
             bad(f"kv_store_dtype={self.kv_store_dtype!r} not in ('fp32', 'int8')")
         if self.spill_mb < 0:
             bad(f"spill_mb={self.spill_mb} must be >= 0")
+        if self.prefetch_pages_per_tick < 0:
+            bad(f"prefetch_pages_per_tick={self.prefetch_pages_per_tick} must be >= 0")
+        if self.prefetch_pages_per_tick > 0 and self.spill_mb == 0:
+            bad(f"prefetch_pages_per_tick={self.prefetch_pages_per_tick} needs "
+                "spill_mb > 0 (there is no spill tier to prefetch from)")
 
     @property
     def enabled(self) -> bool:
@@ -49,14 +110,17 @@ class StoreConfig:
 @dataclass(frozen=True)
 class ServeConfig:
     """Every serving knob the port has, validated once.  ``engine`` is
-    the port's own name; the cluster and mesh knobs of the reference are
-    not ported yet.  ``kv_reuse`` turns on the shared block store and
-    ``store`` configures its tiers.  ``step_tokens=None`` resolves to
-    ``max(4 * chunk_tokens, 512)`` (`resolved_step_tokens`), the chunked
-    scheduler's default budget."""
+    the port's own name.  ``k > 1`` serves a cluster of that many engine
+    workers behind the ``policy`` router (`serving.cluster`), and
+    ``disagg`` splits them into prefill and decode roles.  ``kv_reuse``
+    turns on the shared block store and ``store`` configures its tiers.
+    ``step_tokens=None`` resolves to ``max(4 * chunk_tokens, 512)``
+    (`resolved_step_tokens`), the chunked scheduler's default budget."""
 
     engine: str = "torch"
+    k: int = 1
     mode: str = "rcllm"
+    policy: str = "affinity"
     sched: str = "wave"
     kv_reuse: bool = False
     chunk_tokens: int = 128
@@ -68,6 +132,7 @@ class ServeConfig:
     decode_steps: int = 4
     r_item: float = 0.3
     r_rev: float = 0.3
+    disagg: DisaggConfig = field(default_factory=DisaggConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
 
     def __post_init__(self):
@@ -77,6 +142,7 @@ class ServeConfig:
         for name, val, choices in (
             ("engine", self.engine, ENGINES),
             ("mode", self.mode, MODES),
+            ("policy", self.policy, POLICIES),
             ("sched", self.sched, SCHEDS),
         ):
             if val not in choices:
@@ -87,6 +153,8 @@ class ServeConfig:
         if self.sched == "chunked" and self.mode != "rcllm":
             bad("sched='chunked' drives the beyond-prefix selective prefill; "
                 f"mode={self.mode!r} has no chunk-resumable path")
+        if self.k < 1:
+            bad(f"k={self.k} must be >= 1")
         if self.chunk_tokens < 1:
             bad(f"chunk_tokens={self.chunk_tokens} must be >= 1")
         if self.step_tokens is not None and self.step_tokens < 1:
@@ -98,6 +166,11 @@ class ServeConfig:
             bad(f"decode_steps={self.decode_steps} must be >= 1")
         if not (0.0 <= self.r_item <= 1.0 and 0.0 <= self.r_rev <= 1.0):
             bad(f"r_item={self.r_item}/r_rev={self.r_rev} must be in [0, 1]")
+        if not isinstance(self.disagg, DisaggConfig):
+            bad(f"disagg must be a DisaggConfig, got {type(self.disagg).__name__}")
+        if self.disagg.enabled and self.k != self.disagg.n_workers:
+            bad(f"k={self.k} must equal disagg.prefill_workers + disagg.decode_workers "
+                f"= {self.disagg.n_workers} (every cluster worker gets exactly one role)")
         if not isinstance(self.store, StoreConfig):
             bad(f"store must be a StoreConfig, got {type(self.store).__name__}")
         if self.store.enabled and not self.kv_reuse:
@@ -109,6 +182,125 @@ class ServeConfig:
         if self.step_tokens is not None:
             return self.step_tokens
         return max(4 * self.chunk_tokens, 512)
+
+    def replace(self, **kw) -> "ServeConfig":
+        """A modified copy, re-validated."""
+        return dataclasses.replace(self, **kw)
+
+    #: ``argparse`` attribute -> ServeConfig field for the launcher's
+    #: per-knob flags (`--pages` is ``n_pages``; ``--kv-reuse off|on`` the
+    #: bool)
+    FLAG_FIELDS = {
+        "k": "k", "mode": "mode", "policy": "policy", "sched": "sched",
+        "kv_reuse": "kv_reuse", "chunk_tokens": "chunk_tokens",
+        "step_tokens": "step_tokens", "max_batch_tokens": "max_batch_tokens",
+        "page_size": "page_size", "pages": "n_pages", "decode_steps": "decode_steps",
+        "r_item": "r_item", "r_rev": "r_rev",
+    }
+    SUBS = {"disagg": DisaggConfig, "store": StoreConfig}
+
+    @classmethod
+    def from_args(cls, args, base: Optional["ServeConfig"] = None) -> "ServeConfig":
+        """Map a launcher's argparse namespace onto a config: only flags
+        present and not None override `base` (the launcher declares them
+        with ``default=None``, so ``--config`` holds where none is typed)."""
+        overrides: Dict[str, object] = {}
+        for attr, fld in cls.FLAG_FIELDS.items():
+            val = getattr(args, attr, None)
+            if val is None:
+                continue
+            if fld == "kv_reuse" and isinstance(val, str):
+                val = val == "on"
+            overrides[fld] = val
+        base = base if base is not None else cls()
+        return base.replace(**overrides) if overrides else base
+
+    @classmethod
+    def parse(cls, spec: str, base: Optional["ServeConfig"] = None) -> "ServeConfig":
+        """A config from a ``key=value,key=value`` string (the launcher's
+        ``--config``).  Values are coerced by the field's declared type;
+        booleans accept on/off/true/false; sub-config fields nest with a
+        dot (``disagg.prefill_workers=1``, ``store.spill_mb=64``).  The
+        grammar is total: `render` emits a string that parses back to an
+        equal config."""
+        base = base if base is not None else cls()
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        sub_fields = {name: {f.name: f for f in dataclasses.fields(t)}
+                      for name, t in cls.SUBS.items()}
+        overrides: Dict[str, object] = {}
+        sub_overrides: Dict[str, Dict[str, object]] = {n: {} for n in cls.SUBS}
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(f"--config entry {part!r} is not key=value")
+            key, val = (x.strip() for x in part.split("=", 1))
+            prefix, _, sub = key.partition(".")
+            if sub and prefix in cls.SUBS:
+                flds = sub_fields[prefix]
+                if sub not in flds:
+                    raise ValueError(
+                        f"--config key {key!r} is not a {cls.SUBS[prefix].__name__} "
+                        f"field (choose from {sorted(prefix + '.' + f for f in flds)})")
+                sub_overrides[prefix][sub] = _coerce(flds[sub], val)
+                continue
+            if key in cls.SUBS:
+                raise ValueError(
+                    f"--config {key} is a sub-config: set its fields as "
+                    + ", ".join(f"{key}.{f}=..." for f in sub_fields[key]))
+            if key not in fields:
+                raise ValueError(f"--config key {key!r} is not a ServeConfig field "
+                                 f"(choose from {sorted(fields)})")
+            overrides[key] = _coerce(fields[key], val)
+        for name, ov in sub_overrides.items():
+            if ov:
+                overrides[name] = dataclasses.replace(getattr(base, name), **ov)
+        return base.replace(**overrides) if overrides else base
+
+    def render(self) -> str:
+        """The ``--config`` string of this config:
+        ``ServeConfig.parse(cfg.render()) == cfg``."""
+        parts = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name in self.SUBS:
+                parts += [f"{f.name}.{sf.name}={render_value(getattr(v, sf.name))}"
+                          for sf in dataclasses.fields(v)]
+            else:
+                parts.append(f"{f.name}={render_value(v)}")
+        return ",".join(parts)
+
+
+def render_value(v) -> str:
+    """One value in the ``--config`` grammar (`_coerce`'s inverse):
+    booleans as on/off, None as none."""
+    if isinstance(v, bool):
+        return "on" if v else "off"
+    if v is None:
+        return "none"
+    return str(v)
+
+
+def _coerce(fld: dataclasses.Field, val: str):
+    t = fld.type        # a string: this module postpones annotations
+    if "bool" in t:
+        low = val.lower()
+        if low in ("on", "true", "1", "yes"):
+            return True
+        if low in ("off", "false", "0", "no"):
+            return False
+        raise ValueError(f"--config {fld.name}={val!r}: expected on/off")
+    if val.lower() == "none" and "Optional" in t:
+        return None
+    try:
+        if "int" in t:
+            return int(val)
+        if "float" in t:
+            return float(val)
+    except ValueError:
+        raise ValueError(f"--config {fld.name}={val!r}: expected {t}") from None
+    return val
 
 
 # ------------------------------------------------------------- sampling
@@ -182,7 +374,8 @@ def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
     if config.kv_reuse:
         store = SharedBlockStore(
             pool, kv_store_dtype=config.store.kv_store_dtype,
-            spill_mb=config.store.spill_mb)
+            spill_mb=config.store.spill_mb,
+            prefetch_pages_per_tick=config.store.prefetch_pages_per_tick)
     return BatchEngine(model, lm_cfg, pool=pool, sel=sel, cache=cache,
                        chunk_tokens=config.chunk_tokens, store=store)
 

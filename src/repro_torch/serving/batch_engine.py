@@ -1,6 +1,6 @@
 """Batched prefill / paged decode over the port's engine — the port of the
 JAX package's `serving/batch_engine.py`, with the shared block store
-(cross-request KV reuse); KV migration is not ported yet.
+(cross-request KV reuse) and KV migration between engines.
 
 * **prefill** — ``mode="full"`` runs a padded full-recompute batch
   (flash-attention kernel); ``mode="rcllm"`` runs the beyond-prefix
@@ -29,6 +29,12 @@ JAX package's `serving/batch_engine.py`, with the shared block store
   position Eq. 3 selects for recompute is first moved to a private slot
   (`kv_pool.remap_private`).  Decoded tokens equal those without reuse.
 
+* **migration** — `export_request_kv` snapshots one request (finished,
+  or mid-prefill with its live `PrefillState`) as a `RequestKV`; another
+  engine's `import_request_kv` installs it without recompute, its store
+  blocks resolved by content key (a held key moves no bytes).  On one
+  card the private pages move by one gather and one scatter on the device.
+
 * **decode** — one token per running request, K/V read through the
   paged-decode kernel over per-request page views
   (`kv_pool.page_views`): keys are rotated to their positions inside the
@@ -50,7 +56,8 @@ from repro_torch.kernels.paged_attention.ops import paged_decode_mha
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving import block_store as BS
-from repro_torch.serving.kv_pool import PagedKVPool, PoolExhausted, page_views, pool_for
+from repro_torch.serving.kv_pool import (KVExport, PagedKVPool, PoolExhausted, page_views,
+                                         pool_for)
 
 
 @dataclass
@@ -87,6 +94,41 @@ class PrefillState:
     mapped_mask: np.ndarray
     pending_prefix: Optional[tuple] = None
     pending_user: Optional[tuple] = None  # (key, u_pos)
+    started: bool = False                 # a chunk has run
+
+
+@dataclass
+class RequestKV:
+    """One request's engine-side state as a handoff record, the unit a KV
+    migration moves between engines: the pool snapshot (`export`), the
+    store blocks the request references (`payloads`, under their content
+    keys, so a destination holding a key moves nothing for it), the
+    engine stats and, for a chunk-partial handoff, the live
+    `PrefillState`.  The serving layer adds the sampling state
+    (`session`).  The model is shared by every engine of a cluster."""
+
+    rid: int
+    export: KVExport
+    held: List[tuple] = field(default_factory=list)  # store keys, with repeats
+    payloads: Dict[tuple, BS.BlockPayload] = field(default_factory=dict)
+    stats: Optional[ENG.EngineStats] = None
+    prefill: Optional[PrefillState] = None
+    session: Optional[dict] = None
+
+    @property
+    def nbytes(self) -> int:
+        """Worst case: the private pages and every store block."""
+        return self.export.nbytes + sum(p.nbytes for p in self.payloads.values())
+
+
+def migration_bytes(rec: RequestKV, store: Optional[BS.SharedBlockStore]) -> int:
+    """Bytes an engine holding `store` would move to import `rec`: the
+    private pages always, a store payload only when its key misses."""
+    moved = rec.export.nbytes
+    for key, payload in rec.payloads.items():
+        if store is None or not store.resident(key):
+            moved += payload.nbytes
+    return moved
 
 
 @dataclass
@@ -96,6 +138,7 @@ class StepReport:
     decode_logits: Optional[np.ndarray] = None
     finalized: Dict[int, np.ndarray] = field(default_factory=dict)
     chunked: List[int] = field(default_factory=list)
+    started: List[int] = field(default_factory=list)  # first chunk this tick
     charge_decode: int = 0
     charge_chunks: int = 0
     charge_finalize: int = 0
@@ -531,6 +574,114 @@ class BatchEngine:
         self.prefill_states.pop(rid, None)
         self.release(rid)
 
+    # ------------------------------ migration ------------------------------
+    def export_request_kv(self, rid: int) -> RequestKV:
+        """Snapshot one request (finished or mid-prefill) as a `RequestKV`.
+        Read-only: the caller evacuates the request here only after the
+        destination's import succeeded."""
+        held = list(self.store_refs.get(rid, []))
+        payloads: Dict[tuple, BS.BlockPayload] = {}
+        if self.store is not None:
+            for key in held:
+                if key not in payloads:
+                    payload = self.store.export_payload(key)
+                    if payload is not None:
+                        payloads[key] = payload
+        return RequestKV(rid=rid, export=self.pool.export_request(rid), held=held,
+                         payloads=payloads, stats=self.last_stats.get(rid),
+                         prefill=self.prefill_states.get(rid))
+
+    def import_request_kv(self, rec: RequestKV) -> Dict[str, int]:
+        """Install a migrated request in this engine without recompute.
+
+        Store payloads resolve first: a held key is a digest hit (no bytes
+        move), a miss inserts under the original key, a budget refusal
+        writes the rows the request references into fresh private pages.
+        That builds the source-slot -> destination-slot map the pool import
+        needs.  Transactional: `PoolExhausted` anywhere releases every page
+        and store reference this call took.  A chunk-partial handoff's
+        prefill state is rebound to this engine's arena.
+        -> counters: pages and bytes moved, digest hits."""
+        rid, export = rec.rid, rec.export
+        store = self.store
+        fmap: Dict[int, int] = {}
+        held_new: List[tuple] = []
+        raw_pages: List[int] = []
+        refused: Dict[tuple, BS.BlockPayload] = {}
+        counters = {"pages": export.n_pages, "bytes": export.nbytes, "digest_hits": 0}
+        foreign = set(int(s) for s in export.foreign_slots[export.owner_page < 0])
+        priv_old: set = set()
+        try:
+            if store is not None:
+                seen: set = set()
+                for key in rec.held:
+                    payload = rec.payloads.get(key)
+                    if payload is None or key in refused:
+                        continue
+                    blk, hit = store.import_payload(payload, keep_free=export.n_pages)
+                    if blk is None:
+                        refused[key] = payload
+                        continue
+                    held_new.append(key)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    if hit:
+                        counters["digest_hits"] += 1
+                    else:
+                        counters["bytes"] += payload.nbytes
+                    fmap.update(zip(payload.slots.tolist(), blk.slots.tolist()))
+                # refused payloads: the rows the slot table references go to
+                # fresh pages the request owns (their bytes travel as a miss)
+                for payload in refused.values():
+                    rows = [i for i, sl in enumerate(payload.slots.tolist())
+                            if sl in foreign and sl not in fmap]
+                    if not rows:
+                        continue
+                    pages = self.pool.alloc_pages(self.pool.pages_for(len(rows)))
+                    raw_pages.extend(pages)
+                    slots = self.pool.page_slots(pages)[:len(rows)]
+                    for i, sl in zip(rows, slots.tolist()):
+                        fmap[int(payload.slots[i])] = sl
+                        priv_old.add(int(payload.slots[i]))
+                    idx = torch.as_tensor(rows, device=payload.k.device)
+                    k, v = payload.k[idx], payload.v[idx]
+                    self.pool.write_slots(slots, k, v)
+                    counters["bytes"] += BS._nbytes(k, v)
+                    counters["pages"] += len(pages)
+            self.pool.import_request(export, fmap)
+        except PoolExhausted:
+            if raw_pages:
+                self.pool.release_pages(raw_pages)
+            if store is not None:
+                store.release_all(held_new)
+            raise
+        if raw_pages:
+            self.pool.page_tables[rid].extend(raw_pages)
+        if store is not None:
+            self.store_refs[rid] = held_new
+            store.flush_writes()
+        if rec.stats is not None:
+            self.last_stats[rid] = rec.stats
+        if rec.prefill is not None:
+            st = rec.prefill
+            if priv_old:
+                # privatized positions are no longer store-mapped: finalize
+                # writes them instead of remapping
+                for pos in np.where(export.owner_page < 0)[0]:
+                    if int(export.foreign_slots[pos]) in priv_old and pos < len(st.mapped_mask):
+                        st.mapped_mask[pos] = False
+            if st.cp.shared is not None:
+                # a prefix hit read the source's arena slots: read the
+                # same bytes at their slots here
+                table = st.cp.table.copy()
+                n_rows = self.cache.n_rows
+                sh = np.where(table >= n_rows)[0]
+                table[sh] = [n_rows + fmap[int(t) - n_rows] for t in table[sh]]
+                st.cp.rebind(table, self.pool)
+            self.prefill_states[rid] = st
+        return counters
+
     def _finalize_store(self, st: PrefillState, k0, v0, k_rest, v_rest,
                         rec: np.ndarray) -> np.ndarray:
         """Store bookkeeping for one finalizing request: insert the tiers
@@ -616,7 +767,9 @@ class BatchEngine:
         """
         rep = StepReport()
         if self.store is not None:
-            # land the admissions' deferred inserts
+            # promote the router's hinted spill blocks (a no-op unless
+            # prefetch_pages_per_tick > 0), then land every deferred insert
+            self.store.prefetch()
             self.store.flush_writes()
         if decode_rids:
             rep.decode_logits = self.decode(decode_rids, decode_tokens)
@@ -666,6 +819,9 @@ class BatchEngine:
                 left -= c
                 packed = True
                 progress = True
+                if not st.started:
+                    st.started = True
+                    rep.started.append(rid)
                 if rid not in rep.chunked:
                     rep.chunked.append(rid)
                 if st.cp.scan_done and rid not in finalize:

@@ -1,7 +1,8 @@
 """Continuous batching for the port's serving path — the wave and chunked
-disciplines of the JAX package's `serving/batching.py` on one instance,
-with the block store's admission accounting (the cluster and
-disaggregation are not ported yet).
+disciplines of the JAX package's `serving/batching.py`, on one instance
+or on K workers sharing one arrival stream (`ClusterBatcher`), with the
+block store's admission accounting and prefill/decode disaggregation
+(role-typed workers handing requests over through a migration hook).
 
 * ``sched="wave"``: each step runs either one whole-prefill batch under a
   token budget or one decode iteration (prefill-prioritized, vLLM's
@@ -13,14 +14,17 @@ disaggregation are not ported yet).
 
 The backend returns the seconds each step took; the loop adds them to a
 clock that also jumps to the next arrival when idle, so TTFT and
-time-between-tokens are measured on the wall clock of the steps.
+time-between-tokens are measured on the wall clock of the steps.  Each
+worker's clock adds only its own steps: K workers stepped in turn on one
+host and one card model K instances running side by side.
 """
 from __future__ import annotations
 
 import bisect
+import math
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -226,6 +230,38 @@ class TorchEngineBackend:
         self._rngs.pop(req.rid, None)
         self.finish_reason.pop(req.rid, None)
 
+    # ----------------------------- migration ------------------------------
+    _SESSION = ("last_token", "generated", "sampling", "stop_seqs", "_rngs",
+                "finish_reason", "plans", "reuse")
+
+    def export_request_kv(self, rid: int):
+        """One request as the engine's `RequestKV` with this backend's
+        session state attached (generated stream, PRNG, stop sequences,
+        plan and reuse metadata): what another backend needs to continue
+        it.  Read-only; `evacuate` only after the import succeeded."""
+        rec = self.engine.export_request_kv(rid)
+        rec.session = {name: getattr(self, name).get(rid) for name in self._SESSION}
+        return rec
+
+    def import_request_kv(self, rec) -> Dict[str, int]:
+        """Install a migrated request: the engine's pages and store
+        references, then the session state.  -> the engine's migration
+        counters.  Transactional through the engine."""
+        counters = self.engine.import_request_kv(rec)
+        for name, val in (rec.session or {}).items():
+            if val is not None:
+                getattr(self, name)[rec.rid] = (list(val) if name == "generated"
+                                                else val)
+        return counters
+
+    def evacuate(self, rid: int) -> None:
+        """Drop every trace of a request migrated away: pages, store
+        references, chunk state and session state."""
+        self.engine.abort_prefill(rid)
+        self._admit_cache.pop(rid, None)
+        for name in self._SESSION:
+            getattr(self, name).pop(rid, None)
+
     # ------------------------- chunked discipline -------------------------
     def begin_prefill(self, req: PendingRequest) -> None:
         """Admit one request into chunk-resumable prefill (claims its pool
@@ -262,15 +298,35 @@ class TorchEngineBackend:
 
 
 class WorkerState:
-    """One serving instance: clock, FIFO admission queue, prefilling set
-    (chunked sched) and decode set."""
+    """One serving instance inside a (possibly multi-worker) batching loop:
+    its backend, clock, FIFO admission queue, prefilling set (chunked
+    sched) and decode set.  Backpressure is per worker: a full pool stalls
+    this worker's admissions and nobody else's.
 
-    def __init__(self, backend: TorchEngineBackend, max_batch_tokens: int = 8192,
-                 max_decode_batch: int = 64, sched: str = "wave",
-                 chunk_tokens: int = 128, step_tokens: Optional[int] = None):
+    ``role`` types the worker for disaggregation: a ``prefill`` worker
+    admits and prefills, then hands each request to `migrate` (set by the
+    cluster) instead of decoding it; a ``decode`` worker never admits and
+    takes requests through `receive_migration`; ``unified`` does both."""
+
+    def __init__(self, backend: TorchEngineBackend, wid: int = 0,
+                 max_batch_tokens: int = 8192, max_decode_batch: int = 64,
+                 sched: str = "wave", chunk_tokens: int = 128,
+                 step_tokens: Optional[int] = None, role: str = "unified"):
         if sched not in ("wave", "chunked"):
             raise ValueError(f"unknown sched {sched!r}")
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"unknown worker role {role!r}")
         self.backend = backend
+        self.wid = wid
+        self.role = role
+        # (worker, entry, admitted_s) -> True when a decode worker took it
+        self.migrate: Optional[Callable] = None
+        # migrations awaiting their transfer: (available_t, DecodeEntry,
+        # admitted_s, prefilling)
+        self.inbound: List[tuple] = []
+        self.migrated_out = 0
+        # rids a decode worker preempted itself and may re-admit
+        self._preempt_ok: set = set()
         self.max_batch_tokens = max_batch_tokens
         self.max_decode_batch = max_decode_batch
         self.sched = sched
@@ -290,15 +346,84 @@ class WorkerState:
         self.tbt: List[float] = []  # time-between-tokens samples
         self._admit_t: Dict[int, float] = {}
         self._last_tok_t: Dict[int, float] = {}
+        # measured service rates (EWMA over observed steps): the router's
+        # live queue-depth estimate prices queued work at what this worker
+        # actually costs
+        self._prefill_s_per_tok = 0.0
+        self._decode_s_per_step = 0.0
 
     def has_work(self) -> bool:
-        return bool(self.waiting or self.prefilling or self.decoding)
+        return bool(self.waiting or self.prefilling or self.decoding or self.inbound)
 
     def ready_time(self) -> float:
         """Earliest instant this worker can take its next step."""
-        if self.decoding or self.prefilling or not self.waiting:
+        if self.decoding or self.prefilling:
             return self.clock
-        return max(self.clock, self.waiting[0].arrival_s)
+        due = []
+        if self.waiting:
+            due.append(self.waiting[0].arrival_s)
+        if self.inbound:
+            due.append(min(x[0] for x in self.inbound))
+        return max(self.clock, min(due)) if due else self.clock
+
+    def receive_migration(self, entry: DecodeEntry, available_t: float,
+                          admitted_s: float, prefilling: bool = False) -> None:
+        """Accept a migrated request: it joins the decode set at
+        `available_t` (the source's handoff time plus the billed transfer)
+        with its first token sampled, or, for a chunk-partial handoff
+        (`prefilling`), the prefilling set, to resume its scan here."""
+        self.inbound.append((available_t, entry, admitted_s, prefilling))
+
+    def _accept_inbound(self) -> None:
+        """Move migrations whose transfer has completed into the decode
+        (or prefilling) set."""
+        due = [x for x in self.inbound if x[0] <= self.clock]
+        if not due:
+            return
+        self.inbound = [x for x in self.inbound if x[0] > self.clock]
+        for t, entry, admitted_s, prefilling in due:
+            rid = entry.req.rid
+            self._admit_t[rid] = admitted_s
+            if prefilling:
+                self.prefilling.append(entry.req)
+                continue
+            self._last_tok_t[rid] = t
+            self.decoding[rid] = entry
+
+    def _check_role_waiting(self) -> None:
+        """A decode worker takes no dispatched admission, only a migrated
+        request it preempted itself (it re-prefills from the plan the
+        import installed)."""
+        if self.role != "decode":
+            return
+        bad = [r for r in self.waiting if r.rid not in self._preempt_ok]
+        if bad:
+            raise RuntimeError(f"decode-role worker {self.wid} was dispatched request "
+                               f"{bad[0].rid}: admissions must route to prefill workers")
+
+    def backlog_seconds(self, t: float) -> float:
+        """Estimated seconds of outstanding work as seen at time `t`: busy
+        time already on the clock plus queued work at the measured service
+        rates (0 until a step has been observed)."""
+        est = max(self.clock - t, 0.0)
+        est += sum(r.n_tokens for r in self.waiting) * self._prefill_s_per_tok
+        est += sum(r.n_tokens for r in self.prefilling) * self._prefill_s_per_tok
+        if self.decoding:
+            est += (max(e.steps_left for e in self.decoding.values())
+                    * self._decode_s_per_step)
+        return est
+
+    @staticmethod
+    def _ewma(old: float, new: float) -> float:
+        return new if old == 0.0 else 0.5 * old + 0.5 * new
+
+    def _handoff(self, entry: DecodeEntry, admitted: float) -> bool:
+        """A prefill worker's handoff of `entry` to a decode worker."""
+        if self.role == "prefill" and self.migrate is not None \
+                and self.migrate(self, entry, admitted):
+            self.migrated_out += 1
+            return True
+        return False
 
     def step(self) -> None:
         if self.sched == "chunked":
@@ -311,6 +436,8 @@ class WorkerState:
         """A prefill batch if one can form under the token budget and pool
         capacity, else one decode iteration."""
         self.clock = self.ready_time()
+        self._accept_inbound()
+        self._check_role_waiting()
         batch: List[PendingRequest] = []
         tok = 0
         for r in self.waiting:
@@ -323,41 +450,48 @@ class WorkerState:
             batch.append(r)
             tok += r.n_tokens
         if not batch and not self.decoding:
+            if not self.waiting:
+                return  # only future inbound migrations
             raise RuntimeError(
                 f"request {self.waiting[0].rid} ({self.waiting[0].n_tokens} "
                 "tokens) can never be admitted: KV pool too small "
                 "even with no other request running")
         if batch:
-            self._prefill(batch)
+            self._prefill(batch, tok)
         else:
             self._decode()
 
-    def _prefill(self, batch: List[PendingRequest]) -> None:
+    def _prefill(self, batch: List[PendingRequest], tok: int) -> None:
         admitted = self.clock
         picked = {r.rid for r in batch}
         self.waiting = [r for r in self.waiting if r.rid not in picked]
         dt = self.backend.prefill(batch)
         self.clock += dt
         self.busy_seconds += dt
+        self._prefill_s_per_tok = self._ewma(self._prefill_s_per_tok, dt / max(tok, 1))
         for r in batch:
             self._admit_t[r.rid] = admitted
             self._first_token(r)
 
     def _first_token(self, r: PendingRequest) -> None:
         """A prefill produced `r`'s first token at `self.clock`: retire it
-        if that was its whole output, else move it into the decode set."""
+        if that was its whole output, hand it to a decode worker, or move
+        it into the decode set."""
         admitted = self._admit_t.get(r.rid, r.arrival_s)
         stopped = self.backend.early_stop(r.rid)
         if r.decode_steps <= 1 or stopped:  # the TTFT token was the output
             self._admit_t.pop(r.rid, None)
             self.done.append(Completion(
-                r.rid, r.arrival_s, self.clock, self.clock,
+                r.rid, r.arrival_s, self.clock, self.clock, self.wid,
                 admitted_s=admitted, reason="stop" if stopped else "length"))
             self.backend.finish(r)
-        else:
-            self._last_tok_t[r.rid] = self.clock
-            self.decoding[r.rid] = DecodeEntry(
-                r, self.clock - r.arrival_s, r.decode_steps - 1)
+            return
+        entry = DecodeEntry(r, self.clock - r.arrival_s, r.decode_steps - 1)
+        if self._handoff(entry, admitted):
+            self._admit_t.pop(r.rid, None)
+            return
+        self._last_tok_t[r.rid] = self.clock
+        self.decoding[r.rid] = entry
 
     def _decode(self) -> None:
         while True:
@@ -373,6 +507,7 @@ class WorkerState:
                     return
         self.clock += dt
         self.busy_seconds += dt
+        self._decode_s_per_step = self._ewma(self._decode_s_per_step, dt)
         self._decoded(db)
 
     def _decoded(self, db: List[DecodeEntry]) -> None:
@@ -390,7 +525,7 @@ class WorkerState:
             e = self.decoding.pop(rid)
             req = e.req
             self.done.append(Completion(
-                req.rid, req.arrival_s, req.arrival_s + e.ttft_s, self.clock,
+                req.rid, req.arrival_s, req.arrival_s + e.ttft_s, self.clock, self.wid,
                 admitted_s=self._admit_t.pop(rid, req.arrival_s),
                 reason="stop" if self.backend.early_stop(rid) else "length"))
             self._last_tok_t.pop(rid, None)
@@ -402,7 +537,10 @@ class WorkerState:
         packing decode tokens for every running request plus prefill
         chunks and finalizes for the admitted set."""
         self.clock = self.ready_time()
+        self._accept_inbound()
         self._admit_chunked()
+        if not self.decoding and not self.prefilling:
+            return  # only future inbound migrations
         while True:
             db = list(self.decoding.values())[: self.max_decode_batch]
             try:
@@ -412,12 +550,21 @@ class WorkerState:
             except PoolExhausted:
                 # the wave loop's retry contract, per tick: evict the
                 # youngest request (a mid-prefill victim rolls its chunk
-                # state back) and retry before any prefill work runs
+                # state back, or is handed off) and retry before any
+                # prefill work runs
                 self._preempt_youngest()
                 if not self.decoding and not self.prefilling:
                     return
         self.clock += dt
         self.busy_seconds += dt
+        # the tick's seconds split by token charge, so the router prices
+        # queued prompt tokens and decode steps apart
+        charge = max(rep.charged, 1)
+        if rep.charge_chunks + rep.charge_finalize:
+            self._prefill_s_per_tok = self._ewma(self._prefill_s_per_tok, dt / charge)
+        if rep.charge_decode:
+            self._decode_s_per_step = self._ewma(self._decode_s_per_step,
+                                                 dt * rep.charge_decode / charge)
         self.ticks.append(TickRecord(
             t=self.clock, seconds=dt, decode_tokens=rep.charge_decode,
             chunk_tokens=rep.charge_chunks, finalize_tokens=rep.charge_finalize,
@@ -433,6 +580,7 @@ class WorkerState:
         """Move due arrivals into the prefilling set, FIFO, while pool
         capacity allows: an admitted request competes for the step budget
         from this tick on."""
+        self._check_role_waiting()
         while self.waiting:
             r = self.waiting[0]
             if r.arrival_s > self.clock or not self.backend.can_admit(r):
@@ -453,8 +601,9 @@ class WorkerState:
     def _preempt_youngest(self) -> None:
         """Evict the youngest running request under pool pressure and
         requeue it: a mid-decode victim frees its pages, a mid-prefill one
-        also drops its chunk state; the plan is kept, and greedy decode
-        regenerates the same tokens."""
+        also drops its chunk state (a prefill worker hands it to a decode
+        worker instead, scan progress and all); the plan is kept, and
+        greedy decode regenerates the same tokens."""
         cands = [e.req for e in self.decoding.values()] + list(self.prefilling)
         req = max(cands, key=lambda r: (r.arrival_s, r.rid))
         self._preempt_counts[req.rid] = self._preempt_counts.get(req.rid, 0) + 1
@@ -462,21 +611,81 @@ class WorkerState:
             raise RuntimeError(
                 f"request {req.rid} preempted {self._preempt_counts[req.rid]}"
                 " times: the pool cannot hold its decode tokens even alone")
-        self._admit_t.pop(req.rid, None)
         if any(r.rid == req.rid for r in self.prefilling):
             self.prefilling = [r for r in self.prefilling if r.rid != req.rid]
+            admitted = self._admit_t.pop(req.rid, req.arrival_s)
+            if self._handoff(DecodeEntry(req, 0.0, req.decode_steps), admitted):
+                return   # the live chunk state rode the handoff
             self.backend.preempt_prefill(req)
         else:
             self.decoding.pop(req.rid)
             self._last_tok_t.pop(req.rid, None)
+            self._admit_t.pop(req.rid, None)
             self.backend.preempt(req)
         self.preempted += 1
+        if self.role == "decode":
+            self._preempt_ok.add(req.rid)
         bisect.insort(self.waiting, req)
+
+
+# dispatch hook: (request, arrival time, workers) -> worker index
+DispatchFn = Callable[[PendingRequest, float, List[WorkerState]], int]
+
+
+def least_backlog_dispatch(req: PendingRequest, t: float,
+                           workers: List[WorkerState]) -> int:
+    """Default dispatch: the worker with the least estimated backlog."""
+    return min(range(len(workers)), key=lambda i: (workers[i].backlog_seconds(t), i))
+
+
+class ClusterBatcher:
+    """Continuous batching across K workers sharing one arrival stream.
+
+    Each worker is a `WorkerState` over its own backend (own pool, clock
+    and backpressure); `dispatch` assigns every arrival to a worker at its
+    arrival time, seeing live worker state (the Eq. 2 router of
+    `serving.cluster` plugs in here).  Events go in global time order: an
+    arrival is dispatched once every busy worker's next step lies at or
+    after it, so the router sees the queues a global scheduler would."""
+
+    def __init__(self, backends: Sequence[TorchEngineBackend],
+                 dispatch: Optional[DispatchFn] = None, max_batch_tokens: int = 8192,
+                 max_decode_batch: int = 64, sched: str = "wave",
+                 chunk_tokens: int = 128, step_tokens: Optional[int] = None):
+        self.workers = [
+            WorkerState(b, wid=i, max_batch_tokens=max_batch_tokens,
+                        max_decode_batch=max_decode_batch, sched=sched,
+                        chunk_tokens=chunk_tokens, step_tokens=step_tokens)
+            for i, b in enumerate(backends)]
+        self.dispatch = dispatch or least_backlog_dispatch
+
+    def run(self, requests: Sequence[PendingRequest]) -> List[Completion]:
+        seen: set = set()
+        for r in requests:
+            if r.rid in seen:
+                raise ValueError(f"duplicate request rid {r.rid}")
+            seen.add(r.rid)
+        pending = sorted(requests)
+        i = 0
+        while i < len(pending) or any(w.has_work() for w in self.workers):
+            busy = [w for w in self.workers if w.has_work()]
+            t_work = min((w.ready_time() for w in busy), default=math.inf)
+            t_arr = pending[i].arrival_s if i < len(pending) else math.inf
+            if t_arr <= t_work:
+                req = pending[i]
+                i += 1
+                self.workers[int(self.dispatch(req, t_arr, self.workers))].waiting.append(req)
+            else:
+                min(busy, key=lambda w: (w.ready_time(), w.wid)).step()
+        done = [c for w in self.workers for c in w.done]
+        done.sort(key=lambda c: c.done_s)  # stable: in-step order kept
+        return done
 
 
 class ContinuousBatcher:
     """Single-instance continuous batching over a `TorchEngineBackend`,
-    under the wave or the chunked (unified-step) discipline."""
+    under the wave or the chunked (unified-step) discipline: a one-worker
+    `ClusterBatcher`."""
 
     def __init__(self, backend: TorchEngineBackend, max_batch_tokens: int = 8192,
                  max_decode_batch: int = 64, sched: str = "wave",
@@ -490,22 +699,9 @@ class ContinuousBatcher:
         self.workers: List[WorkerState] = []
 
     def run(self, requests: Sequence[PendingRequest]) -> List[Completion]:
-        seen: set = set()
-        for r in requests:
-            if r.rid in seen:
-                raise ValueError(f"duplicate request rid {r.rid}")
-            seen.add(r.rid)
-        w = WorkerState(self.backend, self.max_batch_tokens, self.max_decode_batch,
-                        sched=self.sched, chunk_tokens=self.chunk_tokens,
-                        step_tokens=self.step_tokens)
-        self.workers = [w]
-        pending = sorted(requests)
-        i = 0
-        while i < len(pending) or w.has_work():
-            t_work = w.ready_time() if w.has_work() else float("inf")
-            if i < len(pending) and pending[i].arrival_s <= t_work:
-                w.waiting.append(pending[i])
-                i += 1
-            else:
-                w.step()
-        return sorted(w.done, key=lambda c: c.done_s)
+        cb = ClusterBatcher([self.backend], dispatch=lambda req, t, ws: 0,
+                            max_batch_tokens=self.max_batch_tokens,
+                            max_decode_batch=self.max_decode_batch, sched=self.sched,
+                            chunk_tokens=self.chunk_tokens, step_tokens=self.step_tokens)
+        self.workers = cb.workers
+        return cb.run(requests)

@@ -26,9 +26,11 @@ Optional tiers: int8 payloads (``kv_store_dtype="int8"``, symmetric
 per-(row, kv-head) scales, `quantize_rows`; the arena holds the
 dequantized bytes) and a capacity-bounded host-RAM spill tier for
 evicted blocks (``spill_mb``), from which a returning key is promoted
-back to the device.  The reference's router-hinted prefetch and its
-payload export/import serve only the cluster and migration, which are
-not ported.
+back to the device, either when a request inserts it or ahead of its
+admission through the cluster router's hints (`hint` / `prefetch`,
+``prefetch_pages_per_tick`` pages a tick).  KV migration moves blocks
+between workers' stores by content key (`export_payload` /
+`import_payload`): a destination already holding the key moves no bytes.
 
 Where the card changes the reference's design:
 
@@ -43,6 +45,9 @@ Where the card changes the reference's design:
   first row in the device pool of cached rows (`core.cache_rows`), and
   the insert is a copy on the device from those rows into store-owned
   arena slots.
+* **migration payloads stay on the device**: all K workers of a
+  one-card cluster share the card, so a `BlockPayload` holds fp32 tensors
+  on the pool's device where the reference holds host bytes.
 * **prefix-tier hits stay on the device**: the engine reads a hit's rows
   straight out of the store's arena slots through the block-gather
   kernel's second pool (`kv_pool.PagedKVPool.plane`), where the
@@ -52,8 +57,9 @@ from __future__ import annotations
 
 import hashlib
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +149,30 @@ class RequestReuse:
     # it covers; the engine appends the (n_pad, r_pad) bucket at runtime
     prefix_key: Optional[Tuple[str, str]] = None
     prefix_len: int = 0
+
+
+@dataclass(frozen=True)
+class BlockPayload:
+    """One store block as it rides a KV migration: the content key, what a
+    destination-store miss re-inserts (`k`/`v`: the block's fp32 bytes,
+    (t, L, Hkv, Dh), on the source pool's device; dequantized for an int8
+    block, as the reference's host payload), and the SOURCE store's slot
+    ids, through which the importer translates the migrating request's
+    shared slot-table entries.  The key travels first: a destination that
+    already holds it never moves the bytes."""
+
+    key: Tuple[str, str]
+    kind: str
+    slots: np.ndarray  # (n_tokens,) SOURCE physical slot ids
+    k: torch.Tensor
+    v: torch.Tensor
+    tokens: Optional[np.ndarray] = None
+    positions: Optional[np.ndarray] = None
+    pinned: bool = False
+
+    @property
+    def nbytes(self) -> int:
+        return _nbytes(self.k, self.v)
 
 
 @dataclass
@@ -239,14 +269,21 @@ class SharedBlockStore:
 
     def __init__(self, pool: PagedKVPool, max_pages: Optional[int] = None,
                  max_user_pages: Optional[int] = None, *,
-                 kv_store_dtype: str = "fp32", spill_mb: int = 0):
+                 kv_store_dtype: str = "fp32", spill_mb: int = 0,
+                 prefetch_pages_per_tick: int = 0):
         if kv_store_dtype not in ("fp32", "int8"):
             raise ValueError(f"kv_store_dtype must be fp32|int8, got {kv_store_dtype}")
         self.pool = pool
         self.kv_store_dtype = kv_store_dtype
         self.spill_cap = int(spill_mb) * 2**20
+        self.prefetch_pages_per_tick = int(prefetch_pages_per_tick)
         self.spill: Dict[Tuple[str, str], SpilledBlock] = {}
         self.spill_nbytes = 0
+        # the router's prefetch hints, oldest first (bounded), and the keys
+        # a dispatched but unadmitted request declared: evicting one of
+        # those queues its hint
+        self._hints: Deque[Tuple[str, str]] = deque(maxlen=512)
+        self._interest: set = set()
         self.dequant_s = 0.0
         # the store never crowds requests out of their own pool: half the
         # pages in all, pinned pages (never reclaimable) at most a quarter
@@ -265,6 +302,7 @@ class SharedBlockStore:
             "misses_user": 0, "misses_item": 0, "misses_prefix": 0,
             "inserts": 0, "insert_skips": 0, "evictions": 0, "spills": 0,
             "insert_spills": 0, "spill_drops": 0, "spill_hits": 0,
+            "prefetch_promotions": 0,
         }
 
     # ------------------------------- lookup --------------------------------
@@ -297,6 +335,7 @@ class SharedBlockStore:
         """Lookup + take a reference (protects the block from eviction for
         the holder's lifetime).  Counts a tier hit/miss."""
         blk = self.get(key)
+        self._interest.discard(key)          # the demand arrived
         if blk is None:
             self.counters[f"misses_{key[0]}"] += 1
             return None
@@ -340,17 +379,31 @@ class SharedBlockStore:
         if not victims:
             return False
         victim = min(victims, key=lambda b: b.last_used)
+        # a deferred write of the victim must not land: its pages may be
+        # handed out again before the flush, and one write holding both
+        # would race on the card.  Its bytes are the victim's, unwritten
+        i = next((i for i, w in enumerate(self._pending_writes) if w[0] is victim.slots),
+                 None)
+        pending = None if i is None else self._pending_writes.pop(i)
         if self.spill_cap > 0:
-            # an fp32 block's payload is its arena slots: read them back
-            # before the pages go
-            quant = victim.scale_k is not None
+            # an fp32 block's payload is its arena slots (or the write still
+            # pending for them): read them back before the pages go
+            if victim.scale_k is not None:
+                data_k, data_v = victim.data_k, victim.data_v
+            elif pending is not None:
+                data_k, data_v = pending[1], pending[2]
+            else:
+                data_k, data_v = victim.fp32_k, victim.fp32_v
             self._spill_put(SpilledBlock(
                 key=victim.key, kind=victim.kind,
-                data_k=(victim.data_k if quant else victim.fp32_k).cpu(),
-                data_v=(victim.data_v if quant else victim.fp32_v).cpu(),
+                data_k=data_k.cpu(), data_v=data_v.cpu(),
                 scale_k=_to(victim.scale_k, "cpu"), scale_v=_to(victim.scale_v, "cpu"),
                 tokens=victim.tokens, positions=victim.positions,
                 last_used=victim.last_used, hits=victim.hits))
+            if victim.key in self._interest:
+                # a dispatched request needs it: queue its promotion now
+                self._interest.discard(victim.key)
+                self._hints.append(victim.key)
         del self.blocks[victim.key]
         self.pool.release_pages(victim.pages)
         self.counters["evictions"] += 1
@@ -500,6 +553,94 @@ class SharedBlockStore:
         if gone is not None:
             self.spill_nbytes -= gone.nbytes
         return blk
+
+    # ------------------------------- prefetch -------------------------------
+    def hint(self, keys: Sequence) -> None:
+        """The router's prefetch hints: content keys a dispatched request
+        will need on this worker.  A key in the spill tier queues for
+        promotion; any other registers interest, so that an eviction
+        before the request's admission queues the hint then."""
+        for key in keys:
+            if key in self.spill and key not in self.blocks:
+                self._hints.append(key)
+            else:
+                self._interest.add(key)
+                if len(self._interest) > 4 * self._hints.maxlen:
+                    self._interest.clear()     # advisory: shed, don't grow
+
+    def prefetch(self, budget_pages: Optional[int] = None) -> int:
+        """Promote hinted spill blocks to the device, oldest hint first,
+        within a page budget (default ``prefetch_pages_per_tick``).  A
+        promotion may evict LRU blocks nobody references (to the spill
+        tier); pinned and referenced pages are never touched.  A hint
+        needing more than the whole budget is dropped, and so is one whose
+        promotion is refused.  -> promotions."""
+        budget = self.prefetch_pages_per_tick if budget_pages is None else budget_pages
+        if budget <= 0:
+            return 0
+        promoted = 0
+        remaining = int(budget)
+        while self._hints and remaining > 0:
+            key = self._hints[0]
+            sp = self.spill.get(key)
+            if sp is None or key in self.blocks:
+                self._hints.popleft()
+                continue
+            need = self.pool.pages_for(sp.n_tokens)
+            if need > budget:
+                self._hints.popleft()
+                continue
+            if need > remaining:
+                break
+            if self._promote(key, defer_write=True) is None:
+                self._hints.popleft()
+                continue
+            self._hints.popleft()
+            self.counters["prefetch_promotions"] += 1
+            promoted += 1
+            remaining -= need
+        return promoted
+
+    # ------------------------------ migration ------------------------------
+    def export_payload(self, key) -> Optional[BlockPayload]:
+        """One device-tier block as a migration payload under its content
+        key (read-only); None for a key this store does not hold there."""
+        blk = self.blocks.get(key)
+        if blk is None:
+            return None
+        self.flush_writes()      # an fp32 block's bytes are its arena slots
+        return BlockPayload(key=blk.key, kind=blk.kind,
+                            slots=np.asarray(blk.slots, np.int64),
+                            k=blk.fp32_k, v=blk.fp32_v, tokens=blk.tokens,
+                            positions=blk.positions, pinned=blk.pinned)
+
+    def import_payload(self, payload: BlockPayload, keep_free: int = 0
+                       ) -> Tuple[Optional[StoredBlock], bool]:
+        """Resolve a migration payload against this store.  -> (the block
+        holding the bytes, with one reference taken for the migrating
+        request, digest hit).  A hit (the key held in either tier: a
+        spilled one is promoted) moves no bytes.  A miss inserts the
+        payload under its key, tier and pinning (deferred write: the
+        importer flushes); a budget refusal gives (None, False), and the
+        caller then writes those rows privately."""
+        blk = self.get(payload.key)
+        if blk is not None:
+            blk.refcount += 1
+            return blk, True
+        if payload.key in self.spill:
+            blk = self._promote(payload.key, keep_free=keep_free, defer_write=True)
+            if blk is None:
+                return None, False
+            self.counters["spill_hits"] += 1
+            blk.refcount += 1
+            return blk, True
+        blk = self.insert(payload.key, payload.kind, payload.k, payload.v,
+                          tokens=payload.tokens, positions=payload.positions,
+                          pinned=payload.pinned, keep_free=keep_free, defer_write=True)
+        if blk is None:
+            return None, False
+        blk.refcount += 1
+        return blk, False
 
     # ------------------------------ deferred ------------------------------
     def flush_writes(self) -> None:

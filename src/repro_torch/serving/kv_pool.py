@@ -1,7 +1,8 @@
 """Paged KV cache pool for the batched serving path (vLLM-style) — the
 port of the JAX package's `serving/kv_pool.py` (request slot tables, mapped
-allocation and private remapping, and the raw page and slot interface of
-the shared block store; migration export/import is not ported yet).
+allocation and private remapping, the raw page and slot interface of
+the shared block store, and a request's export / import for KV
+migration between two pools).
 
 One preallocated device arena holds every request's per-layer KV in
 fixed-size pages; a free-list allocator hands pages to requests and a
@@ -37,6 +38,41 @@ class PoolStats:
     pages_in_use: int
     n_requests: int
     tokens_resident: int
+
+
+@dataclass(frozen=True)
+class KVExport:
+    """One request's pool state as a self-contained record, the
+    page-granular unit of KV migration between two pools.
+
+    The slot table is stored page-relatively: a private entry is an
+    (exported-page index, in-page offset) pair, rebound to whatever pages
+    the destination hands out; a store-shared entry (`owner_page == -1`)
+    keeps the SOURCE pool's slot id in `foreign_slots`, which the importer
+    translates through a source-slot -> destination-slot map.
+    `page_k`/`page_v` are the private pages' full bytes, (P, page_size, L,
+    Hkv, Dh) pre-RoPE, on the source pool's device (unused slots ride
+    along, so the import is one write and the round trip is bitwise)."""
+
+    rid: int
+    seq_len: int
+    page_size: int
+    owner_page: np.ndarray     # (n_slots,) exported-page index, -1 = shared
+    owner_off: np.ndarray      # (n_slots,) in-page offset where owned
+    foreign_slots: np.ndarray  # (n_slots,) source slot id where shared
+    spare_page: np.ndarray     # (n_spare,) exported-page index
+    spare_off: np.ndarray      # (n_spare,)
+    page_k: torch.Tensor       # (P, page_size, L, Hkv, Dh)
+    page_v: torch.Tensor
+
+    @property
+    def n_pages(self) -> int:
+        return self.page_k.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        """Private-page bytes (what a migration must move)."""
+        return 2 * self.page_k.numel() * self.page_k.element_size()
 
 
 class PagedKVPool:
@@ -322,6 +358,70 @@ class PagedKVPool:
                         self.slot_tables[rid][:-self.page_size]
             raise
         return pages, slots
+
+    # ------------------------------ migration ------------------------------
+    def export_request(self, rid: int) -> KVExport:
+        """Read-only snapshot of one request's pool state: its private
+        pages gathered on the device (one `index_select` per arena), the
+        slot table page-relative, the spare slots and seq_len.  The caller
+        frees the source only after the destination's import succeeded."""
+        pages = self.page_tables[rid]
+        index = {p: i for i, p in enumerate(pages)}
+        table = self.slot_tables[rid]
+        owner_page = np.asarray([index.get(int(p), -1) for p in table // self.page_size],
+                                np.int64)
+        owner_off = np.where(owner_page >= 0, table % self.page_size, 0).astype(np.int64)
+        foreign_slots = np.where(owner_page < 0, table, -1).astype(np.int64)
+        spare = np.asarray(self._spare.get(rid, []), np.int64)
+        spare_page = np.asarray([index[int(s) // self.page_size] for s in spare], np.int64)
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        return KVExport(rid=rid, seq_len=self.seq_lens[rid], page_size=self.page_size,
+                        owner_page=owner_page, owner_off=owner_off,
+                        foreign_slots=foreign_slots, spare_page=spare_page,
+                        spare_off=spare % self.page_size,
+                        page_k=self.arena_k.index_select(0, idx),
+                        page_v=self.arena_v.index_select(0, idx))
+
+    def import_request(self, export: KVExport,
+                       foreign_slot_map: Optional[Dict[int, int]] = None) -> List[int]:
+        """Materialize an exported request in this pool: fresh private
+        pages for the exported ones, the slot table rewritten against them
+        (shared entries through `foreign_slot_map`, source slot ->
+        destination slot), the page bytes in one write, seq_len and spare
+        slots restored.  Transactional: a duplicate rid, an unmapped shared
+        slot or `PoolExhausted` is raised before the first mutation."""
+        rid = export.rid
+        if export.page_size != self.page_size:
+            raise ValueError(f"page_size mismatch: export {export.page_size}, "
+                             f"pool {self.page_size}")
+        if rid in self.page_tables:
+            raise KeyError(f"request {rid} already allocated")
+        fmap = foreign_slot_map or {}
+        shared = export.owner_page < 0
+        missing = [int(s) for s in export.foreign_slots[shared] if int(s) not in fmap]
+        if missing:
+            raise KeyError(f"import of request {rid}: no destination mapping for "
+                           f"shared slots {missing[:4]}")
+        need = export.n_pages
+        if need > len(self._free):
+            raise PoolExhausted(f"import needs {need} pages, {len(self._free)} free")
+        pages = [self._free.pop() for _ in range(need)]
+        page_arr = np.asarray(pages, np.int64)
+        table = np.empty(len(export.owner_page), np.int64)
+        table[~shared] = (page_arr[export.owner_page[~shared]] * self.page_size
+                          + export.owner_off[~shared])
+        table[shared] = [fmap[int(s)] for s in export.foreign_slots[shared]]
+        self.page_tables[rid] = pages
+        self.slot_tables[rid] = table
+        self.seq_lens[rid] = export.seq_len
+        self._spare[rid] = list(page_arr[export.spare_page] * self.page_size
+                                + export.spare_off)
+        if need:
+            tail = tuple(export.page_k.shape[2:])
+            self.write_slots(self.page_slots(pages), export.page_k.reshape(-1, *tail),
+                             export.page_v.reshape(-1, *tail))
+        self._bump_peak()
+        return pages
 
     # -------------------------------- reads --------------------------------
     def gather(self, rid: int) -> Tuple[np.ndarray, np.ndarray]:

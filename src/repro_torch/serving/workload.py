@@ -117,6 +117,22 @@ def rcllm_reuse_info(system, trace: Sequence, plans: Dict[int, tuple]
     return out
 
 
+def heavy_tail_trace(catalog, pool, profile, n_requests: int, qps: float,
+                     n_users: int, long_prompt_frac: float = 0.15,
+                     long_prompt_reviews: int = 8, n_candidates: int = 8,
+                     reviews_per_user: int = 1, seed: int = 2) -> List:
+    """Heavy-tail prompt lengths: a `long_prompt_frac` fraction of users
+    carries a lognormal pile of extra reviews, so their prompts are
+    several times the base length (the head-of-line shape where the
+    chunked scheduler and disaggregation pay)."""
+    from repro_torch.data import synth as SY
+
+    return SY.make_trace(catalog, pool, profile, n_requests, qps=qps, n_users=n_users,
+                         n_candidates=n_candidates, reviews_per_user=reviews_per_user,
+                         seed=seed, long_prompt_frac=long_prompt_frac,
+                         long_prompt_reviews=long_prompt_reviews)
+
+
 def zipf_repeat_trace(catalog, pool, profile, n_requests: int, qps: float,
                       n_users: int, zipf_a: float = 1.2, n_candidates: int = 8,
                       reviews_per_user: int = 2, seed: int = 2) -> List:

@@ -283,9 +283,8 @@ def test_partition_invariant_random_walk():
     jpool = JPool(n_layers=2, n_kv_heads=2, head_dim=4, page_size=4, n_pages=24)
     jstore, _, _, jlog = _walk(JBS.SharedBlockStore, jpool, lambda a: a, JExhausted,
                                JBS.check_partition)
-    # the reference also counts prefetch promotions, which only the
-    # cluster's router hints trigger (not ported)
-    assert jstore.counters.pop("prefetch_promotions") == 0
+    # no router hints here: prefetch promotes nothing on either side
+    assert store.counters["prefetch_promotions"] == 0
     assert log == jlog and store.counters == jstore.counters
     for rid in list(live_rids):
         pool.free(rid)
@@ -476,7 +475,8 @@ def test_launcher_reports_the_store():
         cwd=repo, env=env, capture_output=True, text=True, timeout=300, check=True)
     rep = json.loads(out.stdout)
     assert rep["kv_reuse"] == "on" and rep["decode_tokens"] == 4 * 4
-    assert rep["store"] == {"kv_store_dtype": "int8", "spill_mb": 16}
+    assert rep["store"] == {"kv_store_dtype": "int8", "spill_mb": 16,
+                            "prefetch_pages_per_tick": 0}
     assert set(STORE_COUNTERS) <= set(rep["block_store"])
     assert rep["block_store"]["hits_item"] > 0
     bad = subprocess.run(

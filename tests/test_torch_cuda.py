@@ -566,3 +566,55 @@ def test_paged_decode_kernel_store_shared_pages(cuda, dtypes):
     _, splits = _paged_check(q, ak, av, pgt, spt, 1)
     assert splits > 1
 
+
+
+@pytest.mark.cuda
+def test_migrated_request_decodes_bitwise_on_the_card(cuda):
+    """KV migration on one card: a request whose slot table maps a store
+    block and private pages is exported from one engine's pool (pages
+    gathered on the card) and imported into a second engine's (scattered on
+    the card, its store block by content key); one decode step through the
+    paged-decode kernel then gives bitwise the same logits on both, since
+    the kernel reads the same bytes through the same view."""
+    from repro_torch.core.rcllm import tiny_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import block_store as BS
+    from repro_torch.serving.batch_engine import BatchEngine
+    from repro_torch.serving.block_store import SharedBlockStore, check_partition
+    from repro_torch.serving.kv_pool import pool_for
+
+    cfg = tiny_config(2, 32)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    engines = []
+    for _ in range(2):
+        pool = pool_for(cfg, n_pages=64, device=cuda)
+        engines.append(BatchEngine(model, cfg, pool=pool, store=SharedBlockStore(pool)))
+    src, dst = engines
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rows = lambda t: torch.randn((t, cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim),
+                                 generator=g, device=cuda)
+    key = (BS.ITEM_TIER, "migrated-block")
+    blk = src.store.insert(key, BS.ITEM_TIER, rows(21), rows(21))
+    blk.refcount += 1
+    src.store_refs[7] = [key]
+    n = 53
+    src.pool.alloc_mapped(7, n + 4, np.arange(3, 24), np.asarray(blk.slots, np.int64))
+    priv = np.setdiff1d(np.arange(n), np.arange(3, 24))
+    src.pool.write_at(7, priv, rows(len(priv)), rows(len(priv)))
+    rec = src.export_request_kv(7)
+    assert rec.export.page_k.is_cuda and list(rec.payloads) == [key]
+    counters = dst.import_request_kv(rec)
+    assert counters["digest_hits"] == 0 and counters["pages"] == rec.export.n_pages
+    for eng in engines:
+        check_partition(eng.pool, eng.store)
+        k, v = eng.pool.gather(7)
+        assert k.shape[0] == n
+    assert all(np.array_equal(a, b) for a, b in zip(src.pool.gather(7), dst.pool.gather(7)))
+    before = paged_decode_mha.launches
+    out = [eng.decode([7], [11]) for eng in engines]
+    assert paged_decode_mha.launches == before + 2 * cfg.n_layers
+    assert np.isfinite(out[0]).all() and np.array_equal(out[0], out[1])
+    for eng in engines:
+        eng.release(7)
+        assert eng.pool.stats().pages_in_use == 0
+        check_partition(eng.pool, eng.store)

@@ -16,7 +16,7 @@ from repro_torch.core import assembly as TA
 from repro_torch.core import item_cache as TIC
 from repro_torch.core import placement as TPL
 from repro_torch.core import semantic_cache as TSC
-from repro_torch.core.rcllm import hit_vector
+from repro_torch.core.scheduler import hit_vector
 from repro_torch.data import synth as TSY
 
 L_, HKV, DH = 2, 2, 4   # cache-block shape for the fake KV

@@ -161,6 +161,30 @@ def test_fp32_block_keeps_no_payload_and_spills_its_arena_bytes():
     check_partition(pool, store)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "int8"])
+def test_evicting_an_unflushed_block_drops_its_write(dtype):
+    """A block evicted before its deferred write lands (one prefetch
+    promotion evicted by the next) spills its own bytes, and its write
+    never lands on the pages the next block is handed."""
+    pool = _tiny_pool(n_pages=8, page_size=4)
+    store = SharedBlockStore(pool, spill_mb=1, kv_store_dtype=dtype)
+    rng = np.random.default_rng(3)
+    w, x, y = _blk(rng, 3), _blk(rng, 8), _blk(rng, 8)
+    store.insert(("item", "w"), "item", *w, defer_write=True).refcount += 1
+    store.insert(("item", "x"), "item", *x, defer_write=True)
+    assert store.evict_for(pool.n_pages - 2)       # x goes, w (referenced) stays
+    assert [p[0] for p in store._pending_writes] == [store.blocks[("item", "w")].slots]
+    blk = store.insert(("item", "y"), "item", *y, defer_write=True)
+    store.flush_writes()
+    rt = ((lambda t: dequantize_rows(*quantize_rows(t))) if dtype == "int8"
+          else (lambda t: t))
+    assert torch.equal(_arena_rows(pool, blk.slots), rt(y[0]))
+    sp = store.spill[("item", "x")]
+    got = sp.data_k if sp.scale_k is None else dequantize_rows(sp.data_k, sp.scale_k)
+    assert torch.equal(got, rt(x[0]))
+    check_partition(pool, store)
+
+
 def test_fp32_insert_writes_the_callers_bytes_without_a_copy():
     """An fp32 insert already on the pool's device stages the caller's
     tensors for the deferred arena write as they are (no copy); int8
