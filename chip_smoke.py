@@ -24,6 +24,23 @@ else (no network, no JAX).  Phases:
    (unified-step) scheduler at full depth; the block-gather, selective
    (tensor-core route) and paged-decode kernels must each have launched
    in this run;
+2g. the session server (`serving.server`) over the phase-2 system: the
+   same trace replayed at speed 0, wave then chunked, must decode the
+   tokens of phases 2 and 2c (the token gate: a request may part only at
+   a near-tie, since batches form on measured step times) with the
+   selective, paged-decode and block-gather kernels launched and the pool
+   back to capacity; then open loop at speed 1 (chunked, block store on),
+   one session cancelled while queued, one mid-prefill and one
+   mid-decode: those end "cancelled", the rest pass the gate, and the
+   pool, the store's partition and its blocks' arena bytes are clean;
+2h. ranking accuracy: `RcLLMSystem.rank` over the phase-2 system with
+   Full-Recompute, RcLLM, CacheBlend and EPIC, and RcLLM over the cached
+   rows' int8 round trip, under `benchmarks/bench_accuracy.py`'s fidelity
+   protocol (NDCG@10 against Full-Recompute, reported: the weights are
+   random); the flash, selective and block-gather kernels must launch, and
+   CacheBlend's block gathers rotate keys to the blocks' original
+   positions.  The tiny model then ranks on the card as on the CPU (fp32,
+   1e-4), and its int8 fidelity drop on the card is at most 0.02;
 2d. recsys scoring and retrieval: Wide&Deep, AutoInt, DIEN and BERT4Rec
    at their published widths (random weights from a seeded generator)
    score a serve_p99 batch (512) and one retrieval_cand query against
@@ -59,6 +76,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import asyncio
 import copy
 import dataclasses
 import json
@@ -78,6 +96,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import registry as RREG  # noqa: E402
 from repro_torch.configs.rcllm_qwen3_8b import CONFIG as QWEN3_8B  # noqa: E402
 from repro_torch.core import engine as ENG  # noqa: E402
+from repro_torch.core import metrics as MET  # noqa: E402
+from repro_torch.data import synth as SY  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gather import ops as BO  # noqa: E402
 from repro_torch.kernels.block_gather.ref import block_gather_ref, gather_pages  # noqa: E402
@@ -1004,13 +1024,14 @@ def gap_tol(top1):
     return GAP_ULPS * 2.0 ** (e - 7)
 
 
-def token_gate(on, off, on_rows, off_rows, strict=True):
+def token_gate(on, off, on_rows, off_rows, strict=True, label="kv_reuse"):
     """Greedy tokens with reuse on must equal those with reuse off until a
     position where the off run's top-1 minus top-2 gap is at most
     `gap_tol` (a near-tie that summation order may flip; after it the
     contexts differ).  -> report; with `strict`, raises on a diverging
     request whose first difference is not such a near-tie (the control,
-    two reuse-off runs, only reports them under "above_tol")."""
+    two reuse-off runs, only reports them under "above_tol").  The other
+    gates pass their runs as `on` and their reference run as `off`."""
     under = sum(gap <= gap_tol(t1) for rows in off_rows.values() for _, t1, gap in rows)
     diverged, bad, noise = [], [], 0.0
     for rid in sorted(off):
@@ -1028,9 +1049,9 @@ def token_gate(on, off, on_rows, off_rows, strict=True):
            "max_top1_logit_diff_before_divergence": noise, "gap_ulps": GAP_ULPS,
            "above_tol": bad}
     if bad and strict:
-        raise RuntimeError(f"kv_reuse token gate: requests {bad} decode other tokens with "
-                           f"reuse on than off where the off run's gap exceeds its "
-                           f"tolerance: {diverged}")
+        raise RuntimeError(f"{label} token gate: requests {bad} decode other tokens than "
+                           f"the reference run where its gap exceeds its tolerance: "
+                           f"{diverged}")
     return rep
 
 
@@ -1150,7 +1171,7 @@ def kv_reuse_phase(system, pool_rv, prof, cfg, dev, args):
                 wall = time.perf_counter() - t0
                 label = f"kv_reuse_{sched}_{kind}"
                 launches[label] = counts()
-                rep = SERVE.report(config, engine, backend, batcher, done, warmup=True)
+                rep = SERVE.report(config, engine, backend, batcher.workers, done, warmup=True)
                 log_serve(f"{sched} reuse {kind} ({wall:.1f} s)", rep, None)
                 check_served(label, launches[label], RCLLM_KERNELS[1:], done, backend,
                              argparse.Namespace(requests=len(reqs)), config, cfg)
@@ -1198,7 +1219,7 @@ def kv_reuse_phase(system, pool_rv, prof, cfg, dev, args):
         wall = time.perf_counter() - t0
         label = "kv_reuse_chunked_int8"
         launches[label] = counts()
-        rep = SERVE.report(config, engine, backend, batcher, done, warmup=True)
+        rep = SERVE.report(config, engine, backend, batcher.workers, done, warmup=True)
         st = engine.store.stats()
         log_serve(f"chunked reuse on, int8 + spill {INT8_SPILL_MB} MB, store budget "
                   f"{INT8_STORE_PAGES} pages, second half {INT8_WAVE_GAP_S:.0f} s later on "
@@ -1489,6 +1510,265 @@ def cluster_phase(system2, pool_rv, prof, cfg, args):
     return out, launches
 
 
+# ---------------------------------------------------------------- server
+def pool_at_capacity(label, engine):
+    """No page held and every page back on the free list, less the pages
+    the block store keeps resident (none without a store)."""
+    pool = engine.pool
+    held = sum(len(b.pages) for b in engine.store.blocks.values()) if engine.store else 0
+    if pool.stats().pages_in_use or engine.prefill_states \
+            or pool.free_pages != pool.n_pages - 1 - held:
+        raise RuntimeError(f"{label}: {pool.free_pages} pages free of {pool.n_pages - 1} "
+                           f"({held} held by the store) after the drain")
+
+
+def server_phase(system, reqs, plans, reuse, cfg, args, closed):
+    """Phase 2g: the asyncio session server over the phase-2 system at full
+    width and depth.  The launcher trace replayed at speed 0, wave then
+    chunked, must decode phase 2's and 2c's closed-loop tokens (`closed`:
+    sched -> (tokens, logit rows); the strict token gate, since the worker's
+    clock adds measured seconds and batches may form otherwise), with B2,
+    B3 and B4 launched and the pool back to capacity.  Then open loop at
+    speed 1, chunked with the block store on: one session is cancelled
+    while queued, one mid-prefill and one mid-decode, at tick boundaries;
+    the rest must pass the gate against the chunked replay, and the pool,
+    the store's partition and its blocks' arena bytes must be clean.
+    -> (report, launches per run)."""
+    need = ("selective_attention", "paged_decode_attention", "block_gather")
+    report, launches, replayed = {}, {}, {}
+    submits = SERVE.submits_of(reqs, plans)
+    for sched in ("wave", "chunked"):
+        config = ServeConfig(decode_steps=args.decode_steps, sched=sched)
+        reset_counts()
+        t0 = time.perf_counter()
+        with LogitTap() as tap:
+            engine, backend, done, server = SERVE.serve_sessions(system.model, cfg, config,
+                                                                 submits, system.rows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"server_{sched}"] = run = counts()
+        missing = [n for n in need if run[n] == 0]
+        if missing:
+            raise RuntimeError(f"server replay ({sched}): kernels never launched: {missing}")
+        tokens = {rid: list(c.tokens) for rid, c in done.items()}
+        bad = [rid for rid, c in done.items()
+               if c.reason != "length" or len(c.tokens) != args.decode_steps]
+        if bad or sorted(tokens) != sorted(closed[sched][0]):
+            raise RuntimeError(f"server replay ({sched}): sessions {bad} did not complete")
+        gate = token_gate(tokens, closed[sched][0], tap.rows, closed[sched][1],
+                          label=f"server replay ({sched})")
+        pool_at_capacity(f"server replay ({sched})", engine)
+        replayed[sched] = (tokens, tap.rows)
+        # TTFT on the worker's clock, as the closed loop reports it (the
+        # replay stamps arrivals in trace time, so the online TTFT is not one)
+        rep = SERVE.report(config, engine, backend, [server.worker],
+                           sorted(server.worker.done, key=lambda c: c.rid), warmup=True)
+        report[f"replay_{sched}"] = {"wall_s": wall, "gate": gate, "serve": rep,
+                                     "launches": run}
+        log(f"server replay, speed 0, {sched}: {wall:.1f} s; {len(done)} sessions, "
+            f"{len(gate['diverged'])} part from the closed loop (each at a near-tie: "
+            f"{gate['diverged']}); launches {run}")
+        log_serve(f"replay {sched}", rep, None)
+        del engine, backend, server
+
+    # open loop: the first arrival is cancelled mid-decode, the last while
+    # queued, the longest prompt between them mid-prefill
+    from repro_torch.serving.server import AsyncSessionServer, replay
+
+    config = ServeConfig(decode_steps=args.decode_steps, sched="chunked", kv_reuse=True)
+    order = sorted(reqs, key=lambda r: (r.arrival_s, r.rid))
+    victims = {"decoding": order[0].rid, "waiting": order[-1].rid,
+               "prefilling": max(order[1:-1], key=lambda r: r.n_tokens).rid}
+    engine = API.build_engine(system.model, cfg, config, cache=system.rows,
+                              sel=ENG.SelectiveConfig(r_item=config.r_item,
+                                                      r_rev=config.r_rev, window=16))
+    backend = API.build_backend(engine, config)
+    server = AsyncSessionServer(backend, config)
+    stages = {}
+    worker_cancel, apply_cancels = server.worker.cancel, server._apply_cancels
+
+    def recorded_cancel(rid):
+        stages[rid] = worker_cancel(rid)
+        return stages[rid]
+
+    def at_boundary():
+        w = server.worker
+        if any(r.rid == victims["waiting"] for r in w.waiting):
+            server.cancel(victims["waiting"])
+        st = engine.prefill_states.get(victims["prefilling"])
+        if st is not None and st.started:
+            server.cancel(victims["prefilling"])
+        if victims["decoding"] in w.decoding \
+                and len(backend.generated.get(victims["decoding"], ())) >= 2:
+            server.cancel(victims["decoding"])
+        apply_cancels()
+
+    server.worker.cancel, server._apply_cancels = recorded_cancel, at_boundary
+    reset_counts()
+    t0 = time.perf_counter()
+    with LogitTap() as tap, AdmitTap() as admitted:
+        done = asyncio.run(replay(server, SERVE.submits_of(reqs, plans, reuse), speed=1.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["server_open_loop"] = counts()
+    want = {rid: stage for stage, rid in victims.items()}
+    if stages != want or any(done[rid].reason != "cancelled" for rid in want):
+        raise RuntimeError(f"server open loop: cancels landed at {stages}, want {want}; "
+                           f"reasons {({rid: done[rid].reason for rid in want})}")
+    rest = [rid for rid in done if rid not in want]
+    if any(done[rid].reason != "length" for rid in rest):
+        raise RuntimeError(f"server open loop: {({r: done[r].reason for r in rest})}")
+    gate = token_gate({r: list(done[r].tokens) for r in rest},
+                      {r: replayed["chunked"][0][r] for r in rest},
+                      {r: tap.rows[r] for r in rest},
+                      {r: replayed["chunked"][1][r] for r in rest},
+                      label="server open loop")
+    store_checks("server open loop", engine, admitted.bytes)
+    pool_at_capacity("server open loop", engine)
+    snap = server.metrics_snapshot()
+    report["open_loop"] = {"wall_s": wall, "victims": victims, "stages": stages,
+                           "gate": gate, "online": snap,
+                           "block_store": engine.store.stats(),
+                           "launches": launches["server_open_loop"],
+                           "cancelled_tokens": {r: len(done[r].tokens) for r in want}}
+    log(f"server open loop, speed 1, chunked, kv_reuse on: {wall:.1f} s; cancelled "
+        f"{stages} (tokens streamed before: "
+        f"{report['open_loop']['cancelled_tokens']}); {len(rest)} sessions completed, "
+        f"{len(gate['diverged'])} part from the replay (near-ties: {gate['diverged']}); "
+        f"pool and store clean")
+    log(f"  open loop: online TTFT p50 {snap['ttft_p50_s'] * 1e3:.1f} ms p99 "
+        f"{snap['ttft_p99_s'] * 1e3:.1f} ms; TBT p50 {snap['tbt_p50_s'] * 1e3:.1f} ms; "
+        f"completed {snap['completed']}, cancelled {snap['cancelled']}")
+    return report, launches
+
+
+# --------------------------------------------------------------- ranking
+# phase 2h: `benchmarks/bench_accuracy.py`'s fidelity protocol
+RANK_TRACE = dict(n_requests=8, qps=5.0, n_users=12, n_candidates=10, reviews_per_user=2,
+                  seed=99)
+RANK_SEL = dict(r_item=0.3, r_rev=0.3, window=16)
+RANK_METHODS = ("full", "rcllm", "cacheblend", "epic")
+# the reference's gate on the int8 store's fidelity drop (its tiered-store
+# benchmark), held on the tiny model; fp32 card vs CPU scores: summation
+# order only (TF32 off)
+INT8_DROP_MAX = 0.02
+RANK_TOL = 1e-4
+
+
+def rank_all(system, reqs, sel):
+    """-> ({method or "int8": scores per request}, {the same: recompute
+    fractions, but "full"}); "int8" is rcllm over the cached rows' int8
+    round trip."""
+    scores = {m: [] for m in RANK_METHODS}
+    fracs = {m: [] for m in RANK_METHODS[1:]}
+    for r in reqs:
+        for m in RANK_METHODS:
+            sc, st = system.rank(r, m, sel)
+            if sc.shape != (len(r.candidate_items),) or not np.isfinite(sc).all():
+                raise RuntimeError(f"rank {m}: scores {sc}")
+            scores[m].append(sc)
+            if st is not None:
+                fracs[m].append(st.recompute_fraction())
+    q = dataclasses.replace(system, rows=BS.int8_roundtrip_rows(system.rows))
+    scores["int8"], fracs["int8"] = [], []
+    for r in reqs:
+        sc, st = q.rank(r, "rcllm", sel)
+        scores["int8"].append(sc)
+        fracs["int8"].append(st.recompute_fraction())
+    return scores, fracs
+
+
+def fidelities(scores):
+    """Mean NDCG@10 of each method's ranking against Full-Recompute's."""
+    return {m: float(np.mean([MET.ranking_agreement_ndcg(f, s, k=10)
+                              for f, s in zip(scores["full"], scores[m])]))
+            for m in scores if m != "full"}
+
+
+def ranking_phase(system, pool_rv, prof, dev):
+    """Phase 2h: `RcLLMSystem.rank` over the phase-2 system at full width
+    and depth (random weights: NDCG is reported, not gated), under the
+    fidelity protocol; B1, B2 and B4 must launch, and some B4 call must
+    rotate cached keys to positions other than the request's (CacheBlend's
+    original positions).  Then the tiny model: its card scores must equal
+    its CPU scores within RANK_TOL, and its int8 fidelity drop on the card
+    stay within INT8_DROP_MAX.  -> (report, launches per run)."""
+    sel = ENG.SelectiveConfig(**RANK_SEL)
+    reqs = SY.make_trace(system.catalog, pool_rv, prof, **RANK_TRACE)
+    moved = [0, 0]     # rotated B4 calls, and those off the request positions
+    gather = ENG.assemble_kv
+
+    def tap(pool_k, pool_v, table, positions, **kw):
+        if kw.get("rotate", True):
+            moved[0] += 1
+            ar = torch.arange(positions.shape[0], device=positions.device,
+                              dtype=positions.dtype)
+            moved[1] += bool((positions[:, 0] != ar).any())
+        return gather(pool_k, pool_v, table, positions, **kw)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    ENG.assemble_kv = tap
+    try:
+        scores, fracs = rank_all(system, reqs, sel)
+    finally:
+        ENG.assemble_kv = gather
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rank": counts()}
+    need = ("flash_attention", "selective_attention", "block_gather")
+    missing = [n for n in need if launches["rank"][n] == 0]
+    if missing or moved[1] == 0:
+        raise RuntimeError(f"ranking: kernels never launched {missing}, or no block gather "
+                           f"rotated off the request positions ({moved})")
+    fid = fidelities(scores)
+    report = {"requests": len(reqs), "prompt_tokens": [int(system.plan_for(r).n) for r in reqs],
+              "wall_s": wall, "fidelity_ndcg10": fid,
+              "recompute_frac": {m: float(np.mean(v)) for m, v in fracs.items()},
+              "int8_fidelity_drop": fid["rcllm"] - fid["int8"],
+              "rotated_gathers": moved[0], "rotated_off_request_positions": moved[1],
+              "launches": launches["rank"]}
+    log(f"ranking (phase 2h, full width, depth {system.cfg.n_layers}): {len(reqs)} requests "
+        f"x 10 candidates, prompts {min(report['prompt_tokens'])}-"
+        f"{max(report['prompt_tokens'])} tokens, {wall:.1f} s; NDCG@10 vs full: "
+        + ", ".join(f"{m} {v:.4f}" for m, v in fid.items())
+        + "; recompute fraction: "
+        + ", ".join(f"{m} {v:.3f}" for m, v in report["recompute_frac"].items())
+        + f"; int8 drop {report['int8_fidelity_drop']:.4f} (reported, not gated: random "
+        f"weights); {moved[1]} of {moved[0]} rotated gathers off the request positions; "
+        f"launches {launches['rank']}")
+
+    # the tiny model (bench_accuracy's system) on the card and on the CPU
+    from repro_torch.core.rcllm import make_tiny_system
+
+    reset_counts()
+    tiny, model = {}, None
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        tsys, tpool, tprof, _ = make_tiny_system(n_items=100, n_requests_hist=60,
+                                                 k_instances=4, device=d, model=model)
+        tiny[where] = rank_all(tsys, SY.make_trace(tsys.catalog, tpool, tprof,
+                                                   **RANK_TRACE), sel)[0]
+        model = copy.deepcopy(tsys.model).to("cpu")
+    launches["rank_tiny"] = counts()
+    err = max(float(np.abs(a - b).max()) for m in tiny["card"]
+              for a, b in zip(tiny["card"][m], tiny["cpu"][m]))
+    for m in tiny["card"]:
+        for a, b in zip(tiny["card"][m], tiny["cpu"][m]):
+            if not np.allclose(a, b, atol=RANK_TOL, rtol=RANK_TOL):
+                raise RuntimeError(f"tiny rank {m}: card {a} vs CPU {b}")
+    tfid = fidelities(tiny["card"])
+    drop = tfid["rcllm"] - tfid["int8"]
+    if drop > INT8_DROP_MAX:
+        raise RuntimeError(f"tiny rank: int8 fidelity drop {drop:.4f} > {INT8_DROP_MAX}")
+    report["tiny"] = {"max_abs_err_card_vs_cpu": err, "fidelity_ndcg10": tfid,
+                      "int8_fidelity_drop": drop, "launches": launches["rank_tiny"]}
+    log(f"  tiny model: card scores == CPU plain-version scores within {RANK_TOL} (max "
+        f"{err:.2e}) for {', '.join(tiny['card'])}; NDCG@10 vs full "
+        + ", ".join(f"{m} {v:.4f}" for m, v in tfid.items())
+        + f"; int8 drop {drop:.4f} <= {INT8_DROP_MAX}")
+    return report, launches
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -1530,18 +1810,19 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     system, pool_rv, prof = SERVE.rcllm_system(cfg, dev)
-    reqs, plans, _ = SERVE.rcllm_requests(
+    reqs, plans, reuse = SERVE.rcllm_requests(
         system, SERVE.launcher_trace(system, pool_rv, prof, args.requests, args.qps),
         config.decode_steps)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    engine, backend, batcher, done = SERVE.serve(system.model, cfg, config, reqs, plans,
-                                                 system.rows)
+    with LogitTap() as wave_tap:
+        engine, backend, batcher, done = SERVE.serve(system.model, cfg, config, reqs, plans,
+                                                     system.rows)
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0 - t_build
     launches = {"wave": counts()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rep = SERVE.report(config, engine, backend, batcher, done, warmup=False)
+    rep = SERVE.report(config, engine, backend, batcher.workers, done, warmup=False)
     log(f"serving: {cfg.name} d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
         f"head_dim {cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} "
         f"depth {cfg.n_layers} of {QWEN3_8B.n_layers} layers, "
@@ -1559,15 +1840,16 @@ def main(argv=None):
     cconfig = ServeConfig(decode_steps=args.decode_steps, sched="chunked")
     reset_counts()
     t0 = time.perf_counter()
-    c_engine, c_backend, c_batcher, c_done = SERVE.serve(system.model, cfg, cconfig, reqs,
-                                                         plans, system.rows)
+    with LogitTap() as chunked_tap:
+        c_engine, c_backend, c_batcher, c_done = SERVE.serve(system.model, cfg, cconfig,
+                                                             reqs, plans, system.rows)
     torch.cuda.synchronize()
     t_chunked = time.perf_counter() - t0
     PHASE_S["2c"] = t_chunked
     launches["chunked"] = counts()
     for mod, name, fn in saved:
         setattr(mod, name, fn)
-    crep = SERVE.report(cconfig, c_engine, c_backend, c_batcher, c_done, warmup=True)
+    crep = SERVE.report(cconfig, c_engine, c_backend, c_batcher.workers, c_done, warmup=True)
     ticks = c_batcher.workers[0].ticks
     same = sum(c_backend.generated[r] == backend.generated[r] for r in backend.generated)
     log(f"chunked serving (chunk {cconfig.chunk_tokens} tokens, step budget "
@@ -1579,6 +1861,9 @@ def main(argv=None):
     check_served("chunked", launches["chunked"],
                  ("block_gather", "selective_attention", "paged_decode_attention"),
                  c_done, c_backend, args, cconfig, cfg)
+    # the closed loop's greedy tokens and logit rows, for phase 2g's gate
+    closed = {"wave": (dict(backend.generated), wave_tap.rows),
+              "chunked": (dict(c_backend.generated), chunked_tap.rows)}
     del c_engine, c_backend, c_batcher
 
     # ---- phase 2b: where the time goes (warm wave prefill and decode) ----
@@ -1663,6 +1948,22 @@ def main(argv=None):
     launches.update(cluster_launches)
     log(f"  cluster phase {t_cluster:.1f} s")
     PHASE_S["2f"] = t_cluster
+
+    # ---- phase 2g: the session server (replay, then open loop with cancels) ----
+    t0 = time.perf_counter()
+    server_report, server_launches = server_phase(system, reqs, plans, reuse, cfg, args,
+                                                  closed)
+    launches.update(server_launches)
+    PHASE_S["2g"] = t_server = time.perf_counter() - t0
+    log(f"  server phase {t_server:.1f} s")
+
+    # ---- phase 2h: ranking accuracy (Full-Recompute, RcLLM, CacheBlend, EPIC) ----
+    t0 = time.perf_counter()
+    rank_report, rank_launches = ranking_phase(system, pool_rv, prof, dev)
+    launches.update(rank_launches)
+    torch.cuda.empty_cache()
+    PHASE_S["2h"] = t_rank = time.perf_counter() - t0
+    log(f"  ranking phase {t_rank:.1f} s")
     t_3 = time.perf_counter()
 
     # ---- phase 3: checks ----
@@ -1775,6 +2076,8 @@ def main(argv=None):
               "build_s": build_s, "offline_build_s": t_build, "serving_s": t_serve,
               "chunked_serving_s": t_chunked, "kv_reuse_s": t_kv, "kv_reuse": kv_report,
               "cluster_s": t_cluster, "cluster": cluster_report,
+              "server_s": t_server, "server": server_report,
+              "ranking_s": t_rank, "ranking": rank_report,
               "recsys_s": t_recsys, "peak_cuda_gb": peak_gb,
               "depth": cfg.n_layers, "serve": rep, "serve_chunked": crep,
               "chunked_ticks": [dataclasses.asdict(t) for t in ticks],

@@ -455,6 +455,48 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
     return results
 
 
+def plan_layer0(model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
+                table: np.ndarray, positions: np.ndarray, cache: CacheRows,
+                bucket: int = 128, shared=None):
+    """Layer 0 of one request over its prompt padded to a `bucket`
+    multiple, against its cached layer-0 rows copied out of `cache` by the
+    block-gather kernel (`table`/`positions` as `gather_rows` takes them).
+    -> `layer0`'s outputs."""
+    n_pad = ((plan.n + bucket - 1) // bucket) * bucket
+    toks = _pad_to(plan.tokens.astype(np.int32), n_pad)
+    valid = np.zeros(n_pad, bool)
+    valid[:plan.n] = True
+    tbl, kpos = _device_table(cache, *_pad_table(table, positions, n_pad))
+    ck0, cv0 = gather_rows(cache, 0, tbl, kpos, rope_theta=cfg.rope_theta,
+                           rotate=False, shared=shared)
+    return layer0(model, toks, valid, ck0, cv0)
+
+
+def run_selective_layers(model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
+                         x: torch.Tensor, recompute: np.ndarray, cache: CacheRows,
+                         table: np.ndarray, positions: np.ndarray) -> np.ndarray:
+    """Layers 1..L-1 of ONE request (the JAX package's
+    `run_selective_layers`): a one-item `selective_layers_batch`.  x: (n_pad,
+    D) after layer 0; recompute: (n,) mask; table/positions: (n,) each
+    key's cached row and the position its key is rotated to (the request
+    position realigns exactly; `core.baselines`' CacheBlend passes the
+    blocks' original positions).  -> final-position logits (V,) host."""
+    return selective_layers_batch(model, cfg, [(plan, x, recompute, table, positions)],
+                                  cache)[0][0]
+
+
+def selective_prefill_logits(model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
+                             table: np.ndarray, positions: np.ndarray,
+                             have: np.ndarray, sel: SelectiveConfig,
+                             cache: CacheRows) -> Tuple[np.ndarray, EngineStats]:
+    """Beyond-prefix prefill of ONE request with selective recomputation
+    (the JAX package's `selective_prefill_logits`): a one-item
+    `selective_prefill_batch`.  -> (logits (V,) host, EngineStats)."""
+    logits, stats, _, _ = selective_prefill_batch(
+        model, cfg, [(plan, table, positions, have)], sel, cache)[0]
+    return logits, stats
+
+
 def selective_prefill_batch(
     model: Transformer, cfg: LMConfig, items: Sequence, sel: SelectiveConfig,
     cache: CacheRows, bucket: int = 128, r_bucket: int = 64, shared=None,
@@ -476,14 +518,8 @@ def selective_prefill_batch(
         return []
     sel_items, stats_of, k0_of, v0_of = [], [], [], []
     for plan, table, positions, have in items:
-        n_pad = ((plan.n + bucket - 1) // bucket) * bucket
-        toks = _pad_to(plan.tokens.astype(np.int32), n_pad)
-        valid = np.zeros(n_pad, bool)
-        valid[:plan.n] = True
-        tbl, kpos = _device_table(cache, *_pad_table(table, positions, n_pad))
-        ck0, cv0 = gather_rows(cache, 0, tbl, kpos, rope_theta=cfg.rope_theta,
-                               rotate=False, shared=shared)
-        x, attn_mass, div_raw, k0, v0 = layer0(model, toks, valid, ck0, cv0)
+        x, attn_mass, div_raw, k0, v0 = plan_layer0(model, cfg, plan, table, positions,
+                                                    cache, bucket, shared)
         rec, stats = select_recompute(plan, have, _host(attn_mass),
                                       _host(div_raw), sel)
         k0_of.append(k0)

@@ -169,3 +169,19 @@ def place(n_items: int, request_items: Sequence[np.ndarray], k: int,
     edges = cooccurrence_graph(n_items, request_items)
     return partition(n_items, pop, edges, k, **kw)
 
+
+
+def random_placement(n_items: int, popularity: np.ndarray, k: int,
+                     hot_frac: float = 0.001, seed: int = 0) -> Placement:
+    """Ablation baseline: hash-random sharding (no similarity awareness)."""
+    rng = np.random.default_rng(seed)
+    order = np.argsort(-popularity)
+    n_hot = max(1, int(np.ceil(hot_frac * n_items)))
+    shard_of = rng.integers(0, k, n_items).astype(np.int32)
+    shard_of[order[:n_hot]] = -1
+    heat = np.zeros(k)
+    for i in range(n_items):
+        if shard_of[i] >= 0:
+            heat[shard_of[i]] += popularity[i]
+    return Placement(k=k, hot_items=np.sort(order[:n_hot]).astype(np.int32),
+                     shard_of=shard_of, edge_cut=float("nan"), balance=heat)

@@ -1,20 +1,21 @@
 """RcLLM system façade for the port: the offline build (both cache pools +
-placement) and the per-request plan / cached-KV lookup the serving path
-needs.  The port of `repro/core/rcllm.py` (ranking and the baselines are
-not ported yet).  The offline caches' rows are also packed into one pool
-on the model's device (`core.cache_rows`), and a request's cached KV is
-its plan's block table into that pool."""
+placement), the per-request plan / cached-KV lookup the serving path
+needs, and online ranking (full / rcllm / cacheblend / epic).  The port
+of `repro/core/rcllm.py`.  The offline caches' rows are also packed into
+one pool on the model's device (`core.cache_rows`), and a request's
+cached KV is its plan's block table into that pool."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import assembly as ASM
+from repro_torch.core import baselines as BASE
 from repro_torch.core import engine as ENG
 from repro_torch.core import item_cache as IC
 from repro_torch.core import placement as PL
@@ -93,6 +94,39 @@ class RcLLMSystem:
         """Affinity routing (idle cluster → pure cache affinity)."""
         return int(np.argmax(SCH.hit_vector(request.candidate_items,
                                         self.placement)))
+
+    def rank(self, request: SY.Request, method: str = "rcllm",
+             sel: Optional[ENG.SelectiveConfig] = None,
+             instance: Optional[int] = None
+             ) -> Tuple[np.ndarray, Optional[ENG.EngineStats]]:
+        """Score one request's candidates by `method`: "full" (the
+        Full-Recompute oracle), "rcllm" (selective prefill), "cacheblend"
+        or "epic" (`core.baselines`, CacheBlend's budget the mean of
+        `sel`'s two).  -> (the final position's logits at the candidate
+        slots `SY.SLOT_BASE : SY.SLOT_BASE + n_candidates` (host fp32),
+        stats; None for "full")."""
+        sel = sel or ENG.SelectiveConfig()
+        if instance is None:
+            instance = self.best_instance(request)
+        slots = slice(SY.SLOT_BASE, SY.SLOT_BASE + len(request.candidate_items))
+        if method == "full":
+            tokens, _, _ = request.prompt_segments(self.catalog, self.instruction)
+            return ENG.full_prefill_logits(self.model, self.cfg, tokens)[slots], None
+        plan = self.plan_for(request, instance)
+        table, positions, have = self.cached_kv(plan, instance)
+        if method == "rcllm":
+            logits, stats = ENG.selective_prefill_logits(
+                self.model, self.cfg, plan, table, positions, have, sel, self.rows)
+        elif method == "cacheblend":
+            logits, stats = BASE.cacheblend_prefill_logits(
+                self.model, self.cfg, plan, table, have, self.rows,
+                r=(sel.r_item + sel.r_rev) / 2)
+        elif method == "epic":
+            logits, stats = BASE.epic_prefill_logits(self.model, self.cfg, plan, table,
+                                                     have, self.rows)
+        else:
+            raise ValueError(f"unknown ranking method {method!r}")
+        return logits[slots], stats
 
 
 def synthetic_world(profile_name: str = "amazon", n_items: int = 300,

@@ -30,6 +30,15 @@ device (``--k``, `serving.cluster`).
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6 \
         --config k=2,disagg.prefill_workers=1,disagg.decode_workers=1,sched=chunked,kv_reuse=on
 
+    # the asyncio session server: the trace as streaming sessions (--speed 0
+    # replays its arrival stamps, the closed loop's tokens; > 0 is open loop)
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --server \
+        --sched chunked --requests 6 --speed 1
+
+    # the analytic cluster simulator (no model runs; H100 SXM rates)
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine sim --k 8 \
+        --model rcllm-qwen3-8b --requests 400 --qps 20 --mode prefix
+
 Serving knobs come from ``--config key=value,...`` (`ServeConfig.parse`)
 and the per-knob flags, which override it.  The JSON printed carries the
 keys of the JAX launcher's engine report (`repro/launch/serve.py:
@@ -38,7 +47,10 @@ under kv_reuse) with ``"engine": "torch"``, plus the device and model
 that ran; with ``k > 1`` those of its cluster report (`run_jax_cluster`,
 ``"engine": "torch-cluster"``, without ``mesh``), with
 ``"transfer_billing": "modeled"``: cross-shard pulls and migrations are
-billed from the cost model, since the workers share one card.
+billed from the cost model, since the workers share one card.  With
+``--server`` the engine report gains the JAX launcher's ``server``,
+``speed``, ``finish_reasons`` and ``online`` (`run_jax_server`); with
+``--engine sim`` the JSON is the simulator's summary (`run_sim`).
 """
 from __future__ import annotations
 
@@ -168,7 +180,13 @@ def _percentiles(xs, qs=(50, 90, 99)) -> dict:
 
 def _latency_split(done) -> dict:
     """Per-request latency attribution and its aggregates (`done` sorted
-    by rid)."""
+    by rid; empty when the session server rejected or cancelled every
+    request before its first token)."""
+    if not done:
+        out = dict.fromkeys(("ttft_p50_s", "ttft_p90_s", "ttft_p99_s", "ttft_mean_s",
+                             "queue_wait_mean_s", "prefill_mean_s", "decode_mean_s"))
+        out["per_request"] = []
+        return out
     ttft = np.asarray([c.first_token_s - c.arrival_s for c in done])
     return {
         "ttft_p50_s": float(np.percentile(ttft, 50)),
@@ -206,9 +224,10 @@ def _device_info(model, cfg: LMConfig) -> dict:
     return {"device": str(model.device), "model": cfg.name, "n_layers": cfg.n_layers}
 
 
-def report(config: ServeConfig, engine, backend, batcher, done,
+def report(config: ServeConfig, engine, backend, workers, done,
            warmup: bool) -> dict:
-    """The JAX launcher's engine-report keys for one run."""
+    """The JAX launcher's engine-report keys for one run of `workers`
+    (the batcher's `WorkerState`s)."""
     stats = engine.pool.stats()
     dev = engine.model.device
     out = {
@@ -232,9 +251,9 @@ def report(config: ServeConfig, engine, backend, batcher, done,
     }
     if engine.store is not None:
         out["block_store"] = engine.store.stats()
-    out.update(_tbt_stats(batcher.workers))
+    out.update(_tbt_stats(workers))
     if config.sched == "chunked":
-        ticks = [t for w in batcher.workers for t in w.ticks]
+        ticks = [t for w in workers for t in w.ticks]
         out.update({"chunk_tokens": config.chunk_tokens,
                     "step_tokens": config.resolved_step_tokens,
                     "ticks": len(ticks),
@@ -318,6 +337,73 @@ def run_cluster(config: ServeConfig, args, device) -> dict:
     return cluster_report(config, cluster, rep, args.warmup)
 
 
+def run_sim(config: ServeConfig, args) -> dict:
+    """The analytic cluster simulator (`core.simulator`) over `config.k`
+    instances on the H100's published rates: the JAX launcher's `run_sim`
+    with the port's `Hardware`.  No model runs."""
+    from repro_torch.core import cost_model as CM
+    from repro_torch.core import simulator as SIM
+    from repro_torch.core.rcllm import tiny_config
+
+    cfg = model_config(args.model, args.n_layers) or tiny_config(2, 32)
+    reqs, placement, _ = SIM.make_sim_setup(k=config.k, n_requests=args.requests,
+                                            qps=args.qps, n_items=8000, seed=1)
+    res = SIM.simulate(cfg, CM.H100_SXM, reqs, placement, SIM.SimConfig(
+        mode=config.mode, policy=config.policy, r_item=config.r_item,
+        r_rev=config.r_rev))
+    return {"engine": "sim", "k": config.k, "qps": args.qps, "mode": config.mode,
+            "policy": config.policy, "model": cfg.name, "hardware": "H100_SXM",
+            **res.summary()}
+
+
+def submits_of(reqs, plans=None, reuse=None):
+    """A closed-loop trace as the session server's ``(arrival_s,
+    api.SubmitRequest)`` pairs: each request's token budget, its rcllm
+    context from `plans` and its reuse metadata from `reuse`."""
+    return [(r.arrival_s, API.SubmitRequest(
+        rid=r.rid, tokens=r.tokens, max_tokens=r.decode_steps,
+        context=(plans or {}).get(r.rid), reuse=(reuse or {}).get(r.rid)))
+        for r in reqs]
+
+
+def serve_sessions(model, cfg: LMConfig, config: ServeConfig, submits, cache=None,
+                   speed: float = 0.0):
+    """One run of ``(arrival_s, SubmitRequest)`` pairs through the asyncio
+    session server (`serving.server`) over a fresh engine, built as `serve`
+    builds its own.  -> (engine, backend, completions by rid, the stopped
+    server)."""
+    from repro_torch.serving.server import serve_trace
+
+    sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev, window=16)
+    engine = API.build_engine(model, cfg, config, sel=sel, cache=cache)
+    backend = API.build_backend(engine, config)
+    return (engine, backend, *serve_trace(backend, config, submits, speed=speed))
+
+
+def run_server(config: ServeConfig, model, cfg: LMConfig, reqs, plans=None, cache=None,
+               reuse=None, speed: float = 0.0, warmup: bool = False) -> dict:
+    """The single-instance trace served through the session server:
+    streaming sessions over the same scheduling loop, plus its rolling
+    online metrics.  ``speed == 0`` replays the trace's arrival stamps
+    (the closed loop's tokens); ``speed > 0`` is open-loop wall-clock
+    traffic.  -> the engine report with the JAX launcher's ``server``,
+    ``speed``, ``finish_reasons`` and ``online`` keys."""
+    submits = submits_of(reqs, plans, reuse if config.kv_reuse else None)
+    if warmup:
+        serve_sessions(model, cfg, config, submits, cache, speed)
+    engine, backend, completions, server = serve_sessions(model, cfg, config, submits,
+                                                          cache, speed)
+    done = sorted(server.worker.done, key=lambda c: c.rid)
+    out = report(config, engine, backend, [server.worker], done, warmup)
+    out["server"] = True
+    out["speed"] = speed
+    out["finish_reasons"] = {
+        reason: sum(1 for c in completions.values() if c.reason == reason)
+        for reason in sorted({c.reason for c in completions.values()})}
+    out["online"] = server.metrics_snapshot()
+    return out
+
+
 def build_config(args) -> ServeConfig:
     """``--config`` with the per-knob flags typed on top of it."""
     base = ServeConfig.parse(args.config or "")
@@ -337,6 +423,16 @@ def main(argv=None):
                     help="serving knobs as key=value[,key=value...] over "
                     "serving.api.ServeConfig, e.g. k=2,disagg.prefill_workers=1,"
                     "disagg.decode_workers=1; the flags below override it")
+    ap.add_argument("--engine", default=None, choices=list(API.ENGINES),
+                    help="torch: the port's engine (default); sim: the analytic "
+                    "cluster simulator (no model runs)")
+    ap.add_argument("--server", action="store_true",
+                    help="serve the trace through the asyncio session server "
+                    "(serving.server; k = 1): streaming sessions over the same "
+                    "scheduling loop, online metrics under 'online'")
+    ap.add_argument("--speed", type=float, default=0.0,
+                    help="--server arrival pacing: 0 replays the trace's arrival "
+                    "stamps; > 0 submits on the wall clock at trace time / speed")
     ap.add_argument("--k", type=int, default=None,
                     help="engine workers; k > 1 serves a cluster on the one device")
     ap.add_argument("--policy", default=None,
@@ -387,7 +483,15 @@ def main(argv=None):
     if args.zipf_users is not None and config.mode != "rcllm":
         raise SystemExit("--zipf-users shapes the rcllm trace; it has no effect on "
                          "mode=full prompts")
+    if config.engine == "sim":
+        if args.server:
+            raise SystemExit("--server drives the port's engine: engine=torch")
+        print(json.dumps(run_sim(config, args), indent=1))
+        return
     device = torch.device(args.device)
+    if args.server and config.k != 1:
+        raise SystemExit("--server runs a single-worker session server (k=1); "
+                         "multi-worker serving is the closed-loop cluster path")
     if config.k > 1:
         print(json.dumps(run_cluster(config, args, device), indent=1))
         return
@@ -402,10 +506,15 @@ def main(argv=None):
         model, reqs = full_setup(device, args.requests, args.qps,
                                  config.decode_steps, args.prompt_tokens)
         cfg = model.cfg
+    if args.server:
+        out = run_server(config, model, cfg, reqs, plans, cache, reuse, speed=args.speed,
+                         warmup=args.warmup)
+        print(json.dumps(out, indent=1))
+        return
     if args.warmup:
         serve(model, cfg, config, reqs, plans, cache, reuse)
-    out = report(config, *serve(model, cfg, config, reqs, plans, cache, reuse),
-                 warmup=args.warmup)
+    engine, backend, batcher, done = serve(model, cfg, config, reqs, plans, cache, reuse)
+    out = report(config, engine, backend, batcher.workers, done, warmup=args.warmup)
     print(json.dumps(out, indent=1))
 
 

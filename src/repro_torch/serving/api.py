@@ -1,10 +1,12 @@
 """Typed serving API of the port — the JAX package's `serving/api.py`
-without the mesh and the session protocol: `ServeConfig` with the block
-store's knobs (`kv_reuse`, `StoreConfig`), the cluster's (`k`, `policy`)
-and disaggregation's (`DisaggConfig`), the ``--config key=value,...``
+without the mesh: `ServeConfig` with the block store's knobs
+(`kv_reuse`, `StoreConfig`), the cluster's (`k`, `policy`),
+disaggregation's (`DisaggConfig`) and the analytic simulator's
+(``engine="sim"``, ``mode="prefix"``), the ``--config key=value,...``
 grammar (`ServeConfig.parse` / `render`, `from_args` for launcher flags),
-greedy/temperature sampling, stop sequences, and the sliced builders
-(engine -> backend -> batcher)."""
+greedy/temperature sampling, stop sequences, the session protocol the
+server speaks (`SubmitRequest`, `StreamEvent`, `Completion`), and the
+sliced builders (engine -> backend -> batcher)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,9 +17,10 @@ import numpy as np
 
 from repro_torch.core.scheduler import POLICIES
 
-ENGINES = ("torch",)
-MODES = ("rcllm", "full")
+ENGINES = ("sim", "torch")
+MODES = ("rcllm", "prefix", "full")
 SCHEDS = ("wave", "chunked")
+FINISH_REASONS = ("length", "stop", "cancelled", "rejected")
 
 
 @dataclass(frozen=True)
@@ -110,7 +113,9 @@ class StoreConfig:
 @dataclass(frozen=True)
 class ServeConfig:
     """Every serving knob the port has, validated once.  ``engine`` is
-    the port's own name.  ``k > 1`` serves a cluster of that many engine
+    ``"torch"`` (the port's engine) or ``"sim"`` (the analytic cluster
+    simulator, `core.simulator`, whose ``mode="prefix"`` is the
+    prefix-caching baseline it alone has).  ``k > 1`` serves a cluster of that many engine
     workers behind the ``policy`` router (`serving.cluster`), and
     ``disagg`` splits them into prefill and decode roles.  ``kv_reuse``
     turns on the shared block store and ``store`` configures its tiers.
@@ -147,6 +152,15 @@ class ServeConfig:
         ):
             if val not in choices:
                 bad(f"{name}={val!r} not in {choices}")
+        if self.engine == "sim":
+            # the simulator has no pool and no chunk-resumable prefill
+            if self.kv_reuse:
+                bad("kv_reuse=True needs engine='torch' (no pool to share)")
+            if self.sched == "chunked":
+                bad("sched='chunked' needs engine='torch' (the simulator is wave-only)")
+        elif self.mode == "prefix":
+            bad("mode='prefix' is a simulator-only baseline; "
+                "engine='torch' supports mode in ('rcllm', 'full')")
         if self.kv_reuse and self.mode != "rcllm":
             bad(f"kv_reuse=True needs mode='rcllm' (the shared block store holds "
                 f"beyond-prefix blocks), got mode={self.mode!r}")
@@ -168,11 +182,18 @@ class ServeConfig:
             bad(f"r_item={self.r_item}/r_rev={self.r_rev} must be in [0, 1]")
         if not isinstance(self.disagg, DisaggConfig):
             bad(f"disagg must be a DisaggConfig, got {type(self.disagg).__name__}")
+        if self.disagg.enabled and self.engine != "torch":
+            bad(f"disagg.prefill_workers={self.disagg.prefill_workers} needs "
+                f"engine='torch' (engine={self.engine!r} has no KV to migrate)")
         if self.disagg.enabled and self.k != self.disagg.n_workers:
             bad(f"k={self.k} must equal disagg.prefill_workers + disagg.decode_workers "
                 f"= {self.disagg.n_workers} (every cluster worker gets exactly one role)")
         if not isinstance(self.store, StoreConfig):
             bad(f"store must be a StoreConfig, got {type(self.store).__name__}")
+        if self.store.enabled and self.engine != "torch":
+            bad(f"store.kv_store_dtype={self.store.kv_store_dtype!r}/"
+                f"store.spill_mb={self.store.spill_mb} needs engine='torch' "
+                f"(engine={self.engine!r} has no block store)")
         if self.store.enabled and not self.kv_reuse:
             bad("store tiering configures the shared block store: set "
                 "kv_reuse=on (the default store config is a no-op without it)")
@@ -191,7 +212,7 @@ class ServeConfig:
     #: per-knob flags (`--pages` is ``n_pages``; ``--kv-reuse off|on`` the
     #: bool)
     FLAG_FIELDS = {
-        "k": "k", "mode": "mode", "policy": "policy", "sched": "sched",
+        "engine": "engine", "k": "k", "mode": "mode", "policy": "policy", "sched": "sched",
         "kv_reuse": "kv_reuse", "chunk_tokens": "chunk_tokens",
         "step_tokens": "step_tokens", "max_batch_tokens": "max_batch_tokens",
         "page_size": "page_size", "pages": "n_pages", "decode_steps": "decode_steps",
@@ -352,6 +373,69 @@ def match_stop(generated: Sequence[int], stops: Sequence[Tuple[int, ...]]) -> bo
         if n and len(generated) >= n and tuple(generated[-n:]) == tuple(s):
             return True
     return False
+
+
+# ------------------------------------------------------ session protocol
+@dataclass(frozen=True)
+class SubmitRequest:
+    """One client request to the session server (`serving.server`).
+
+    ``tokens`` is the prompt (int32 ids).  ``max_tokens`` bounds the
+    generated stream, prefill's first token included; ``stop`` is a tuple
+    of token-id sequences, and generation ends the moment the stream ends
+    with one of them (the matching tokens are kept).  ``context`` carries
+    an rcllm request's ``(plan, block_table, positions, have)`` and
+    ``reuse`` its `block_store.RequestReuse`; both are None for
+    mode='full' prompts.
+    """
+
+    rid: int
+    tokens: np.ndarray
+    max_tokens: int = 4
+    stop: Tuple[Tuple[int, ...], ...] = ()
+    sampling: SamplingParams = GREEDY
+    context: Optional[tuple] = field(default=None, repr=False)
+    reuse: Optional[object] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.max_tokens < 1:
+            raise ValueError(f"max_tokens={self.max_tokens} must be >= 1")
+        if any(len(s) == 0 for s in self.stop):
+            raise ValueError("empty stop sequence")
+
+
+@dataclass(frozen=True)
+class StreamEvent:
+    """One element of a session's event stream.  Exactly one event per
+    stream has ``finished=True`` (its ``token`` is None); ``reason`` is
+    then one of `FINISH_REASONS`."""
+
+    rid: int
+    index: int  # 0-based position in the generated stream
+    token: Optional[int]
+    t_s: float  # server wall clock (seconds since the server was built)
+    finished: bool = False
+    reason: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class Completion:
+    """Terminal view of one session: every generated token and its
+    latency split.  Not `batching.Completion`, the scheduling loop's
+    record of a request."""
+
+    rid: int
+    tokens: Tuple[int, ...]
+    reason: str
+    submitted_s: float
+    first_token_s: Optional[float]
+    done_s: float
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.first_token_s is None:
+            return None
+        return self.first_token_s - self.submitted_s
 
 
 # ------------------------------------------------------- sliced builders

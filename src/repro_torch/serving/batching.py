@@ -3,6 +3,8 @@ disciplines of the JAX package's `serving/batching.py`, on one instance
 or on K workers sharing one arrival stream (`ClusterBatcher`), with the
 block store's admission accounting and prefill/decode disaggregation
 (role-typed workers handing requests over through a migration hook).
+The same loop drives the port's engine (`TorchEngineBackend`) or the
+analytic cost model as a virtual clock (`SimBackend`, wave only).
 
 * ``sched="wave"``: each step runs either one whole-prefill batch under a
   token budget or one decode iteration (prefill-prioritized, vLLM's
@@ -83,6 +85,36 @@ class Completion:
     @property
     def decode_s(self) -> float:
         return self.done_s - self.first_token_s
+
+
+class SimBackend:
+    """Virtual clock: analytic prefill / decode time functions (seconds
+    for a batch's prompt tokens, and for one decode iteration of a batch
+    size), behind the same seam as the engine.  Wave only."""
+
+    def __init__(self, prefill_time_fn: Callable[[int], float],
+                 decode_time_fn: Callable[[int], float]):
+        self.prefill_time_fn = prefill_time_fn
+        self.decode_time_fn = decode_time_fn
+
+    def prefill(self, batch: Sequence[PendingRequest]) -> float:
+        return self.prefill_time_fn(sum(r.n_tokens for r in batch))
+
+    def decode(self, batch: Sequence[PendingRequest]) -> float:
+        return self.decode_time_fn(len(batch))
+
+    def can_admit(self, req: PendingRequest,
+                  batch: Sequence[PendingRequest] = ()) -> bool:
+        return True
+
+    def early_stop(self, rid: int) -> bool:
+        return False
+
+    def finish(self, req: PendingRequest) -> None:
+        pass
+
+    def preempt(self, req: PendingRequest) -> None:
+        pass
 
 
 class TorchEngineBackend:
@@ -308,7 +340,7 @@ class WorkerState:
     cluster) instead of decoding it; a ``decode`` worker never admits and
     takes requests through `receive_migration`; ``unified`` does both."""
 
-    def __init__(self, backend: TorchEngineBackend, wid: int = 0,
+    def __init__(self, backend, wid: int = 0,
                  max_batch_tokens: int = 8192, max_decode_batch: int = 64,
                  sched: str = "wave", chunk_tokens: int = 128,
                  step_tokens: Optional[int] = None, role: str = "unified"):
@@ -316,6 +348,9 @@ class WorkerState:
             raise ValueError(f"unknown sched {sched!r}")
         if role not in ("unified", "prefill", "decode"):
             raise ValueError(f"unknown worker role {role!r}")
+        if sched == "chunked" and not hasattr(backend, "begin_prefill"):
+            raise ValueError("sched='chunked' needs a chunk-capable backend "
+                             "(TorchEngineBackend); the simulator is wave-only")
         self.backend = backend
         self.wid = wid
         self.role = role
@@ -626,6 +661,33 @@ class WorkerState:
         if self.role == "decode":
             self._preempt_ok.add(req.rid)
         bisect.insort(self.waiting, req)
+
+    def cancel(self, rid: int) -> Optional[str]:
+        """Cancel a request wherever it lives, through the seams preemption
+        uses: a waiting request is dequeued; a mid-prefill one drops its
+        chunk state, pages and store references (`preempt_prefill`), then
+        its session state (`finish`); a mid-decode one releases through
+        `finish`.  -> the stage it was cancelled in ("waiting",
+        "prefilling", "decoding"), or None when this worker does not hold
+        it (already completed, or never here).  Call only between steps."""
+        for i, r in enumerate(self.waiting):
+            if r.rid == rid:
+                del self.waiting[i]
+                return "waiting"
+        for i, r in enumerate(self.prefilling):
+            if r.rid == rid:
+                del self.prefilling[i]
+                self._admit_t.pop(rid, None)
+                self.backend.preempt_prefill(r)
+                self.backend.finish(r)   # release is idempotent
+                return "prefilling"
+        e = self.decoding.pop(rid, None)
+        if e is not None:
+            self._admit_t.pop(rid, None)
+            self._last_tok_t.pop(rid, None)
+            self.backend.finish(e.req)
+            return "decoding"
+        return None
 
 
 # dispatch hook: (request, arrival time, workers) -> worker index

@@ -55,6 +55,7 @@ Where the card changes the reference's design:
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 import time
 from collections import deque
@@ -65,6 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.assembly import FROM_SEMANTIC, AssemblyPlan
+from repro_torch.core.cache_rows import CacheRows
 from repro_torch.serving.kv_pool import PagedKVPool
 
 USER_TIER = "user"
@@ -105,6 +107,18 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Inverse of `quantize_rows`: (t, L, Hkv, Dh) fp32."""
     return q.float() * scale
+
+
+def int8_roundtrip_rows(rows: CacheRows) -> CacheRows:
+    """A copy of a device pool of cached rows whose every row went through
+    the int8 codec (`quantize_rows` then `dequantize_rows`, scaled per
+    (layer, row, kv head) as the store scales a block): the bytes an int8
+    store holds for each item block and review prototype, the offline
+    caches' int8 round trip of the reference's tiered-store benchmark.
+    The zero row stays zero; `rows` is left as it is."""
+    out = copy.copy(rows)
+    out.k, out.v = (dequantize_rows(*quantize_rows(pool)) for pool in (rows.k, rows.v))
+    return out
 
 
 def _dequant(data: torch.Tensor, scale: Optional[torch.Tensor],

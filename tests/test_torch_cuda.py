@@ -618,3 +618,87 @@ def test_migrated_request_decodes_bitwise_on_the_card(cuda):
         eng.release(7)
         assert eng.pool.stats().pages_in_use == 0
         check_partition(eng.pool, eng.store)
+
+
+@pytest.mark.cuda
+def test_block_gather_rotates_to_original_positions_bitwise(cuda):
+    """CacheBlend's gather: the tiny system's cached rows rotated to the
+    blocks' original positions (`arange(n) - rope_delta`), not the request
+    positions, equal the plain version on the same card tensors bit for
+    bit in every layer (keys rotated, values and raw keys copied)."""
+    from repro_torch.core import engine as ENG
+    from repro_torch.core.rcllm import make_tiny_system
+    from repro_torch.data import synth as SY
+
+    sys_, pool_rv, prof, _ = make_tiny_system(n_items=60, n_requests_hist=30, k_instances=2,
+                                              n_layers=2, d_model=32, device=cuda)
+    req = SY.make_trace(sys_.catalog, pool_rv, prof, 1, qps=5.0, n_users=4, n_candidates=8,
+                        reviews_per_user=2, seed=7)[0]
+    plan = sys_.plan_for(req, 0)
+    table, _, have = sys_.cached_kv(plan, 0)
+    original = (np.arange(plan.n) - plan.rope_delta).astype(np.int32)
+    assert (original != np.arange(plan.n))[have].any()
+    tbl, pos = (torch.from_numpy(a).to(cuda) for a in (table, original))
+    theta = sys_.cfg.rope_theta
+    for layer in range(sys_.cfg.n_layers):
+        before = assemble_kv.launches
+        k, v, kraw = ENG.gather_rows(sys_.rows, layer, tbl, pos, rope_theta=theta,
+                                     rotate=True, keep_raw=True)
+        assert assemble_kv.launches == before + 1
+        want_k, want_v = block_gather_ref(sys_.rows.k[layer], sys_.rows.v[layer], tbl,
+                                          pos[:, None], rope_theta=theta, rotate=True)
+        raw_k, _ = block_gather_ref(sys_.rows.k[layer], sys_.rows.v[layer], tbl,
+                                    pos[:, None], rotate=False)
+        torch.cuda.synchronize()
+        assert torch.equal(k, want_k[:, 0]) and torch.equal(v, want_v[:, 0])
+        assert torch.equal(kraw, raw_k[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sched", ["wave", "chunked"])
+def test_tiny_server_replay_card_equals_cpu(cuda, sched):
+    """The session server's speed-0 replay on the card decodes the CPU
+    plain versions' tokens (same weights), with the pool clean after."""
+    import copy
+
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.serving import api as API
+    from repro_torch.serving.server import serve_trace
+
+    tokens, model = {}, None
+    config = API.ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64)
+    for dev in (cuda, torch.device("cpu")):
+        sys_, reqs, plans, _ = SERVE.rcllm_setup(None, dev, 4, 1e6, 4, model=model)
+        engine = API.build_engine(sys_.model, sys_.cfg, config, cache=sys_.rows)
+        backend = API.build_backend(engine, config)
+        done, server = serve_trace(backend, config, [(r.arrival_s, API.SubmitRequest(
+            rid=r.rid, tokens=r.tokens, max_tokens=4, context=plans[r.rid])) for r in reqs])
+        assert all(c.reason == "length" for c in done.values()) and len(done) == 4
+        assert engine.pool.stats().pages_in_use == 0
+        tokens[dev.type] = {rid: c.tokens for rid, c in sorted(done.items())}
+        model = copy.deepcopy(sys_.model).to("cpu")
+    assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.cuda
+def test_tiny_rank_card_equals_cpu(cuda):
+    """`RcLLMSystem.rank` with all four methods on the card scores as the
+    CPU plain versions do (fp32, TF32 off: summation order only)."""
+    import copy
+
+    from repro_torch.core.engine import SelectiveConfig
+    from repro_torch.core.rcllm import make_tiny_system
+    from repro_torch.data import synth as SY
+
+    scores, model = {}, None
+    for dev in (cuda, torch.device("cpu")):
+        sys_, pool_rv, prof, _ = make_tiny_system(n_items=60, n_requests_hist=30,
+                                                  device=dev, model=model)
+        reqs = SY.make_trace(sys_.catalog, pool_rv, prof, 2, qps=5.0, n_users=4,
+                             n_candidates=10, reviews_per_user=2, seed=99)
+        sel = SelectiveConfig(r_item=0.3, r_rev=0.3, window=16)
+        scores[dev.type] = [sys_.rank(r, m, sel)[0] for r in reqs
+                            for m in ("full", "rcllm", "cacheblend", "epic")]
+        model = copy.deepcopy(sys_.model).to("cpu")
+    for got, want in zip(scores["cuda"], scores["cpu"]):
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
