@@ -48,6 +48,20 @@ else (no network, no JAX).  Phases:
    Wide&Deep's wide sum must have launched the embedding-bag kernel.
    It runs after the rcllm kernels' checks and times of phases 3 and 4,
    so that no recsys model is on the card while the rcllm path runs;
+2i. LM serving steps: gemma-7b, nemotron-4-15b, starcoder2-15b and
+   moonshot-v1-16b-a3b at their published widths and depths (bf16,
+   random weights from a seeded generator; one model on the card at a
+   time, after every rcllm and recsys model is gone): a 32,768-token
+   prefill (batch cut to 1), decode_32k steps with the batch cut to what
+   leaves ~8 GB free (cache capacity 32,768 from the generator, per-row
+   positions staggered near the end), and a greedy generation of 8
+   tokens after a 4,608-token prompt; logits finite, tokens in the
+   vocabulary, the decode step's memory under a layer's cache above
+   weights + cache.  Then all five assigned LM archs at reduced() size
+   (fp32) and starcoder2's with an 8-token window: the card against a CPU
+   copy within 1e-4, greedy tokens and MoE routing equal.  This path
+   launches none of the port's kernels (the reference's LM attention is
+   jnp): it is plain torch, and its counts must stay 0;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies); the served logits finite; and
@@ -79,6 +93,7 @@ import argparse
 import asyncio
 import copy
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -114,6 +129,7 @@ from repro_torch.kernels.selective_attention import ops as SO  # noqa: E402
 from repro_torch.kernels.selective_attention.ref import selective_mha_ref  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch import steps as STEPS  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.recsys import models as RM  # noqa: E402
 from repro_torch.serving import api as API  # noqa: E402
@@ -180,6 +196,24 @@ GAP_ULPS = 4
 # time tried, 0 to 0.4 s a tick
 CLUSTER_REQUESTS = 12
 CLUSTER_INT8_PAGES, CLUSTER_INT8_STORE_PAGES = 64, 24
+
+# phase 2i: the LM archs that fit one card run at published width and
+# depth in bf16: one prefill_32k prompt (batch cut to 1), then a
+# decode_32k batch cut to what leaves LM_FREE_GB of the card free (cache
+# capacity 32,768, filled from the generator) for LM_DECODE_STEPS steps at
+# per-row positions staggered near the end, then a greedy generation of
+# LM_GEN_TOKENS tokens after an LM_GEN_PROMPT-token prompt (both past
+# starcoder2's 4,096-token window).  Then every assigned LM arch (kimi-k2
+# too) at reduced() size in fp32: the card against the CPU within LM_TOL.
+# Before it at most LM_RESIDENT_GB may be allocated: no rcllm or recsys
+# model is resident
+LM_ARCHS = ("gemma-7b", "nemotron-4-15b", "starcoder2-15b", "moonshot-v1-16b-a3b")
+LM_PREFILL_SEQ = 32768
+LM_DECODE_STEPS = 8
+LM_FREE_GB = 8.0
+LM_GEN_PROMPT, LM_GEN_TOKENS = 4608, 8
+LM_TOL = 1e-4
+LM_RESIDENT_GB = 2.0
 
 # kernels with two routes: "<name>" counts and records the tensor-core route
 # (bf16, the served path at full width), "<name>:fp32" the SIMT kernel
@@ -1769,39 +1803,239 @@ def ranking_phase(system, pool_rv, prof, dev):
     return report, launches
 
 
-# ------------------------------------------------------------------ main
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--n-layers", type=int, default=QWEN3_8B.n_layers,
-                    help="depth to run (width is never cut)")
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--decode-steps", type=int, default=8)
-    ap.add_argument("--qps", type=float, default=8.0)
-    args = ap.parse_args(argv)
+# ------------------------------------------------------------ LM steps
+def _sync_s(fn):
+    """(fn(), host seconds with the card synchronised before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
-                         "is false); this script runs only on a GPU")
-    t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"nvidia-smi: {smi}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
 
-    # ---- phase 1: build every kernel from this checkout's sources ----
-    build_s = _build.build()
-    log(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)")
-    for name in _build.SOURCES:
-        text = _build.library_path(name).with_suffix(".log")
-        for line in (text.read_text().splitlines() if text.exists() else []):
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+def _busy(label, fn):
+    """device_busy of fn as a record (the output is dropped)."""
+    wall, busy, top, _, _ = device_busy(fn)
+    return {f"{label}_profiled_wall_s": wall, f"{label}_device_busy_s": busy,
+            f"{label}_device_busy_share": None if busy is None else busy / wall,
+            f"{label}_top_device": top}
 
+
+def _check_logits(label, logits, cfg, rows):
+    if tuple(logits.shape) != (rows, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"{label}: logits {tuple(logits.shape)} not finite or not "
+                           f"({rows}, {cfg.vocab_size})")
+
+
+def lm_prefill_cell(model, cfg, gen, dev, seq):
+    """prefill_32k at batch 1: a profiled call (the warm-up), then a timed
+    one."""
+    tokens = RREG.make_batch(cfg, "prefill_32k", gen, dev, batch=1, seq=seq)
+    cell = {"batch": 1, "seq": seq}
+    cell.update(_busy("prefill", lambda: STEPS.prefill_step(model, tokens)))
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), wall = _sync_s(lambda: STEPS.prefill_step(model, tokens))
+    _check_logits(f"{cfg.name} prefill", logits, cfg, 1)
+    cell.update(wall_s=wall, tokens_per_s=seq / wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                cache_gb=2 * cache["k"].numel() * cache["k"].element_size() / 1e9)
+    return cell
+
+
+def lm_decode_cell(model, cfg, gen, dev, seq):
+    """decode_32k with the batch cut to what leaves LM_FREE_GB free:
+    LM_DECODE_STEPS greedy steps at staggered positions, then one more
+    under the profiler.  The step's peak above what was allocated before
+    it (scores and probabilities, a few per cent of a layer's cache) must
+    stay under one layer's k cache: a copy of a layer's cache would not."""
+    per_seq = 2 * cfg.n_layers * seq * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    b = max(1, min(RREG.LM_SHAPES["decode_32k"].dims["batch"],
+                   int((free - LM_FREE_GB * 1e9) // per_seq)))
+    batch = RREG.make_batch(cfg, "decode_32k", gen, dev, batch=b, seq=seq)
+    # rows 37 positions apart in the cache's second half, with room for
+    # every step below the capacity
+    stagger = (37 * torch.arange(b, device=dev, dtype=torch.int32)) % (seq // 2)
+    pos = seq - LM_DECODE_STEPS - 2 - stagger
+    batch["positions"] = pos
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(LM_DECODE_STEPS):
+        (logits, _), t = _sync_s(lambda: STEPS.decode_step(model, batch))
+        _check_logits(f"{cfg.name} decode", logits, cfg, b)
+        times.append(t)
+        batch["tokens"] = logits.argmax(-1).to(torch.int32)[:, None]
+        batch["positions"] = batch["positions"] + 1
+    extra = torch.cuda.max_memory_allocated() - before
+    layer_k = b * seq * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    if extra > layer_k:
+        raise RuntimeError(f"{cfg.name} decode: the step allocated {extra / 1e9:.3f} GB above "
+                           f"weights + cache, over a layer's k cache ({layer_k / 1e9:.3f} GB)")
+    cell = {"batch": b, "seq": seq, "steps": LM_DECODE_STEPS, "step_ms": [t * 1e3 for t in times],
+            "ms_per_step": statistics.median(times[1:]) * 1e3,
+            "cache_gb": b * per_seq / 1e9, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_extra_gb": extra / 1e9, "first_positions": pos[:4].tolist()}
+    cell["tokens_per_s"] = b / (cell["ms_per_step"] / 1e3)
+    cell.update(_busy("decode", lambda: STEPS.decode_step(model, batch)))
+    return cell
+
+
+def lm_generate(model, cfg, gen, dev):
+    """Greedy generation at batch 1: an LM_GEN_PROMPT-token prefill, its
+    cache copied into capacity LM_GEN_PROMPT + LM_GEN_TOKENS, then
+    LM_GEN_TOKENS decode steps.  -> the generated tokens."""
+    tokens = RREG.make_batch(cfg, "prefill_32k", gen, dev, batch=1, seq=LM_GEN_PROMPT)
+    logits, cache = TT.prefill(model, tokens["tokens"])
+    _check_logits(f"{cfg.name} generation prefill", logits, cfg, 1)
+    shape = RREG.lm_kv_cache_shape(cfg, 1, LM_GEN_PROMPT + LM_GEN_TOKENS)
+    full = {n: cache[n].new_zeros(shape) for n in "kv"}
+    for n in "kv":
+        full[n][:, :, :LM_GEN_PROMPT] = cache[n]
+    del cache
+    toks = [int(logits.argmax(-1))]
+    pos = torch.full((1,), LM_GEN_PROMPT, dtype=torch.int32, device=dev)
+    for _ in range(LM_GEN_TOKENS):
+        logits, full = TT.decode_step(model, torch.tensor([[toks[-1]]], device=dev), full, pos)
+        _check_logits(f"{cfg.name} generation", logits, cfg, 1)
+        toks.append(int(logits.argmax(-1)))
+        pos += 1
+    if not all(0 <= t < cfg.vocab_size for t in toks):
+        raise RuntimeError(f"{cfg.name} generation: tokens out of the vocabulary {toks}")
+    return toks
+
+
+def _lm_close(label, got, want):
+    err = float((got.float().cpu() - want.float()).abs().max())
+    if not torch.allclose(got.float().cpu(), want.float(), rtol=LM_TOL, atol=LM_TOL):
+        raise RuntimeError(f"{label}: card vs CPU max abs diff {err} beyond "
+                           f"rtol=atol={LM_TOL}")
+    return err
+
+
+def lm_card_vs_cpu(dev):
+    """Every assigned LM arch at reduced() size (fp32), and starcoder2's
+    with an 8-token window: prefill of 2 x 40 tokens, then 4 greedy decode
+    steps at positions 40 and 37 (capacity 48), on the card and on a CPU
+    copy; logits and caches within LM_TOL, greedy tokens equal, and an
+    MoE's routing (expert ids, kept routes, slot tokens) of the embedded
+    prompt and of its last tokens equal."""
+    cases = [(a, RREG.get_config(a, smoke=True)) for a in RREG.ARCHS
+             if RREG.family_of(a) == "lm" and a != "rcllm-qwen3-8b"]
+    cases.append(("starcoder2-15b:window8", dataclasses.replace(
+        RREG.get_config("starcoder2-15b", smoke=True), sliding_window=8)))
+    out = {}
+    for label, cfg in cases:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = TT.init_params(cfg, gen, dev)
+        cpu = copy.deepcopy(model).to("cpu")
+        toks = RREG.make_batch(cfg, "prefill_32k", gen, dev, batch=2, seq=40)["tokens"]
+        errs = {}
+        lg, cache = TT.prefill(model, toks)
+        lc, cc = TT.prefill(cpu, toks.cpu())
+        errs["prefill_logits"] = _lm_close(f"{label} prefill logits", lg, lc)
+        errs["prefill_cache"] = max(_lm_close(f"{label} prefill cache {n}", cache[n], cc[n])
+                                    for n in "kv")
+        shape = RREG.lm_kv_cache_shape(cfg, 2, 48)
+        big = {n: cache[n].new_zeros(shape) for n in "kv"}
+        bigc = {n: cc[n].new_zeros(shape) for n in "kv"}
+        for n in "kv":
+            big[n][:, :, :40], bigc[n][:, :, :40] = cache[n], cc[n]
+        pos = torch.tensor([40, 37], dtype=torch.int32)
+        nxt = lc.argmax(-1)
+        tokens = []
+        for step in range(4):
+            lg, big = TT.decode_step(model, nxt[:, None].to(dev), big, pos.to(dev))
+            lc, bigc = TT.decode_step(cpu, nxt[:, None], bigc, pos)
+            errs[f"decode{step}"] = _lm_close(f"{label} decode {step}", lg, lc)
+            if not torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)):
+                raise RuntimeError(f"{label} decode {step}: greedy tokens differ")
+            nxt, pos = lc.argmax(-1), pos + 1
+            tokens.append(nxt.tolist())
+        errs["decode_cache"] = max(_lm_close(f"{label} decode cache {n}", big[n], bigc[n])
+                                   for n in "kv")
+        if cfg.moe is not None:
+            # the embedded prompt (T = 80) and its last tokens (T = 2: C = 1, routes drop)
+            dropped = []
+            for rows in (slice(None), slice(-1, None)):
+                routes = []
+                for m, t in ((model, toks), (cpu, toks.cpu())):
+                    x = TL.rms_norm(m.embed_tokens(t[:, rows]), m.layers[0].mlp_norm,
+                                    cfg.norm_eps).reshape(-1, cfg.d_model)
+                    routes.append(TL.moe_route(x, m.layers[0].moe["router"],
+                                               n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                                               capacity_factor=cfg.moe.capacity_factor))
+                for k in ("expert_idx", "keep_tk", "slot_tok", "slot_valid"):
+                    if not torch.equal(routes[0][k].cpu(), routes[1][k]):
+                        raise RuntimeError(f"{label}: MoE {k} differ between the card and the CPU")
+                dropped.append(int((~routes[1]["keep_tk"]).sum()))
+            errs["moe_dropped_routes_prompt"], errs["moe_dropped_routes_decode"] = dropped
+        out[label] = {"max_abs_diff": errs, "greedy_tokens": tokens}
+        log(f"check {label} at reduced() size (fp32), card == CPU copy: max abs diff "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (rtol=atol={LM_TOL}); greedy tokens equal {tokens}")
+        del model, cpu
+    return out
+
+
+def lm_phase(dev):
+    """Phase 2i: each of LM_ARCHS at published width and depth (bf16,
+    random weights from a seeded generator, built alone on the card and
+    freed after), then the reduced() card == CPU checks.  No kernel of
+    the port runs here (the reference's LM attention is jnp): the counts
+    must stay 0."""
+    reset_counts()
+    cells = []
+    decode_seq = RREG.LM_SHAPES["decode_32k"].dims["seq"]
+    for arch in LM_ARCHS:
+        cfg = RREG.get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model, init_s = _sync_s(lambda: TT.init_params(cfg, gen, dev))
+        param_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+        cell = {"arch": arch, "param_gb": param_gb, "init_s": init_s,
+                "active_params": cfg.active_param_count()}
+        t0 = time.perf_counter()
+        cell["prefill"] = pre = lm_prefill_cell(model, cfg, gen, dev, LM_PREFILL_SEQ)
+        gc.collect()
+        cell["decode"] = dec = lm_decode_cell(model, cfg, gen, dev, decode_seq)
+        gc.collect()
+        cell["generated"] = lm_generate(model, cfg, gen, dev)
+        cell["wall_s"] = time.perf_counter() - t0
+        kind = f"MoE top-{cfg.moe.top_k} of {cfg.moe.n_experts}" if cfg.moe else cfg.mlp_type
+        log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.resolved_head_dim}, {kind}, window "
+            f"{cfg.sliding_window}; {param_gb:.2f} GB bf16 weights (init {init_s:.1f} s)")
+        log(f"    prefill batch 1 x {pre['seq']}: {pre['wall_s']:.3f} s, "
+            f"{pre['tokens_per_s']:.0f} tok/s, peak {pre['peak_gb']:.2f} GB (cache "
+            f"{pre['cache_gb']:.2f} GB); profiled {pre['prefill_profiled_wall_s']:.3f} s, device "
+            f"busy share {pre['prefill_device_busy_share']}; top device: "
+            + "; ".join(f"{n} {ms:.1f} ms" for n, ms in pre["prefill_top_device"][:4]))
+        log(f"    decode batch {dec['batch']} x {dec['seq']} (cache {dec['cache_gb']:.2f} GB): "
+            f"{dec['ms_per_step']:.2f} ms/step (median of steps 2-{LM_DECODE_STEPS}), "
+            f"{dec['tokens_per_s']:.1f} tok/s, peak {dec['peak_gb']:.2f} GB, step extra "
+            f"{dec['step_extra_gb']:.4f} GB; profiled step {dec['decode_profiled_wall_s'] * 1e3:.2f}"
+            f" ms, device busy share {dec['decode_device_busy_share']}; top device: "
+            + "; ".join(f"{n} {ms:.2f} ms" for n, ms in dec["decode_top_device"][:4]))
+        log(f"    greedy generation ({LM_GEN_PROMPT}-token prompt, {LM_GEN_TOKENS} steps): "
+            f"{cell['generated']}")
+        cells.append(cell)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    checks = lm_card_vs_cpu(dev)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise RuntimeError(f"phase 2i launched port kernels {launched}: its attention is plain")
+    return {"cells": cells, "card_vs_cpu": checks}
+
+
+def serving_phases(args, dev):
+    """Phases 2-4 and 2d: rcllm serving at Qwen3-8B width, its kernels'
+    checks and times, recsys scoring, and the tiny card == CPU runs.
+    -> (report, kernel records).  Every model they build is gone when
+    this returns."""
     # ---- phase 2: wave rcllm serving at Qwen3-8B width ----
     cfg = dataclasses.replace(QWEN3_8B, n_layers=args.n_layers)
     config = ServeConfig(decode_steps=args.decode_steps)
@@ -1828,8 +2062,7 @@ def main(argv=None):
         f"depth {cfg.n_layers} of {QWEN3_8B.n_layers} layers, "
         f"{cfg.param_count() / 1e9:.2f} B params bf16; cached-row pool "
         f"{system.rows.n_rows} rows, {system.rows.nbytes / 1e9:.2f} GB on the card")
-    PHASE_S.update({"1 build": build_s, "2 offline build + workload": t_build,
-                    "2 wave": t_serve})
+    PHASE_S.update({"2 offline build + workload": t_build, "2 wave": t_serve})
     log(f"  offline build + workload {t_build:.1f} s, wave serving {t_serve:.1f} s, "
         f"{len(done)} requests x {config.decode_steps} tokens")
     log_serve("wave", rep, peak_gb)
@@ -2072,8 +2305,7 @@ def main(argv=None):
     del tiny_rec
     PHASE_S["recsys records and tiny runs"] = time.perf_counter() - t_tiny
 
-    report = {"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build_s": build_s, "offline_build_s": t_build, "serving_s": t_serve,
+    report = {"offline_build_s": t_build, "serving_s": t_serve,
               "chunked_serving_s": t_chunked, "kv_reuse_s": t_kv, "kv_reuse": kv_report,
               "cluster_s": t_cluster, "cluster": cluster_report,
               "server_s": t_server, "server": server_report,
@@ -2085,8 +2317,60 @@ def main(argv=None):
               "cache_rows": system.rows.n_rows, "cache_rows_gb": system.rows.nbytes / 1e9,
               "recompute_fraction": rfrac, "prompt_tokens": plan.n, "breakdown": breakdown,
               "recsys_cells": recsys_cells, "recsys_card_vs_cpu": recsys_checks,
-              "kernels": records, "phase_s": PHASE_S,
-              "total_s": time.perf_counter() - t_start}
+              "kernels": records}
+    return report, records
+
+
+# ------------------------------------------------------------------ main
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n-layers", type=int, default=QWEN3_8B.n_layers,
+                    help="depth to run (width is never cut)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--qps", type=float, default=8.0)
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is false); this script runs only on a GPU")
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"nvidia-smi: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ---- phase 1: build every kernel from this checkout's sources ----
+    build_s = PHASE_S["1 build"] = _build.build()
+    log(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)")
+    for name in _build.SOURCES:
+        text = _build.library_path(name).with_suffix(".log")
+        for line in (text.read_text().splitlines() if text.exists() else []):
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    report, records = serving_phases(args, dev)
+
+    # ---- phase 2i: the LM architectures' prefill and decode steps ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"LM serving steps (phase 2i): {resident_gb:.3f} GB resident on the card before it")
+    if resident_gb > LM_RESIDENT_GB:
+        raise RuntimeError(f"{resident_gb:.2f} GB still allocated before phase 2i: an rcllm "
+                           "or recsys model outlived its phases")
+    t0 = time.perf_counter()
+    report["lm"] = lm_phase(dev)
+    report["lm"]["resident_gb_before"] = resident_gb
+    PHASE_S["2i"] = time.perf_counter() - t0
+    report.update({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+                   "build_s": build_s, "phase_s": PHASE_S,
+                   "total_s": time.perf_counter() - t_start})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

@@ -1,7 +1,8 @@
-"""Model configurations for the port: the dense-LM subset of the JAX
-package's `configs/base.py:LMConfig` (no MoE and no mesh knobs yet) and
-its `RecsysConfig`, field for field, with `reduced()` for the recsys
-family."""
+"""Model configurations for the port: the JAX package's `MoEConfig` and
+`RecsysConfig` field for field, the serving subset of its `LMConfig`
+(dense or MoE, sliding window, attention chunks; the mesh, kernel-backend
+and training knobs stay with the reference), and `reduced()` for both
+families."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,21 +13,35 @@ import torch
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class LMConfig:
-    """Decoder-only transformer LM (dense)."""
+    """Decoder-only transformer LM (dense or MoE)."""
     name: str
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
-    d_ff: int
+    d_ff: int                      # dense MLP hidden (ignored if moe set)
     vocab_size: int
     head_dim: Optional[int] = None  # default: d_model // n_heads
     mlp_type: str = "swiglu"        # swiglu | geglu | relu2 | gelu
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     tie_embeddings: bool = False
+    # prefill attention tiles (`models.layers.chunked_attention`)
+    attn_q_chunk: int = 512
+    attn_kv_chunk: int = 1024
 
     @property
     def resolved_head_dim(self) -> int:
@@ -36,15 +51,32 @@ class LMConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
-    def param_count(self) -> int:
-        """Total parameters (embedding included)."""
+    @property
+    def is_moe(self) -> bool:
+        return self.moe is not None
+
+    def _count(self, experts: int) -> int:
+        """Parameters with `experts` of each layer's experts counted."""
         dh = self.resolved_head_dim
-        attn = self.d_model * (self.n_heads * dh) * 2
-        attn += self.d_model * (self.n_kv_heads * dh) * 2
+        attn = self.d_model * (self.n_heads * dh) * 2                 # wq, wo
+        attn += self.d_model * (self.n_kv_heads * dh) * 2             # wk, wv
         n_mats = 3 if self.mlp_type in ("swiglu", "geglu") else 2
-        per_layer = attn + n_mats * self.d_model * self.d_ff + 2 * self.d_model
+        if self.moe is not None:
+            ffn = experts * n_mats * self.d_model * self.moe.d_ff
+            ffn += self.d_model * self.moe.n_experts                  # router
+        else:
+            ffn = n_mats * self.d_model * self.d_ff
+        per_layer = attn + ffn + 2 * self.d_model
         embed = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embed + self.d_model
+
+    def param_count(self) -> int:
+        """Total parameters (embedding included)."""
+        return self._count(self.moe.n_experts if self.moe is not None else 0)
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only top-k experts count)."""
+        return self._count(self.moe.top_k if self.moe is not None else 0)
 
 
 @dataclass(frozen=True)
@@ -79,10 +111,22 @@ class RecsysConfig:
         return rows
 
 
-def reduced(cfg: RecsysConfig) -> RecsysConfig:
-    """A CPU-sized variant of a recsys config on the same code path:
-    vocabularies capped at 1000, items at 1000, categories at 50 and the
-    sequence at 16; every width stays."""
+def reduced(cfg):
+    """A CPU-sized variant of a config on the same code path, as the
+    reference's `reduced()`.  LM: 2 layers, d_model 64, 4 / 2 heads of
+    16, d_ff 128, vocabulary 512, fp32, attention chunks of 32, no
+    sliding window; an MoE keeps its capacity factor with 4 experts,
+    top-2, d_ff 64.  Recsys: vocabularies capped at 1000, items at 1000,
+    categories at 50 and the sequence at 16; every width stays."""
+    if isinstance(cfg, LMConfig):
+        moe = None
+        if cfg.moe is not None:
+            moe = MoEConfig(n_experts=4, top_k=2, d_ff=64,
+                            capacity_factor=cfg.moe.capacity_factor)
+        return dataclasses.replace(
+            cfg, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+            d_ff=128, vocab_size=512, moe=moe, dtype="float32",
+            attn_q_chunk=32, attn_kv_chunk=32, sliding_window=None)
     if not isinstance(cfg, RecsysConfig):
         raise TypeError(type(cfg))
     return dataclasses.replace(

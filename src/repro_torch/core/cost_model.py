@@ -6,8 +6,8 @@ closed forms: a cross-shard item pull (`fetch_time_s`) and a KV migration
 between two workers go over a modelled interconnect, since the K workers
 of a one-card cluster share one device.  TTFT for a request = queue
 wait + max(KV fetch, layer-0 pass) [the §III-C3 overlap] + selective
-prefill compute + LM head.  The port's `LMConfig` is dense, so the
-active parameters are all of them.
+prefill compute + LM head.  An MoE config counts its top-k experts
+(`LMConfig.active_param_count`), as the reference does.
 """
 from __future__ import annotations
 
@@ -53,8 +53,11 @@ def prefill_flops(cfg: LMConfig, n_total: int, n_recompute: int,
     d = cfg.d_model
     dh = cfg.resolved_head_dim
     attn_proj = 2 * d * dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-    n_mats = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
-    ffn = n_mats * 2 * d * cfg.d_ff
+    if cfg.moe is not None:
+        ffn = 3 * 2 * d * cfg.moe.d_ff * cfg.moe.top_k
+    else:
+        n_mats = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+        ffn = n_mats * 2 * d * cfg.d_ff
     dense_per_tok_layer = attn_proj + ffn
     attn_per_q_layer = 2 * 2 * cfg.n_heads * dh * n_total   # QK^T + PV
 
@@ -113,9 +116,9 @@ def decode_step_time_s(cfg: LMConfig, hw: Hardware, batch_size: int,
     """One continuous-batching decode iteration (one token per request):
     the larger of the memory time (bf16 weights once per iteration plus
     each request's KV) and the batch's matmul time."""
-    wb = cfg.param_count() * 2                               # bf16 weights
+    wb = cfg.active_param_count() * 2                               # bf16 weights
     kv = batch_size * mean_context * kv_bytes_per_token(cfg)
     t_mem = (wb + kv) / (hw.hbm_bw * hw.chips_per_instance)
-    flops = batch_size * 2 * cfg.param_count()
+    flops = batch_size * 2 * cfg.active_param_count()
     t_fl = flops / (hw.peak_flops * hw.chips_per_instance * hw.mfu)
     return float(max(t_mem, t_fl))

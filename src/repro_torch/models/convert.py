@@ -5,7 +5,9 @@ init_params` builds them) -> the port's `Transformer` module.
 torch cannot reproduce JAX's PRNG, so parity tests build weights with
 the reference and convert them here.  The tree arrives as plain numpy
 (the caller does `jax.tree_util.tree_map(np.asarray, params)`); bf16
-leaves (numpy's ml_dtypes extension type) pass through fp32, exactly."""
+leaves (numpy's ml_dtypes extension type) pass through fp32, exactly.
+An MoE layer's stacked (L, E, ...) experts are split per layer; its
+router stays fp32; a model with tied embeddings has no `lm_head`."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -36,6 +38,7 @@ def params_from_numpy(tree: Mapping, cfg: LMConfig, device="cuda") -> Transforme
     for i, blk in enumerate(model.layers):
         for name in ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo"):
             getattr(blk, name).copy_(_tensor(np.asarray(layers[name])[i], dt, device))
-        for name, p in blk.mlp.items():
-            p.copy_(_tensor(np.asarray(layers["mlp"][name])[i], dt, device))
+        ffn = "moe" if cfg.moe is not None else "mlp"
+        for name, p in getattr(blk, ffn).items():
+            p.copy_(_tensor(np.asarray(layers[ffn][name])[i], p.dtype, device))
     return model

@@ -3,12 +3,19 @@ parameter layouts (`repro/models/transformer.py:init_params`):
 wq (D, H, Dh), wk/wv (D, Hkv, Dh), wo (H, Dh, D), w_gate/w_up (D, F),
 w_down (F, D), so every einsum reads as the reference's does.
 
-`forward` is the full-recompute oracle; its causal attention goes
+`forward` is the RcLLM full-recompute oracle; its causal attention goes
 through the flash-attention wrapper (the hand-written kernel on a CUDA
-tensor, its plain version on a CPU tensor)."""
+tensor, its plain version on a CPU tensor).
+
+`prefill` and `decode_step` are the LM architectures' serving steps, the
+counterparts of the reference's `transformer.prefill` / `decode_step`
+(dense or MoE blocks, sliding window, tied embeddings), over a dense KV
+cache {k, v}: (L, B, S, Hkv, Dh) of post-RoPE keys.  Their attention is
+plain torch (`layers.chunked_attention`, `layers.decode_attention`), as
+the reference's is jnp."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,7 +30,9 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One pre-norm layer: attention (GQA) + dense MLP."""
+    """One pre-norm layer: attention (GQA) + a dense MLP (`mlp`) or, when
+    `cfg.moe` is set, experts (`moe`: router (D, E) fp32 whatever the
+    model's dtype, w_gate / w_up (E, D, F), w_down (E, F, D))."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
@@ -38,10 +47,18 @@ class Block(nn.Module):
         names = ["w_up", "w_down"]
         if cfg.mlp_type in ("swiglu", "geglu"):
             names.append("w_gate")
-        shapes = {"w_up": (D, cfg.d_ff), "w_gate": (D, cfg.d_ff),
-                  "w_down": (cfg.d_ff, D)}
-        self.mlp = nn.ParameterDict(
-            {n: _frozen(torch.empty(shapes[n], **kw)) for n in names})
+        if cfg.moe is None:
+            shapes = {"w_up": (D, cfg.d_ff), "w_gate": (D, cfg.d_ff),
+                      "w_down": (cfg.d_ff, D)}
+            self.mlp = nn.ParameterDict(
+                {n: _frozen(torch.empty(shapes[n], **kw)) for n in names})
+        else:
+            E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+            shapes = {"w_up": (E, D, Fe), "w_gate": (E, D, Fe), "w_down": (E, Fe, D)}
+            router = torch.empty(D, E, dtype=torch.float32, device=device)
+            self.moe = nn.ParameterDict(
+                {"router": _frozen(router),
+                 **{n: _frozen(torch.empty(shapes[n], **kw)) for n in names}})
 
 
 class Transformer(nn.Module):
@@ -92,23 +109,33 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
             normal_(blk.wk, std)
             normal_(blk.wv, std)
             normal_(blk.wo, (cfg.n_heads * dh) ** -0.5)
-            for name, p in blk.mlp.items():
-                normal_(p, cfg.d_ff ** -0.5 if name == "w_down" else std)
+            if cfg.moe is None:
+                for name, p in blk.mlp.items():
+                    normal_(p, cfg.d_ff ** -0.5 if name == "w_down" else std)
+            else:
+                for name, t in L.moe_init(generator, D, cfg.moe, cfg.mlp_type,
+                                          cfg.torch_dtype, device).items():
+                    blk.moe[name].copy_(t)
         if model.lm_head is not None:
             normal_(model.lm_head, std)
     return model
 
 
-def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig) -> torch.Tensor:
-    """Causal self-attention over (B, S, D) at positions 0..S-1."""
-    S = x.shape[1]
-    pos = torch.arange(S, device=x.device)
+def qkv(x: torch.Tensor, lp: Block, cfg: LMConfig,
+        positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, D) at `positions` (broadcastable to (B, S)) -> q, k (both
+    rotated), v: (B, S, H, Dh)."""
     h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
     q = torch.einsum("bsd,dhe->bshe", h, lp.wq)
     k = torch.einsum("bsd,dhe->bshe", h, lp.wk)
     v = torch.einsum("bsd,dhe->bshe", h, lp.wv)
-    q = L.apply_rope(q, pos, cfg.rope_theta)
-    k = L.apply_rope(k, pos, cfg.rope_theta)
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig) -> torch.Tensor:
+    """Causal self-attention over (B, S, D) at positions 0..S-1."""
+    q, k, v = qkv(x, lp, cfg, torch.arange(x.shape[1], device=x.device))
     o = mha_flash(q, k, v.contiguous(), causal=True)
     return torch.einsum("bshe,hed->bsd", o, lp.wo)
 
@@ -124,3 +151,85 @@ def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
                             cfg.mlp_type)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return x @ model.head()
+
+
+# ------------------------------------------------------- LM serving steps
+Cache = Dict[str, torch.Tensor]
+
+
+def prefill_attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
+                            positions: torch.Tensor):
+    """The reference's `_attention_block`: causal (and windowed) chunked
+    attention over x (B, S, D).  -> (output (B, S, D), (k, v))."""
+    q, k, v = qkv(x, lp, cfg, positions)
+    o = L.chunked_attention(q, k, v, causal=True, q_positions=positions,
+                            kv_positions=positions, sliding_window=cfg.sliding_window,
+                            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    return torch.einsum("bshe,hed->bsd", o, lp.wo), (k, v)
+
+
+def ffn_block(x: torch.Tensor, lp: Block, cfg: LMConfig):
+    """The reference's `_ffn_block`: pre-norm dense MLP, or the MoE over
+    the B*S tokens.  -> (output (B, S, D), aux (0 for a dense MLP))."""
+    h = L.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    if cfg.moe is not None:
+        B, S, D = h.shape
+        y, aux = L.moe_apply(h.reshape(B * S, D), lp.moe, n_experts=cfg.moe.n_experts,
+                             top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
+                             mlp_type=cfg.mlp_type)
+        return y.reshape(B, S, D), aux
+    return L.mlp_apply(h, lp.mlp, cfg.mlp_type), 0.0
+
+
+def _last_logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    return L.rms_norm(x, model.final_norm, model.cfg.norm_eps) @ model.head()
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """Prompt prefill (the reference's `transformer.prefill`): tokens
+    (B, S) -> the last position's logits (B, V) and the cache {k, v}:
+    (L, B, S, Hkv, Dh), post-RoPE, in the model's dtype.  The head runs on
+    the last row only (the reference slices it from (B, S, V) logits,
+    16.8 GB in bf16 at S = 32768 and V = 256000); normalisation is per
+    row, so the two agree."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    x = model.embed_tokens(tokens)
+    positions = torch.arange(S, device=x.device)
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cache = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
+    for i, lp in enumerate(model.layers):
+        a, (k, v) = prefill_attention_block(x, lp, cfg, positions)
+        cache["k"][i], cache["v"][i] = k, v
+        x = x + a
+        del a, k, v
+        x = x + ffn_block(x, lp, cfg)[0]
+    return _last_logits(model, x[:, -1]), cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One decode step (the reference's `transformer.decode_step`): tokens
+    (B, 1) at `positions` (B,), the rows' current lengths, against
+    cache {k, v}: (L, B, S, Hkv, Dh).  -> (logits (B, V), cache).
+
+    The new k / v are written at `positions` IN PLACE into the caller's
+    cache tensors, and the same dict is returned: the reference's
+    functional update would hold two caches at once."""
+    cfg = model.cfg
+    B = tokens.shape[0]
+    x = model.embed_tokens(tokens[:, 0])[:, None]                  # (B, 1, D)
+    pos = positions.to(x.device, torch.long)
+    rows = torch.arange(B, device=x.device)
+    for i, lp in enumerate(model.layers):
+        q, k, v = qkv(x, lp, cfg, pos[:, None])
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        k_cache[rows, pos] = k[:, 0]
+        v_cache[rows, pos] = v[:, 0]
+        o = L.decode_attention(q, k_cache, v_cache, pos + 1,
+                               sliding_window=cfg.sliding_window)
+        x = x + torch.einsum("bshe,hed->bsd", o, lp.wo)
+        x = x + ffn_block(x, lp, cfg)[0]
+    return _last_logits(model, x[:, 0]), cache

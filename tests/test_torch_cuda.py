@@ -702,3 +702,96 @@ def test_tiny_rank_card_equals_cpu(cuda):
         model = copy.deepcopy(sys_.model).to("cpu")
     for got, want in zip(scores["cuda"], scores["cpu"]):
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------ LM serving steps (plain torch)
+_LM_ARCHS = ["gemma-7b", "nemotron-4-15b", "starcoder2-15b", "moonshot-v1-16b-a3b",
+             "kimi-k2-1t-a32b", "starcoder2-15b:window8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_reduced_steps_card_equal_cpu(cuda, arch):
+    """An LM arch at reduced() size (fp32, TF32 off) prefills and decodes
+    on the card as a CPU copy does: logits and caches within 1e-4, greedy
+    tokens equal ("starcoder2-15b:window8": an 8-token window, which the
+    40-token prompt and the decode steps cross)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import registry as R
+    from repro_torch.models import transformer as TT
+
+    name, _, window = arch.partition(":window")
+    cfg = R.get_config(name, smoke=True)
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=int(window))
+    model = TT.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    cpu = copy.deepcopy(model).to("cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    state = {}
+    for m, dev in ((model, cuda), (cpu, torch.device("cpu"))):
+        logits, cache = TT.prefill(m, toks.to(dev))
+        full = {n: cache[n].new_zeros(R.lm_kv_cache_shape(cfg, 2, 48)) for n in "kv"}
+        for n in "kv":
+            full[n][:, :, :40] = cache[n]
+        state[dev.type] = (logits, full)
+    torch.testing.assert_close(state["cuda"][0].cpu(), state["cpu"][0], rtol=1e-4, atol=1e-4)
+    pos = torch.tensor([40, 37])
+    for _ in range(3):
+        nxt = state["cpu"][0].argmax(-1)[:, None]
+        for m, dev in ((model, cuda), (cpu, torch.device("cpu"))):
+            state[dev.type] = TT.decode_step(m, nxt.to(dev), state[dev.type][1], pos.to(dev))
+        (got, gc), (want, wc) = state["cuda"], state["cpu"]
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        for n in "kv":
+            torch.testing.assert_close(gc[n].cpu(), wc[n], rtol=1e-4, atol=1e-4)
+        assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+        pos = pos + 1
+
+
+@pytest.mark.cuda
+def test_lm_matmul_f32_keeps_bf16_products_unrounded(cuda):
+    """bf16 scores leave the product in fp32, as the reference's
+    preferred_element_type=float32: equal to the fp32 product of the same
+    bf16 values up to summation order, strided operands included."""
+    from repro_torch.models.layers import matmul_f32
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(4, 64, 128, device=cuda, generator=g).to(torch.bfloat16)
+    b = torch.randn(4, 300, 128, device=cuda, generator=g).to(torch.bfloat16)
+    got = matmul_f32(a, b[:, 10:200].transpose(1, 2))
+    want = torch.bmm(a.float(), b[:, 10:200].float().transpose(1, 2))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 6, 12])
+def test_lm_decode_attention_reads_the_cache_in_place(cuda, G):
+    """bf16 decode over a (B, S, Hkv, D) cache allocates less than one
+    copy of its k (scores and probabilities: (B, Hq, S), 2.5 x 4 bytes
+    each; a head-major copy of the cache would add all of k), and agrees
+    with the per-head product in fp32."""
+    from repro_torch.models.layers import decode_attention
+
+    B, S, Hkv, D = 2, 8192, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(G)
+    q = torch.randn(B, 1, Hkv * G, D, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(torch.bfloat16)
+    lens = torch.tensor([5000, 8192], device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = decode_attention(q, k, v, lens, sliding_window=4096)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < k.numel() * k.element_size()
+    qf = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k.float()) / D ** 0.5
+    idx = torch.arange(S, device=cuda)
+    valid = (idx[None] < lens[:, None]) & (idx[None] >= lens[:, None] - 4096)
+    s = s.masked_fill(~valid[:, None, None], -1e30)
+    p = torch.softmax(s, -1).to(torch.bfloat16).float()
+    want = torch.einsum("bhgs,bshd->bhgd", p, v.float()).reshape(B, 1, Hkv * G, D)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
