@@ -62,6 +62,27 @@ else (no network, no JAX).  Phases:
    copy within 1e-4, greedy tokens and MoE routing equal.  This path
    launches none of the port's kernels (the reference's LM attention is
    jnp): it is plain torch, and its counts must stay 0;
+2j. training (after every serving model is gone; the counts are reset
+   before, and read after, each of its runs): rcllm-qwen3-8b, gemma-7b,
+   nemotron-4-15b, starcoder2-15b and moonshot-v1-16b-a3b at published
+   width, depth cut to 2 layers, 3 AdamW steps on one batch of 1 x 4,096
+   tokens (the loss finite and falling; the attention backward, kernel
+   K6, launched in every arch), kimi-k2 at reduced() size with
+   Adafactor; the four recsys archs' train_batch at 65,536 rows
+   (DIEN and BERT4Rec in 4 and 8 microbatches; Wide&Deep's wide sum on
+   B5 forward and K7, its gradient, backward); SchNet's full_graph_sm,
+   molecule and minibatch_lg (the 232,965-node, 114,615,892-edge
+   power-law graph built on a host thread, then the port's sampler);
+   `train()` with checkpoints and an injected failure, whose history
+   must equal an uninterrupted run's; `bench_accuracy.py --planted` (the
+   tiny ranker trained 200 steps, its first 10 losses equal to the CPU's,
+   the system rebuilt on the trained weights, NDCG@10 of rcllm,
+   CacheBlend and EPIC against Full-Recompute at r = 0.1 / 0.3 / 0.5,
+   reported; B1, B2 and B4 must launch); then one train step of every
+   LM, recsys and SchNet cell at reduced() size on the card against the
+   CPU.  K6 is held to its plain version on the five archs' recorded
+   calls and the ranker's, K7 at Wide&Deep's call, both timed beside
+   their bounds, SDPA's backward and one `index_add_`;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies); the served logits finite; and
@@ -117,8 +138,10 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gather import ops as BO  # noqa: E402
 from repro_torch.kernels.block_gather.ref import block_gather_ref, gather_pages  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as EO  # noqa: E402
+from repro_torch.kernels.embedding_bag import ref as EREF  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as FREF  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import mask_rows, mha_flash_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as PO  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
@@ -238,6 +261,15 @@ KERNELS = {
     "embedding_bag": dict(
         fn=EO.bag_sum, source="src/repro_torch/kernels/embedding_bag/bag.cu",
         replaces="src/repro/kernels/embedding_bag/kernel.py:35"),
+    # the training path's kernels (phase 2j): the attention backward (K6)
+    # for the reference's hand-written `_flash_bwd`, and the wide bag sum's
+    # gradient (K7) for autodiff of its take + sum
+    "flash_bwd": dict(
+        fn=FO.mha_flash_bwd, source="src/repro_torch/kernels/flash_attention/flash_bwd.cu",
+        replaces="src/repro/models/layers.py:249"),
+    "bag_backward": dict(
+        fn=EO.bag_backward, source="src/repro_torch/kernels/embedding_bag/bag.cu",
+        replaces="src/repro/recsys/models.py:65"),
 }
 
 
@@ -2031,6 +2063,639 @@ def lm_phase(dev):
     return {"cells": cells, "card_vs_cpu": checks}
 
 
+# ------------------------------------------------------------ training (2j)
+# phase 2j: LM train steps at published width, depth cut to TRAIN_LAYERS,
+# one fixed batch of 1 x TRAIN_SEQ tokens, TRAIN_STEPS AdamW steps; kimi-k2
+# at reduced() with Adafactor
+TRAIN_LM_ARCHS = ("rcllm-qwen3-8b", "gemma-7b", "nemotron-4-15b", "starcoder2-15b",
+                  "moonshot-v1-16b-a3b")
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
+# recsys train_batch at its published 65,536, each in this many
+# microbatches (their gradients summed and divided by the count, the
+# reference's accumulation): one BERT4Rec block's scores alone are 21 GB
+# at the full batch, and DIEN keeps 2 x 100 GRU steps' activations
+RECSYS_MICROBATCHES = {"wide-deep": 1, "autoint": 1, "dien": 4, "bert4rec": 8}
+# the planted protocol: `benchmarks/bench_accuracy.py --planted`'s parameters
+PLANTED = dict(n_requests=300, n_candidates=8, seed=5)
+PLANTED_TRAIN, PLANTED_STEPS, PLANTED_CPU_STEPS = 240, 200, 10
+PLANTED_EVAL = dict(n_requests=20, qps=5.0, n_users=12, n_candidates=10, reviews_per_user=2,
+                    seed=99)
+PLANTED_RATIOS = (0.1, 0.3, 0.5)
+PLANTED_METHODS = ("rcllm", "cacheblend", "epic")
+# card vs CPU (fp32, TF32 off): summation order only
+TRAIN_TOL = 1e-4
+TRAIN_KERNELS = ("flash_bwd", "bag_backward")
+
+
+class BwdRecorder:
+    """Wraps the attention backward where the training path calls it
+    (`models.layers.mha_flash_bwd`) and keeps a copy of the inputs of
+    the first CUDA call after each `arm(label)`."""
+
+    def __init__(self, fn):
+        self.fn, self.label, self.calls = fn, None, {}
+
+    def arm(self, label):
+        self.label = label
+
+    def __call__(self, *args, **kwargs):
+        if self.label is not None and args[0].is_cuda and self.label not in self.calls:
+            self.calls[self.label] = (tuple(_snapshot(a) for a in args), dict(kwargs))
+        return self.fn(*args, **kwargs)
+
+
+class BagBwdRecorder:
+    """Keeps the (ids, d_out, rows) of the latest CUDA bag-gradient call
+    while armed (the recsys cells' run)."""
+
+    def __init__(self, fn):
+        self.fn, self.call, self.armed = fn, None, False
+
+    def __call__(self, ids, d_out, rows):
+        if self.armed and d_out.is_cuda:
+            self.call = (ids, d_out.detach().clone(), rows)
+        return self.fn(ids, d_out, rows)
+
+
+def _graph_builder():
+    """minibatch_lg's power-law graph and its CSR adjacency, built on a
+    host thread (numpy's sort and search release the interpreter lock)
+    while the LM and recsys cells run.  -> (thread, result dict)."""
+    import threading
+
+    from repro_torch.gnn import sampler as GS
+
+    d = RREG.GNN_SHAPES["minibatch_lg"].dims
+    out = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            src, dst = GS.make_powerlaw_graph(d["n_nodes"], d["n_edges"], seed=0)
+            out["graph"] = GS.CSRGraph(d["n_nodes"], src, dst)
+        except Exception as e:     # re-raised by the phase that needs the graph
+            out["error"] = e
+        out["build_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build, daemon=True)
+    thread.start()
+    return thread, out
+
+
+def minibatch_inputs(graph, dev, seed=0):
+    """One minibatch_lg batch from the real sampler: 1,024 seeds, fanout
+    15-10 (169,984 nodes, 168,960 edges), node features standard normal
+    and positions normal x 2 (drawn for the whole graph from a numpy
+    generator, then gathered), the seeds' labels uniform over the 41
+    classes."""
+    from repro_torch.gnn import sampler as GS
+
+    d = RREG.GNN_SHAPES["minibatch_lg"].dims
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(d["n_nodes"], d["batch_nodes"], replace=False)
+    sub = GS.sample_subgraph(graph, seeds, d["fanout"], rng)
+    ids = torch.from_numpy(sub["node_ids"].astype(np.int64)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn(d["n_nodes"], d["d_feat"], device=dev, generator=gen)
+    coords = torch.randn(d["n_nodes"], 3, device=dev, generator=gen) * 2.0
+    batch = {"node_feat": feats[ids], "positions": coords[ids],
+             "edge_src": torch.from_numpy(sub["edge_src"]).to(dev),
+             "edge_dst": torch.from_numpy(sub["edge_dst"]).to(dev),
+             "seed_labels": torch.randint(0, d["n_classes"], (d["batch_nodes"],),
+                                          device=dev, generator=gen, dtype=torch.int32)}
+    del feats, coords
+    return batch
+
+
+def train_cell(label, model, batch, steps=TRAIN_STEPS, microbatches=1, gate_fall=True):
+    """`steps` train steps of `model` on one batch through the launcher's
+    train step; peak memory above what was allocated before.  Gates: the
+    losses and gradient norms finite, and (with `gate_fall`) the loss
+    lower at the last step than at the first."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times = STEPS.run_train(model, batch, steps, microbatches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses + norms)):
+        raise RuntimeError(f"train {label}: losses {losses}, gradient norms {norms}")
+    if gate_fall and not losses[-1] < losses[0]:
+        raise RuntimeError(f"train {label}: the loss did not fall, {losses}")
+    return {"loss": losses, "gnorm": norms, "step_ms": [t * 1e3 for t in times],
+            "ms_per_step": statistics.median(times[1:]) * 1e3,
+            "peak_gb": peak / 1e9, "peak_above_start_gb": (peak - base) / 1e9,
+            "microbatches": microbatches,
+            "param_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9}
+
+
+def lm_train_cells(dev, bwd_rec):
+    """Each of TRAIN_LM_ARCHS at published width, TRAIN_LAYERS layers,
+    TRAIN_STEPS AdamW steps on one batch of 1 x TRAIN_SEQ; K6 must launch
+    in every arch.  Then kimi-k2 at reduced() size with Adafactor."""
+    cells = {}
+    for arch in TRAIN_LM_ARCHS:
+        cfg = dataclasses.replace(RREG.get_config(arch), n_layers=TRAIN_LAYERS)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = TT.init_params(cfg, gen, dev)
+        batch = RREG.make_batch(cfg, "train_4k", gen, dev, batch=1, seq=TRAIN_SEQ)
+        before = FO.mha_flash_bwd.launches
+        bwd_rec.arm(arch)
+        cell = train_cell(arch, model, batch)
+        bwd_rec.arm(None)
+        cell.update(cuts={"n_layers": TRAIN_LAYERS, "batch": 1, "seq": TRAIN_SEQ},
+                    optimizer=cfg.optimizer, flash_bwd_launches=FO.mha_flash_bwd.launches - before,
+                    tokens_per_s=TRAIN_SEQ / (cell["ms_per_step"] / 1e3),
+                    heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+                    window=cfg.sliding_window)
+        if cell["flash_bwd_launches"] == 0:
+            raise RuntimeError(f"train {arch}: the attention backward (K6) never launched")
+        cells[arch] = cell
+        log(f"  train {arch}: width {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+            f"{cfg.resolved_head_dim}, window {cfg.sliding_window}, cut to {TRAIN_LAYERS} "
+            f"layers, batch 1 x {TRAIN_SEQ}; {cfg.optimizer} losses "
+            + ", ".join(f"{x:.4f}" for x in cell["loss"])
+            + f"; {cell['ms_per_step']:.1f} ms/step (median of steps 2-{TRAIN_STEPS}), peak "
+            f"{cell['peak_gb']:.2f} GB ({cell['param_gb']:.2f} GB bf16 weights); K6 launches "
+            f"{cell['flash_bwd_launches']}")
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = RREG.get_config("kimi-k2-1t-a32b", smoke=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = TT.init_params(cfg, gen, dev)
+    batch = RREG.make_batch(cfg, "train_4k", gen, dev, batch=2, seq=256)
+    cell = train_cell("kimi-k2-1t-a32b reduced", model, batch)
+    cell.update(cuts={"reduced": True, "batch": 2, "seq": 256}, optimizer=cfg.optimizer)
+    if cfg.optimizer != "adafactor":
+        raise RuntimeError(f"kimi-k2 trains with {cfg.optimizer}, want adafactor")
+    cells["kimi-k2-1t-a32b:reduced"] = cell
+    log(f"  train kimi-k2-1t-a32b at reduced() size (batch 2 x 256, {cfg.optimizer}): losses "
+        + ", ".join(f"{x:.4f}" for x in cell["loss"]))
+    return cells
+
+
+def recsys_train_cells(dev, bag_rec):
+    """The four recsys archs' train_batch at published width (65,536 rows,
+    RECSYS_MICROBATCHES), TRAIN_STEPS AdamW steps; Wide&Deep must launch
+    B5 in the forward and K7 in the backward."""
+    cells = {}
+    bag_rec.armed = True
+    for arch, mb in RECSYS_MICROBATCHES.items():
+        cfg = RREG.get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = RM.init_params(cfg, gen, dev)
+        batch = RREG.make_batch(cfg, "train_batch", gen, dev)
+        before = (EO.bag_sum.launches, EO.bag_backward.launches)
+        cell = train_cell(arch, model, batch, microbatches=mb, gate_fall=False)
+        cell.update(batch=int(next(iter(batch.values())).shape[0]),
+                    bag_sum_launches=EO.bag_sum.launches - before[0],
+                    bag_backward_launches=EO.bag_backward.launches - before[1])
+        if arch == "wide-deep" and min(cell["bag_sum_launches"],
+                                       cell["bag_backward_launches"]) == 0:
+            raise RuntimeError(f"train wide-deep: B5 {cell['bag_sum_launches']} / K7 "
+                               f"{cell['bag_backward_launches']} launches")
+        cells[arch] = cell
+        log(f"  train {arch} train_batch: batch {cell['batch']} in {mb} microbatch(es); "
+            "losses " + ", ".join(f"{x:.4f}" for x in cell["loss"])
+            + f"; {cell['ms_per_step']:.1f} ms/step (median of steps 2-{TRAIN_STEPS}), peak "
+            f"{cell['peak_gb']:.2f} GB; B5 / K7 launches {cell['bag_sum_launches']} / "
+            f"{cell['bag_backward_launches']}")
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    bag_rec.armed = False
+    if bag_rec.call is None:
+        raise RuntimeError("train wide-deep: no K7 call was recorded")
+    return cells
+
+
+def schnet_train_cells(dev, graph_job):
+    """SchNet's full_graph_sm, molecule and minibatch_lg (the real power-law
+    graph through the port's sampler) at published size, TRAIN_STEPS
+    AdamW steps each."""
+    cfg = RREG.get_config("schnet")
+    cells = {}
+    for shape in ("full_graph_sm", "molecule", "minibatch_lg"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        extra = {}
+        if shape == "minibatch_lg":
+            thread, job = graph_job
+            t0 = time.perf_counter()
+            thread.join()
+            if "error" in job:
+                raise job["error"]
+            t1 = time.perf_counter()
+            batch = minibatch_inputs(job["graph"], dev)
+            extra = {"graph_build_s": job["build_s"], "graph_wait_s": t1 - t0,
+                     "sample_s": time.perf_counter() - t1,
+                     "sub_nodes": int(batch["node_feat"].shape[0]),
+                     "sub_edges": int(batch["edge_src"].shape[0])}
+            dims = RREG.GNN_SHAPES[shape].dims
+            if (extra["sub_nodes"], extra["sub_edges"]) != (dims["sub_nodes"], dims["sub_edges"]):
+                raise RuntimeError(f"minibatch_lg: sampled {extra['sub_nodes']} nodes / "
+                                   f"{extra['sub_edges']} edges")
+        else:
+            batch = RREG.make_batch(cfg, shape, gen, dev)
+        model = STEPS.init_model(cfg, gen, dev, shape)
+        cell = train_cell(f"schnet {shape}", model, batch, gate_fall=False)
+        cell.update(extra)
+        cells[shape] = cell
+        log(f"  train schnet {shape}: losses " + ", ".join(f"{x:.4f}" for x in cell["loss"])
+            + f"; {cell['ms_per_step']:.2f} ms/step, peak {cell['peak_gb']:.2f} GB"
+            + ("" if not extra else f"; graph built in {extra['graph_build_s']:.1f} s on a host "
+               f"thread (waited {extra['graph_wait_s']:.1f} s), sampled "
+               f"{extra['sub_nodes']} nodes / {extra['sub_edges']} edges in "
+               f"{extra['sample_s']:.1f} s"))
+        del model, batch
+    return cells
+
+
+def train_loop_check(dev):
+    """`train()` at tiny size (gemma reduced, fp32) with checkpoints every 2
+    steps: uninterrupted, then with step 5 failing past the retries, which
+    restores the step-4 checkpoint; the second history must be the first
+    with step 4 run twice (the card within 1e-6 of it; printed whether
+    bitwise)."""
+    import shutil
+
+    from repro_torch.training.train_loop import TrainConfig, train
+
+    cfg = RREG.get_config("gemma-7b", smoke=True)
+    batch = RREG.make_batch(cfg, "train_4k", torch.Generator(device=dev).manual_seed(3), dev,
+                            batch=2, seq=64)
+
+    def data():
+        while True:
+            yield batch
+
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    hist = {}
+    fails = {"n": 0}
+
+    def inject(step):
+        if step == 5 and fails["n"] < 4:
+            fails["n"] += 1
+            raise RuntimeError("injected node failure")
+
+    for name, fi in (("clean", None), ("faulty", inject)):
+        model = TT.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        hist[name] = train(model, STEPS.lm_loss, data(),
+                           TrainConfig(steps=8, ckpt_dir=str(root / name), ckpt_every=2,
+                                       max_retries=3), fail_injector=fi)[2]
+    shutil.rmtree(root, ignore_errors=True)
+    want = hist["clean"][:5] + hist["clean"][4:]
+    got = hist["faulty"]
+    err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(got, want) for k in a)
+    if len(got) != len(want) or fails["n"] != 4 or err > 1e-6:
+        raise RuntimeError(f"train loop: faulty history {got} vs {want} (failures {fails})")
+    log(f"  train loop (tiny, checkpoints every 2, step 5 failing 4 times past 3 retries): "
+        f"history equals the uninterrupted run's with step 4 repeated (max rel diff {err:.2e}, "
+        f"bitwise {got == want})")
+    return {"history": got, "max_rel_diff": err, "bitwise": got == want}
+
+
+def planted_protocol(dev, bwd_rec):
+    """`bench_accuracy.py --planted` on the card: the tiny system, the
+    planted trace, `train_ranker` (the first PLANTED_CPU_STEPS losses also
+    on a CPU copy, within TRAIN_TOL), the system rebuilt on the trained
+    weights, and NDCG@10 against Full-Recompute of each method at each
+    recompute ratio over PLANTED_EVAL's requests (B1, B2 and B4 must
+    launch in that evaluation)."""
+    from repro_torch.core import ranker_training as RT
+    from repro_torch.core.rcllm import RcLLMSystem, make_tiny_system
+
+    t0 = time.perf_counter()
+    system, pool, prof, hist = make_tiny_system(n_items=150, n_requests_hist=60,
+                                                k_instances=4, device=dev)
+    reqs_t, gold_t = RT.make_planted_trace(system.catalog, pool, prof, **PLANTED)
+    args = (system.cfg, system.catalog, system.instruction, reqs_t[:PLANTED_TRAIN],
+            gold_t[:PLANTED_TRAIN])
+    cpu_model = copy.deepcopy(system.model).to("cpu")
+    t1 = time.perf_counter()
+    _, cpu_hist = RT.train_ranker(cpu_model, *args, steps=PLANTED_CPU_STEPS, log_every=1)
+    t2 = time.perf_counter()
+    del cpu_model
+    bwd_rec.arm("ranker")
+    k6 = FO.mha_flash_bwd.launches
+    model, card_hist = RT.train_ranker(system.model, *args, steps=PLANTED_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    k6 = FO.mha_flash_bwd.launches - k6
+    bwd_rec.arm(None)
+    card_l = np.array([v for _, v in card_hist])
+    cpu_l = np.array([v for _, v in cpu_hist])
+    err = float(np.abs(card_l[:PLANTED_CPU_STEPS] - cpu_l).max())
+    if not np.allclose(card_l[:PLANTED_CPU_STEPS], cpu_l, rtol=TRAIN_TOL, atol=TRAIN_TOL):
+        raise RuntimeError(f"planted: card losses {card_l[:PLANTED_CPU_STEPS]} vs CPU {cpu_l}")
+    if not card_l[-1] < card_l[0] or k6 == 0:
+        raise RuntimeError(f"planted: loss {card_l[0]} -> {card_l[-1]}, K6 launches {k6}")
+    corpus, seen = [], set()
+    for r in hist:
+        if r.user_id not in seen:
+            corpus.append(r.history_tokens)
+            seen.add(r.user_id)
+    trained = RcLLMSystem.build(model, system.cfg, system.catalog, corpus, hist, k_instances=4)
+    reqs = SY.make_trace(trained.catalog, pool, prof, **PLANTED_EVAL)
+    zero_div = layer0_divergence_zero(trained, reqs[:3])
+    t4 = time.perf_counter()
+    before = counts()
+    full = [trained.rank(r, "full")[0] for r in reqs]
+    ndcg, frac = {}, {}
+    for ratio in PLANTED_RATIOS:
+        sel = ENG.SelectiveConfig(r_item=ratio, r_rev=ratio, window=16)
+        for m in PLANTED_METHODS:
+            f, fr = [], []
+            for r, fs in zip(reqs, full):
+                sc, st = trained.rank(r, m, sel)
+                if sc.shape != fs.shape or not np.isfinite(sc).all():
+                    raise RuntimeError(f"planted rank {m}: scores {sc}")
+                f.append(MET.ranking_agreement_ndcg(fs, sc, k=10))
+                fr.append(st.recompute_fraction())
+            ndcg[f"r={ratio}/{m}"] = float(np.mean(f))
+            frac[f"r={ratio}/{m}"] = float(np.mean(fr))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    missing = [n for n in ("flash_attention", "selective_attention", "block_gather")
+               if launched[n] + launched.get(f"{n}:fp32", 0) == 0]
+    if missing:
+        raise RuntimeError(f"planted evaluation: kernels never launched {missing}")
+    rep = {"train_losses": card_l.tolist(), "cpu_losses": cpu_l.tolist(),
+           "card_vs_cpu_max_abs": err, "flash_bwd_launches": k6,
+           "fidelity_ndcg10": ndcg, "recompute_frac": frac, "eval_launches": launched,
+           "setup_s": t1 - t0, "cpu_train_s": t2 - t1, "card_train_s": t3 - t2,
+           "rebuild_s": t4 - t3, "eval_s": time.perf_counter() - t4,
+           "requests": len(reqs), "layer0_zero_divergence_tokens": zero_div}
+    log(f"  planted protocol: train_ranker {PLANTED_STEPS} steps on the card, loss "
+        f"{card_l[0]:.4f} -> {card_l[-1]:.4f} ({rep['card_train_s']:.1f} s; K6 launches {k6}); "
+        f"first {PLANTED_CPU_STEPS} == CPU within {TRAIN_TOL} (max {err:.2e}); layer-0 "
+        f"divergence of the trained system exactly 0 on {zero_div} cached item tokens")
+    log("    NDCG@10 vs full (trained weights, reported): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ndcg.items()))
+    log("    recompute fraction: " + ", ".join(f"{k} {v:.3f}" for k, v in frac.items())
+        + f"; evaluation launches {launched}")
+    del trained, system, model
+    return rep
+
+
+def layer0_divergence_zero(system, reqs):
+    """Eq. 3 after training (ROADMAP C's standing hazard): against the
+    system's own cache, rebuilt on the trained weights, every cached item
+    token's layer-0 divergence must be exactly 0, or the selection turns
+    into rounding noise.  -> the number of such tokens checked."""
+    from repro_torch.core.assembly import FROM_ITEM
+
+    checked = 0
+    for r in reqs:
+        inst = system.best_instance(r)
+        plan = system.plan_for(r, inst)
+        table, _, have = system.cached_kv(plan, inst)
+        n = plan.n
+        pad = -(-n // 64) * 64
+        toks = np.concatenate([plan.tokens.astype(np.int32), np.zeros(pad - n, np.int32)])
+        t = torch.from_numpy(np.concatenate([np.asarray(table, np.int32),
+                                             np.zeros(pad - n, np.int32)])).to(system.model.device)
+        ck0, cv0 = ENG.gather_rows(system.rows, 0, t, t, rope_theta=system.cfg.rope_theta,
+                                   rotate=False)
+        div = ENG.layer0(system.model, toks, np.arange(pad) < n, ck0, cv0)[2]
+        items = (plan.source == FROM_ITEM) & have
+        d = div.cpu().numpy()[:n][items]
+        if not items.any() or (d != 0).any():
+            raise RuntimeError(f"layer-0 divergence of cached items after training: "
+                               f"{int((d != 0).sum())} of {int(items.sum())} nonzero")
+        checked += int(items.sum())
+    return checked
+
+
+def train_card_vs_cpu(dev):
+    """One train step of every LM arch, each recsys arch and each SchNet
+    mode at reduced() size (fp32, TF32 off) on the card and on a CPU copy:
+    loss and gradient norm within TRAIN_TOL."""
+    out = {}
+    cases = [(a, "train_4k") for a in RREG.ARCHS if RREG.family_of(a) == "lm"]
+    cases += [(a, "train_batch") for a in RECSYS_MICROBATCHES]
+    cases += [("schnet", s) for s in ("full_graph_sm", "molecule", "minibatch_lg")]
+    for arch, shape in cases:
+        cfg = RREG.get_config(arch, smoke=True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = STEPS.init_model(cfg, gen, dev, shape)
+        fam = RREG.family_of(arch)
+        kw = dict(batch=2, seq=64) if fam == "lm" else (
+            dict(batch=64) if fam == "recsys" else ({"batch": 8} if shape == "molecule" else {}))
+        batch = RREG.make_batch(cfg, shape, gen, dev, **kw)
+        if shape == "minibatch_lg":          # the sampled subgraph's shapes are large: cut
+            n = 2000
+            batch = {"node_feat": batch["node_feat"][:n], "positions": batch["positions"][:n],
+                     "edge_src": batch["edge_src"][:4000] % n,
+                     "edge_dst": batch["edge_dst"][:4000] % n,
+                     "seed_labels": batch["seed_labels"][:64]}
+        cpu = copy.deepcopy(model).to("cpu")
+        card, host = ([x[0] for x in STEPS.run_train(m, b, 1)[:2]]
+                      for m, b in ((model, batch),
+                                   (cpu, {k: v.cpu() for k, v in batch.items()})))
+        errs = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, host)]
+        if max(errs) > TRAIN_TOL:
+            raise RuntimeError(f"train {arch} {shape} card vs CPU: loss / gnorm {card} vs {host}")
+        out[f"{arch}:{shape}"] = {"card": card, "cpu": host, "rel_diff": errs}
+        del model, cpu
+    log(f"  card == CPU at reduced() size, one train step each (fp32): {len(out)} cells, "
+        f"loss and gradient norm within {TRAIN_TOL} (max rel diff "
+        f"{max(max(v['rel_diff']) for v in out.values()):.2e})")
+    return out
+
+
+def device_ms_counted(fn, reps=10):
+    """`device_ms` of `fn` (warm), with the number of device events the
+    profiler saw per call beside it (K6 launches 3 kernels a call, K7 a
+    fill and 1 kernel; fewer events per call than that flags a device
+    time that left some out)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = device_events(prof)
+    return sum(e - s for _, s, e in ev) / reps / 1e6, len(ev) / reps
+
+
+def _bwd_work(a, kw):
+    """(bytes, flops) of the attention backward: q, k, v, out, dout, lse
+    and positions read once, dq, dk, dv written once; 5 products of 2*D
+    operations per live (query, key) pair and query head."""
+    q, k, v, out, lse, dout, qpos, kpos = a
+    live = int(FREF.band_mask(qpos.long(), kpos.long(), kw.get("causal", True),
+                              kw.get("window")).sum())
+    B, _, Hq, D = q.shape
+    return nbytes(q, k, v, out, lse, dout, qpos, kpos) + nbytes(q, k, v), \
+        10 * D * live * B * Hq
+
+
+def _sdpa_bwd(a, kw):
+    """The backward of `F.scaled_dot_product_attention` through autograd at
+    the same call (causal, no window), or None."""
+    if kw.get("window") is not None or not kw.get("causal", True):
+        return None
+    q, k, v, _, _, dout, _, _ = a
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    g = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True)
+
+
+def flash_bwd_records(calls, launches):
+    """K6 against its plain version on each recorded call (the five
+    full-width archs' first backward call, bf16, and the tiny ranker's,
+    fp32): max |kernel - plain| within TOL of the output's max |plain|
+    (the recorded output gradients are small); timed at the
+    rcllm-qwen3-8b call and at the ranker's."""
+    fn = FO.mha_flash_bwd
+    spec = KERNELS["flash_bwd"]
+    checks, records = {}, []
+    for label, (a, kw) in calls.items():
+        got, want = fn(*a, **kw), FREF.flash_bwd_ref(*a, **kw)
+        torch.cuda.synchronize()
+        wdt = a[0].dtype
+        errs = []
+        for g, w in zip(got, want):
+            scale = float(w.float().abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            if not torch.isfinite(g).all() or err > TOL[wdt] * max(scale, 1e-30):
+                raise RuntimeError(f"flash_bwd {label}: max|kernel-plain| {err} > {TOL[wdt]} x "
+                                   f"max|plain| {scale}")
+            errs.append(err / max(scale, 1e-30))
+        checks[label] = {"shapes": shapes(a, {}), "rel_err": errs,
+                         "window": kw.get("window")}
+        log(f"check flash_bwd {label}: {shapes(a, {})} window {kw.get('window')}; "
+            f"max|kernel-plain| / max|plain| dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} "
+            f"(tol {TOL[wdt]}, {str(wdt).replace('torch.', '')})")
+        del got, want
+    for label, rec_name in (("rcllm-qwen3-8b", "flash_bwd"), ("ranker", "flash_bwd:fp32")):
+        a, kw = calls[label]
+        wdt = a[0].dtype
+        ms = time_ms(lambda: fn(*a, **kw), reps=10, warmup=2)
+        dev_ms, dev_events = device_ms_counted(lambda: fn(*a, **kw))
+        plain_ms = time_ms(lambda: FREF.flash_bwd_ref(*a, **kw), reps=5, warmup=1)
+        lib = _sdpa_bwd(a, kw)
+        lib_ms = time_ms(lib, reps=10, warmup=2) if lib is not None else None
+        b, fl = _bwd_work(a, kw)
+        t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[wdt] * 1e3
+        rec = {"name": rec_name, "route": "cuda", "source": spec["source"],
+               "replaces": spec["replaces"], "launches": launches[rec_name],
+               "max_abs_err": max(checks[label]["rel_err"]), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib_ms, "device_ms": dev_ms, "device_events_per_call": dev_events,
+               "shapes": shapes(a, {}), "bytes": b,
+               "flops": fl, "err_is_relative_to_max_plain": True, "tol": TOL[wdt],
+               "checks": checks if rec_name == "flash_bwd" else None,
+               "fp32_simt_bound_ms": fl / PEAK_FLOPS[torch.float32] * 1e3}
+        records.append(rec)
+        log(f"time {rec_name}: kernel {ms:.3f} ms (device only {dev_ms:.3f} ms over "
+            f"{dev_events:g} device events a call), plain "
+            f"{plain_ms:.3f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms (SDPA backward)'}, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {fl / 1e9:.1f} GFLOP; fp32 CUDA-core "
+            f"rate {rec['fp32_simt_bound_ms']:.3f} ms)")
+    return records
+
+
+def bag_backward_record(call, launches):
+    """K7 against its plain version at Wide&Deep's train_batch call (the
+    wide table's gradient, fp32, and the same call in bf16): max |kernel
+    - plain| within BAG_TOL of max(1, max|plain|); then timed."""
+    ids, d_out, rows = call
+    fn = EO.bag_backward
+    spec = KERNELS["bag_backward"]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        g = d_out.to(dt)
+        got, want = fn(ids, g, rows), EREF.bag_backward_ref(ids, g, rows)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(want.float().abs().max()))
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != dt or not torch.isfinite(got).all() or err > BAG_TOL[dt] * scale:
+            raise RuntimeError(f"bag_backward {dt}: max|kernel-plain| {err} > {BAG_TOL[dt]} x "
+                               f"{scale}")
+        errs[dt] = err
+        del got, want
+    log(f"check bag_backward: ids {tuple(ids.shape)} into {rows} rows x {d_out.shape[1]}; "
+        f"max|kernel-plain| fp32 {errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g} "
+        f"(tol {BAG_TOL} x max(1, max|plain|))")
+    ms = time_ms(lambda: fn(ids, d_out, rows))
+    dev_ms, dev_events = device_ms_counted(lambda: fn(ids, d_out, rows), reps=20)
+    plain_ms = time_ms(lambda: EREF.bag_backward_ref(ids, d_out, rows), reps=5, warmup=1)
+    flat = ids.reshape(-1).long()
+    F_ = ids.shape[1]
+    lib_ms = time_ms(lambda: torch.zeros((rows, d_out.shape[1]), device=d_out.device)
+                     .index_add_(0, flat, d_out.repeat_interleave(F_, 0)))
+    grad_bytes = rows * d_out.shape[1] * 4
+    b = nbytes(ids, d_out) + grad_bytes
+    sector = nbytes(ids, d_out) + grad_bytes + 2 * ids.numel() * 32
+    rec = {"name": "bag_backward", "route": "cuda", "source": spec["source"],
+           "replaces": spec["replaces"], "launches": launches, "max_abs_err": errs[torch.float32],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+           "library_ms": lib_ms, "device_ms": dev_ms, "device_events_per_call": dev_events,
+           "bytes": b, "flops": ids.numel() * d_out.shape[1], "tol": BAG_TOL[torch.float32],
+           "bf16_max_abs_err": errs[torch.bfloat16],
+           "sector_bound_ms": sector / HBM_BYTES_S * 1e3,
+           "shapes": [f"{tuple(ids.shape)}:int32", f"{tuple(d_out.shape)}:float32",
+                      f"rows {rows}"],
+           "library_call": "zeros + index_add_ of the flattened ids (after repeat_interleave)"}
+    log(f"time bag_backward: kernel {ms:.4f} ms (device only {dev_ms:.4f} ms over "
+        f"{dev_events:g} device events a call, zero fill included), plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms (bytes; {b / 1e6:.1f} MB; counting 32-byte sectors "
+        f"{rec['sector_bound_ms']:.4f} ms)")
+    return rec
+
+
+def training_phase(dev):
+    """Phase 2j (see the module docstring).  -> (report, kernel records)."""
+    graph_job = _graph_builder()
+    bwd_rec = BwdRecorder(TL.mha_flash_bwd)
+    bag_rec = BagBwdRecorder(RM.bag_backward)
+    saved = (TL.mha_flash_bwd, RM.bag_backward)
+    TL.mha_flash_bwd, RM.bag_backward = bwd_rec, bag_rec
+    report, launches, laps = {}, {}, {}
+    try:
+        for key, label, fn in (("lm", "LM train steps", lambda: lm_train_cells(dev, bwd_rec)),
+                               ("recsys", "recsys train_batch",
+                                lambda: recsys_train_cells(dev, bag_rec)),
+                               ("schnet", "SchNet", lambda: schnet_train_cells(dev, graph_job)),
+                               ("train_loop", "train loop", lambda: train_loop_check(dev)),
+                               ("planted", "planted protocol",
+                                lambda: planted_protocol(dev, bwd_rec))):
+            log(f"training (phase 2j): {label}")
+            reset_counts()
+            t0 = time.perf_counter()
+            report[key] = fn()
+            torch.cuda.synchronize()
+            laps[key] = time.perf_counter() - t0
+            launches[key] = counts()
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report["card_vs_cpu"] = train_card_vs_cpu(dev)
+        laps["card_vs_cpu"] = time.perf_counter() - t0
+    finally:
+        TL.mha_flash_bwd, RM.bag_backward = saved
+    k6 = {"flash_bwd": launches["lm"]["flash_bwd"],
+          "flash_bwd:fp32": launches["planted"]["flash_bwd"]}
+    if launches["recsys"]["bag_backward"] == 0 or min(k6.values()) == 0:
+        raise RuntimeError(f"training: kernels never launched {launches}")
+    t0 = time.perf_counter()
+    records = flash_bwd_records(bwd_rec.calls, k6)
+    records.append(bag_backward_record(bag_rec.call, launches["recsys"]["bag_backward"]))
+    laps["kernel_records"] = time.perf_counter() - t0
+    report.update(launches=launches, seconds=laps,
+                  graph_build_s=graph_job[1].get("build_s"))
+    log("  phase 2j seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + f"; launches by run {launches}")
+    return report, records
+
+
 def serving_phases(args, dev):
     """Phases 2-4 and 2d: rcllm serving at Qwen3-8B width, its kernels'
     checks and times, recsys scoring, and the tiny card == CPU runs.
@@ -2220,6 +2885,8 @@ def serving_phases(args, dev):
             continue
         if name == "embedding_bag":
             continue    # recorded after the recsys phase below
+        if name in TRAIN_KERNELS:
+            continue    # recorded in phase 2j
         a, kw = device_inputs(name, rec[name].args, rec[name].kwargs, dev)
         extra = {}
         if name in TWO_ROUTES:
@@ -2368,6 +3035,21 @@ def main(argv=None):
     report["lm"] = lm_phase(dev)
     report["lm"]["resident_gb_before"] = resident_gb
     PHASE_S["2i"] = time.perf_counter() - t0
+
+    # ---- phase 2j: training (LM, recsys, SchNet, the loop, the planted protocol) ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"training (phase 2j): {resident_gb:.3f} GB resident on the card before it")
+    if resident_gb > LM_RESIDENT_GB:
+        raise RuntimeError(f"{resident_gb:.2f} GB still allocated before phase 2j: an LM "
+                           "model outlived phase 2i")
+    t0 = time.perf_counter()
+    report["training"], train_records = training_phase(dev)
+    report["training"]["resident_gb_before"] = resident_gb
+    records = records + train_records
+    report["kernels"] = records
+    PHASE_S["2j"] = time.perf_counter() - t0
     report.update({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start})

@@ -1,8 +1,9 @@
-"""Model configurations for the port: the JAX package's `MoEConfig` and
-`RecsysConfig` field for field, the serving subset of its `LMConfig`
-(dense or MoE, sliding window, attention chunks; the mesh, kernel-backend
-and training knobs stay with the reference), and `reduced()` for both
-families."""
+"""Model configurations for the port: the JAX package's `MoEConfig`,
+`RecsysConfig` and `GNNConfig` field for field, the subset of its
+`LMConfig` the port reads (dense or MoE, sliding window, attention
+chunks, `remat` and `optimizer` for training; the mesh and
+kernel-backend knobs stay with the reference), and `reduced()` for all
+three families."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,6 +43,11 @@ class LMConfig:
     # prefill attention tiles (`models.layers.chunked_attention`)
     attn_q_chunk: int = 512
     attn_kv_chunk: int = 1024
+    # training: recompute each layer in the backward pass
+    # (`transformer.forward_train`), and the train step's optimizer
+    # (`training.optimizer.get`: adamw | adafactor)
+    remat: bool = True
+    optimizer: str = "adamw"
 
     @property
     def resolved_head_dim(self) -> int:
@@ -111,13 +117,28 @@ class RecsysConfig:
         return rows
 
 
+@dataclass(frozen=True)
+class GNNConfig:
+    """SchNet-style interaction network."""
+    name: str
+    n_interactions: int = 3
+    d_hidden: int = 64
+    n_rbf: int = 300
+    cutoff: float = 10.0
+    n_atom_types: int = 100
+    readout: str = "sum"
+    dtype: str = "float32"
+    rcllm_enabled: bool = False
+
+
 def reduced(cfg):
     """A CPU-sized variant of a config on the same code path, as the
     reference's `reduced()`.  LM: 2 layers, d_model 64, 4 / 2 heads of
     16, d_ff 128, vocabulary 512, fp32, attention chunks of 32, no
-    sliding window; an MoE keeps its capacity factor with 4 experts,
-    top-2, d_ff 64.  Recsys: vocabularies capped at 1000, items at 1000,
-    categories at 50 and the sequence at 16; every width stays."""
+    sliding window, no remat; an MoE keeps its capacity factor with 4
+    experts, top-2, d_ff 64.  Recsys: vocabularies capped at 1000, items
+    at 1000, categories at 50 and the sequence at 16; every width stays.
+    GNN: 2 interactions, 16 hidden, 8 radial functions."""
     if isinstance(cfg, LMConfig):
         moe = None
         if cfg.moe is not None:
@@ -126,7 +147,10 @@ def reduced(cfg):
         return dataclasses.replace(
             cfg, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab_size=512, moe=moe, dtype="float32",
-            attn_q_chunk=32, attn_kv_chunk=32, sliding_window=None)
+            attn_q_chunk=32, attn_kv_chunk=32, sliding_window=None,
+            remat=False)
+    if isinstance(cfg, GNNConfig):
+        return dataclasses.replace(cfg, n_interactions=2, d_hidden=16, n_rbf=8)
     if not isinstance(cfg, RecsysConfig):
         raise TypeError(type(cfg))
     return dataclasses.replace(

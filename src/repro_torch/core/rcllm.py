@@ -173,11 +173,12 @@ def make_system(cfg: LMConfig, device="cuda", profile_name: str = "amazon",
 
 def tiny_config(n_layers: int = 4, d_model: int = 64, n_heads: int = 4,
                 n_kv_heads: int = 2) -> LMConfig:
-    """The JAX package's `make_tiny_system` model (fp32, head_dim 16)."""
+    """The JAX package's `make_tiny_system` model (fp32, head_dim 16,
+    attention chunks of 64, no remat)."""
     return LMConfig(name="rcllm-tiny", n_layers=n_layers, d_model=d_model,
                     n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=16,
                     d_ff=128, vocab_size=4096, mlp_type="swiglu",
-                    dtype="float32")
+                    dtype="float32", attn_q_chunk=64, attn_kv_chunk=64, remat=False)
 
 
 def make_tiny_system(profile_name: str = "amazon", n_items: int = 300,

@@ -24,6 +24,7 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[2] / "build" / "kernels"
 SOURCES = {
     "flash": KERNEL_DIR / "flash_attention" / "flash.cu",
+    "flash_bwd": KERNEL_DIR / "flash_attention" / "flash_bwd.cu",
     "selective": KERNEL_DIR / "selective_attention" / "selective.cu",
     "paged_decode": KERNEL_DIR / "paged_attention" / "paged_decode.cu",
     "block_gather": KERNEL_DIR / "block_gather" / "gather.cu",

@@ -62,3 +62,69 @@ def mha_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def band_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+              window: Optional[int]) -> torch.Tensor:
+    """(Sq, Skv) live pairs at these absolute positions, as the
+    reference's `_flash_bwd.tile_mask`: causal `qpos >= kpos` and, with a
+    window, `qpos - kpos < window`; not causal `|qpos - kpos| < window`."""
+    d = qpos[:, None] - kpos[None, :]
+    mask = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
+    if window is not None:
+        mask = mask & ((d if causal else d.abs()) < window)
+    return mask
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, dout: torch.Tensor, q_positions, kv_positions, *,
+                  causal: bool = True, window: Optional[int] = None, q_chunk: int = 512,
+                  kv_chunk: int = 1024):
+    """The JAX package's `_flash_bwd` (`repro/models/layers.py:249`), tile
+    for tile: q, out, dout (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); lse
+    (B, Sq, Hq) fp32; positions (Sq,), (Skv,).  -> (dq, dk, dv) in the
+    inputs' dtypes.
+
+    delta = rowsum(dout * out) in fp32; per (q chunk, kv chunk) tile,
+    p = exp(s * scale - lse) on the live pairs (0 elsewhere), dV += p cast
+    to dout's dtype times dout, dS = p (dout . v - delta) scale, dQ += dS
+    cast to k's dtype times k, dK += dS cast to q's dtype times q, all
+    accumulated in fp32.  dQ sums its kv chunks and dK / dV their q chunks
+    in the reference's order; a tile with no live pair adds exactly 0 and
+    is skipped (the reference's `block_pairing` skips the same tiles).
+    Every query row must see at least one key (causal self-attention
+    does): the reference gives a row with none p = 1 on every key."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    qpos = torch.as_tensor(q_positions, device=dev).long()
+    kpos = torch.as_tensor(kv_positions, device=dev).long()
+    delta = (dout.float() * out.float()).sum(-1).reshape(B, Sq, Hkv, G)
+    lse4 = lse.float().reshape(B, Sq, Hkv, G)
+    qr = q.reshape(B, Sq, Hkv, G, D)
+    dor = dout.reshape(B, Sq, Hkv, G, D)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Skv, Hkv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for i0 in range(0, Sq, q_chunk):
+        i1 = min(Sq, i0 + q_chunk)
+        qc, doc = qr[:, i0:i1].float(), dor[:, i0:i1].float()
+        lse_t = lse4[:, i0:i1].permute(0, 2, 3, 1)[..., None]        # (B, h, g, q, 1)
+        dl_t = delta[:, i0:i1].permute(0, 2, 3, 1)[..., None]
+        for j0 in range(0, Skv, kv_chunk):
+            j1 = min(Skv, j0 + kv_chunk)
+            mask = band_mask(qpos[i0:i1], kpos[j0:j1], causal, window)
+            if not bool(mask.any()):
+                continue
+            kc, vc = k[:, j0:j1].float(), v[:, j0:j1].float()
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kc) * scale
+            p = torch.where(mask, torch.exp(s - lse_t), torch.zeros_like(s))
+            dv[:, j0:j1] += torch.einsum("bhgqk,bqhgd->bkhd", p.to(dout.dtype).float(), doc)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vc)
+            ds = p * (dp - dl_t) * scale
+            dq[:, i0:i1] += torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).float(), kc)
+            dk[:, j0:j1] += torch.einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype).float(), qc)
+            del s, p, dp, ds
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -7,7 +7,11 @@ dtype, fp32 attention scores under the finite mask constant, fp32 router,
 and the same parameter layouts.
 
 The reference runs the LM architectures' attention in jnp, not through a
-Pallas kernel, so plain torch is the faithful port here."""
+Pallas kernel, so the forward is plain torch here.  Its training path
+differentiates attention through a hand-written backward (`_flash_bwd`,
+a custom VJP); the port's counterpart is `flash_attention`, an autograd
+function whose backward is kernel K6 on the card
+(`kernels/flash_attention/ops.py:mha_flash_bwd`)."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
@@ -15,6 +19,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
 
 NEG_INF = -1e30
 
@@ -96,7 +102,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_positions, kv_positions,
                       kv_valid: Optional[torch.Tensor] = None,
                       sliding_window: Optional[int] = None, q_chunk: int = 512,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      kv_chunk: int = 1024, return_lse: bool = False):
     """Attention of q (B, Sq, Hq, D) over k, v (B, Skv, Hkv, D) at the given
     absolute positions, one q chunk at a time: the counterpart of the
     reference's `_attn_impl` (`repro/models/layers.py:76`).
@@ -114,7 +120,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     order of sums.  The one place the padding shows: a row with no live
     key at all, which the reference gives the mean of V over every key of
     its kv-chunk-padded length (pad rows zero); so does this function.
-    GQA by index: rows (query, group) of one kv head share its K/V."""
+    GQA by index: rows (query, group) of one kv head share its K/V.
+
+    With `return_lse` also the rows' fp32 log-sum-exp (B, Sq, Hq), as the
+    reference's `_attn_impl(return_lse=True)`: max + log(max(sum, 1e-30))
+    of the scaled scores; a row with no live key gets NEG_INF, as the
+    reference's -1e30 + log(padded length) rounds to in fp32."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -130,6 +141,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dead = vt.float().sum(1)[:, None] / n_padded                 # (B*Hkv, 1, D)
     valid = None if kv_valid is None else kv_valid.to(dev, torch.bool)
     out = torch.empty_like(qt)
+    lse = torch.empty(qt.shape[:2], dtype=torch.float32, device=dev) if return_lse else None
     for i0 in range(0, Sq, q_chunk):
         i1 = min(Sq, i0 + q_chunk)
         rows = slice(i0 * G, i1 * G)
@@ -137,6 +149,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         band = np.flatnonzero(_keys_seen(kpos_h, qmin, qmax, causal, sliding_window))
         if band.size == 0:
             out[:, rows] = dead.to(out.dtype)
+            if lse is not None:
+                lse[:, rows] = NEG_INF
             continue
         lo, hi = int(band[0]), int(band[-1]) + 1
         s = matmul_f32(qt[:, rows], kt[:, lo:hi].transpose(1, 2)).mul_(scale)
@@ -158,8 +172,54 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = p.sum(-1, keepdim=True).clamp_min_(1e-30)
         o = matmul_f32(p.to(v.dtype), vt[:, lo:hi]).div_(l)
         out[:, rows] = torch.where(m <= 0.5 * NEG_INF, dead, o).to(out.dtype)
+        if lse is not None:
+            lse[:, rows] = torch.where(m <= 0.5 * NEG_INF, NEG_INF, m + torch.log(l))[..., 0]
         del s, p, o
-    return out.view(B, Hkv, Sq, G, D).transpose(1, 2).reshape(B, Sq, Hq, D)
+    out = out.view(B, Hkv, Sq, G, D).transpose(1, 2).reshape(B, Sq, Hq, D)
+    if lse is None:
+        return out
+    return out, lse.view(B, Hkv, Sq, G).transpose(1, 2).reshape(B, Sq, Hq)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's `_flash` custom VJP: forward `chunked_attention`
+    (plain torch, no gradient graph, saving q, k, v, out and the fp32
+    log-sum-exp), backward `mha_flash_bwd` (kernel K6 on the card, the
+    tile-for-tile plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window, q_chunk, kv_chunk):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = chunked_attention(q, k, v, causal=causal, q_positions=q_positions,
+                                     kv_positions=kv_positions, sliding_window=window,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=True)
+        out, lse = out.contiguous(), lse.contiguous()
+        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions)
+        ctx.cfg = (causal, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, qpos, kpos = ctx.saved_tensors
+        causal, window, q_chunk, kv_chunk = ctx.cfg
+        dq, dk, dv = mha_flash_bwd(q, k, v, out, lse, dout.contiguous(), qpos, kpos,
+                                   causal=causal, window=window, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                    q_positions, kv_positions, sliding_window: Optional[int] = None,
+                    q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """Differentiable attention of the training path (the reference's
+    `chunked_attention` without `kv_valid`, which routes through `_flash`):
+    the value of `chunked_attention`, the gradient of `_flash_bwd`.
+    Positions go to the backward as int32 tensors on q's device."""
+    dev = q.device
+    qpos = torch.as_tensor(q_positions, device=dev).to(torch.int32).contiguous()
+    kpos = torch.as_tensor(kv_positions, device=dev).to(torch.int32).contiguous()
+    return _FlashAttention.apply(q, k, v, qpos, kpos, causal, sliding_window, q_chunk,
+                                 kv_chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -12,13 +12,21 @@ counterparts of the reference's `transformer.prefill` / `decode_step`
 (dense or MoE blocks, sliding window, tied embeddings), over a dense KV
 cache {k, v}: (L, B, S, Hkv, Dh) of post-RoPE keys.  Their attention is
 plain torch (`layers.chunked_attention`, `layers.decode_attention`), as
-the reference's is jnp."""
+the reference's is jnp.
+
+`forward_train` and `loss_fn` are the training path (the reference's
+`forward` and `loss_fn`): differentiable, attention through
+`layers.flash_attention` (kernel K6 in the backward on the card), each
+layer recomputed in the backward under `cfg.remat`.  The parameters take
+gradients only where a caller turns them on
+(`training.train_loop.trainable`)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.flash_attention.ops import mha_flash
@@ -233,3 +241,51 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
         x = x + torch.einsum("bshe,hed->bsd", o, lp.wo)
         x = x + ffn_block(x, lp, cfg)[0]
     return _last_logits(model, x[:, 0]), cache
+
+
+# ------------------------------------------------------- training path
+def _train_layer(x: torch.Tensor, lp: Block, cfg: LMConfig,
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of the reference's scan body: causal (and windowed)
+    attention through `flash_attention`, then the FFN.  -> (x, aux)."""
+    q, k, v = qkv(x, lp, cfg, positions)
+    o = L.flash_attention(q, k, v, causal=True, q_positions=positions,
+                          kv_positions=positions, sliding_window=cfg.sliding_window,
+                          q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    x = x + torch.einsum("bshe,hed->bsd", o, lp.wo)
+    y, aux = ffn_block(x, lp, cfg)
+    return x + y, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def forward_train(model: Transformer, tokens: torch.Tensor,
+                  rows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's `forward`: tokens (B, S) -> (logits (B, S, V), the
+    summed MoE aux term), differentiable.  With `rows` (B,) only those
+    positions' logits, (B, V): the head is per row, so they equal the
+    rows of the full logits."""
+    cfg = model.cfg
+    x = model.embed_tokens(tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in model.layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = checkpoint(_train_layer, x, lp, cfg, positions, use_reentrant=False)
+        else:
+            x, a = _train_layer(x, lp, cfg, positions)
+        aux = aux + a
+    if rows is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), rows]
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    return x @ model.head(), aux
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor,
+            labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's `loss_fn`: next-token cross entropy on fp32 logits
+    plus 0.01 x the MoE aux term.  -> (loss, nll)."""
+    logits, aux = forward_train(model, tokens)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    return nll + 0.01 * aux, nll

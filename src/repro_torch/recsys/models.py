@@ -10,9 +10,12 @@ tests instead convert the reference's own weights
 (`recsys.convert.recsys_params_from_numpy`).
 
 Wide&Deep's wide part, a fixed-fanout bag sum over a (rows, 1) table, is
-the one call into a kernel (`kernels/embedding_bag`); the rest is plain
-PyTorch, as the JAX package leaves it to XLA.  Training losses wait for
-the training slice.
+the one call into a kernel (`kernels/embedding_bag`: B5 forward, K7 for
+its gradient); the rest is plain PyTorch, as the JAX package leaves it
+to XLA.  `train_loss` is the reference's: BCE with logits for the CTR
+models, the sampled-softmax MLM loss for BERT4Rec.  The parameters take
+gradients only where a caller turns them on
+(`training.train_loop.trainable`).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
-from repro_torch.kernels.embedding_bag.ops import bag_sum
+from repro_torch.kernels.embedding_bag.ops import bag_backward, bag_sum
 from repro_torch.recsys import embedding as E
 
 Batch = Dict[str, torch.Tensor]
@@ -184,6 +187,22 @@ def init_params(cfg: RecsysConfig, generator: Optional[torch.Generator] = None,
 # forward passes
 # ---------------------------------------------------------------------------
 
+class WideBagSum(torch.autograd.Function):
+    """Wide&Deep's wide sum: forward `bag_sum` (B5), gradient with
+    respect to the table `bag_backward` (K7); the ids take none."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return bag_sum(table, ids)
+
+    @staticmethod
+    def backward(ctx, d_out: torch.Tensor):
+        ids, = ctx.saved_tensors
+        return bag_backward(ids, d_out.contiguous(), ctx.rows), None
+
+
 def widedeep_forward(m: RecsysModel, batch: Batch, return_user: bool = False):
     ids = batch["sparse_ids"] + m.offsets[None, :]                   # (B, F) global rows
     emb = E.lookup(m.table, ids)                                     # (B, F, d)
@@ -192,7 +211,7 @@ def widedeep_forward(m: RecsysModel, batch: Batch, return_user: bool = False):
     for p in m.deep[:-1]:
         hidden = torch.relu(hidden @ p.w + p.b)
     deep_logit = (hidden @ m.deep[-1].w + m.deep[-1].b)[:, 0]
-    wide = bag_sum(m.wide_table, ids)[:, 0]                          # B5
+    wide = WideBagSum.apply(m.wide_table, ids)[:, 0]                 # B5 (K7 backward)
     wide = wide + (batch["dense"] @ m.wide_dense)[:, 0]
     logit = deep_logit + wide
     if return_user:
@@ -326,3 +345,34 @@ def retrieval_scores(m: RecsysModel, batch: Batch) -> torch.Tensor:
     table = m.item_table if m.cfg.kind in ("dien", "bert4rec") else m.table
     cand = E.lookup(table, batch["candidate_ids"])                      # (N, d)
     return torch.einsum("bd,nd->bn", u, cand)
+
+
+# ---------------------------------------------------------------------------
+# training losses
+# ---------------------------------------------------------------------------
+
+def bert4rec_mlm_loss(m: RecsysModel, batch: Batch) -> torch.Tensor:
+    """Sampled-softmax MLM at the given masked positions: each masked
+    position's encoding against its label item and the shared negatives
+    (the reference's `bert4rec_mlm_loss`; a dense softmax over 1M items
+    is infeasible at batch 65,536)."""
+    h = bert4rec_encode(m, batch)                                      # (B, T, d)
+    pos = batch["mlm_positions"].long()                                # (B, M)
+    hm = torch.gather(h, 1, pos[..., None].expand(-1, -1, h.shape[-1]))  # (B, M, d)
+    pos_emb = E.lookup(m.item_table, batch["mlm_labels"])              # (B, M, d)
+    neg_emb = E.lookup(m.item_table, batch["neg_samples"])             # (N, d)
+    pos_logit = torch.einsum("bmd,bmd->bm", hm, pos_emb)
+    neg_logit = torch.einsum("bmd,nd->bmn", hm, neg_emb)
+    logz = torch.logsumexp(torch.cat([pos_logit[..., None], neg_logit], dim=-1), dim=-1)
+    return (logz - pos_logit).mean()
+
+
+def train_loss(m: RecsysModel, batch: Batch) -> torch.Tensor:
+    """The reference's `train_loss`: BERT4Rec's MLM loss, else the mean
+    BCE with logits in the stable form max(z, 0) - z y + log1p(exp(-|z|))."""
+    if m.cfg.kind == "bert4rec":
+        return bert4rec_mlm_loss(m, batch)
+    logit = FORWARD[m.cfg.kind](m, batch)
+    y = batch["labels"]
+    return torch.mean(torch.clamp(logit, min=0) - logit * y
+                      + torch.log1p(torch.exp(-logit.abs())))

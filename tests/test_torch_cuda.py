@@ -795,3 +795,176 @@ def test_lm_decode_attention_reads_the_cache_in_place(cuda, G):
     p = torch.softmax(s, -1).to(torch.bfloat16).float()
     want = torch.einsum("bhgs,bshd->bhgd", p, v.float()).reshape(B, 1, Hkv * G, D)
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+# ------------------------------------------------- training kernels (K6, K7)
+_BWD_CASES = {   # (B, Sq, Skv, Hq, Hkv, D, causal, window, q offset)
+    "causal": (2, 70, 70, 4, 4, 64, True, None, 0),
+    "causal_suffix": (1, 40, 90, 4, 2, 128, True, None, 50),
+    "window": (2, 66, 66, 6, 1, 16, True, 9, 0),
+    "full_window": (1, 50, 50, 12, 1, 32, False, 7, 0),
+    "full": (2, 33, 47, 3, 1, 64, False, None, 0),
+}
+
+
+def _bwd_inputs(cuda, case, dtype, D=None, G=None, seed=0):
+    from repro_torch.models.layers import chunked_attention
+
+    B, Sq, Skv, Hq, Hkv, d, causal, window, off = _BWD_CASES[case]
+    D = D or d
+    if G is not None:
+        Hq = Hkv * G
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, Skv, Hkv, D, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, Skv, Hkv, D, device=cuda, generator=g).to(dtype)
+    dout = torch.randn(B, Sq, Hq, D, device=cuda, generator=g).to(dtype)
+    qpos = torch.arange(off, off + Sq, device=cuda, dtype=torch.int32)
+    kpos = torch.arange(Skv, device=cuda, dtype=torch.int32)
+    out, lse = chunked_attention(q, k, v, causal=causal, q_positions=qpos, kv_positions=kpos,
+                                 sliding_window=window, q_chunk=32, kv_chunk=32,
+                                 return_lse=True)
+    return ((q, k, v, out.contiguous(), lse.contiguous(), dout, qpos, kpos),
+            dict(causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    """K6 against `flash_bwd_ref` on the card: fp32 within 1e-4, bf16
+    within 2e-2 of max(1, max|grad|) (the same roundings of p and dS; the
+    order of sums differs)."""
+    from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+
+    args, kw = _bwd_inputs(cuda, case, dtype)
+    before = mha_flash_bwd.launches
+    got = mha_flash_bwd(*args, **kw)
+    assert mha_flash_bwd.launches == before + 1
+    want = flash_bwd_ref(*args, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        scale = max(1.0, float(b.float().abs().max()))
+        _close(a, b, tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 112, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 6, 12])
+def test_flash_bwd_kernel_takes_every_group_and_head_dim(cuda, G, D):
+    from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+
+    args, kw = _bwd_inputs(cuda, "window", torch.bfloat16, D=D, G=G, seed=G + D)
+    got = mha_flash_bwd(*args, **kw)
+    want = flash_bwd_ref(*args, **kw)
+    for a, b in zip(got, want):
+        _close(a, b, 2e-2 * max(1.0, float(b.float().abs().max())))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
+
+    args, kw = _bwd_inputs(cuda, "causal", torch.float32)
+    q, k, v, out, lse, dout, qpos, kpos = args
+    with pytest.raises(TypeError):
+        mha_flash_bwd(q, k.to(torch.bfloat16), v, out, lse, dout, qpos, kpos, **kw)
+    with pytest.raises(ValueError):
+        mha_flash_bwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, out, lse, dout,
+                      qpos, kpos, **kw)
+    big = torch.zeros(1, 4, 1, 288, device=cuda)
+    with pytest.raises(ValueError):
+        mha_flash_bwd(big, big, big, big, torch.zeros(1, 4, 1, device=cuda), big,
+                      qpos[:4], kpos[:4])
+    with pytest.raises(TypeError):
+        mha_flash_bwd(q, k, v, out, lse, dout, qpos.long(), kpos, **kw)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card_equals_the_cpu(cuda):
+    """The differentiable attention of the training path (plain forward,
+    K6 backward) on the card against the CPU (plain backward), fp32."""
+    from repro_torch.models.layers import flash_attention
+
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = torch.Generator().manual_seed(4)
+        q, k, v = (torch.randn(2, 45, 6, 32, generator=g).to(dev).requires_grad_()
+                   for _ in range(3))
+        k = k[:, :, :2].detach().requires_grad_()
+        v = v[:, :, :2].detach().requires_grad_()
+        pos = torch.arange(45)
+        out = flash_attention(q, k, v, causal=True, q_positions=pos, kv_positions=pos,
+                              sliding_window=20, q_chunk=16, kv_chunk=16)
+        (out * torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)).sum().backward()
+        grads[dev.type] = [t.grad.cpu() for t in (q, k, v)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 32])
+def test_bag_backward_kernel_matches_plain(cuda, dtype, d):
+    """K7 against `bag_backward_ref`: repeated rows accumulate; fp32
+    within 1e-5 and bf16 within 2^-7 of max(1, max|grad|) (atomics add in
+    another order; bf16 rounds once)."""
+    from repro_torch.kernels.embedding_bag.ops import bag_backward
+    from repro_torch.kernels.embedding_bag.ref import bag_backward_ref
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    rows, B, F = 5000, 300, 40
+    ids = torch.randint(0, rows, (B, F), device=cuda, generator=g, dtype=torch.int32)
+    ids[:20] = ids[0]
+    d_out = torch.randn(B, d, device=cuda, generator=g).to(dtype)
+    before = bag_backward.launches
+    got = bag_backward(ids, d_out, rows)
+    assert bag_backward.launches == before + 1
+    want = bag_backward_ref(ids, d_out, rows)
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * max(1.0, float(want.float().abs().max()))
+    _close(got, want, tol)
+
+
+@pytest.mark.cuda
+def test_wide_bag_autograd_launches_both_kernels(cuda):
+    from repro_torch.kernels.embedding_bag.ops import bag_backward, bag_sum
+    from repro_torch.kernels.embedding_bag.ref import bag_backward_ref
+    from repro_torch.recsys.models import WideBagSum
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    table = torch.randn(3000, 1, device=cuda, generator=g).requires_grad_()
+    ids = torch.randint(0, 3000, (64, 40), device=cuda, generator=g, dtype=torch.int32)
+    w = torch.randn(64, device=cuda, generator=g)
+    before = (bag_sum.launches, bag_backward.launches)
+    (WideBagSum.apply(table, ids)[:, 0] * w).sum().backward()
+    assert (bag_sum.launches, bag_backward.launches) == (before[0] + 1, before[1] + 1)
+    _close(table.grad, bag_backward_ref(ids, w[:, None], 3000), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rcllm-qwen3-8b", "moonshot-v1-16b-a3b", "wide-deep",
+                                  "schnet"])
+def test_reduced_train_step_card_equals_cpu(cuda, arch):
+    """One train step at reduced() size (fp32, TF32 off): loss and
+    gradient norm on the card within 1e-4 of a CPU copy's."""
+    import copy
+
+    from repro_torch.configs import registry as R
+    from repro_torch.launch import steps as S
+    from repro_torch.training.train_loop import trainable
+
+    cfg = R.get_config(arch, smoke=True)
+    shape = {"lm": "train_4k", "recsys": "train_batch", "gnn": "molecule"}[R.family_of(arch)]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = S.init_model(cfg, gen, cuda, shape)
+    batch = R.make_batch(cfg, shape, gen, cuda, batch=4,
+                         seq=64 if R.family_of(arch) == "lm" else None)
+    cpu = copy.deepcopy(model).to("cpu")
+    out = {}
+    for m, b in ((model, batch), (cpu, {k: v.cpu() for k, v in batch.items()})):
+        with trainable(m):
+            out[next(m.parameters()).device.type] = S.train_step(m, b)
+    for key in ("loss", "gnorm"):
+        assert float(out["cuda"][key]) == pytest.approx(float(out["cpu"][key]), rel=1e-4)

@@ -11,6 +11,11 @@ import repro_torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+TRAINING_MODULES = ("repro_torch.training.optimizer", "repro_torch.training.train_loop",
+                    "repro_torch.checkpoint.checkpoint", "repro_torch.data.pipeline",
+                    "repro_torch.core.ranker_training", "repro_torch.gnn.schnet",
+                    "repro_torch.gnn.sampler", "repro_torch.gnn.convert",
+                    "repro_torch.launch.train", "repro_torch.configs.schnet")
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
 
 
@@ -21,6 +26,8 @@ def _modules():
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _modules()
     assert "repro_torch.serving.batch_engine" in mods and len(mods) > 25
+    # the training slice's modules are among them
+    assert set(TRAINING_MODULES) <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -41,6 +48,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
 def test_sources_name_no_jax_or_reference_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 25
+    for m in TRAINING_MODULES:
+        assert PORT.parent / (m.replace(".", "/") + ".py") in files
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []

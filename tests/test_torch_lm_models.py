@@ -106,8 +106,21 @@ def test_make_batch_has_the_reference_inputs(arch, shape):
 
 
 def test_make_batch_refuses_the_training_cell():
-    with pytest.raises(ValueError, match="training slice"):
-        TR.make_batch(TR.get_config("gemma-7b", True), "train_4k", torch.Generator(), "cpu")
+    """Since the training slice make_batch fills train_4k (tokens and the
+    same stream shifted by one as labels, `input_specs`' keys and dtypes)
+    instead of refusing it; the cell it still refuses is the GNN's
+    ogb_products, which needs more than one card."""
+    cfg = TR.get_config("gemma-7b", True)
+    batch = TR.make_batch(cfg, "train_4k", torch.Generator().manual_seed(0), "cpu",
+                          batch=3, seq=24)
+    spec = JR.input_specs("gemma-7b", "train_4k")
+    assert set(batch) == set(spec)
+    for k in batch:
+        assert tuple(batch[k].shape) == (3, 24)
+        assert str(batch[k].dtype) == "torch." + str(spec[k].dtype)
+    assert torch.equal(batch["tokens"][:, 1:], batch["labels"][:, :-1])
+    with pytest.raises(ValueError, match="multi-card"):
+        TR.make_batch(TR.get_config("schnet", True), "ogb_products", torch.Generator(), "cpu")
 
 
 def test_reduced_refuses_the_reference_config():

@@ -153,10 +153,16 @@ def test_steps_run_the_lm_cells(arch, shape, capsys):
 
 
 def test_steps_refuse_the_training_cell_and_other_families():
-    with pytest.raises(ValueError, match="training slice"):
-        TS.step_of("train_4k")
+    """The train cell now has its step (the training slice); what is still
+    refused: the GNN cell one card cannot hold, another family's cell,
+    and LM cuts on a recsys cell."""
+    assert TS.step_of("train_4k") is TS.train_step
+    with pytest.raises(ValueError, match="multi-card"):
+        TS.step_of("ogb_products")
     for argv in (["--arch", "gemma-7b", "--shape", "serve_p99"],
                  ["--arch", "wide-deep", "--shape", "prefill_32k"],
-                 ["--arch", "wide-deep", "--shape", "serve_p99", "--seq", "8"]):
+                 ["--arch", "wide-deep", "--shape", "serve_p99", "--seq", "8"],
+                 ["--arch", "wide-deep", "--shape", "train_batch", "--layers", "2"],
+                 ["--arch", "schnet", "--shape", "ogb_products"]):
         with pytest.raises(SystemExit):
             TS.main(["--device", "cpu", "--smoke"] + argv)

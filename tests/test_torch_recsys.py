@@ -101,10 +101,28 @@ SERVED_SHAPES = [s for s, v in TR.RECSYS_SHAPES.items() if v.step != "train"]
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_make_batch_refuses_train_cells(arch, smoke):
-    """The training cells' inputs (labels, MLM targets) wait for the
-    training slice; make_batch refuses them rather than omit those keys."""
-    with pytest.raises(ValueError, match="training slice"):
-        TR.make_batch(TR.get_config(arch, smoke), "train_batch", torch.Generator(), "cpu")
+    """Since the training slice make_batch fills the train cell with the
+    reference's train inputs (`input_specs`: labels in {0, 1}, or
+    BERT4Rec's masked positions, their labels and 8,192 negatives, ids in
+    range) instead of refusing it; the cell it still refuses is the GNN's
+    ogb_products, which needs more than one card."""
+    cfg = TR.get_config(arch, smoke)
+    batch = TR.make_batch(cfg, "train_batch", torch.Generator().manual_seed(0), "cpu", batch=6)
+    spec = JR.input_specs(arch, "train_batch")
+    assert set(batch) == set(spec)
+    for k, v in batch.items():
+        want = tuple(spec[k].shape)
+        want = want if k == "neg_samples" else (6,) + want[1:]
+        assert str(v.dtype) == "torch." + str(spec[k].dtype) and v.dim() == len(want)
+        assert tuple(v.shape) == want or (smoke and v.shape[0] == want[0])
+    if cfg.kind == "bert4rec":
+        assert int(batch["mlm_positions"].max()) < cfg.seq_len
+        for k in ("mlm_labels", "neg_samples"):
+            assert 0 <= int(batch[k].min()) and int(batch[k].max()) < cfg.n_items
+    else:
+        assert set(batch["labels"].unique().tolist()) <= {0.0, 1.0}
+    with pytest.raises(ValueError, match="multi-card"):
+        TR.make_batch(TR.get_config("schnet", smoke), "ogb_products", torch.Generator(), "cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -260,8 +278,11 @@ def test_convert_rejects_a_tree_of_another_config():
 
 
 def test_steps_refuse_the_training_cell():
-    with pytest.raises(ValueError, match="training slice"):
-        TS.step_of("train_batch")
+    """train_batch has its step since the training slice; the cell still
+    refused is the GNN's ogb_products, which needs more than one card."""
+    assert TS.step_of("train_batch") is TS.train_step
+    with pytest.raises(ValueError, match="multi-card"):
+        TS.step_of("ogb_products")
 
 
 def test_steps_cli_prints_its_json_line():
