@@ -80,9 +80,12 @@ else (no network, no JAX).  Phases:
    CacheBlend and EPIC against Full-Recompute at r = 0.1 / 0.3 / 0.5,
    reported; B1, B2 and B4 must launch); then one train step of every
    LM, recsys and SchNet cell at reduced() size on the card against the
-   CPU.  K6 is held to its plain version on the five archs' recorded
-   calls and the ranker's, K7 at Wide&Deep's call, both timed beside
-   their bounds, SDPA's backward and one `index_add_`;
+   CPU.  K6 takes its tensor-core route on every backward call of the
+   five archs (bf16, D 128 / 256) and its SIMT route on kimi-k2's and the
+   ranker's; it is held to its plain version on the five archs' recorded
+   calls and the ranker's, a second call bitwise equal, and timed at each
+   of them (each of its kernels apart) beside its bound and SDPA's
+   backward; K7 at Wide&Deep's call beside one `index_add_`;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies); the served logits finite; and
@@ -99,7 +102,8 @@ else (no network, no JAX).  Phases:
    table; and each recsys model at full width scores and retrieves the
    same on the card as a CPU copy of it;
 4. kernel times (CUDA events, median of 20 after warm-up; and the
-   device time alone under torch.profiler; for the paged-decode kernel
+   device time alone under torch.profiler, every device event counted,
+   with the number a call saw beside it; for the paged-decode kernel
    also with the L2 flushed before each call) beside the plain version, one
    library call computing the same function where there is one, and the
    card's bound for the work.
@@ -238,10 +242,11 @@ LM_GEN_PROMPT, LM_GEN_TOKENS = 4608, 8
 LM_TOL = 1e-4
 LM_RESIDENT_GB = 2.0
 
-# kernels with two routes: "<name>" counts and records the tensor-core route
-# (bf16, the served path at full width), "<name>:fp32" the SIMT kernel
-# (fp32, the tiny card == CPU path)
-TWO_ROUTES = ("flash_attention", "selective_attention")
+# kernels with two routes, each with the suffix of its SIMT route's count:
+# "<name>" counts and records the tensor-core route (bf16, the served and
+# trained paths at full width), "<name><suffix>" the SIMT kernels (the
+# tiny fp32 card == CPU path; for K6 also bf16 at D 16: kimi-k2 at reduced())
+OTHER_ROUTE = {"flash_attention": ":fp32", "selective_attention": ":fp32", "flash_bwd": ":simt"}
 
 KERNELS = {
     "flash_attention": dict(
@@ -285,7 +290,7 @@ def log(*a):
 def reset_counts():
     for name, spec in KERNELS.items():
         spec["fn"].launches = 0
-        if name in TWO_ROUTES:
+        if name in OTHER_ROUTE:
             spec["fn"].tc_launches = 0
     BO.assemble_kv.pool2_launches = 0
 
@@ -568,31 +573,91 @@ def time_ms(fn, reps=20, warmup=3):
     return float(statistics.median(times))
 
 
-def device_ms(fn, reps=20, flush=None):
-    """Mean device time per call: the card's kernel and copy intervals
-    under torch.profiler, so the wrapper's host work between launches
-    (which a CUDA-event time of one short call includes) is left out.
-    With `flush` (a buffer larger than the 50 MB L2), the buffer is
-    written before each call, so the call finds its inputs out of L2;
-    the writes themselves are not counted."""
+def kernel_name(name):
+    """A device event's kernel name without return type, namespace and
+    arguments (e.g. "dq_tc_kernel<128>")."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:60]
+
+
+# torch.cuda._sleep's spin kernel brackets the timed calls of `device_ms`
+MARK_CYCLES = 1000
+_MARK = {}
+
+
+def _marker_name():
+    """The device event name of `torch.cuda._sleep`'s kernel."""
+    if "name" not in _MARK:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        names = {ev[0] for ev in device_events(prof)}
+        if len(names) != 1:
+            raise RuntimeError(f"torch.cuda._sleep gave the device events {names}")
+        _MARK["name"] = names.pop()
+    return _MARK["name"]
+
+
+def device_ms(fn, reps=20, flush=None, pad=3, lead=256):
+    """Device time per call: the card's kernel and copy intervals under
+    torch.profiler, so the wrapper's host work between launches (which a
+    CUDA-event time of one short call includes) is left out.  Late in a
+    long run the profiler drops the first few device events of a session,
+    so the `reps` timed calls sit between two marker kernels
+    (`torch.cuda._sleep`) after `lead` one-element adds and `pad` untimed
+    calls, and only the events between the markers count.  With `flush`
+    (a buffer larger than the 50 MB L2), the buffer is written before
+    each call, so the call finds its inputs out of L2; the writes
+    themselves are not counted.  -> {"ms": ms per call, "events_per_call":
+    device events per call (a wrapper's kernels and fills: compare with
+    what it launches), "by_kernel": {kernel: ms per call}}; "ms" sums
+    "by_kernel", and is None (with the reason in "note") when the profiler
+    lost a marker."""
     fn()
     torch.cuda.synchronize()
+    mark = _marker_name()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    one = torch.zeros(1, device="cuda")
 
     def run(cold):
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(lead):
+                one.add_(1)
+            for _ in range(pad):
+                fn()
+            torch.cuda._sleep(MARK_CYCLES)
             for i in range(reps):
                 if cold:
                     flush.fill_(i & 0xFF)
                 fn()
+            torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
-        return device_events(prof)
+        events = device_events(prof)
+        marks = sorted((s, e) for n, s, e in events if n == mark)
+        if len(marks) != 2:
+            return None, len(marks)
+        return [ev for ev in events if ev[0] != mark and marks[0][1] <= ev[1] <= marks[1][0]], 2
 
-    warm = run(False)
-    if flush is None:
-        return sum(e - s for _, s, e in warm) / reps / 1e6
-    names = {n for n, _, _ in warm}
-    return sum(e - s for n, s, e in run(True) if n in names) / reps / 1e6
+    events, n_marks = run(False)
+    if events is not None and flush is not None:
+        names = {ev[0] for ev in events}
+        events, n_marks = run(True)
+        events = None if events is None else [ev for ev in events if ev[0] in names]
+    if events is None:
+        return {"ms": None, "events_per_call": None, "by_kernel": {},
+                "note": f"the profiler kept {n_marks} of the 2 marker kernels"}
+    # each kernel's mean over its events, times the launches a call makes of it
+    by_kernel, seen = {}, {}
+    for name, s, e in events:
+        k = kernel_name(name)
+        by_kernel[k] = by_kernel.get(k, 0.0) + (e - s) / 1e6
+        seen[k] = seen.get(k, 0) + 1
+    for k, n in seen.items():
+        by_kernel[k] *= max(1, round(n / reps)) / n
+    return {"ms": sum(by_kernel.values()), "events_per_call": len(events) / reps,
+            "by_kernel": by_kernel}
 
 
 class Spans:
@@ -652,10 +717,8 @@ def device_events(prof):
     Kineto events: `prof.events()` would first build the host op tree,
     tens of seconds for one profiled decode of a 36-layer model."""
     cuda = torch.autograd.DeviceType.CUDA
-    skip = getattr(torch.autograd.profiler, "_filter_name", lambda name: False)
     return [(e.name(), e.start_ns(), e.end_ns())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda and not e.is_hidden_event() and not skip(e.name())]
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
 
 
 def device_busy(fn):
@@ -701,13 +764,13 @@ def shapes(args, kw):
 
 def counts():
     """Launches per kernel since the last reset_counts(), the two routes of
-    TWO_ROUTES apart."""
+    OTHER_ROUTE's kernels apart."""
     out = {}
     for n, spec in KERNELS.items():
         fn = spec["fn"]
-        if n in TWO_ROUTES:
+        if n in OTHER_ROUTE:
             out[n] = fn.tc_launches
-            out[f"{n}:fp32"] = fn.launches - fn.tc_launches
+            out[n + OTHER_ROUTE[n]] = fn.launches - fn.tc_launches
         else:
             out[n] = fn.launches
     out["block_gather:prefix"] = BO.assemble_kv.pool2_launches
@@ -755,7 +818,8 @@ def timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=None):
     """Kernel, plain and library times plus the bound for one call."""
     fn = spec["fn"]
     ms = time_ms(lambda: fn(*a, **kw))
-    dev_ms = device_ms(lambda: fn(*a, **kw))
+    dev = device_ms(lambda: fn(*a, **kw))
+    dev_ms = dev["ms"]
     plain_ms = time_ms(lambda: plain_call(name, a, kw))
     lib = library_call(name, a, kw)
     lib_ms = time_ms(lib) if lib is not None else None
@@ -767,9 +831,13 @@ def timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=None):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib_ms, "device_ms": dev_ms, "shapes": shapes(a, kw), "bytes": b,
+           "library_ms": lib_ms, "device_ms": dev_ms,
+           "device_events_per_call": dev["events_per_call"], "device_note": dev.get("note"),
+           "shapes": shapes(a, kw), "bytes": b,
            "flops": fl, **extra}
-    log(f"time {label}: kernel {ms:.4f} ms (device only {dev_ms:.4f} ms), plain "
+    dev_s = ("n/a: " + dev["note"] if dev_ms is None else
+             f"{dev_ms:.4f} ms over {dev['events_per_call']:g} device events a call")
+    log(f"time {label}: kernel {ms:.4f} ms (device only {dev_s}), plain "
         f"{plain_ms:.4f} ms, library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
         f"{max(t_bytes, t_ops):.4f} ms ({rec['bound_by']}; {b / 1e6:.1f} MB)")
@@ -870,9 +938,11 @@ def paged_split_record(a, kw):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=q.device)
     cold = device_ms(lambda: fn(*a, **kw), flush=flush)
     del flush
+    cold_s = "n/a: " + cold["note"] if cold["ms"] is None else f"{cold['ms']:.4f} ms"
+    cold = cold["ms"]
     log(f"check paged_decode_attention split-K: {splits} splits of {pps} pages, {blocks} "
         f"blocks on {sms} SMs; max|kernel - split plain| {err:.3g}; device time with the "
-        f"L2 flushed {cold:.4f} ms")
+        f"L2 flushed {cold_s}")
     return {"pages_per_split": pps, "splits": splits, "blocks": blocks,
             "split_ref_max_abs_err": err, "device_cold_ms": cold, "flush_mb": 256}
 
@@ -2198,17 +2268,23 @@ def lm_train_cells(dev, bwd_rec):
         gen = torch.Generator(device=dev).manual_seed(0)
         model = TT.init_params(cfg, gen, dev)
         batch = RREG.make_batch(cfg, "train_4k", gen, dev, batch=1, seq=TRAIN_SEQ)
-        before = FO.mha_flash_bwd.launches
+        before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches)
         bwd_rec.arm(arch)
         cell = train_cell(arch, model, batch)
         bwd_rec.arm(None)
         cell.update(cuts={"n_layers": TRAIN_LAYERS, "batch": 1, "seq": TRAIN_SEQ},
-                    optimizer=cfg.optimizer, flash_bwd_launches=FO.mha_flash_bwd.launches - before,
+                    optimizer=cfg.optimizer,
+                    flash_bwd_launches=FO.mha_flash_bwd.launches - before[0],
+                    flash_bwd_tc_launches=FO.mha_flash_bwd.tc_launches - before[1],
                     tokens_per_s=TRAIN_SEQ / (cell["ms_per_step"] / 1e3),
                     heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
                     window=cfg.sliding_window)
-        if cell["flash_bwd_launches"] == 0:
-            raise RuntimeError(f"train {arch}: the attention backward (K6) never launched")
+        if cell["flash_bwd_launches"] == 0 or (cell["flash_bwd_tc_launches"]
+                                               != cell["flash_bwd_launches"]):
+            raise RuntimeError(f"train {arch}: the attention backward (K6) launched "
+                               f"{cell['flash_bwd_launches']} times, "
+                               f"{cell['flash_bwd_tc_launches']} on its tensor-core route: "
+                               "every call must take that route")
         cells[arch] = cell
         log(f"  train {arch}: width {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
             f"{cfg.resolved_head_dim}, window {cfg.sliding_window}, cut to {TRAIN_LAYERS} "
@@ -2216,7 +2292,7 @@ def lm_train_cells(dev, bwd_rec):
             + ", ".join(f"{x:.4f}" for x in cell["loss"])
             + f"; {cell['ms_per_step']:.1f} ms/step (median of steps 2-{TRAIN_STEPS}), peak "
             f"{cell['peak_gb']:.2f} GB ({cell['param_gb']:.2f} GB bf16 weights); K6 launches "
-            f"{cell['flash_bwd_launches']}")
+            f"{cell['flash_bwd_launches']}, all on the tensor-core route")
         del model, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2224,10 +2300,18 @@ def lm_train_cells(dev, bwd_rec):
     gen = torch.Generator(device=dev).manual_seed(0)
     model = TT.init_params(cfg, gen, dev)
     batch = RREG.make_batch(cfg, "train_4k", gen, dev, batch=2, seq=256)
+    before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches)
     cell = train_cell("kimi-k2-1t-a32b reduced", model, batch)
-    cell.update(cuts={"reduced": True, "batch": 2, "seq": 256}, optimizer=cfg.optimizer)
+    cell.update(cuts={"reduced": True, "batch": 2, "seq": 256}, optimizer=cfg.optimizer,
+                flash_bwd_launches=FO.mha_flash_bwd.launches - before[0],
+                flash_bwd_tc_launches=FO.mha_flash_bwd.tc_launches - before[1])
     if cfg.optimizer != "adafactor":
         raise RuntimeError(f"kimi-k2 trains with {cfg.optimizer}, want adafactor")
+    if cell["flash_bwd_launches"] == 0 or cell["flash_bwd_tc_launches"] != 0:
+        raise RuntimeError(f"train kimi-k2 reduced (head dim {cfg.resolved_head_dim}): K6 "
+                           f"launched {cell['flash_bwd_launches']} times, "
+                           f"{cell['flash_bwd_tc_launches']} on the tensor-core route; want "
+                           "every call on the SIMT route")
     cells["kimi-k2-1t-a32b:reduced"] = cell
     log(f"  train kimi-k2-1t-a32b at reduced() size (batch 2 x 256, {cfg.optimizer}): losses "
         + ", ".join(f"{x:.4f}" for x in cell["loss"]))
@@ -2377,12 +2461,15 @@ def planted_protocol(dev, bwd_rec):
     t2 = time.perf_counter()
     del cpu_model
     bwd_rec.arm("ranker")
-    k6 = FO.mha_flash_bwd.launches
+    k6, k6_tc = FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches
     model, card_hist = RT.train_ranker(system.model, *args, steps=PLANTED_STEPS, log_every=1)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    k6 = FO.mha_flash_bwd.launches - k6
+    k6, k6_tc = FO.mha_flash_bwd.launches - k6, FO.mha_flash_bwd.tc_launches - k6_tc
     bwd_rec.arm(None)
+    if k6_tc:
+        raise RuntimeError(f"planted: {k6_tc} of the ranker's fp32 K6 calls took the "
+                           "tensor-core route; want the SIMT route")
     card_l = np.array([v for _, v in card_hist])
     cpu_l = np.array([v for _, v in cpu_hist])
     err = float(np.abs(card_l[:PLANTED_CPU_STEPS] - cpu_l).max())
@@ -2504,20 +2591,17 @@ def train_card_vs_cpu(dev):
     return out
 
 
-def device_ms_counted(fn, reps=10):
-    """`device_ms` of `fn` (warm), with the number of device events the
-    profiler saw per call beside it (K6 launches 3 kernels a call, K7 a
-    fill and 1 kernel; fewer events per call than that flags a device
-    time that left some out)."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = device_events(prof)
-    return sum(e - s for _, s, e in ev) / reps / 1e6, len(ev) / reps
+def counted_device_ms(fn, want, reps=10):
+    """`device_ms` of a call that launches `want` device events (kernels
+    and fills).  -> (ms or None, the device_ms dict): None, with the
+    reason in the dict's "note", when the profiler saw another number."""
+    dev = device_ms(fn, reps=reps)
+    if dev["events_per_call"] == want:
+        return dev["ms"], dev
+    if dev["ms"] is not None:
+        dev["note"] = (f"the profiler saw {dev['events_per_call']:g} device events a call of "
+                       f"the {want} the call launches: its device time is left out")
+    return None, dev
 
 
 def _bwd_work(a, kw):
@@ -2544,17 +2628,59 @@ def _sdpa_bwd(a, kw):
     return lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True)
 
 
+# the route each recorded K6 call must take: the five full-width LM archs'
+# (bf16, D 128 or 256) the tensor cores, the tiny ranker's (fp32) SIMT
+K6_ROUTES = {**{arch: "tc" for arch in TRAIN_LM_ARCHS}, "ranker": "simt"}
+
+
+def k6_timing(a, kw, plain=False):
+    """K6 at one recorded call: CUDA-event ms of the whole call (median of
+    10), its device ms under torch.profiler with each kernel's share (None
+    if the profiler saw another number of events than the call launches),
+    the bound, SDPA's backward where there is one, and with `plain` the
+    plain version's ms."""
+    fn = FO.mha_flash_bwd
+    route = FO._bwd_route(*a[:3])
+    # kernels a call launches: delta / prep, dq, dk-dv (tc at D 256: dv, dk)
+    n_kernels = 4 if route == "tc" and a[0].shape[3] > 128 else 3
+    ms = time_ms(lambda: fn(*a, **kw), reps=10, warmup=2)
+    dev_ms, dev = counted_device_ms(lambda: fn(*a, **kw), n_kernels)
+    lib = _sdpa_bwd(a, kw)
+    b, fl = _bwd_work(a, kw)
+    wdt = a[0].dtype
+    t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[wdt] * 1e3
+    return {"kernel_route": route, "kernels_per_call": n_kernels, "ms": ms, "device_ms": dev_ms,
+            "device_events_per_call": dev["events_per_call"],
+            "device_ms_by_kernel": dev["by_kernel"], "device_note": dev.get("note"),
+            "plain_ms": (time_ms(lambda: FREF.flash_bwd_ref(*a, **kw), reps=5, warmup=1)
+                         if plain else None),
+            "library_ms": time_ms(lib, reps=10, warmup=2) if lib is not None else None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": b, "flops": fl,
+            "shapes": shapes(a, {}), "window": kw.get("window")}
+
+
 def flash_bwd_records(calls, launches):
-    """K6 against its plain version on each recorded call (the five
-    full-width archs' first backward call, bf16, and the tiny ranker's,
-    fp32): max |kernel - plain| within TOL of the output's max |plain|
-    (the recorded output gradients are small); timed at the
-    rcllm-qwen3-8b call and at the ranker's."""
+    """K6 on each recorded call (the five full-width archs' first backward
+    call, bf16, and the tiny ranker's, fp32): the route K6_ROUTES names,
+    max |kernel - plain| within TOL of the output's max |plain| (the
+    recorded output gradients are small), a second call bitwise equal;
+    then timed at every call (the plain version at rcllm-qwen3-8b's and
+    the ranker's).  -> the records "flash_bwd" (the tensor-core route at
+    rcllm-qwen3-8b's call, the other archs under "per_arch") and
+    "flash_bwd:fp32" (the SIMT route at the ranker's)."""
     fn = FO.mha_flash_bwd
     spec = KERNELS["flash_bwd"]
-    checks, records = {}, []
+    missing = sorted(set(K6_ROUTES) - set(calls))
+    if missing:
+        raise RuntimeError(f"flash_bwd: no backward call was recorded for {missing}")
+    per = {}
     for label, (a, kw) in calls.items():
+        route = FO._bwd_route(*a[:3])
+        if route != K6_ROUTES[label]:
+            raise RuntimeError(f"flash_bwd {label}: the {route} route, want {K6_ROUTES[label]}")
         got, want = fn(*a, **kw), FREF.flash_bwd_ref(*a, **kw)
+        again = fn(*a, **kw)
         torch.cuda.synchronize()
         wdt = a[0].dtype
         errs = []
@@ -2565,39 +2691,36 @@ def flash_bwd_records(calls, launches):
                 raise RuntimeError(f"flash_bwd {label}: max|kernel-plain| {err} > {TOL[wdt]} x "
                                    f"max|plain| {scale}")
             errs.append(err / max(scale, 1e-30))
-        checks[label] = {"shapes": shapes(a, {}), "rel_err": errs,
-                         "window": kw.get("window")}
-        log(f"check flash_bwd {label}: {shapes(a, {})} window {kw.get('window')}; "
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise RuntimeError(f"flash_bwd {label}: two calls on the same inputs differ")
+        log(f"check flash_bwd {label} ({route}): {shapes(a, {})} window {kw.get('window')}; "
             f"max|kernel-plain| / max|plain| dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} "
-            f"(tol {TOL[wdt]}, {str(wdt).replace('torch.', '')})")
-        del got, want
+            f"(tol {TOL[wdt]}, {str(wdt).replace('torch.', '')}); a second call bitwise equal")
+        del got, want, again
+        rec = {"rel_err": errs, "bitwise_repeat": True,
+               **k6_timing(a, kw, plain=label in ("rcllm-qwen3-8b", "ranker"))}
+        per[label] = rec
+        dev = ("n/a: " + rec["device_note"] if rec["device_ms"] is None else
+               f"{rec['device_ms']:.4f} ms over {rec['device_events_per_call']:g} device events "
+               f"a call")
+        plain = "n/a" if rec["plain_ms"] is None else f"{rec['plain_ms']:.3f} ms"
+        lib = "n/a" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms (SDPA backward)"
+        by_dev = ", ".join(f"{k} {v:.4f}" for k, v in rec["device_ms_by_kernel"].items())
+        log(f"time flash_bwd {label} ({route}): kernel {rec['ms']:.4f} ms; device {dev}: "
+            f"{by_dev}; plain {plain}, library {lib}, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['flops'] / 1e9:.1f} GFLOP)")
+    records = []
     for label, rec_name in (("rcllm-qwen3-8b", "flash_bwd"), ("ranker", "flash_bwd:fp32")):
-        a, kw = calls[label]
-        wdt = a[0].dtype
-        ms = time_ms(lambda: fn(*a, **kw), reps=10, warmup=2)
-        dev_ms, dev_events = device_ms_counted(lambda: fn(*a, **kw))
-        plain_ms = time_ms(lambda: FREF.flash_bwd_ref(*a, **kw), reps=5, warmup=1)
-        lib = _sdpa_bwd(a, kw)
-        lib_ms = time_ms(lib, reps=10, warmup=2) if lib is not None else None
-        b, fl = _bwd_work(a, kw)
-        t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[wdt] * 1e3
-        rec = {"name": rec_name, "route": "cuda", "source": spec["source"],
-               "replaces": spec["replaces"], "launches": launches[rec_name],
-               "max_abs_err": max(checks[label]["rel_err"]), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": lib_ms, "device_ms": dev_ms, "device_events_per_call": dev_events,
-               "shapes": shapes(a, {}), "bytes": b,
-               "flops": fl, "err_is_relative_to_max_plain": True, "tol": TOL[wdt],
-               "checks": checks if rec_name == "flash_bwd" else None,
-               "fp32_simt_bound_ms": fl / PEAK_FLOPS[torch.float32] * 1e3}
-        records.append(rec)
-        log(f"time {rec_name}: kernel {ms:.3f} ms (device only {dev_ms:.3f} ms over "
-            f"{dev_events:g} device events a call), plain "
-            f"{plain_ms:.3f} ms, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms (SDPA backward)'}, bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {fl / 1e9:.1f} GFLOP; fp32 CUDA-core "
-            f"rate {rec['fp32_simt_bound_ms']:.3f} ms)")
+        rec = per[label]
+        records.append({
+            "name": rec_name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": launches[rec_name],
+            "max_abs_err": max(rec["rel_err"]), "err_is_relative_to_max_plain": True,
+            "tol": TOL[calls[label][0][0].dtype], **{k: v for k, v in rec.items() if k != "rel_err"},
+            "tc_launches": launches[rec_name] if rec["kernel_route"] == "tc" else 0,
+            "per_arch": ({k: v for k, v in per.items() if k != "ranker"}
+                         if rec_name == "flash_bwd" else None),
+            "fp32_simt_bound_ms": rec["flops"] / PEAK_FLOPS[torch.float32] * 1e3})
     return records
 
 
@@ -2624,7 +2747,8 @@ def bag_backward_record(call, launches):
         f"max|kernel-plain| fp32 {errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g} "
         f"(tol {BAG_TOL} x max(1, max|plain|))")
     ms = time_ms(lambda: fn(ids, d_out, rows))
-    dev_ms, dev_events = device_ms_counted(lambda: fn(ids, d_out, rows), reps=20)
+    # two device events a call: the gradient's zero fill and the kernel
+    dev_ms, dev = counted_device_ms(lambda: fn(ids, d_out, rows), 2, reps=20)
     plain_ms = time_ms(lambda: EREF.bag_backward_ref(ids, d_out, rows), reps=5, warmup=1)
     flat = ids.reshape(-1).long()
     F_ = ids.shape[1]
@@ -2636,15 +2760,19 @@ def bag_backward_record(call, launches):
     rec = {"name": "bag_backward", "route": "cuda", "source": spec["source"],
            "replaces": spec["replaces"], "launches": launches, "max_abs_err": errs[torch.float32],
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b / HBM_BYTES_S * 1e3, "bound_by": "bytes",
-           "library_ms": lib_ms, "device_ms": dev_ms, "device_events_per_call": dev_events,
+           "library_ms": lib_ms, "device_ms": dev_ms,
+           "device_events_per_call": dev["events_per_call"],
+           "device_ms_by_kernel": dev["by_kernel"], "device_note": dev.get("note"),
            "bytes": b, "flops": ids.numel() * d_out.shape[1], "tol": BAG_TOL[torch.float32],
            "bf16_max_abs_err": errs[torch.bfloat16],
            "sector_bound_ms": sector / HBM_BYTES_S * 1e3,
            "shapes": [f"{tuple(ids.shape)}:int32", f"{tuple(d_out.shape)}:float32",
                       f"rows {rows}"],
            "library_call": "zeros + index_add_ of the flattened ids (after repeat_interleave)"}
-    log(f"time bag_backward: kernel {ms:.4f} ms (device only {dev_ms:.4f} ms over "
-        f"{dev_events:g} device events a call, zero fill included), plain {plain_ms:.4f} ms, "
+    dev_s = ("n/a: " + dev["note"] if dev_ms is None else
+             f"{dev_ms:.4f} ms over {dev['events_per_call']:g} device events a call: "
+             + ", ".join(f"{k} {v:.4f}" for k, v in dev["by_kernel"].items()))
+    log(f"time bag_backward: kernel {ms:.4f} ms (device {dev_s}), plain {plain_ms:.4f} ms, "
         f"library {lib_ms:.4f} ms, bound "
         f"{rec['bound_ms']:.4f} ms (bytes; {b / 1e6:.1f} MB; counting 32-byte sectors "
         f"{rec['sector_bound_ms']:.4f} ms)")
@@ -2682,7 +2810,7 @@ def training_phase(dev):
     finally:
         TL.mha_flash_bwd, RM.bag_backward = saved
     k6 = {"flash_bwd": launches["lm"]["flash_bwd"],
-          "flash_bwd:fp32": launches["planted"]["flash_bwd"]}
+          "flash_bwd:fp32": launches["planted"]["flash_bwd:simt"]}
     if launches["recsys"]["bag_backward"] == 0 or min(k6.values()) == 0:
         raise RuntimeError(f"training: kernels never launched {launches}")
     t0 = time.perf_counter()
@@ -2889,7 +3017,7 @@ def serving_phases(args, dev):
             continue    # recorded in phase 2j
         a, kw = device_inputs(name, rec[name].args, rec[name].kwargs, dev)
         extra = {}
-        if name in TWO_ROUTES:
+        if name in OTHER_ROUTE:
             extra["kernel_route"] = check_route(name, a, kw, "tc")
         if name == "selective_attention":
             extra["ms_host_inputs"] = selective_host_inputs_ms(a, kw)
@@ -2960,8 +3088,10 @@ def serving_phases(args, dev):
             setattr(mod, name, fn)
     launches["tiny"] = counts()
     log(f"  kernel launches in the tiny card runs (wave + chunked): {launches['tiny']}")
-    for name in TWO_ROUTES:
-        label = f"{name}:fp32"
+    for name, suffix in OTHER_ROUTE.items():
+        if name in TRAIN_KERNELS:
+            continue    # phase 2j records its SIMT route
+        label = name + suffix
         if launches["tiny"][label] == 0:
             raise RuntimeError(f"the SIMT route of {name} never launched on the tiny fp32 path")
         a, kw = device_inputs(name, tiny_rec[name].args, tiny_rec[name].kwargs, dev)
@@ -3015,6 +3145,7 @@ def main(argv=None):
     # ---- phase 1: build every kernel from this checkout's sources ----
     build_s = PHASE_S["1 build"] = _build.build()
     log(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)")
+    log(f"device_ms marker kernel: {_marker_name()}")   # read while the profiler loses nothing
     for name in _build.SOURCES:
         text = _build.library_path(name).with_suffix(".log")
         for line in (text.read_text().splitlines() if text.exists() else []):

@@ -3,7 +3,7 @@
 // The JAX package has no Pallas backward: its training path differentiates
 // `_flash` (`src/repro/models/layers.py:231`) through the hand-written
 // custom VJP `_flash_bwd` (`:249`), a two-pass tile recompute in jnp.
-// This kernel computes that function (wrapper `ops.py:mha_flash_bwd`,
+// This file computes that function (wrapper `ops.py:mha_flash_bwd`,
 // plain version `ref.py:flash_bwd_ref`):
 //
 //   delta = rowsum(dout * out)                           (fp32)
@@ -18,35 +18,73 @@
 // (fp32 or bf16); lse (B, Sq, Hq) fp32, the forward's log-sum-exp; int32
 // positions q_pos (Sq,), kv_pos (Skv,).  A pair is live when causal
 // `qpos >= kpos` and, with a window w > 0, `qpos - kpos < w` (not causal:
-// `|qpos - kpos| < w`).  Sums in fp32; outputs in T.  Every query row must
-// see at least one key (causal self-attention does): a row with none has
-// lse = -1e30, where the reference's exp(-1e30 - lse) is 1, not 0.
-//
-// Design: the reference's two passes as two kernels, plus one for delta.
-// * dq: one block of 4 warps per (16-row query tile, query head, batch
-//   row); each warp carries 4 rows' dQ in registers (D/32 columns a lane)
-//   while 32-key K/V tiles stream through shared memory in fp32, one key
-//   per lane in the score pass (its 4 rows' scores at once, so each K / V
-//   element is read once for the 4), dS broadcast by shuffles into the
-//   dQ update (each K element read once for the 4 rows).
-// * dk/dv: one block per (16-key tile, kv head, batch row), each warp
-//   owning 4 keys' dK and dV in registers, looping over the G query heads
-//   of its kv group and over 32-row query tiles (one row per lane in the
-//   score pass; each Q / dO element read once for the warp's 4 keys).  A block owns its keys for every head of the group, so
-//   dK and dV are written once, without atomics: results are
-//   deterministic.
-// Both skip a tile whose position ranges admit no live pair (the causal
-// and window band), from the tile's min and max positions.
+// `|qpos - kpos| < w`).  Sums in fp32; outputs rounded once to T.  Every
+// query row must see at least one key (causal self-attention does): a row
+// with none has lse = -1e30, where the reference's exp(-1e30 - lse) is 1,
+// not 0; both routes give such a row p = 0.
 //
 // Bound on the card: operations.  Five products of 2*D per live pair and
 // head (S, dP, dV, dQ, dK): at rcllm-qwen3-8b's 1 x 4,096 causal call
-// (Hq 32, D 128) 344 GFLOP, 0.35 ms on bf16 tensor cores and 5.1 ms at
-// the fp32 CUDA-core rate.  This first kernel is SIMT (CUDA-core FMAs,
-// S and dP recomputed in each pass): right first, the tensor-core
-// redesign is later work.
+// (Hq 32, D 128) 343.7 GFLOP, 0.3475 ms at the 989 TFLOP/s of the bf16
+// tensor cores.  Both routes below compute S and dP in each of their two
+// passes, the price of writing every gradient once without atomics: 7
+// products, 481 GFLOP at that call (0.49 ms).
+//
+// Two routes, chosen by the wrapper (`ops.py:_bwd_route`) from dtypes and
+// shapes alone; one C entry point launches a route's kernels in order.
+//
+// * Tensor cores ("tc"): bf16 q, k, v with D in {64, 128, 256}, any G =
+//   Hq / Hkv, causal or not, with or without a window.  What it does about
+//   the bound: every product is a wgmma (bf16 operands, fp32 accumulators)
+//   instead of CUDA-core FMAs; the operands stay bf16 in 128-byte-swizzled
+//   shared memory (the layout of `attn_tile.cuh`) instead of being widened
+//   to fp32; tiles arrive by TMA, counted on mbarriers, instead of thread
+//   loads.  One warpgroup (128 threads) per block, 64-row tiles.
+//   - prep: delta as in the SIMT route, and lse * log2(e), both as
+//     (B, Hq, Sq rounded up to 64) planes that a 64-row query tile reads
+//     with one bulk copy; and each 64-position tile's min and max position.
+//   - dQ: one block per (64-row query tile, query head, batch row), the
+//     last query tiles first (they see the most keys).  Q and dO land once;
+//     64-key K/V tiles stream through a 2-stage TMA ring.  Per tile
+//     S = Q K^T and dP = dO V^T (both operands K-major), P = 2^(S scale
+//     log2e - lse log2e), dS = P (dP - delta) scale, dQ += bf16(dS) K (dS
+//     from registers, K MN-major).  G needs no packing: the G blocks of a
+//     kv head read the same K/V rows, from L2.
+//   - dK/dV: one block per (64-key tile, kv head, batch row), the first
+//     key tiles first, looping over the group's G heads and their live
+//     64-row query tiles, Q / dO / (lse, delta) through the 2-stage ring.
+//     Per tile S^T = K Q^T, P^T, dV += bf16(P^T) dO, dP^T = V dO^T, dS^T,
+//     dK += bf16(dS^T) Q.  The block owns its keys for all G heads, so dK
+//     and dV are written once, without atomics: deterministic.
+//   - D = 256: dK and dV as two m64n256 fp32 accumulators would need
+//     2 x 128 registers a thread, over the 255 limit with S and dP held.
+//     The dK/dV pass runs as two launches of one template, one
+//     accumulating dV (S, P) and one dK (S, P, dP, dS): +2 products of
+//     S^T recomputed, at D = 256 only.  The dQ pass holds one m64n256
+//     accumulator (128 registers) and runs in one launch.
+//   - Tiles whose position ranges admit no live pair are skipped (`band`);
+//     the exact mask is applied only to tiles that straddle the causal
+//     diagonal, the window's edge or the ragged end, as bits over the
+//     thread's 32 accumulator elements (B1's per-row `row_mask` assumes
+//     index positions; these positions are the caller's).
+//   - Numerics: S and dP are fp32 sums of exact bf16 products; p is rounded
+//     to bf16 before dV and dS before dQ and dK (the A fragment of the
+//     register-A wgmma); a masked pair's p is exactly 0; exp is 2^x of
+//     log2(e)-scaled scores, which differs by fp32 rounding only.
+// * SIMT (fp32, and bf16 with any other D <= 256: kimi-k2's 112, the
+//   ranker's 16): the CUDA-core kernels, three launches.
+//   - dq: one block of 4 warps per (16-row query tile, query head, batch
+//     row); each warp carries 4 rows' dQ in registers (D/32 columns a
+//     lane) while 32-key K/V tiles stream through shared memory in fp32,
+//     one key per lane in the score pass.
+//   - dk/dv: one block per (16-key tile, kv head, batch row), each warp
+//     owning 4 keys' dK and dV, looping over the G query heads of its kv
+//     group and over 32-row query tiles; written once, without atomics.
+//   Both skip a tile whose position ranges admit no live pair.
 #include <climits>
 
 #include "../attn_common.cuh"
+#include "../attn_tile.cuh"
 
 namespace {
 
@@ -352,58 +390,575 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   }
 }
 
+// ------------------------------------------------------------ SIMT route
 template <typename T, int DPL>
-cudaError_t launch(const Args& a, cudaStream_t st) {
+cudaError_t launch_simt(const Args& a, cudaStream_t st) {
   const long long rows = (long long)a.B * a.Sq * a.Hq;
   delta_kernel<T><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  const size_t dq_smem = (size_t)(2 * kBQ * a.D + 2 * kBK * (a.D + 1)) * sizeof(float);
+  const size_t smem_q = (size_t)(2 * kBQ * a.D + 2 * kBK * (a.D + 1)) * sizeof(float);
   err = cudaFuncSetAttribute(dq_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dq_smem);
+                             (int)smem_q);
   if (err != cudaSuccess) return err;
-  dim3 gq((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B);
-  dq_kernel<T, DPL><<<gq, kThreads, dq_smem, st>>>(a);
+  dq_kernel<T, DPL><<<dim3((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B), kThreads, smem_q, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  const size_t kv_smem = (size_t)(2 * kKB + 2 * kQB) * (a.D + 1) * sizeof(float);
+  const size_t smem_k = (size_t)(2 * kKB + 2 * kQB) * (a.D + 1) * sizeof(float);
   err = cudaFuncSetAttribute(dkv_kernel<T, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kv_smem);
+                             (int)smem_k);
   if (err != cudaSuccess) return err;
-  dim3 gk((a.Skv + kKB - 1) / kKB, a.Hkv, a.B);
-  dkv_kernel<T, DPL><<<gk, kThreads, kv_smem, st>>>(a);
+  dkv_kernel<T, DPL><<<dim3((a.Skv + kKB - 1) / kKB, a.Hkv, a.B), kThreads, smem_k, st>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(const Args& a, cudaStream_t st) {
-  if (a.D <= 32) return launch<T, 1>(a, st);
-  if (a.D <= 64) return launch<T, 2>(a, st);
-  if (a.D <= 128) return launch<T, 4>(a, st);
-  if (a.D <= 256) return launch<T, 8>(a, st);
+cudaError_t launch_simt_d(const Args& a, cudaStream_t st) {
+  if (a.D <= 32) return launch_simt<T, 1>(a, st);
+  if (a.D <= 64) return launch_simt<T, 2>(a, st);
+  if (a.D <= 128) return launch_simt<T, 4>(a, st);
+  if (a.D <= 256) return launch_simt<T, 8>(a, st);
   return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------ tensor-core route
+namespace tc = rt::tc;
+
+constexpr int kT = 64;                          // rows of every tile: queries or keys
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct TcArgs {
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  float* planes;   // (2, B, Hq, Sq64): lse * log2(e), then delta; 0 past Sq
+  int* ranges;     // (nqt + nkt, 2): min and max position of each 64-row tile
+  const int* qpos;
+  const int* kpos;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int B, Sq, Skv, Hq, Hkv, D, causal, window, Sq64, nqt, nkt;
+  float scale;
+};
+
+template <int D> struct Tile {
+  static constexpr int kBytes = kT * D * 2;        // one bf16 64 x D tile
+  static constexpr int kAtoms = D / 64;            // 128-byte swizzle atom columns
+  static constexpr int kChunks = D / 8;            // 16-byte chunks per row
+  static constexpr int kRowsPerPass = kThreads / kChunks;
+  static constexpr int kPasses = kT / kRowsPerPass;
+};
+
+// Could every pair of a query in [qmin, qmax] and a key in [kmin, kmax] be live?
+__device__ __forceinline__ bool all_live(int qmin, int qmax, int kmin, int kmax, int causal,
+                                         int window) {
+  if (causal) return qmin >= kmax && (window <= 0 || qmax - kmin < window);
+  return window <= 0 || (qmax - kmin < window && kmax - qmin < window);
+}
+
+// delta and lse * log2(e) as (B, Hq, Sq64) planes (one warp per row), then
+// each 64-position tile's range (one warp per tile, query tiles first).
+__global__ void __launch_bounds__(kThreads) prep_kernel(TcArgs a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long nrow = (long long)a.B * a.Hq * a.Sq64;
+  const long long row_blocks = (nrow + kWarps - 1) / kWarps;
+  if (blockIdx.x < row_blocks) {
+    const long long row = (long long)blockIdx.x * kWarps + warp;
+    if (row >= nrow) return;
+    const int s = (int)(row % a.Sq64);
+    const long long bh = row / a.Sq64;
+    const int h = (int)(bh % a.Hq), b = (int)(bh / a.Hq);
+    float acc = 0.f, l2 = 0.f;
+    if (s < a.Sq) {
+      const size_t r = ((size_t)b * a.Sq + s) * a.Hq + h;
+      const __nv_bfloat16* o = a.o + r * a.D;
+      const __nv_bfloat16* g = a.dout + r * a.D;
+      for (int d = lane; d < a.D; d += 32) acc += rt::to_f(g[d]) * rt::to_f(o[d]);
+      acc = rt::warp_sum(acc);
+      l2 = a.lse[r] * kLog2e;
+    }
+    if (lane == 0) {
+      a.planes[row] = l2;
+      a.planes[nrow + row] = acc;
+    }
+    return;
+  }
+  const long long t = (blockIdx.x - row_blocks) * kWarps + warp;
+  if (t >= a.nqt + a.nkt) return;
+  const bool is_q = t < a.nqt;
+  const int* pos = is_q ? a.qpos : a.kpos;
+  const int n = is_q ? a.Sq : a.Skv, p0 = (int)(is_q ? t : t - a.nqt) * kT;
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int j = lane; j < kT; j += 32) {
+    if (p0 + j < n) {
+      lo = min(lo, pos[p0 + j]);
+      hi = max(hi, pos[p0 + j]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(rt::kFull, lo, off));
+    hi = max(hi, __shfl_xor_sync(rt::kFull, hi, off));
+  }
+  if (lane == 0) {
+    a.ranges[2 * t] = lo;
+    a.ranges[2 * t + 1] = hi;
+  }
+}
+
+// Element i of a thread's 64 x 64 accumulator fragment: row
+// rA + 8 * ((i >> 1) & 1) (rA = warp * 16 + lane / 4), column
+// (i >> 2) * 8 + (lane & 3) * 2 + (i & 1).
+__device__ __forceinline__ int frag_col(int i, int lane) {
+  return (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
+}
+
+// Liveness of the thread's 32 elements of a straddling tile, as bits:
+// rows at positions rp (rv: row in range), columns c0 + frag_col read
+// from cpos (none at or past n).  `rows_are_queries`: the dQ pass's
+// orientation, else the dK/dV pass's transpose.
+__device__ __forceinline__ uint32_t tile_bits(const int (&rp)[2], const bool (&rv)[2],
+                                              const int* __restrict__ cpos, int c0, int n,
+                                              bool rows_are_queries, int causal, int window) {
+  const int lane = threadIdx.x & 31;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int i0 = (j >> 1) * 4 + (j & 1);   // the element of row rA in this column
+    const int c = c0 + frag_col(i0, lane);
+    if (c >= n) continue;
+    const int cp = cpos[c];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = rv[r] && (rows_are_queries ? live(rp[r], cp, causal, window)
+                                                 : live(cp, rp[r], causal, window));
+      bits |= (uint32_t)ok << (i0 + 2 * r);
+    }
+  }
+  return bits;
+}
+
+// wgmma descriptors of k-step ks (16 elements of the reduced dimension)
+// of a 64 x D swizzled tile: K-major (the reduced dimension along the
+// row) and MN-major (along the column: 16 rows of 128 B).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int ks) {
+  return tc::desc_sw128(tile + (ks >> 2) * (kT * 128) + (ks & 3) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int ks) {
+  return tc::desc_sw128(tile + ks * 16 * 128, kT * 128, 1024);
+}
+
+// acc (64 x 64) = A B^T, A and B 64 x D tiles, both K-major.
+template <int D> __device__ __forceinline__ void ss_product(float (&acc)[32], uint32_t a,
+                                                            uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) tc::wgmma_ss_m64n64(acc, kmajor(a, ks), kmajor(b, ks), ks > 0);
+}
+
+// acc (64 x D) += A B, A the bf16 fragments of a 64 x 64 accumulator
+// (a[ks] covers its columns 16ks..16ks+15), B a 64 x D tile, MN-major.
+template <int D> __device__ __forceinline__ void rs_product(float (&acc)[D / 2],
+                                                            const uint32_t (&a)[4][4],
+                                                            uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) tc::wgmma_pv<D>(acc, a[ks], mnmajor(b, ks));
+}
+
+// A 64 x D fp32 accumulator in bf16 into a swizzled tile at `tile`.
+template <int D> __device__ __forceinline__ void stage_tile(uint8_t* tile,
+                                                            const float (&acc)[D / 2]) {
+  const int lane = threadIdx.x & 31, rA = (threadIdx.x >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = rA + 8 * ((i >> 1) & 1), col = frag_col(i, lane);
+    *reinterpret_cast<uint32_t*>(tile + tc::sw128(row, col >> 3) + (col & 7) * 2) =
+        tc::pack_bf16(acc[i], acc[i + 1]);
+  }
+}
+
+// Rows 0..n-1 of a swizzled tile to dst + row * stride, 16 bytes a thread.
+template <int D> __device__ __forceinline__ void write_tile(const uint8_t* tile,
+                                                            __nv_bfloat16* dst, int n,
+                                                            size_t stride) {
+  using Tl = Tile<D>;
+  const int cc = threadIdx.x % Tl::kChunks, rc = threadIdx.x / Tl::kChunks;
+#pragma unroll
+  for (int i = 0; i < Tl::kPasses; ++i) {
+    const int m = rc + Tl::kRowsPerPass * i;
+    if (m < n)
+      *reinterpret_cast<uint4*>(dst + m * stride + cc * 8) =
+          *reinterpret_cast<const uint4*>(tile + tc::sw128(m, cc));
+  }
+}
+
+// Shared memory of both passes: six 64 x D tiles at a 1024-byte boundary,
+// then (dK/dV) two 512-byte (lse, delta) stages, then the two mbarriers.
+template <int D> constexpr int smem_bytes(bool with_ld) {
+  return 6 * Tile<D>::kBytes + (with_ld ? 1024 : 0) + 16 + 1024;
+}
+
+// dQ: block (query head, query tile from the last, batch row).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+             TcArgs a) {
+  constexpr int kTile = Tile<D>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base0 = tc::smem_u32(smem_raw);
+  const uint32_t pad = (1024 - (base0 & 1023)) & 1023;
+  uint8_t* sm = smem_raw + pad;
+  const uint32_t sQ = base0 + pad, sDO = sQ + kTile;
+  auto sK = [&](int st) { return sQ + (2 + 2 * st) * kTile; };
+  auto sV = [&](int st) { return sQ + (3 + 2 * st) * kTile; };
+  auto bar = [&](int st) { return sQ + 6 * kTile + 8 * st; };
+
+  const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.Hq / a.Hkv), q0 = qt * kT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    tc::mbar_init(bar(0), 1);
+    tc::mbar_init(bar(1), 1);
+    tc::mbar_init_fence();
+  }
+  const int qlo = a.ranges[2 * qt], qhi = a.ranges[2 * qt + 1];
+  const int* krange = a.ranges + 2 * a.nqt;
+  const bool q_full = q0 + kT <= a.Sq;
+  // this thread's rows rA, rA + 8: positions, lse * log2(e), delta
+  const int rA = warp * 16 + (lane >> 2);
+  const size_t plane = (size_t)a.B * a.Hq * a.Sq64;
+  int qp[2];
+  bool qv[2];
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + rA + 8 * r;
+    qv[r] = qi < a.Sq;
+    qp[r] = qv[r] ? a.qpos[qi] : 0;
+    const size_t row = ((size_t)b * a.Hq + h) * a.Sq64 + qi;
+    l2[r] = a.planes[row];
+    dl[r] = a.planes[plane + row];
+  }
+  __syncthreads();   // barriers initialised
+
+  auto next_k = [&](int kt) {
+    while (kt < a.nkt && !band(qlo, qhi, krange[2 * kt], krange[2 * kt + 1], a.causal, a.window))
+      ++kt;
+    return kt;
+  };
+  // one thread issues a tile's copies (with `first`, also Q and dO)
+  auto load = [&](int kt, int st, bool first) {
+    if (tid != 0) return;
+    tc::mbar_expect_tx(bar(st), (first ? 4 : 2) * kTile);
+#pragma unroll
+    for (int c = 0; c < Tile<D>::kAtoms; ++c) {
+      const uint32_t off = c * kT * 128;
+      if (first) {
+        tc::tma_load_4d(sQ + off, &tq, c * 64, h, q0, b, bar(st));
+        tc::tma_load_4d(sDO + off, &tdo, c * 64, h, q0, b, bar(st));
+      }
+      tc::tma_load_4d(sK(st) + off, &tk, c * 64, hk, kt * kT, b, bar(st));
+      tc::tma_load_4d(sV(st) + off, &tv, c * 64, hk, kt * kT, b, bar(st));
+    }
+  };
+
+  const float scale2 = a.scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int kt = next_k(0);
+  if (kt < a.nkt) load(kt, 0, true);
+  for (int it = 0; kt < a.nkt; ++it) {
+    const int st = it & 1, nxt = next_k(kt + 1), k0 = kt * kT;
+    if (nxt < a.nkt) load(nxt, st ^ 1, false);   // in flight while tile kt computes
+    const bool full = q_full && k0 + kT <= a.Skv &&
+                      all_live(qlo, qhi, krange[2 * kt], krange[2 * kt + 1], a.causal, a.window);
+    const uint32_t bits =
+        full ? ~0u : tile_bits(qp, qv, a.kpos, k0, a.Skv, true, a.causal, a.window);
+    tc::mbar_wait(bar(st), (it >> 1) & 1);
+
+    // ---- S = Q K^T, dP = dO V^T ----
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    tc::wgmma_fence();
+    ss_product<D>(s, sQ, sK(st));
+    tc::wgmma_commit();
+    ss_product<D>(dp, sDO, sV(st));
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();
+    tc::fence_regs(s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = (bits >> i) & 1 ? tc::ex2(s[i] * scale2 - l2[(i >> 1) & 1]) : 0.f;
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dp);
+    // ---- dS in bf16 (its fragment of keys 16ks..16ks+15 is the A fragment) ----
+    uint32_t da[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * ks + 2 * j;
+        const float d = dl[j & 1];
+        da[ks][j] = tc::pack_bf16(s[i] * (dp[i] - d) * a.scale, s[i + 1] * (dp[i + 1] - d) * a.scale);
+      }
+    }
+    // ---- dQ += dS K (K MN-major) ----
+    tc::wgmma_fence();
+    rs_product<D>(acc, da, sK(st));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(acc);
+    __syncthreads();   // stage st may be refilled
+    kt = nxt;
+  }
+
+  // ---- dQ in bf16, staged through the Q tile for 16-byte stores ----
+  __syncthreads();
+  stage_tile<D>(sm, acc);
+  __syncthreads();
+  write_tile<D>(sm, a.dq + (((size_t)b * a.Sq + q0) * a.Hq + h) * D, min(kT, a.Sq - q0),
+                (size_t)a.Hq * D);
+}
+
+// dK and dV (kPart 0), dV alone (1) or dK alone (2): block (kv head, key
+// tile, batch row), over the group's G heads and their live query tiles.
+template <int D, int kPart>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+              TcArgs a) {
+  constexpr bool kDV = kPart != 2, kDK = kPart != 1;
+  constexpr int kTile = Tile<D>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base0 = tc::smem_u32(smem_raw);
+  const uint32_t pad = (1024 - (base0 & 1023)) & 1023;
+  uint8_t* sm = smem_raw + pad;
+  const uint32_t sK = base0 + pad, sV = sK + kTile;
+  auto sQ = [&](int st) { return sK + (2 + 2 * st) * kTile; };
+  auto sDO = [&](int st) { return sK + (3 + 2 * st) * kTile; };
+  auto sLD = [&](int st) { return sK + 6 * kTile + 512 * st; };   // lse2[64], delta[64]
+  auto bar = [&](int st) { return sK + 6 * kTile + 1024 + 8 * st; };
+
+  const int hk = blockIdx.x, kt = blockIdx.y, b = blockIdx.z, k0 = kt * kT;
+  const int G = a.Hq / a.Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    tc::mbar_init(bar(0), 1);
+    tc::mbar_init(bar(1), 1);
+    tc::mbar_init_fence();
+  }
+  const int klo = a.ranges[2 * (a.nqt + kt)], khi = a.ranges[2 * (a.nqt + kt) + 1];
+  const bool k_full = k0 + kT <= a.Skv;
+  // this thread's keys rA, rA + 8
+  const int rA = warp * 16 + (lane >> 2);
+  int kp[2];
+  bool kv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ki = k0 + rA + 8 * r;
+    kv[r] = ki < a.Skv;
+    kp[r] = kv[r] ? a.kpos[ki] : 0;
+  }
+  const size_t plane = (size_t)a.B * a.Hq * a.Sq64;
+  __syncthreads();   // barriers initialised
+
+  auto next_q = [&](int qt) {
+    while (qt < a.nqt && !band(a.ranges[2 * qt], a.ranges[2 * qt + 1], klo, khi, a.causal, a.window))
+      ++qt;
+    return qt;
+  };
+  // one thread issues an item's copies: Q, dO and their (lse, delta) rows
+  // (with `first`, also K, and V when dK is computed)
+  auto load = [&](int gi, int qt, int st, bool first) {
+    if (tid != 0) return;
+    const int h = hk * G + gi;
+    tc::mbar_expect_tx(bar(st), 2 * kTile + 512 + (first ? (kDK ? 2 : 1) * kTile : 0));
+#pragma unroll
+    for (int c = 0; c < Tile<D>::kAtoms; ++c) {
+      const uint32_t off = c * kT * 128;
+      if (first) {
+        tc::tma_load_4d(sK + off, &tk, c * 64, hk, k0, b, bar(st));
+        if (kDK) tc::tma_load_4d(sV + off, &tv, c * 64, hk, k0, b, bar(st));
+      }
+      tc::tma_load_4d(sQ(st) + off, &tq, c * 64, h, qt * kT, b, bar(st));
+      tc::tma_load_4d(sDO(st) + off, &tdo, c * 64, h, qt * kT, b, bar(st));
+    }
+    const size_t row = ((size_t)b * a.Hq + h) * a.Sq64 + qt * kT;
+    tc::bulk_load(sLD(st), a.planes + row, 256, bar(st));
+    tc::bulk_load(sLD(st) + 256, a.planes + plane + row, 256, bar(st));
+  };
+
+  const float scale2 = a.scale * kLog2e;
+  float dva[kDV ? D / 2 : 2], dka[kDK ? D / 2 : 2];
+#pragma unroll
+  for (int i = 0; i < (kDV ? D / 2 : 2); ++i) dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kDK ? D / 2 : 2); ++i) dka[i] = 0.f;
+  const int q_first = next_q(0);
+  int gi = q_first < a.nqt ? 0 : G, qt = q_first;   // no live query tile: dK = dV = 0
+  if (gi < G) load(0, qt, 0, true);
+  for (int it = 0; gi < G; ++it) {
+    const int st = it & 1;
+    int ngi = gi, nq = next_q(qt + 1);
+    if (nq >= a.nqt) {
+      ++ngi;
+      nq = q_first;
+    }
+    if (ngi < G) load(ngi, nq, st ^ 1, false);   // in flight while this item computes
+    const int q0 = qt * kT;
+    const bool full = k_full && q0 + kT <= a.Sq &&
+                      all_live(a.ranges[2 * qt], a.ranges[2 * qt + 1], klo, khi, a.causal,
+                               a.window);
+    const uint32_t bits =
+        full ? ~0u : tile_bits(kp, kv, a.qpos, q0, a.Sq, false, a.causal, a.window);
+    tc::mbar_wait(bar(st), (it >> 1) & 1);
+
+    // ---- S^T = K Q^T (and dP^T = V dO^T) ----
+    float s[32], dp[kDK ? 32 : 2];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    tc::wgmma_fence();
+    ss_product<D>(s, sK, sQ(st));
+    tc::wgmma_commit();
+    if constexpr (kDK) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = 0.f;
+      ss_product<D>(dp, sV, sDO(st));
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();
+    } else {
+      tc::wgmma_wait<0>();
+    }
+    tc::fence_regs(s);
+    const float* ld = reinterpret_cast<const float*>(sm + (sLD(st) - sK));
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = (bits >> i) & 1 ? tc::ex2(s[i] * scale2 - ld[frag_col(i, lane)]) : 0.f;
+    // ---- dV += bf16(P^T) dO (dO MN-major) ----
+    uint32_t pa[4][4], da[4][4];
+    if constexpr (kDV) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pa[ks][j] = tc::pack_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1]);
+      }
+      tc::wgmma_fence();
+      rs_product<D>(dva, pa, sDO(st));
+      tc::wgmma_commit();
+    }
+    // ---- dS^T = P^T (dP^T - delta) scale; dK += bf16(dS^T) Q (Q MN-major) ----
+    if constexpr (kDK) {
+      tc::wgmma_wait<kDV ? 1 : 0>();
+      tc::fence_regs(dp);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * ks + 2 * j, c = frag_col(i, lane);
+          da[ks][j] = tc::pack_bf16(s[i] * (dp[i] - ld[kT + c]) * a.scale,
+                                    s[i + 1] * (dp[i + 1] - ld[kT + c + 1]) * a.scale);
+        }
+      }
+      tc::wgmma_fence();
+      rs_product<D>(dka, da, sQ(st));
+      tc::wgmma_commit();
+    }
+    tc::wgmma_wait<0>();
+    if constexpr (kDV) tc::fence_regs(dva);
+    if constexpr (kDK) tc::fence_regs(dka);
+    __syncthreads();   // stage st may be refilled
+    gi = ngi;
+    qt = nq;
+  }
+
+  // ---- dK, dV in bf16, staged through the K and V tiles ----
+  __syncthreads();
+  if constexpr (kDK) stage_tile<D>(sm, dka);
+  if constexpr (kDV) stage_tile<D>(sm + kTile, dva);
+  __syncthreads();
+  const size_t out = (((size_t)b * a.Skv + k0) * a.Hkv + hk) * D;
+  const int n = min(kT, a.Skv - k0);
+  if constexpr (kDK) write_tile<D>(sm, a.dk + out, n, (size_t)a.Hkv * D);
+  if constexpr (kDV) write_tile<D>(sm + kTile, a.dv + out, n, (size_t)a.Hkv * D);
+}
+
+template <typename Kern>
+cudaError_t run(Kern kern, dim3 grid, int smem, cudaStream_t st, const CUtensorMap (&m)[4],
+                const TcArgs& a) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kThreads, smem, st>>>(m[0], m[1], m[2], m[3], a);
+  return cudaGetLastError();
+}
+
+// prep, dQ, then dK and dV (D = 256: dV, then dK), in that order.
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const TcArgs& a,
+                      cudaStream_t st) {
+  CUtensorMap m[4];   // q, k, v, dout: boxes of 64 rows x 64 columns of one head
+  cudaError_t err = tc::bshd_map(&m[0], q, false, a.B, a.Sq, a.Hq, D, kT, 1, 64);
+  if (err == cudaSuccess) err = tc::bshd_map(&m[1], k, false, a.B, a.Skv, a.Hkv, D, kT, 1, 64);
+  if (err == cudaSuccess) err = tc::bshd_map(&m[2], v, false, a.B, a.Skv, a.Hkv, D, kT, 1, 64);
+  if (err == cudaSuccess) err = tc::bshd_map(&m[3], a.dout, false, a.B, a.Sq, a.Hq, D, kT, 1, 64);
+  if (err != cudaSuccess) return err;
+  const long long nrow = (long long)a.B * a.Hq * a.Sq64;
+  const long long blocks = (nrow + kWarps - 1) / kWarps + (a.nqt + a.nkt + kWarps - 1) / kWarps;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  prep_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gq(a.Hq, a.nqt, a.B), gk(a.Hkv, a.nkt, a.B);
+  err = run(dq_tc_kernel<D>, gq, smem_bytes<D>(false), st, m, a);
+  if (err != cudaSuccess) return err;
+  if constexpr (D == 256) {
+    err = run(dkv_tc_kernel<D, 1>, gk, smem_bytes<D>(true), st, m, a);
+    if (err != cudaSuccess) return err;
+    return run(dkv_tc_kernel<D, 2>, gk, smem_bytes<D>(true), st, m, a);
+  } else {
+    return run(dkv_tc_kernel<D, 0>, gk, smem_bytes<D>(true), st, m, a);
+  }
 }
 
 }  // namespace
 
-// All tensors contiguous in the layouts above; `delta` (B, Sq, Hq) fp32
-// scratch; window <= 0 means none.
+// The backward's kernels on one stream, in order: `use_tc` names the route
+// (SIMT: delta, dq, dk/dv; tensor cores: prep, dq, dk/dv, at D = 256 dv
+// and dk).  All tensors contiguous in the layouts above;
+// `scratch` fp32: SIMT delta (B, Sq, Hq), tensor cores the (2, B, Hq,
+// ceil(Sq / 64) * 64) planes; `ranges` int32 (ceil(Sq / 64) + ceil(Skv /
+// 64), 2), tensor cores only; window <= 0 means none.
 extern "C" int rt_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* delta,
-                            const void* qpos, const void* kpos, void* dq, void* dk,
-                            void* dv, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                            int causal, int window, float scale, int dtype, void* stream) {
+                            const void* dout, const void* lse, void* scratch, void* ranges,
+                            const void* qpos, const void* kpos, void* dq, void* dk, void* dv,
+                            int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+                            int window, float scale, int dtype, int use_tc, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 1 || D > 256 ||
       Hq > 65535 || B > 65535)
     return cudaErrorInvalidValue;
-  Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (use_tc) {
+    const int nqt = (Sq + kT - 1) / kT, nkt = (Skv + kT - 1) / kT;
+    if (dtype != rt::kBF16 || (D != 64 && D != 128 && D != 256) || nqt > 65535 || nkt > 65535)
+      return cudaErrorInvalidValue;
+    using BF = __nv_bfloat16;
+    const TcArgs a{static_cast<const BF*>(o), static_cast<const BF*>(dout),
+                   static_cast<const float*>(lse), static_cast<float*>(scratch),
+                   static_cast<int*>(ranges), static_cast<const int*>(qpos),
+                   static_cast<const int*>(kpos), static_cast<BF*>(dq), static_cast<BF*>(dk),
+                   static_cast<BF*>(dv), B, Sq, Skv, Hq, Hkv, D, causal, window, nqt * kT, nqt,
+                   nkt, scale};
+    if (D == 64) return launch_tc<64>(q, k, v, a, st);
+    if (D == 128) return launch_tc<128>(q, k, v, a, st);
+    return launch_tc<256>(q, k, v, a, st);
+  }
+  Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(scratch),
          static_cast<const int*>(qpos), static_cast<const int*>(kpos), dq, dk, dv,
          B, Sq, Skv, Hq, Hkv, D, causal, window, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rt::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
-    return launch_d<T>(a, st);
+    return launch_simt_d<T>(a, st);
   });
 }

@@ -8,8 +8,9 @@ else; `mha_flash.tc_launches` counts those of the tensor-core route.
 
 `mha_flash_bwd` (kernel K6, `flash_bwd.cu`): the training path's
 attention gradient; a CPU tensor runs `ref.flash_bwd_ref`, a CUDA tensor
-the kernel or raises.  `mha_flash_bwd.launches` counts its calls that
-launched the kernel."""
+launches the kernels of the route `_bwd_route` names, or raises.
+`mha_flash_bwd.launches` counts its calls that launched a route,
+`mha_flash_bwd.tc_launches` those of the tensor-core route."""
 from __future__ import annotations
 
 import ctypes
@@ -24,9 +25,12 @@ from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, mha_flash_ref
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"rt_flash_attention": [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
                "rt_flash_attention_tc": [_P] * 5 + [_I] * 8 + [_F, _P]}
-_BWD_SIGNATURES = {"rt_flash_bwd": [_P] * 12 + [_I] * 8 + [_F, _I, _P]}
-# what the backward kernel takes: D up to 256, any G = Hq / Hkv
+_BWD_SIGNATURES = {"rt_flash_bwd": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 2 + [_P]}
+# what the backward kernels take: D up to 256, any G = Hq / Hkv; the
+# tensor-core route takes bf16 q, k and v at these head dims
 BWD_MAX_HEAD_DIM = 256
+BWD_TC_HEAD_DIMS = (64, 128, 256)
+BWD_TILE = 64   # rows of the tensor-core route's query and key tiles
 _MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
 # what the tensor-core route takes besides bf16 q, k and v
 TC_HEAD_DIMS = (64, 128)
@@ -99,6 +103,25 @@ mha_flash.launches = 0
 mha_flash.tc_launches = 0
 
 
+def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which route of the attention backward takes these operands, from
+    dtypes and shapes alone: "tc" (tensor cores) for bf16 q, k and v with
+    D in BWD_TC_HEAD_DIMS and any G = Hq / Hkv; "simt" (the CUDA-core
+    kernels) for float32, and for bf16 with any other D <= 256.  Raises for
+    what neither takes."""
+    B, Sq, Hq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    Hkv = k.shape[2]
+    if Hkv < 1 or Hq % Hkv or D > BWD_MAX_HEAD_DIM:
+        raise ValueError(f"Hq={Hq} Hkv={Hkv} D={D}: need Hkv | Hq and D <= {BWD_MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        K.dtype_code(name, t)
+    if q.dtype == k.dtype == v.dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
 def mha_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                   lse: torch.Tensor, dout: torch.Tensor, q_positions: torch.Tensor,
                   kv_positions: torch.Tensor, *, causal: bool = True,
@@ -110,20 +133,19 @@ def mha_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     positions (Sq,) / (Skv,) absolute; a causal mask and an optional
     sliding window.  -> (dq, dk, dv) in the inputs' dtype.  On the card
     every float operand must be contiguous and of one dtype (fp32 or
-    bf16), D <= 256; q_chunk and kv_chunk shape only the plain version's
-    tiles (the order of its sums)."""
+    bf16), D <= 256, and the call takes the route `_bwd_route` names;
+    q_chunk and kv_chunk shape only the plain version's tiles (the order
+    of its sums)."""
     tensors = (q, k, v, out, lse, dout, q_positions, kv_positions)
     if not K.on_cuda(*tensors):
         return flash_bwd_ref(q, k, v, out, lse, dout, q_positions, kv_positions,
                              causal=causal, window=window, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
+    route = _bwd_route(q, k, v)
     B, Sq, Hq, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
     Skv, Hkv = k.shape[1], k.shape[2]
-    if Hq % Hkv or D > BWD_MAX_HEAD_DIM or min(B, Sq, Skv, Hq) < 1:
-        raise ValueError(f"Hq={Hq} Hkv={Hkv} D={D}: need Hkv | Hq, D <= "
-                         f"{BWD_MAX_HEAD_DIM}, non-empty operands")
+    if min(B, Sq, Skv, Hq) < 1:
+        raise ValueError(f"q {tuple(q.shape)} k {tuple(k.shape)}: need non-empty operands")
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (B, Sq, Hq):
         raise ValueError(f"out {tuple(out.shape)} / dout {tuple(dout.shape)} / lse "
                          f"{tuple(lse.shape)}: want {tuple(q.shape)} and {(B, Sq, Hq)}")
@@ -138,18 +160,26 @@ def mha_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     if q_positions.shape != (Sq,) or kv_positions.shape != (Skv,):
         raise ValueError(f"positions {tuple(q_positions.shape)} / {tuple(kv_positions.shape)}:"
                          f" want ({Sq},) / ({Skv},)")
-    delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+    dev = q.device
+    if route == "tc":
+        nqt, nkt = -(-Sq // BWD_TILE), -(-Skv // BWD_TILE)
+        scratch = torch.empty((2, B, Hq, nqt * BWD_TILE), dtype=torch.float32, device=dev)
+        ranges = torch.empty((nqt + nkt, 2), dtype=torch.int32, device=dev)
+    else:
+        scratch, ranges = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev), None
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library("flash_bwd", _BWD_SIGNATURES)
     with K.on_device(q):
-        err = lib.rt_flash_bwd(*(K.ptr(t) for t in (q, k, v, out, dout, lse, delta,
+        err = lib.rt_flash_bwd(*(K.ptr(t) for t in (q, k, v, out, dout, lse, scratch, ranges,
                                                      q_positions, kv_positions, dq, dk, dv)),
                                B, Sq, Skv, Hq, Hkv, D, int(causal),
                                0 if window is None else int(window), 1.0 / D ** 0.5, code,
-                               K.stream_of(q))
-    _build.check(lib, err, "flash_bwd")
+                               int(route == "tc"), K.stream_of(q))
+    _build.check(lib, err, f"flash_bwd ({route})")
     mha_flash_bwd.launches += 1
+    mha_flash_bwd.tc_launches += int(route == "tc")
     return dq, dk, dv
 
 
 mha_flash_bwd.launches = 0
+mha_flash_bwd.tc_launches = 0

@@ -7,10 +7,12 @@ versions on the card (`test_torch_cuda.py`).  Here the rule is written out
 again independently and compared with `_route` over every dtype, head
 dim, group size and mask-row count the routes distinguish."""
 import itertools
+import re
 
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention.ops import _bwd_route as bwd_route
 from repro_torch.kernels.flash_attention.ops import _route as flash_route
 from repro_torch.kernels.selective_attention.ops import _route as selective_route
 from repro_torch.kernels.selective_attention.ops import check_live_tiles
@@ -103,3 +105,25 @@ def test_selective_liveness_tiles_per_route(G):
         check_live_tiles("tc", G, 16, 64)
     with pytest.raises(ValueError, match="simt route"):
         check_live_tiles("simt", G, 8, 32)
+
+
+@pytest.mark.parametrize("D", [16, 64, 112, 128, 256, 288])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=lambda d: "-".join(str(t)[6:] for t in d))
+def test_bwd_route(dtypes, D):
+    """The attention backward: all-bf16 operands at D 64, 128 or 256 take
+    the tensor cores at any group size; fp32, mixed dtypes and bf16 at
+    any other D <= 256 the SIMT kernels; D > 256 and Hkv not dividing Hq
+    are refused."""
+    qd, kd, vd = dtypes
+    for G in (1, 4, 6, 12):
+        q = torch.zeros(B, 3, HKV * G, D, dtype=qd)
+        k, v = torch.zeros(B, 5, HKV, D, dtype=kd), torch.zeros(B, 5, HKV, D, dtype=vd)
+        if D > 256:
+            with pytest.raises(ValueError, match=re.escape("D <= 256")):
+                bwd_route(q, k, v)
+            continue
+        tc = qd == kd == vd == BF16 and D in (64, 128, 256)
+        assert bwd_route(q, k, v) == ("tc" if tc else "simt")
+        odd = torch.zeros(B, 3, HKV * G + 1, D, dtype=qd)
+        with pytest.raises(ValueError, match=re.escape("Hkv | Hq")):
+            bwd_route(odd, k, v)

@@ -828,6 +828,30 @@ def _bwd_inputs(cuda, case, dtype, D=None, G=None, seed=0):
             dict(causal=causal, window=window))
 
 
+def _bwd_want_route(dtype, D):
+    """K6's route, written out again: the tensor cores take bf16 at D 64,
+    128 or 256, the SIMT kernels everything else."""
+    return "tc" if dtype == torch.bfloat16 and D in (64, 128, 256) else "simt"
+
+
+def _bwd_check(cuda, args, kw, tol):
+    """One K6 call on the route the rule names (one more launch, a tensor-
+    core one iff "tc"), within tol x max(1, max|grad|) of `flash_bwd_ref`."""
+    from repro_torch.kernels.flash_attention.ops import _bwd_route, mha_flash_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+
+    q = args[0]
+    route = _bwd_want_route(q.dtype, q.shape[3])
+    assert _bwd_route(*args[:3]) == route
+    before = (mha_flash_bwd.launches, mha_flash_bwd.tc_launches)
+    got = mha_flash_bwd(*args, **kw)
+    _launched(mha_flash_bwd, route, before)
+    want = flash_bwd_ref(*args, **kw)
+    for a, b in zip(got, want):
+        _close(a, b, tol * max(1.0, float(b.float().abs().max())))
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(_BWD_CASES))
@@ -835,32 +859,75 @@ def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
     """K6 against `flash_bwd_ref` on the card: fp32 within 1e-4, bf16
     within 2e-2 of max(1, max|grad|) (the same roundings of p and dS; the
     order of sums differs)."""
-    from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
-    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
-
     args, kw = _bwd_inputs(cuda, case, dtype)
-    before = mha_flash_bwd.launches
-    got = mha_flash_bwd(*args, **kw)
-    assert mha_flash_bwd.launches == before + 1
-    want = flash_bwd_ref(*args, **kw)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for a, b in zip(got, want):
-        scale = max(1.0, float(b.float().abs().max()))
-        _close(a, b, tol * scale)
+    _bwd_check(cuda, args, kw, 1e-4 if dtype == torch.float32 else 2e-2)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 112, 128, 256])
 @pytest.mark.parametrize("G", [1, 3, 6, 12])
 def test_flash_bwd_kernel_takes_every_group_and_head_dim(cuda, G, D):
-    from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
-    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
-
     args, kw = _bwd_inputs(cuda, "window", torch.bfloat16, D=D, G=G, seed=G + D)
-    got = mha_flash_bwd(*args, **kw)
-    want = flash_bwd_ref(*args, **kw)
-    for a, b in zip(got, want):
-        _close(a, b, 2e-2 * max(1.0, float(b.float().abs().max())))
+    _bwd_check(cuda, args, kw, 2e-2)
+
+
+# K6's tensor-core route over several 64-row tiles: (B, Sq, Skv, Hkv,
+# causal, window, q offset); Hq = Hkv * G
+_BWD_TC_CASES = {
+    "causal": (2, 192, 192, 2, True, None, 0),
+    "window": (1, 256, 256, 2, True, 70, 0),
+    "full": (2, 100, 150, 2, False, None, 0),
+    "full_window": (1, 200, 180, 2, False, 50, 0),
+    "causal_suffix": (1, 90, 250, 2, True, None, 160),
+    "ragged": (2, 77, 77, 2, True, None, 0),
+}
+
+
+def _bwd_tc_inputs(cuda, case, G, D, seed=0):
+    from repro_torch.models.layers import chunked_attention
+
+    B, Sq, Skv, Hkv, causal, window, off = _BWD_TC_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    q = torch.randn(B, Sq, Hkv * G, D, generator=g, **bf)
+    k = torch.randn(B, Skv, Hkv, D, generator=g, **bf)
+    v = torch.randn(B, Skv, Hkv, D, generator=g, **bf)
+    dout = torch.randn(B, Sq, Hkv * G, D, generator=g, **bf)
+    qpos = torch.arange(off, off + Sq, device=cuda, dtype=torch.int32)
+    kpos = torch.arange(Skv, device=cuda, dtype=torch.int32)
+    out, lse = chunked_attention(q, k, v, causal=causal, q_positions=qpos, kv_positions=kpos,
+                                 sliding_window=window, q_chunk=64, kv_chunk=64,
+                                 return_lse=True)
+    return ((q, k, v, out.contiguous(), lse.contiguous(), dout, qpos, kpos),
+            dict(causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_BWD_TC_CASES))
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 6, 12])
+def test_flash_bwd_tc_route_matches_plain(cuda, G, D, case):
+    """The tensor-core route against `flash_bwd_ref`: causal, windowed,
+    non-causal (with and without a window), a suffix of queries at offset
+    positions against a longer key range, and a ragged length; bf16 within
+    2e-2 of max(1, max|grad|)."""
+    args, kw = _bwd_tc_inputs(cuda, case, G, D, seed=G * 1000 + D)
+    _bwd_check(cuda, args, kw, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_bwd_tc_route_is_deterministic(cuda, D):
+    """No atomics: two calls on the same inputs give bitwise equal dQ, dK
+    and dV (a kv head's dK / dV sums G = 6 heads and every query tile)."""
+    from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
+
+    args, kw = _bwd_tc_inputs(cuda, "window", 6, D, seed=D)
+    first = [t.clone() for t in mha_flash_bwd(*args, **kw)]
+    second = mha_flash_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
