@@ -18,8 +18,10 @@ else (no network, no JAX).  Phases:
    kernel must have launched in this run, the flash and selective
    kernels on their tensor-core (bf16) routes.  A warm rerun of the same
    prefill and decode, without the batcher, splits the time by stage
-   (host clock, card synchronised at each span) and reads the card's
-   busy share and host<->card copy time under torch.profiler;
+   (host clock, card synchronised at each span), counts the block
+   gather's launches (one per selective pass, all of its layers, and one
+   per request for layer 0) and reads the card's busy share and
+   host<->card copy time under torch.profiler;
 2c. chunked serving: the same system and trace through the chunked
    (unified-step) scheduler at full depth; the block-gather, selective
    (tensor-core route) and paged-decode kernels must each have launched
@@ -81,14 +83,19 @@ else (no network, no JAX).  Phases:
    reported; B1, B2 and B4 must launch); then one train step of every
    LM, recsys and SchNet cell at reduced() size on the card against the
    CPU.  K6 takes its tensor-core route on every backward call of the
-   five archs (bf16, D 128 / 256) and its SIMT route on kimi-k2's and the
-   ranker's; it is held to its plain version on the five archs' recorded
-   calls and the ranker's, a second call bitwise equal, and timed at each
-   of them (each of its kernels apart) beside its bound and SDPA's
-   backward; K7 at Wide&Deep's call beside one `index_add_`;
+   five archs (bf16, D 128 / 256) and its small-head route (D <= 32) on
+   kimi-k2's and the ranker's; it is held to its plain version on the
+   five archs' recorded calls and the ranker's, a second call bitwise
+   equal, and timed at each of them (each of its kernels apart) beside its
+   bound and SDPA's backward, at the ranker's call in turns with its SIMT
+   route; K7 at Wide&Deep's call beside one `index_add_`;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
-   block gather bitwise where it copies); the served logits finite; and
+   block gather bitwise where it copies, at its largest all-layer call of
+   a selective pass and its largest layer-0 copy, each also timed as one
+   launch per layer through the one-plane wrapper, with host and device
+   time apart, the copy in turns with two `index_select`s); the served
+   logits finite; and
    the tiny rcllm model served on the card, wave and chunked, decodes
    the same tokens as on the CPU (the plain versions).  The flash and
    selective kernels have two routes each: the tensor-core route is
@@ -140,7 +147,6 @@ from repro_torch.core import metrics as MET  # noqa: E402
 from repro_torch.data import synth as SY  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.block_gather import ops as BO  # noqa: E402
-from repro_torch.kernels.block_gather.ref import block_gather_ref, gather_pages  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as EO  # noqa: E402
 from repro_torch.kernels.embedding_bag import ref as EREF  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
@@ -245,7 +251,9 @@ LM_RESIDENT_GB = 2.0
 # kernels with two routes, each with the suffix of its SIMT route's count:
 # "<name>" counts and records the tensor-core route (bf16, the served and
 # trained paths at full width), "<name><suffix>" the SIMT kernels (the
-# tiny fp32 card == CPU path; for K6 also bf16 at D 16: kimi-k2 at reduced())
+# tiny fp32 card == CPU path).  K6 has a third route, counted and recorded
+# as "flash_bwd:small" (D <= 32: the tiny ranker's fp32 backward, kimi-k2's
+# bf16 at reduced()); its SIMT kernels take what no other route takes
 OTHER_ROUTE = {"flash_attention": ":fp32", "selective_attention": ":fp32", "flash_bwd": ":simt"}
 
 KERNELS = {
@@ -261,7 +269,7 @@ KERNELS = {
         source="src/repro_torch/kernels/paged_attention/paged_decode.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:112"),
     "block_gather": dict(
-        fn=BO.assemble_kv, source="src/repro_torch/kernels/block_gather/gather.cu",
+        fn=BO.PoolGather, source="src/repro_torch/kernels/block_gather/gather.cu",
         replaces="src/repro/kernels/block_gather/kernel.py:41"),
     "embedding_bag": dict(
         fn=EO.bag_sum, source="src/repro_torch/kernels/embedding_bag/bag.cu",
@@ -292,7 +300,9 @@ def reset_counts():
         spec["fn"].launches = 0
         if name in OTHER_ROUTE:
             spec["fn"].tc_launches = 0
-    BO.assemble_kv.pool2_launches = 0
+    BO.PoolGather.layer_launches = 0
+    BO.PoolGather.pool2_launches = 0
+    FO.mha_flash_bwd.small_launches = 0
 
 
 # ------------------------------------------------------------- recording
@@ -367,26 +377,39 @@ class StoreDecodeRecorder(Recorder):
 
 
 class GatherRecorder:
-    """Keeps the inputs of the largest rotated (the selective layers') and
-    the largest unrotated (layer 0's Eq. 3 rows) block-gather call, and of
-    the largest rotated call that also reads the second pool (store-shared
-    prefix rows, "prefix").  The pools are planes of the read-only
-    cached-row pool, or of the arena at store-owned slots that no request
-    writes, and the tables are never written after the call, so
-    references suffice."""
+    """Keeps the inputs of the largest block-gather call (by table size) of
+    each kind: "layers" (a selective pass: layers 1..L-1 rotated, with
+    their pre-RoPE base, in one launch), "copy" (layer 0's Eq. 3 rows),
+    and the same with the second pool (store-shared prefix rows):
+    "prefix" and "prefix_copy".  Called before every `PoolGather` call
+    (`patch_gather`) with the binding and the call's arguments.  The pools
+    are the read-only cached-row pool, or the arena at store-owned slots
+    that no request writes, and the tables are never written after the
+    call, so references suffice."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self):
         self.calls = {}
 
-    def __call__(self, *args, **kwargs):
-        mode = "rotate" if kwargs.get("rotate", True) else "copy"
-        if kwargs.get("pool2_k") is not None:
-            mode = "prefix" if mode == "rotate" else "prefix_copy"
-        size = args[2].numel()
+    def __call__(self, g, table, positions, layers, rotate, keep_raw):
+        mode = "layers" if rotate else "copy"
+        if g.two:
+            mode = "prefix" if rotate else "prefix_copy"
+        size = table.numel()
         if size > self.calls.get(mode, (-1,))[0]:
-            self.calls[mode] = (size, args, dict(kwargs))
-        return self.fn(*args, **kwargs)
+            self.calls[mode] = (size, (g, table, positions, layers, rotate, keep_raw))
+
+
+def patch_gather(before):
+    """Make every block-gather call (`PoolGather.__call__`) first call
+    before(binding, table, positions, layers, rotate, keep_raw).  -> the
+    original method, to restore."""
+    orig = BO.PoolGather.__call__
+
+    def call(self, table, positions=None, layers=0, *, rotate=True, keep_raw=False):
+        before(self, table, positions, layers, rotate, keep_raw)
+        return orig(self, table, positions, layers, rotate=rotate, keep_raw=keep_raw)
+    BO.PoolGather.__call__ = call
+    return orig
 
 
 class BagRecorder:
@@ -407,15 +430,15 @@ def install_recorders():
     rec = {"flash_attention": Recorder(FO.mha_flash),
            "selective_attention": Recorder(SO.selective_mha),
            "paged_decode_attention": Recorder(PO.paged_decode_mha, _paged_snapshot),
-           "block_gather": GatherRecorder(BO.assemble_kv)}
+           "block_gather": GatherRecorder()}
     patches = [(ENG, "mha_flash", rec["flash_attention"]),
                (TT, "mha_flash", rec["flash_attention"]),
                (ENG, "selective_mha", rec["selective_attention"]),
-               (BE, "paged_decode_mha", rec["paged_decode_attention"]),
-               (ENG, "assemble_kv", rec["block_gather"])]
+               (BE, "paged_decode_mha", rec["paged_decode_attention"])]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, r in patches:
         setattr(mod, name, r)
+    saved.append((BO.PoolGather, "__call__", patch_gather(rec["block_gather"])))
     return rec, saved
 
 
@@ -423,13 +446,6 @@ def install_recorders():
 def plain_call(name, args, kw):
     if name == "embedding_bag":
         return embedding_bag_ref(*args)
-    if name == "block_gather":
-        k2, v2 = kw.get("pool2_k"), kw.get("pool2_v")
-        k, v = block_gather_ref(*args, rope_theta=kw.get("rope_theta", 1e4),
-                                rotate=kw.get("rotate", True), pool2_k=k2, pool2_v=v2)
-        if not kw.get("keep_raw"):
-            return k, v
-        return k, v, gather_pages(args[0], args[2].long(), k2)
     if name == "flash_attention":
         return mha_flash_ref(*args, **kw)
     if name == "selective_attention":
@@ -458,12 +474,6 @@ def library_call(name, args, kw):
     if name == "embedding_bag":
         table, ids = args
         return lambda: F.embedding_bag(ids, table, mode="sum")
-    if name == "block_gather":
-        if kw.get("rotate", True) or kw.get("pool2_k") is not None:
-            return None           # no one PyTorch call gathers and rotates, or
-                                  # gathers from two pools
-        pk, pv, bt = args[0], args[1], args[2].long()
-        return lambda: (torch.index_select(pk, 0, bt), torch.index_select(pv, 0, bt))
     q = args[0]
     B, Sq, Hq, D = q.shape
     if name == "flash_attention":
@@ -506,14 +516,6 @@ def work(name, args, kw, out):
         table, ids = args
         rows = ids.numel() * table.shape[1]
         return nbytes(ids) + rows * table.element_size() + nbytes(out), rows
-    if name == "block_gather":
-        # each selected K and V row read once, every output written once;
-        # a rotation is 4 products and 2 sums per key pair (3 per element)
-        pk, pv, bt, pos = args
-        rows = bt.numel() * pk[0].numel()
-        reads = rows * (pk.element_size() + pv.element_size()) + nbytes(bt)
-        rot = kw.get("rotate", True)
-        return reads + (nbytes(pos) if rot else 0) + nbytes(*out), 3 * rows if rot else 0
     q = args[0]
     D = q.shape[-1]
     if name == "flash_attention":
@@ -661,13 +663,13 @@ def device_ms(fn, reps=20, flush=None, pad=3, lead=256):
 
 
 class Spans:
-    """Inclusive host-clock seconds per wrapped function.  The card is
-    synchronised at entry and exit, so device work lands in the span
-    that issued it (this slows the run: the spans are taken in a run of
-    their own, never in the served one)."""
+    """Inclusive host-clock seconds (`s`) and calls (`n`) per wrapped
+    function.  The card is synchronised at entry and exit, so device work
+    lands in the span that issued it (this slows the run: the spans are
+    taken in a run of their own, never in the served one)."""
 
     def __init__(self):
-        self.s, self.saved = {}, []
+        self.s, self.n, self.saved = {}, {}, []
 
     def wrap(self, owner, name, label):
         fn = getattr(owner, name)
@@ -678,6 +680,7 @@ class Spans:
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             self.s[label] = self.s.get(label, 0.0) + time.perf_counter() - t0
+            self.n[label] = self.n.get(label, 0) + 1
             return out
         self.saved.append((owner, name, owner.__dict__[name]))
         setattr(owner, name, timed)
@@ -763,17 +766,23 @@ def shapes(args, kw):
 
 
 def counts():
-    """Launches per kernel since the last reset_counts(), the two routes of
-    OTHER_ROUTE's kernels apart."""
+    """Launches per kernel since the last reset_counts(): the two routes of
+    OTHER_ROUTE's kernels apart, K6's small-head route apart
+    ("flash_bwd:small"), and of all the block gather's launches those that
+    gathered a range of layers ("block_gather:layers") and those that read
+    the second pool ("block_gather:prefix")."""
     out = {}
     for n, spec in KERNELS.items():
         fn = spec["fn"]
         if n in OTHER_ROUTE:
             out[n] = fn.tc_launches
-            out[n + OTHER_ROUTE[n]] = fn.launches - fn.tc_launches
+            out[n + OTHER_ROUTE[n]] = (fn.launches - fn.tc_launches
+                                       - getattr(fn, "small_launches", 0))
         else:
             out[n] = fn.launches
-    out["block_gather:prefix"] = BO.assemble_kv.pool2_launches
+    out["flash_bwd:small"] = FO.mha_flash_bwd.small_launches
+    out["block_gather:layers"] = BO.PoolGather.layer_launches
+    out["block_gather:prefix"] = BO.PoolGather.pool2_launches
     return out
 
 
@@ -825,7 +834,7 @@ def timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=None):
     lib_ms = time_ms(lib) if lib is not None else None
     b, fl = work(name, a, kw, out)
     t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[wdt] * 1e3
-    label = label or (name if kw.get("rotate", True) else f"{name}:copy")
+    label = label or name
     rec = {"name": label, "route": "cuda", "source": spec["source"],
            "replaces": spec["replaces"], "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -844,52 +853,180 @@ def timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=None):
     return rec
 
 
-def gather_records(calls, spec, launches, modes=("rotate", "copy")):
+def gather_work(call, out):
+    """(bytes, flops) of a block-gather call: the K and V page of each
+    distinct table entry read once per layer (pad entries all name the zero
+    row, and rows that several requests of a batch share are named again;
+    an entry past both pools reads nothing), the table (and positions)
+    once, every output written once; a rotation is 4 products and 2 sums
+    per key pair (3 per output element)."""
+    g, table, positions, layers, rotate, _ = call
+    n_layers = 1 if isinstance(layers, int) else len(layers)
+    page_elems = g.page * int(np.prod(g.tail))
+    n_entries = g.pool_k.shape[1] + (g.pool2_k.shape[1] if g.two else 0)
+    distinct = torch.unique(table)
+    n_read = int(((distinct >= 0) & (distinct < n_entries)).sum())
+    reads = (n_read * page_elems * n_layers * (g.pool_k.element_size() + g.pool_v.element_size())
+             + nbytes(table))
+    return (reads + (nbytes(positions) if rotate else 0) + nbytes(*out),
+            3 * table.numel() * page_elems * n_layers if rotate else 0)
+
+
+def retyped(call, dt):
+    """A recorded block-gather call with its pools cast to `dt`: the second
+    pool cut to the arena slots the table reads (the table renumbered), so
+    the arena is not copied whole."""
+    g, table, positions, layers, rotate, keep_raw = call
+    if dt == g.pool_k.dtype:
+        return call
+    extra = ()
+    if g.two:
+        n1 = g.pool_k.shape[1]
+        t = table.long()
+        in2 = t >= n1
+        used, inv = torch.unique(t[in2] - n1, return_inverse=True)
+        extra = (g.pool2_k[:, used].to(dt), g.pool2_v[:, used].to(dt))
+        t[in2] = n1 + inv
+        table = t.int()
+    h = BO.PoolGather(g.pool_k.to(dt), g.pool_v.to(dt), *extra, rope_theta=g.rope_theta)
+    return h, table, positions, layers, rotate, keep_raw
+
+
+def run_gather(call):
+    g, table, positions, layers, rotate, keep_raw = call
+    return g(table, positions, layers, rotate=rotate, keep_raw=keep_raw)
+
+
+def per_layer_gather(call):
+    """The same gather as one launch per layer through the one-plane
+    wrapper `assemble_kv`, which binds the pools and checks every operand
+    on each call: the launch count of the design before one launch took
+    every layer, but this package's wrapper, not the earlier one (that
+    comparison is `scripts/gather_host_cost.py`'s).  -> (function,
+    launches a call)."""
+    g, table, positions, layers, rotate, keep_raw = call
+    ls = [layers] if isinstance(layers, int) else list(layers)
+    n = table.shape[0]
+    pos = positions.reshape(n, g.page) if rotate else table.reshape(n, g.page)
+    kw = dict(rope_theta=g.rope_theta, rotate=rotate, keep_raw=keep_raw)
+
+    def run():
+        for layer in ls:
+            two = dict(pool2_k=g.pool2_k[layer], pool2_v=g.pool2_v[layer]) if g.two else {}
+            BO.assemble_kv(g.pool_k[layer], g.pool_v[layer], table, pos, **kw, **two)
+    return run, len(ls)
+
+
+def in_turns(fn, lib, rounds=2):
+    """CUDA-event ms of `fn` and `lib` in turns, K L L K per round.  ->
+    {"pairs": [(fn ms, lib ms)] of adjacent turns, "verdict": "no slower"
+    or "slower" when every pair agrees, else "unresolved"}."""
+    pairs = []
+    for _ in range(rounds):
+        k1, l1, l2, k2 = time_ms(fn), time_ms(lib), time_ms(lib), time_ms(fn)
+        pairs += [(k1, l1), (k2, l2)]
+    wins = [k <= lb for k, lb in pairs]
+    verdict = "no slower" if all(wins) else "slower" if not any(wins) else "unresolved"
+    return {"pairs": pairs, "verdict": verdict}
+
+
+def gather_records(calls, spec, launches, modes):
     """The block gather against its plain version on the inputs of its
-    largest rotated call (the selective layers'), its largest copy (layer
-    0's Eq. 3 rows) or, for mode "prefix", its largest rotated call with
-    the second pool (store-shared prefix rows): in the pool's serving dtype
-    (fp32) and cast to the model's bf16.  Copies (values, unrotated and raw
-    keys) must be bitwise; rotated keys within GATHER_TOL of max(1,
-    max|plain|)."""
-    fn = spec["fn"]
+    largest call of each mode (`GatherRecorder`): "layers" (a selective
+    pass, every layer in one launch), "copy" (layer 0's Eq. 3 rows) and
+    "prefix" (a selective pass over store-shared prefix rows too), in the
+    pools' serving dtype (fp32) and cast to the model's bf16.  Copies
+    (values, unrotated and raw keys) must be bitwise; rotated keys within
+    GATHER_TOL of max(1, max|plain|).  Each record also times the same
+    work as one launch per layer through the one-plane wrapper
+    (`per_layer`), and splits each time into device and host work.  The
+    copy is timed against its library call (two `index_select`s) in turns,
+    K L L K K L L K, and called no slower or slower only if every adjacent
+    pair agrees (`vs_library`)."""
     records = []
     for mode in modes:
         if mode not in calls:
             raise RuntimeError(f"block_gather: no {mode} call was recorded")
-        _, a, kw = calls[mode]
+        _, call = calls[mode]
+        rotate = call[4]
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
-            ad = (a[0].to(dt), a[1].to(dt), a[2], a[3])
-            kwd = dict(kw)
-            if kw.get("pool2_k") is not None:
-                kwd.update(pool2_k=kw["pool2_k"].to(dt), pool2_v=kw["pool2_v"].to(dt))
-            got, want = fn(*ad, **kwd), plain_call("block_gather", ad, kwd)
+            c = retyped(call, dt)
+            got, want = run_gather(c), c[0].plain(*c[1:4], rotate=rotate, keep_raw=c[5])
             torch.cuda.synchronize()
-            exact = [torch.equal(g, w) for g, w in zip(got, want)]
-            if mode in ("rotate", "prefix"):
+            exact = [torch.equal(x, w) for x, w in zip(got, want)]
+            if rotate:
                 exact = exact[1:]                    # values and raw keys
                 scale = max(1.0, float(want[0].float().abs().max()))
                 err = float((got[0].float() - want[0].float()).abs().max())
                 if not torch.isfinite(got[0]).all() or err > GATHER_TOL[dt] * scale:
-                    raise RuntimeError(f"block_gather {dt}: rotated keys max|kernel-plain| "
-                                       f"{err} > {GATHER_TOL[dt]} x {scale}")
+                    raise RuntimeError(f"block_gather {mode} {dt}: rotated keys "
+                                       f"max|kernel-plain| {err} > {GATHER_TOL[dt]} x {scale}")
             else:
                 err = 0.0
             if not all(exact):
                 raise RuntimeError(f"block_gather {mode} {dt}: copies not bitwise {exact}")
             errs[dt] = err
-        log(f"check block_gather {mode}: {shapes(a, kw)} copies bitwise; rotated keys "
+            del got, want, c
+        g, table, positions, layers, _, keep_raw = call
+        desc = [f"{tuple(table.shape)}:int32", f"layers {layers}",
+                f"pools {tuple(g.pool_k.shape)}:{str(g.pool_k.dtype)[6:]}"]
+        if g.two:
+            desc.append(f"second pools {tuple(g.pool2_k.shape)} strides {g.pool2_k.stride()}")
+        log(f"check block_gather {mode}: {desc} copies bitwise; rotated keys "
             f"max|kernel-plain| fp32 {errs[torch.float32]:.3g}, bf16 "
             f"{errs[torch.bfloat16]:.3g} (tol {GATHER_TOL} x max(1, max|k|))")
-        out = fn(*a, **kw)
-        label = {"copy": "block_gather:copy", "prefix": "block_gather:prefix"}.get(
-            mode, "block_gather")
-        records.append(timed_record("block_gather", spec, launches[mode], a, kw, out,
-                                    errs[torch.float32], torch.float32,
-                                    {"tol": GATHER_TOL[torch.float32],
-                                     "bf16_max_abs_err": errs[torch.bfloat16]},
-                                    label=label))
+        fn = lambda: run_gather(call)
+        out = fn()
+        ms = time_ms(fn)
+        dev = device_ms(fn)
+        plain_ms = time_ms(lambda: g.plain(*call[1:4], rotate=rotate, keep_raw=keep_raw))
+        lib_ms = vs_lib = None
+        if mode == "copy":       # one PyTorch call per output gathers the rows
+            pk, pv, bt = g.pool_k[layers], g.pool_v[layers], table.long()
+            lib = lambda: (torch.index_select(pk, 0, bt), torch.index_select(pv, 0, bt))
+            lib_ms = time_ms(lib)
+            vs_lib = in_turns(fn, lib)
+        per_layer, n_pl = per_layer_gather(call)
+        pl_ms = time_ms(per_layer)
+        pl_dev = device_ms(per_layer)
+        b, fl = gather_work(call, out)
+        t_bytes, t_ops = b / HBM_BYTES_S * 1e3, fl / PEAK_FLOPS[torch.float32] * 1e3
+        host = lambda ms_, d: None if d["ms"] is None else (ms_ - d["ms"]) * 1e3
+        label = {"layers": "block_gather:layers", "copy": "block_gather:copy",
+                 "prefix": "block_gather:prefix"}[mode]
+        rec = {"name": label, "route": "cuda", "source": spec["source"],
+               "replaces": spec["replaces"], "launches": launches[mode],
+               "max_abs_err": errs[torch.float32], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib_ms, "device_ms": dev["ms"],
+               "device_events_per_call": dev["events_per_call"], "device_note": dev.get("note"),
+               "shapes": desc, "bytes": b, "flops": fl, "tol": GATHER_TOL[torch.float32],
+               "bf16_max_abs_err": errs[torch.bfloat16],
+               "host_us": host(ms, dev), "vs_library": vs_lib,
+               "per_layer": {"launches": n_pl, "ms": pl_ms, "device_ms": pl_dev["ms"],
+                             "device_events_per_call": pl_dev["events_per_call"],
+                             "host_us": host(pl_ms, pl_dev),
+                             "host_us_per_launch": None if pl_dev["ms"] is None else
+                             host(pl_ms, pl_dev) / n_pl}}
+        dev_s = ("n/a: " + dev["note"] if dev["ms"] is None else
+                 f"{dev['ms']:.4f} ms over {dev['events_per_call']:g} device events a call")
+        us = lambda x: "n/a" if x is None else f"{x:.1f} us"
+        bdev = pl_dev["ms"]
+        log(f"time {label}: kernel {ms:.4f} ms (device only {dev_s}; host {us(rec['host_us'])}),"
+            f" plain {plain_ms:.4f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({rec['bound_by']}; {b / 1e6:.1f} MB); as "
+            f"{n_pl} launches through the one-plane wrapper: {pl_ms:.4f} ms, device "
+            f"{'n/a' if bdev is None else f'{bdev:.4f} ms'}, host "
+            f"{us(rec['per_layer']['host_us'])}")
+        if vs_lib is not None:
+            log(f"  {label} vs two index_selects in turns (kernel, library ms): "
+                + "; ".join(f"{k:.4f} / {lb:.4f}" for k, lb in vs_lib["pairs"])
+                + f": {vs_lib['verdict']}")
+        records.append(rec)
+        del out
     return records
 
 
@@ -1285,10 +1422,10 @@ def kv_reuse_phase(system, pool_rv, prof, cfg, dev, args):
         f"{min(r.n_tokens for r in reqs)}-{max(r.n_tokens for r in reqs)} tokens; pool "
         f"512 pages x 16 slots; depth {cfg.n_layers}")
     lap("trace")
-    gather_rec = GatherRecorder(BO.assemble_kv)
+    gather_rec = GatherRecorder()
     store_rec = StoreDecodeRecorder(PO.paged_decode_mha)
-    saved = [(ENG, "assemble_kv", ENG.assemble_kv), (BE, "paged_decode_mha", BE.paged_decode_mha)]
-    ENG.assemble_kv = gather_rec
+    saved = [(BE, "paged_decode_mha", BE.paged_decode_mha)]
+    saved.append((BO.PoolGather, "__call__", patch_gather(gather_rec)))
     out, launches = {"runs": {}}, {}
     try:
         for sched in ("wave", "chunked"):
@@ -1297,7 +1434,7 @@ def kv_reuse_phase(system, pool_rv, prof, cfg, dev, args):
                 kv = kind == "on"
                 config = ServeConfig(decode_steps=args.decode_steps, sched=sched, kv_reuse=kv)
                 # B3 is recorded over store-shared pages only: in the reuse-on runs
-                BE.paged_decode_mha = store_rec if kv else saved[1][2]
+                BE.paged_decode_mha = store_rec if kv else saved[0][2]
                 reset_counts()
                 t0 = time.perf_counter()
                 with LogitTap() as tap, PrefixRowTap(n_instr) as ptap, AdmitTap() as admitted:
@@ -1832,23 +1969,21 @@ def ranking_phase(system, pool_rv, prof, dev):
     sel = ENG.SelectiveConfig(**RANK_SEL)
     reqs = SY.make_trace(system.catalog, pool_rv, prof, **RANK_TRACE)
     moved = [0, 0]     # rotated B4 calls, and those off the request positions
-    gather = ENG.assemble_kv
 
-    def tap(pool_k, pool_v, table, positions, **kw):
-        if kw.get("rotate", True):
+    def tap(g, table, positions, layers, rotate, keep_raw):
+        if rotate:
             moved[0] += 1
             ar = torch.arange(positions.shape[0], device=positions.device,
                               dtype=positions.dtype)
-            moved[1] += bool((positions[:, 0] != ar).any())
-        return gather(pool_k, pool_v, table, positions, **kw)
+            moved[1] += bool((positions != ar).any())
 
     reset_counts()
     t0 = time.perf_counter()
-    ENG.assemble_kv = tap
+    orig = patch_gather(tap)
     try:
         scores, fracs = rank_all(system, reqs, sel)
     finally:
-        ENG.assemble_kv = gather
+        BO.PoolGather.__call__ = orig
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rank": counts()}
@@ -2300,18 +2435,21 @@ def lm_train_cells(dev, bwd_rec):
     gen = torch.Generator(device=dev).manual_seed(0)
     model = TT.init_params(cfg, gen, dev)
     batch = RREG.make_batch(cfg, "train_4k", gen, dev, batch=2, seq=256)
-    before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches)
+    before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches,
+              FO.mha_flash_bwd.small_launches)
     cell = train_cell("kimi-k2-1t-a32b reduced", model, batch)
     cell.update(cuts={"reduced": True, "batch": 2, "seq": 256}, optimizer=cfg.optimizer,
                 flash_bwd_launches=FO.mha_flash_bwd.launches - before[0],
-                flash_bwd_tc_launches=FO.mha_flash_bwd.tc_launches - before[1])
+                flash_bwd_tc_launches=FO.mha_flash_bwd.tc_launches - before[1],
+                flash_bwd_small_launches=FO.mha_flash_bwd.small_launches - before[2])
     if cfg.optimizer != "adafactor":
         raise RuntimeError(f"kimi-k2 trains with {cfg.optimizer}, want adafactor")
-    if cell["flash_bwd_launches"] == 0 or cell["flash_bwd_tc_launches"] != 0:
+    if cell["flash_bwd_launches"] == 0 or cell["flash_bwd_small_launches"] != \
+            cell["flash_bwd_launches"]:
         raise RuntimeError(f"train kimi-k2 reduced (head dim {cfg.resolved_head_dim}): K6 "
                            f"launched {cell['flash_bwd_launches']} times, "
-                           f"{cell['flash_bwd_tc_launches']} on the tensor-core route; want "
-                           "every call on the SIMT route")
+                           f"{cell['flash_bwd_small_launches']} on the small-head route; want "
+                           "every call on that route")
     cells["kimi-k2-1t-a32b:reduced"] = cell
     log(f"  train kimi-k2-1t-a32b at reduced() size (batch 2 x 256, {cfg.optimizer}): losses "
         + ", ".join(f"{x:.4f}" for x in cell["loss"]))
@@ -2461,15 +2599,15 @@ def planted_protocol(dev, bwd_rec):
     t2 = time.perf_counter()
     del cpu_model
     bwd_rec.arm("ranker")
-    k6, k6_tc = FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches
+    k6, k6_small = FO.mha_flash_bwd.launches, FO.mha_flash_bwd.small_launches
     model, card_hist = RT.train_ranker(system.model, *args, steps=PLANTED_STEPS, log_every=1)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    k6, k6_tc = FO.mha_flash_bwd.launches - k6, FO.mha_flash_bwd.tc_launches - k6_tc
+    k6, k6_small = FO.mha_flash_bwd.launches - k6, FO.mha_flash_bwd.small_launches - k6_small
     bwd_rec.arm(None)
-    if k6_tc:
-        raise RuntimeError(f"planted: {k6_tc} of the ranker's fp32 K6 calls took the "
-                           "tensor-core route; want the SIMT route")
+    if k6_small != k6:
+        raise RuntimeError(f"planted: {k6 - k6_small} of the ranker's {k6} fp32 K6 calls "
+                           "took another route than the small-head route")
     card_l = np.array([v for _, v in card_hist])
     cpu_l = np.array([v for _, v in cpu_hist])
     err = float(np.abs(card_l[:PLANTED_CPU_STEPS] - cpu_l).max())
@@ -2542,8 +2680,7 @@ def layer0_divergence_zero(system, reqs):
         toks = np.concatenate([plan.tokens.astype(np.int32), np.zeros(pad - n, np.int32)])
         t = torch.from_numpy(np.concatenate([np.asarray(table, np.int32),
                                              np.zeros(pad - n, np.int32)])).to(system.model.device)
-        ck0, cv0 = ENG.gather_rows(system.rows, 0, t, t, rope_theta=system.cfg.rope_theta,
-                                   rotate=False)
+        ck0, cv0 = ENG.cache_gather(system.rows, system.cfg.rope_theta)(t, t, 0, rotate=False)
         div = ENG.layer0(system.model, toks, np.arange(pad) < n, ck0, cv0)[2]
         items = (plan.source == FROM_ITEM) & have
         d = div.cpu().numpy()[:n][items]
@@ -2629,22 +2766,27 @@ def _sdpa_bwd(a, kw):
 
 
 # the route each recorded K6 call must take: the five full-width LM archs'
-# (bf16, D 128 or 256) the tensor cores, the tiny ranker's (fp32) SIMT
-K6_ROUTES = {**{arch: "tc" for arch in TRAIN_LM_ARCHS}, "ranker": "simt"}
+# (bf16, D 128 or 256) the tensor cores, the tiny ranker's (fp32, D 16)
+# the small-head route
+K6_ROUTES = {**{arch: "tc" for arch in TRAIN_LM_ARCHS}, "ranker": "small"}
 
 
-def k6_timing(a, kw, plain=False):
-    """K6 at one recorded call: CUDA-event ms of the whole call (median of
-    10), its device ms under torch.profiler with each kernel's share (None
-    if the profiler saw another number of events than the call launches),
-    the bound, SDPA's backward where there is one, and with `plain` the
-    plain version's ms."""
-    fn = FO.mha_flash_bwd
-    route = FO._bwd_route(*a[:3])
-    # kernels a call launches: delta / prep, dq, dk-dv (tc at D 256: dv, dk)
-    n_kernels = 4 if route == "tc" and a[0].shape[3] > 128 else 3
-    ms = time_ms(lambda: fn(*a, **kw), reps=10, warmup=2)
-    dev_ms, dev = counted_device_ms(lambda: fn(*a, **kw), n_kernels)
+def k6_timing(a, kw, plain=False, route=None):
+    """K6 at one recorded call, on the route `_bwd_route` names (or
+    `route`): CUDA-event ms of the whole call (median of 10), its device ms
+    under torch.profiler with each kernel's share (None if the profiler
+    saw another number of events than the call launches), the bound,
+    SDPA's backward where there is one, and with `plain` the plain
+    version's ms.  Both routes are timed through `_flash_bwd_launch`, the
+    wrapper after its CPU check, so their host work is the same."""
+    route = route or FO._bwd_route(*a[:3])
+    mask = dict(causal=kw.get("causal", True), window=kw.get("window"))
+    fn = lambda: FO._flash_bwd_launch(route, *a, **mask)
+    # kernels a call launches: delta / prep, dq, dk-dv (tc at D 256: dv, dk;
+    # small heads: dq with delta, dk-dv)
+    n_kernels = 4 if route == "tc" and a[0].shape[3] > 128 else 2 if route == "small" else 3
+    ms = time_ms(fn, reps=10, warmup=2)
+    dev_ms, dev = counted_device_ms(fn, n_kernels)
     lib = _sdpa_bwd(a, kw)
     b, fl = _bwd_work(a, kw)
     wdt = a[0].dtype
@@ -2660,15 +2802,48 @@ def k6_timing(a, kw, plain=False):
             "shapes": shapes(a, {}), "window": kw.get("window")}
 
 
+def simt_vs_small(a, kw, small):
+    """The SIMT route at a small-head call: within TOL of the plain version
+    (relative to max|plain|), then timed in turns with the small-head
+    route, whose first timing `small` (`k6_timing`) already holds.  -> the
+    SIMT route's timing, with both routes' event and device ms per turn."""
+    wdt = a[0].dtype
+    got = FO._flash_bwd_launch("simt", *a, causal=kw.get("causal", True),
+                               window=kw.get("window"))
+    want = FREF.flash_bwd_ref(*a, **kw)
+    torch.cuda.synchronize()
+    errs = [float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+    if max(errs) > TOL[wdt]:
+        raise RuntimeError(f"flash_bwd SIMT route at a small-head call: max|kernel-plain| / "
+                           f"max|plain| {errs} > {TOL[wdt]}")
+    del got, want
+    simt = k6_timing(a, kw, route="simt")
+    simt2 = k6_timing(a, kw, route="simt")
+    small2 = k6_timing(a, kw)
+    turns = [("small", small), ("simt", simt), ("simt", simt2), ("small", small2)]
+    simt.update(rel_err=errs, turns=[{"route": r, "ms": t["ms"], "device_ms": t["device_ms"]}
+                                     for r, t in turns])
+    log("  flash_bwd at the ranker's call, small-head vs SIMT route in turns: " + "; ".join(
+        f"{r} {t['ms']:.4f} ms (device "
+        f"{'n/a' if t['device_ms'] is None else format(t['device_ms'], '.4f')})"
+        for r, t in turns) + f"; SIMT max|kernel-plain| / max|plain| {max(errs):.2e}")
+    return simt
+
+
 def flash_bwd_records(calls, launches):
     """K6 on each recorded call (the five full-width archs' first backward
     call, bf16, and the tiny ranker's, fp32): the route K6_ROUTES names,
     max |kernel - plain| within TOL of the output's max |plain| (the
     recorded output gradients are small), a second call bitwise equal;
     then timed at every call (the plain version at rcllm-qwen3-8b's and
-    the ranker's).  -> the records "flash_bwd" (the tensor-core route at
+    the ranker's).  At the ranker's call the SIMT route (which took it
+    before the small-head route existed) is also held to the plain version
+    and timed, in turns with the small-head route (small, SIMT, SIMT,
+    small).  -> the records "flash_bwd" (the tensor-core route at
     rcllm-qwen3-8b's call, the other archs under "per_arch") and
-    "flash_bwd:fp32" (the SIMT route at the ranker's)."""
+    "flash_bwd:small" (the small-head route at the ranker's, the SIMT
+    route's times under "simt_route")."""
     fn = FO.mha_flash_bwd
     spec = KERNELS["flash_bwd"]
     missing = sorted(set(K6_ROUTES) - set(calls))
@@ -2700,6 +2875,8 @@ def flash_bwd_records(calls, launches):
         rec = {"rel_err": errs, "bitwise_repeat": True,
                **k6_timing(a, kw, plain=label in ("rcllm-qwen3-8b", "ranker"))}
         per[label] = rec
+        if label == "ranker":
+            rec["simt_route"] = simt_vs_small(a, kw, rec)
         dev = ("n/a: " + rec["device_note"] if rec["device_ms"] is None else
                f"{rec['device_ms']:.4f} ms over {rec['device_events_per_call']:g} device events "
                f"a call")
@@ -2710,7 +2887,7 @@ def flash_bwd_records(calls, launches):
             f"{by_dev}; plain {plain}, library {lib}, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['flops'] / 1e9:.1f} GFLOP)")
     records = []
-    for label, rec_name in (("rcllm-qwen3-8b", "flash_bwd"), ("ranker", "flash_bwd:fp32")):
+    for label, rec_name in (("rcllm-qwen3-8b", "flash_bwd"), ("ranker", "flash_bwd:small")):
         rec = per[label]
         records.append({
             "name": rec_name, "route": "cuda", "source": spec["source"],
@@ -2810,7 +2987,7 @@ def training_phase(dev):
     finally:
         TL.mha_flash_bwd, RM.bag_backward = saved
     k6 = {"flash_bwd": launches["lm"]["flash_bwd"],
-          "flash_bwd:fp32": launches["planted"]["flash_bwd:simt"]}
+          "flash_bwd:small": sum(run["flash_bwd:small"] for run in launches.values())}
     if launches["recsys"]["bag_backward"] == 0 or min(k6.values()) == 0:
         raise RuntimeError(f"training: kernels never launched {launches}")
     t0 = time.perf_counter()
@@ -2903,13 +3080,23 @@ def serving_phases(args, dev):
     spans.wrap(PagedKVPool, "write_at_batch", "pool_writes")
     spans.wrap(BE.BatchEngine, "decode", "decode")
     spans.wrap(BE, "decode_step", "decode_step")
+    before = counts()
     for f in warm_run(engine, plans, config.decode_steps - 1):
         f()
     spans.restore()
     s = spans.s
     steps = config.decode_steps - 1
+    b4 = {k: v - before[k] for k, v in counts().items() if k.startswith("block_gather")}
+    passes = spans.n["selective_layers"]
+    b4 = {"selective_passes": passes, "launches": b4["block_gather"],
+          "all_layer_launches": b4["block_gather:layers"],
+          "layer0_copy_launches": b4["block_gather"] - b4["block_gather:layers"],
+          "launches_per_selective_pass": b4["block_gather:layers"] / passes}
+    if b4["launches_per_selective_pass"] != 1:
+        raise RuntimeError(f"phase 2b: the block gather launched {b4} (want one launch per "
+                           "selective pass)")
     breakdown = {
-        "requests": len(plans), "decode_steps": steps,
+        "requests": len(plans), "decode_steps": steps, "block_gather": b4,
         "prefill_s": s["prefill"],
         "prefill": {"layer0_eq3": s["layer0"], "select_recompute_host": s["select_recompute"],
                     "selective_layers_device": s["selective_layers"],
@@ -2935,6 +3122,7 @@ def serving_phases(args, dev):
         f"decode steps; host clock, card synchronised at each span):")
     log("  prefill " + f"{s['prefill']:.3f} s: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in breakdown["prefill"].items()))
+    log(f"  block gather in the prefill: {b4}")
     log(f"  decode step {breakdown['decode_step_ms']:.2f} ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in breakdown["decode"].items()))
     log("  device-busy / idle share of the profiled wall: " + "; ".join(
@@ -3008,8 +3196,10 @@ def serving_phases(args, dev):
     records = []
     for name, spec in KERNELS.items():
         if name == "block_gather":
+            layers = total["block_gather:layers"]
             records += gather_records(rec[name].calls, spec,
-                                      {"rotate": total[name], "copy": total[name]})
+                                      {"layers": layers, "copy": total[name] - layers},
+                                      modes=("layers", "copy"))
             continue
         if name == "embedding_bag":
             continue    # recorded after the recsys phase below
@@ -3090,7 +3280,7 @@ def serving_phases(args, dev):
     log(f"  kernel launches in the tiny card runs (wave + chunked): {launches['tiny']}")
     for name, suffix in OTHER_ROUTE.items():
         if name in TRAIN_KERNELS:
-            continue    # phase 2j records its SIMT route
+            continue    # phase 2j records its routes
         label = name + suffix
         if launches["tiny"][label] == 0:
             raise RuntimeError(f"the SIMT route of {name} never launched on the tiny fp32 path")

@@ -18,15 +18,17 @@ prefill, selective attention (`kernels.selective_attention`) in layers
 runs plain torch attention, as the JAX package runs jnp there.  The
 cached KV stays on the model's device (`core.cache_rows`): a request
 brings a block table into that pool, and the block-gather kernel
-(`kernels.block_gather`) assembles the rows layer by layer — copied for
-layer 0's Eq. 3 divergence, rotated to the request positions for layers
-1..L−1.  Only tables, positions, masks and logits cross between host and
-device; plans and the Eq. 3 selection stay numpy, as in the reference.
+(`kernels.block_gather`, bound to the pools once per batch or request:
+`cache_gather`) assembles the rows: copied for layer 0's Eq. 3
+divergence, and rotated to the request positions for layers 1..L−1, all
+of them in one launch per selective pass.  Only tables, positions, masks
+and logits cross between host and device; plans and the Eq. 3 selection
+stay numpy, as in the reference.
 
 A request whose instruction rows are shared by the serving block store's
 prefix tier carries them in the same block table: its entries from
 `cache.n_rows` on address the serving arena's layer planes (`shared`,
-`kv_pool.PagedKVPool.plane`), which the block-gather kernel reads as its
+`kv_pool.PagedKVPool.planes`), which the block-gather kernel reads as its
 second pool.
 """
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.assembly import FROM_ITEM, FROM_SEMANTIC, AssemblyPlan
 from repro_torch.core.cache_rows import ZERO_ROW, CacheRows
-from repro_torch.kernels.block_gather.ops import assemble_kv
+from repro_torch.kernels.block_gather.ops import PoolGather
 from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.kernels.selective_attention.ops import (block_liveness,
                                                          selective_mha)
@@ -248,25 +250,25 @@ def _pad_table(table: np.ndarray, positions: np.ndarray, n_pad: int):
     return tbl, pos
 
 
-def gather_rows(cache: CacheRows, layer: int, table: torch.Tensor,
-                positions: torch.Tensor, *, rope_theta: float, rotate: bool,
-                keep_raw: bool = False, shared=None):
-    """One layer plane of the cached rows, gathered by the block-gather
-    kernel.  table/positions: (N,) int32 on the pool's device; entries
-    from `cache.n_rows` on read slot (entry - n_rows) of `shared`'s layer
-    plane (`shared.plane(layer)`).  -> (k, v) each (N, Hkv, Dh) in the
-    pool dtype (+ the unrotated keys with `keep_raw`); `rotate=False` is a
-    bitwise copy of the rows."""
-    k2, v2 = shared.plane(layer) if shared is not None else (None, None)
-    out = assemble_kv(cache.k[layer], cache.v[layer], table, positions[:, None],
-                      rope_theta=rope_theta, rotate=rotate, keep_raw=keep_raw,
-                      pool2_k=k2, pool2_v=v2)
-    return tuple(t[:, 0] for t in out)
+def cache_gather(cache: CacheRows, rope_theta: float, shared=None) -> PoolGather:
+    """The block-gather kernel bound to the cached rows' layer planes and,
+    with `shared`, to that arena's (`shared.planes()`) as its second
+    pool: table entries from `cache.n_rows` on read slot (entry - n_rows)
+    of the arena.  Called with (table, positions, layers, rotate=,
+    keep_raw=): table/positions (N,) int32 on the pool's device ->
+    (k, v[, k_raw]) each (N, Hkv, Dh) for one layer, (n_layers, N, Hkv,
+    Dh) for a range, in the pool dtype; `rotate=False` is a bitwise copy
+    of the rows."""
+    k2, v2 = shared.planes() if shared is not None else (None, None)
+    return PoolGather(cache.k, cache.v, k2, v2, rope_theta=rope_theta)
 
 
-def _device_table(cache: CacheRows, table: np.ndarray, positions: np.ndarray):
-    t = torch.from_numpy(np.stack([table, positions])).to(cache.k.device)
-    return t[0], t[1]
+def _device_table(cache: CacheRows, table: np.ndarray, n_pad: int) -> torch.Tensor:
+    """A block table padded to `n_pad` rows with the zero row, on the
+    pool's device: what layer 0's copy of the cached rows reads."""
+    tbl = np.full(n_pad, ZERO_ROW, np.int32)
+    tbl[:len(table)] = table
+    return torch.from_numpy(tbl).to(cache.k.device)
 
 
 @torch.no_grad()
@@ -339,22 +341,24 @@ def select_recompute(plan: AssemblyPlan, have: np.ndarray,
 
 @torch.no_grad()
 def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
-                     r_valid: np.ndarray, cache: CacheRows, table: torch.Tensor,
+                     r_valid: np.ndarray, gather: PoolGather, table: torch.Tensor,
                      positions: torch.Tensor, valid: np.ndarray,
-                     final_slot: np.ndarray, shared=None):
+                     final_slot: np.ndarray):
     """Batched layers 1..L-1 over the recompute sets.
 
-    x: (B, n, D); r_idx/r_valid: (B, R) host; table/positions: (B, n)
-    int32 on the device, each key's cached row (or store-shared slot, see
-    `gather_rows`) and target position;
-    valid: (B, n) host key validity; final_slot: (B,).  -> (logits (B, V),
-    merged pre-RoPE k, v (B, n, L-1, Hkv, Dh)) on the device.
+    x: (B, n, D); r_idx/r_valid: (B, R) host; gather: the block-gather
+    kernel bound to the cached rows (`cache_gather`); table/positions:
+    (B, n) int32 on the device, each key's cached row (or store-shared
+    slot) and target position; valid: (B, n) host key validity;
+    final_slot: (B,).  -> (logits (B, V), merged pre-RoPE k, v (B, n,
+    L-1, Hkv, Dh)) on the device (views of layer-major tensors).
 
-    Each layer's cached keys come from the block-gather kernel rotated to
-    their request positions (exact realignment), with the pre-RoPE base
-    from the same launch; the recomputed tokens' fresh K/V are scattered
-    over them.  Padded recompute rows (`r_valid` False) are masked out of
-    the scatter — the reference's drop-mode scatter at index n.
+    One block-gather launch assembles every layer's cached keys, rotated
+    to their request positions (exact realignment), with the pre-RoPE base
+    and the values from the same launch, layer by layer contiguous; each
+    layer then scatters its recomputed tokens' fresh K/V over its planes.
+    Padded recompute rows (`r_valid` False) are masked out of the scatter
+    — the reference's drop-mode scatter at index n.
     """
     cfg = model.cfg
     dev = x.device
@@ -375,7 +379,11 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
     widx = r_pos[rv]                                             # kept rows only
     tbl, kpos = table.reshape(-1), positions.reshape(-1)
     xr = torch.gather(x, 1, r_pos[..., None].expand(-1, -1, x.shape[-1]))
-    ks, vs = [], []
+    # every layer's assembled keys (cached pre-RoPE keys rotated to the
+    # request positions), their pre-RoPE base and the values: (L-1, B*n,
+    # Hkv, Dh) each, one launch
+    k_rot, v_all, k_raw = gather(tbl, kpos, range(1, cfg.n_layers), rotate=True,
+                                 keep_raw=True)
     for l in range(1, cfg.n_layers):
         lp = model.layers[l]
         hr = L.rms_norm(xr, lp.attn_norm, cfg.norm_eps)
@@ -384,16 +392,11 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
         vr = torch.einsum("brd,dhe->brhe", hr, lp.wv)
         qr = L.apply_rope(qr, r_pos, cfg.rope_theta)
         kr = L.apply_rope(kr_raw, r_pos, cfg.rope_theta)
-        # assembled keys: cached pre-RoPE keys rotated to request positions
-        k_l, v_l, k_m = (t.view(B, n, *t.shape[1:]) for t in gather_rows(
-            cache, l, tbl, kpos, rope_theta=cfg.rope_theta, rotate=True,
-            keep_raw=True, shared=shared))
+        k_l, v_l, k_m = (t[l - 1].view(B, n, *t.shape[2:]) for t in (k_rot, v_all, k_raw))
         k_l[rows, widx] = kr[rv].to(k_l.dtype)
         v_l[rows, widx] = vr[rv].to(v_l.dtype)
         # merged pre-RoPE cache: cached blocks + fresh recomputed keys
         k_m[rows, widx] = kr_raw[rv].to(k_m.dtype)
-        ks.append(k_m)
-        vs.append(v_l)
         o = selective_mha(qr, r_pos32, k_l, v_l.to(kr.dtype), valid_t, live=live,
                           window=0, q_block=LIVE_Q_BLOCK, kv_block=LIVE_KV_BLOCK)
         xr = _layer_step(xr, lp, cfg, o)
@@ -402,11 +405,13 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
     xf = L.rms_norm(xr[torch.arange(B, device=dev), fs], model.final_norm,
                     cfg.norm_eps)
     logits = xf @ model.head()                                  # (B, V)
-    return logits, torch.stack(ks, dim=2), torch.stack(vs, dim=2)
+    deep = lambda t: t.view(cfg.n_layers - 1, B, n, *t.shape[2:]).movedim(0, 2)
+    return logits, deep(k_raw), deep(v_all)
 
 
 def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
-                           cache: CacheRows, r_bucket: int = 64, shared=None):
+                           cache: CacheRows, r_bucket: int = 64, shared=None,
+                           gather: Optional[PoolGather] = None):
     """Bucketed batched selective-layer pass (phase 2 of the selective
     prefill): requests are grouped by (padded length, padded recompute
     budget) and ONE selective step runs per bucket.  PyTorch runs eagerly,
@@ -417,9 +422,13 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
     block_table (n,), positions (n,)).  -> list of (logits (V,) host,
     k_rest, v_rest) per item in input order; k_rest/v_rest are the merged
     pre-RoPE layers 1..L-1, (n_pad, L-1, Hkv, Dh) on the device.
-    `shared`: the arena whose slots tables may address (`gather_rows`).
+    `shared`: the arena whose slots tables may address (`cache_gather`);
+    `gather`: `cache_gather(cache, cfg.rope_theta, shared)` when the
+    caller has bound it already.
     """
     dev = model.device
+    if gather is None:
+        gather = cache_gather(cache, cfg.rope_theta, shared)
     results = [None] * len(items)
     by_shape: Dict[tuple, list] = {}
     for i, (plan, x, recompute, _, _) in enumerate(items):
@@ -447,8 +456,8 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
         x = torch.stack([items[i][1] for i in idxs])
         tables_t = torch.from_numpy(tables).to(dev)
         logits, k_rest, v_rest = selective_layers(
-            model, x, r_idx_p, r_valid, cache, tables_t[0], tables_t[1], valid,
-            final_slot, shared=shared)
+            model, x, r_idx_p, r_valid, gather, tables_t[0], tables_t[1], valid,
+            final_slot)
         logits = _host(logits)
         for bi, i in enumerate(idxs):
             results[i] = (logits[bi], k_rest[bi], v_rest[bi])
@@ -457,18 +466,20 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
 
 def plan_layer0(model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
                 table: np.ndarray, positions: np.ndarray, cache: CacheRows,
-                bucket: int = 128, shared=None):
+                bucket: int = 128, shared=None, gather: Optional[PoolGather] = None):
     """Layer 0 of one request over its prompt padded to a `bucket`
     multiple, against its cached layer-0 rows copied out of `cache` by the
-    block-gather kernel (`table`/`positions` as `gather_rows` takes them).
-    -> `layer0`'s outputs."""
+    block-gather kernel (`table`/`positions` as `cache_gather` takes them;
+    `gather`: that binding, when the caller has one).  -> `layer0`'s
+    outputs."""
     n_pad = ((plan.n + bucket - 1) // bucket) * bucket
     toks = _pad_to(plan.tokens.astype(np.int32), n_pad)
     valid = np.zeros(n_pad, bool)
     valid[:plan.n] = True
-    tbl, kpos = _device_table(cache, *_pad_table(table, positions, n_pad))
-    ck0, cv0 = gather_rows(cache, 0, tbl, kpos, rope_theta=cfg.rope_theta,
-                           rotate=False, shared=shared)
+    tbl = _device_table(cache, table, n_pad)
+    if gather is None:
+        gather = cache_gather(cache, cfg.rope_theta, shared)
+    ck0, cv0 = gather(tbl, None, 0, rotate=False)
     return layer0(model, toks, valid, ck0, cv0)
 
 
@@ -510,16 +521,17 @@ def selective_prefill_batch(
 
     items: sequence of (plan, block_table, positions, have) tuples (see
     `assembly.plan_block_table`; entries past the cached rows address
-    `shared`, see `gather_rows`).  -> list of (logits (V,) host,
+    `shared`, see `cache_gather`).  -> list of (logits (V,) host,
     EngineStats, k_all (n, L, Hkv, Dh), v_all) per request, in input
     order; k_all/v_all are fp32 on the device.
     """
     if not items:
         return []
+    gather = cache_gather(cache, cfg.rope_theta, shared)
     sel_items, stats_of, k0_of, v0_of = [], [], [], []
     for plan, table, positions, have in items:
         x, attn_mass, div_raw, k0, v0 = plan_layer0(model, cfg, plan, table, positions,
-                                                    cache, bucket, shared)
+                                                    cache, bucket, gather=gather)
         rec, stats = select_recompute(plan, have, _host(attn_mass),
                                       _host(div_raw), sel)
         k0_of.append(k0)
@@ -528,7 +540,7 @@ def selective_prefill_batch(
         sel_items.append((plan, x, rec, table, positions))
 
     sel_out = selective_layers_batch(model, cfg, sel_items, cache,
-                                     r_bucket=r_bucket, shared=shared)
+                                     r_bucket=r_bucket, gather=gather)
     results = []
     for i, (logits, k_rest, v_rest) in enumerate(sel_out):
         n = items[i][0].n
@@ -601,7 +613,7 @@ class ChunkedPrefill:
     outputs stay on the device.  The serving engine
     (`serving.batch_engine.PrefillState`) wraps this with the pool
     bookkeeping; this class is compute + state only.  `shared`: the arena
-    whose slots the table may address (`gather_rows`).
+    whose slots the table may address (`cache_gather`).
     """
 
     def __init__(self, model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
@@ -626,8 +638,8 @@ class ChunkedPrefill:
         self.toks = _pad_to(plan.tokens.astype(np.int32), self.n_pad)
         dev = model.device
         self.valid = torch.arange(self.n_pad, device=dev) < n
-        self._tbl, self._kpos = _device_table(
-            cache, *_pad_table(table, positions, self.n_pad))
+        self._tbl = _device_table(cache, table, self.n_pad)
+        self._gather = cache_gather(cache, cfg.rope_theta, shared)
         w = model.layers[0].wk
         self.kbuf = torch.zeros((self.n_pad,) + tuple(w.shape[1:]), dtype=w.dtype,
                                 device=dev)
@@ -650,8 +662,8 @@ class ChunkedPrefill:
         now on: a chunk-partial prefill migrated to another engine, whose
         store holds the injected prefix rows at other slots."""
         self.table, self.shared = table, shared
-        self._tbl, self._kpos = _device_table(
-            self.cache, *_pad_table(table, self.positions, self.n_pad))
+        self._tbl = _device_table(self.cache, table, self.n_pad)
+        self._gather = cache_gather(self.cache, self.cfg.rope_theta, shared)
 
     def next_chunk_tokens(self) -> int:
         """Dispatch width of the next chunk (ragged at the tail)."""
@@ -674,10 +686,7 @@ class ChunkedPrefill:
             raise RuntimeError("prompt fully scanned")
         off = self.offset
         C = self.next_chunk_tokens()
-        ck0, cv0 = gather_rows(self.cache, 0, self._tbl[off:off + C],
-                               self._kpos[off:off + C],
-                               rope_theta=self.cfg.rope_theta, rotate=False,
-                               shared=self.shared)
+        ck0, cv0 = self._gather(self._tbl[off:off + C], None, 0, rotate=False)
         x_c, m_c, div_c, k0, v0 = layer0_chunk(
             self.model, self.toks[off:off + C], off, self.valid, ck0, cv0,
             self.kbuf, self.vbuf)

@@ -5,7 +5,8 @@ Physical pages are gathered by a block table into logical order; when
 `rotate`, the pre-RoPE keys are rotated to their target positions
 (half-split RoPE in fp32, cast back to the pool dtype) and values are
 copied.  A slot may carry trailing (Hkv, Dh) heads: each head rotates
-over its own Dh, at its slot's position.
+over its own Dh, at its slot's position.  `block_gather_layers_ref`
+gathers a stack of layer planes by one table at once.
 """
 from __future__ import annotations
 
@@ -64,3 +65,26 @@ def block_gather_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
         pos = positions.reshape(tuple(positions.shape) + (1,) * (k.dim() - 3))
         k = rope_rotate(k, pos, rope_theta)
     return k, v
+
+
+def block_gather_layers_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                            block_table: torch.Tensor, positions: torch.Tensor, *,
+                            rope_theta: float = 10_000.0, rotate: bool = True,
+                            keep_raw: bool = False, pool2_k: Optional[torch.Tensor] = None,
+                            pool2_v: Optional[torch.Tensor] = None):
+    """`block_gather_ref` of every layer plane at once.  pool_k/pool_v:
+    (L, n_pages, page, ...) stacks of layer planes (pool2_k/pool2_v
+    likewise, (L, n_pages2, page, ...)); block_table/positions as
+    `block_gather_ref` takes them.  -> (k, v), with `keep_raw` (k, v,
+    keys before rotation), each (L, n_logical, page, ...) and contiguous.
+    Bitwise one `block_gather_ref` call per layer: the angles depend on
+    the positions alone, and every other operation is elementwise."""
+    idx = block_table.long()
+    per_page = lambda t: None if t is None else t.transpose(0, 1)
+    k = gather_pages(per_page(pool_k), idx, per_page(pool2_k)).transpose(0, 1).contiguous()
+    v = gather_pages(per_page(pool_v), idx, per_page(pool2_v)).transpose(0, 1).contiguous()
+    raw = k
+    if rotate:
+        pos = positions.reshape(tuple(positions.shape) + (1,) * (k.dim() - 4))
+        k = rope_rotate(k, pos, rope_theta)
+    return (k, v, raw) if keep_raw else (k, v)

@@ -30,7 +30,7 @@
 // passes, the price of writing every gradient once without atomics: 7
 // products, 481 GFLOP at that call (0.49 ms).
 //
-// Two routes, chosen by the wrapper (`ops.py:_bwd_route`) from dtypes and
+// Three routes, chosen by the wrapper (`ops.py:_bwd_route`) from dtypes and
 // shapes alone; one C entry point launches a route's kernels in order.
 //
 // * Tensor cores ("tc"): bf16 q, k, v with D in {64, 128, 256}, any G =
@@ -71,8 +71,32 @@
 //     to bf16 before dV and dS before dQ and dK (the A fragment of the
 //     register-A wgmma); a masked pair's p is exactly 0; exp is 2^x of
 //     log2(e)-scaled scores, which differs by fp32 rounding only.
-// * SIMT (fp32, and bf16 with any other D <= 256: kimi-k2's 112, the
-//   ranker's 16): the CUDA-core kernels, three launches.
+// * Small heads ("small": D <= 32, fp32 and bf16; the planted ranker's
+//   fp32 D 16, kimi-k2's bf16 D 16 at reduced()): CUDA cores, two
+//   launches.  It stays off the tensor cores: fp32 parity with the plain
+//   version (TF32 off, ROADMAP queue A) rules out TF32, and at D <= 32 a
+//   row's whole state fits a thread's registers.
+//   - dq (and delta): a query row per thread, holding its q, dout, dQ
+//     accumulator, lse and delta (3 D + 2 values; delta from its own out
+//     and dout, written for the next pass).  Block: 32 query rows x 8
+//     splits (256 threads, two blocks an SM at D <= 16); 64-key K / V
+//     tiles (and key positions) arrive in shared memory by 16-byte
+//     cp.async, double-buffered, one barrier a tile; split s takes keys
+//     8 s .. 8 s + 7 of each tile, every thread of a warp reading the same
+//     key row as 16-byte broadcasts: no shuffles.  The splits' dQ are
+//     summed in split order through shared memory at the end.
+//   - dk/dv: a key per thread, holding k, v, dK and dV (4 D values),
+//     looping over the group's G heads and their live 64-row query tiles
+//     (q, dout, lse, delta, positions) through the same ring; 32 keys x 8
+//     splits of the query rows, summed in split order.  The block owns its
+//     keys, so the gradients are written once, without atomics:
+//     deterministic.
+//   - Tiles skipped by position band; the numerics are the SIMT route's
+//     (p rounded to T before dV, dS before dQ and dK), with p = 2^x of
+//     log2(e)-scaled scores as on the tensor cores and each dot product
+//     as two interleaved partial sums: both differ by fp32 rounding only.
+// * SIMT (fp32 at D > 32, and bf16 with any other D <= 256: kimi-k2's
+//   112): the CUDA-core kernels, three launches.
 //   - dq: one block of 4 warps per (16-row query tile, query head, batch
 //     row); each warp carries 4 rows' dQ in registers (D/32 columns a
 //     lane) while 32-key K/V tiles stream through shared memory in fp32,
@@ -81,6 +105,7 @@
 //     owning 4 keys' dK and dV, looping over the G query heads of its kv
 //     group and over 32-row query tiles; written once, without atomics.
 //   Both skip a tile whose position ranges admit no live pair.
+#include <algorithm>
 #include <climits>
 
 #include "../attn_common.cuh"
@@ -420,6 +445,493 @@ cudaError_t launch_simt_d(const Args& a, cudaStream_t st) {
   if (a.D <= 256) return launch_simt<T, 8>(a, st);
   return cudaErrorInvalidValue;
 }
+
+// ------------------------------------------------------ small-head route
+namespace sh {
+
+constexpr int kRows = 32;                 // a block's own rows: queries (dq) or keys (dk/dv)
+constexpr int kSplits = 8;                // threads per own row, each an eighth of every tile
+constexpr int kTile = 64;                 // rows of a streamed tile: keys (dq) or queries (dk/dv)
+constexpr int kThreads = kRows * kSplits;
+constexpr int kPer = kTile / kSplits;     // tile rows per thread
+constexpr int kStages = 3;                // tiles in flight: the one computed, two landing
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Two blocks an SM where a thread's state allows it (D <= 16: at most 128
+// registers), one otherwise.
+template <int DP>
+__host__ __device__ constexpr int min_blocks() { return DP <= 16 ? 2 : 1; }
+
+// Tile rows a thread's loop unrolls: two at D <= 8, one above (its four
+// dot-product chains already overlap).
+template <int DP>
+__host__ __device__ constexpr int unroll() { return DP <= 8 ? 2 : 1; }
+
+// Asynchronous copies into shared memory of 16 bytes (.cg) or 4 (.ca).
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// min and max of pos[start, start + count) below n (count 32 or 64), by
+// every warp alike (an empty range comes out as INT_MAX, INT_MIN).
+template <int count>
+__device__ __forceinline__ void range_of(const int* pos, int start, int n, int& lo, int& hi) {
+  const int lane = threadIdx.x & 31;
+  lo = INT_MAX;
+  hi = INT_MIN;
+#pragma unroll
+  for (int i = start + lane; i < start + count; i += 32) {
+    if (i < n) {
+      lo = min(lo, pos[i]);
+      hi = max(hi, pos[i]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(rt::kFull, lo, o));
+    hi = max(hi, __shfl_xor_sync(rt::kFull, hi, o));
+  }
+}
+
+// 16 bytes of T (4 fp32 or 8 bf16 values) as fp32, into x[0 ..).
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4 u, float* x) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (sizeof(T) == 4) {
+      x[j] = __uint_as_float(w[j]);
+    } else {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    }
+  }
+}
+
+// One row of DP elements of T in shared memory (16-byte aligned) as fp32,
+// read with 16-byte loads: every thread of a warp reads the same row, a
+// broadcast.
+template <typename T, int DP>
+__device__ __forceinline__ void row_f(const T* src, float (&x)[DP]) {
+  constexpr int kE = 16 / sizeof(T);
+#pragma unroll
+  for (int c = 0; c < DP / kE; ++c) unpack16<T>(reinterpret_cast<const uint4*>(src)[c], x + kE * c);
+}
+
+// (x . y, u . w) over DP elements, each as two interleaved partial sums
+// (two independent chains of fused products each).
+template <int DP>
+__device__ __forceinline__ float2 dots(const float (&x)[DP], const float (&y)[DP],
+                                       const float (&u)[DP], const float (&w)[DP]) {
+  float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+#pragma unroll
+  for (int d = 0; d < DP; d += 2) {
+    a0 += x[d] * y[d];
+    a1 += x[d + 1] * y[d + 1];
+    b0 += u[d] * w[d];
+    b1 += u[d + 1] * w[d + 1];
+  }
+  return make_float2(a0 + a1, b0 + b1);
+}
+
+// A thread's own row of D elements from global memory, zero past D or
+// when !ok: 16-byte loads when `vec` (D whole 16-byte chunks, the row
+// aligned), element loads otherwise.
+template <typename T, int DP>
+__device__ __forceinline__ void own_row(const T* src, int D, bool ok, int vec, float (&x)[DP]) {
+  constexpr int kE = 16 / sizeof(T);
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < DP / kE; ++c) {
+      if (ok && c * kE < D) {
+        unpack16<T>(reinterpret_cast<const uint4*>(src)[c], x + kE * c);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kE; ++j) x[kE * c + j] = 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < DP; ++d) x[d] = ok && d < D ? rt::to_f(src[d]) : 0.f;
+  }
+}
+
+// Rows [r0, r0 + 64) of a (.., H, D) tensor at head h (rows `row_stride`
+// elements apart, the first at `base`) into a [64][DP] tile: 16-byte
+// cp.async when `vec`, else element copies; rows at or past n are zeros.
+// Columns D..DP-1 are never written (zeroed once by the caller).
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(T* tile, const T* base, size_t row_stride, int r0,
+                                          int n, int D, int vec) {
+  if (vec) {
+    const int cpr = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+    for (int e = threadIdx.x; e < kTile * cpr; e += kThreads) {
+      const int r = e / cpr, c = e % cpr;
+      char* dst = reinterpret_cast<char*>(tile + r * DP) + 16 * c;
+      if (r0 + r < n)
+        cp16(dst, reinterpret_cast<const char*>(base + (size_t)(r0 + r) * row_stride) + 16 * c);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+      const int r = e / D, d = e % D;
+      tile[r * DP + d] = r0 + r < n ? base[(size_t)(r0 + r) * row_stride + d] : rt::from_f<T>(0.f);
+    }
+  }
+}
+
+// 64 per-row scalars (positions, lse, delta) at src[i * stride], i in
+// [r0, r0 + 64), by the first 64 threads; 0 past n.
+template <typename V>
+__device__ __forceinline__ void load_col(V* dst, const V* src, size_t stride, int r0, int n) {
+  const int i = threadIdx.x;
+  if (i >= kTile) return;
+  if (r0 + i < n)
+    cp4(dst + i, src + (size_t)(r0 + i) * stride);
+  else
+    dst[i] = V(0);
+}
+
+// flags[t] = whether streamed tile t (positions pos[64 t, 64 t + 64) below
+// n) may pair with the block's own rows, whose positions span [lo, hi]
+// (`own_q`: the own rows are queries).  The block's warps take the tiles
+// in turns, all at once, so the tile loop reads no position from global
+// memory; the caller synchronises before reading the flags.
+template <bool own_q>
+__device__ __forceinline__ void live_flags(int* flags, const int* pos, int n, int ntiles, int lo,
+                                           int hi, int causal, int window) {
+  for (int t = threadIdx.x >> 5; t < ntiles; t += kThreads / 32) {
+    int tlo, thi;
+    range_of<kTile>(pos, t * kTile, n, tlo, thi);
+    const bool ok = own_q ? band(lo, hi, tlo, thi, causal, window)
+                          : band(tlo, thi, lo, hi, causal, window);
+    if ((threadIdx.x & 31) == 0) flags[t] = ok;
+  }
+}
+
+// Sum of the kSplits partial rows of DP fp32 values through shared memory
+// `red` ((kSplits - 1) x DP x kRows floats), in split order; -> the total in
+// split 0's `acc` (others unchanged).  Starts and ends with a barrier.
+template <int DP>
+__device__ __forceinline__ void reduce_splits(float* red, float (&acc)[DP], int split, int r) {
+  __syncthreads();
+  if (split > 0) {
+#pragma unroll
+    for (int d = 0; d < DP; ++d) red[((split - 1) * DP + d) * kRows + r] = acc[d];
+  }
+  __syncthreads();
+  if (split == 0) {
+#pragma unroll
+    for (int s = 1; s < kSplits; ++s) {
+#pragma unroll
+      for (int d = 0; d < DP; ++d) acc[d] += red[((s - 1) * DP + d) * kRows + r];
+    }
+  }
+}
+
+template <typename T, int DP>
+__host__ __device__ constexpr size_t dq_stage_bytes() {
+  return 2 * kTile * DP * sizeof(T) + kTile * sizeof(int);
+}
+
+template <typename T, int DP>
+__host__ __device__ constexpr size_t dkv_stage_bytes() {
+  return 2 * kTile * DP * sizeof(T) + 3 * kTile * 4;
+}
+
+template <int DP>
+__host__ __device__ constexpr size_t red_bytes() {
+  return (size_t)(kSplits - 1) * DP * kRows * sizeof(float);
+}
+
+// Dynamic shared memory of a pass: the ring of `stage` bytes a tile, then
+// one live flag a streamed tile; the splits' sum reuses it from the start.
+constexpr size_t smem_bytes(size_t stage, size_t red, int ntiles) {
+  return std::max(kStages * stage + ntiles * sizeof(int), red);
+}
+
+// dQ and delta: block (32-row query tile, query head, batch row), the last
+// tiles first; thread (split, row).  K / V tiles of 64 keys stream through
+// a 3-stage cp.async ring (two tiles landing while one is computed), one
+// barrier a tile; the thread's split takes 8 of a tile's keys, each read
+// from shared memory as a broadcast.  Tiles skipped by position band
+// (`live_flags`); the splits' dQ summed in split order.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, min_blocks<DP>()) dq_kernel(Args a, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D, G = a.Hq / a.Hkv;
+  const int split = threadIdx.x / kRows, r = threadIdx.x % kRows;
+  const int b = blockIdx.z, h = blockIdx.y, hk = h / G;
+  const int q0 = ((a.Sq + kRows - 1) / kRows - 1 - blockIdx.x) * kRows;
+  const int qi = q0 + r;
+  const bool qok = qi < a.Sq;
+  const size_t qrow = ((size_t)b * a.Sq + (qok ? qi : 0)) * a.Hq + h;
+  const T* k = static_cast<const T*>(a.k) + ((size_t)b * a.Skv * a.Hkv + hk) * D;
+  const T* v = static_cast<const T*>(a.v) + ((size_t)b * a.Skv * a.Hkv + hk) * D;
+  const size_t kstride = (size_t)a.Hkv * D;
+
+  // stage st: K [64][DP], V [64][DP], key positions [64].  Addresses are
+  // computed from `st`, never read from an indexed array of pointers
+  // (which would live in local memory and turn shared loads generic).
+  constexpr size_t kStage = dq_stage_bytes<T, DP>();
+  auto ks = [&](int st) { return reinterpret_cast<T*>(smem + st * kStage); };
+  auto vs = [&](int st) { return ks(st) + kTile * DP; };
+  auto ps = [&](int st) { return reinterpret_cast<int*>(vs(st) + kTile * DP); };
+  int* flags = reinterpret_cast<int*>(smem + kStages * kStage);
+  if (D < DP) {   // pad columns: zero once, never written again
+    for (int e = threadIdx.x; e < 2 * kStages * kTile * (DP - D); e += kThreads) {
+      const int col = D + e % (DP - D), row = e / (DP - D);   // row over the K, V tiles
+      T* tile = row < kStages * kTile ? ks(row / kTile) : vs(row / kTile - kStages);
+      tile[(row % kTile) * DP + col] = rt::from_f<T>(0.f);
+    }
+  }
+
+  float q[DP], g[DP], acc[DP];
+  own_row<T, DP>(static_cast<const T*>(a.q) + qrow * D, D, qok, vec, q);
+  own_row<T, DP>(static_cast<const T*>(a.dout) + qrow * D, D, qok, vec, g);
+  float dl = 0.f;
+  {
+    float o[DP];
+    own_row<T, DP>(static_cast<const T*>(a.o) + qrow * D, D, qok, vec, o);
+#pragma unroll
+    for (int d = 0; d < DP; ++d) {
+      dl += g[d] * o[d];
+      acc[d] = 0.f;
+    }
+  }
+  if (split == 0 && qok) a.delta[qrow] = dl;
+  const float lse2 = qok ? a.lse[qrow] * kLog2e : 0.f;
+  const float scale2 = a.scale * kLog2e;
+  const int qp = qok ? a.qpos[qi] : 0;
+  int qlo, qhi;
+  range_of<kRows>(a.qpos, q0, a.Sq, qlo, qhi);
+
+  const int nkt = (a.Skv + kTile - 1) / kTile;
+  constexpr int kUnroll = unroll<DP>();
+  live_flags<true>(flags, a.kpos, a.Skv, nkt, qlo, qhi, a.causal, a.window);
+  __syncthreads();
+  auto next_live = [&](int t) {
+    while (t < nkt && !flags[t]) ++t;
+    return t;
+  };
+  auto load = [&](int t, int st) {   // a group per tile, empty past the last
+    if (t < nkt) {
+      load_tile<T, DP>(ks(st), k, kstride, t * kTile, a.Skv, D, vec);
+      load_tile<T, DP>(vs(st), v, kstride, t * kTile, a.Skv, D, vec);
+      load_col<int>(ps(st), a.kpos, 1, t * kTile, a.Skv);
+    }
+    commit();
+  };
+
+  int t = next_live(0), st = 0;
+  int t1 = t < nkt ? next_live(t + 1) : nkt;
+  load(t, 0);
+  load(t1, 1);
+  while (t < nkt) {
+    wait_pending<1>();          // tile t landed (t1 may still be landing)
+    __syncthreads();            // ... for every thread; all done with the last stage
+    const int t2 = t1 < nkt ? next_live(t1 + 1) : nkt;
+    load(t2, (st + 2) % kStages);
+    const T* K = ks(st);
+    const T* V = vs(st);
+    const int* P = ps(st);
+    const int k0 = t * kTile;
+#pragma unroll kUnroll
+    for (int jj = 0; jj < kPer; ++jj) {
+      const int j = split * kPer + jj;
+      float kr[DP], vr[DP];
+      row_f<T, DP>(K + j * DP, kr);
+      row_f<T, DP>(V + j * DP, vr);
+      const float2 sd = dots<DP>(q, kr, g, vr);     // s, dp
+      const bool ok = qok && k0 + j < a.Skv && live(qp, P[j], a.causal, a.window);
+      const float p = ok ? exp2f(sd.x * scale2 - lse2) : 0.f;
+      const float ds = rt::round_as<T>(p * (sd.y - dl) * a.scale);
+#pragma unroll
+      for (int d = 0; d < DP; ++d) acc[d] += ds * kr[d];
+    }
+    t = t1;
+    t1 = t2;
+    st = (st + 1) % kStages;
+  }
+  reduce_splits<DP>(reinterpret_cast<float*>(smem), acc, split, r);
+  if (split == 0 && qok) {
+    T* dq = static_cast<T*>(a.dq) + qrow * D;
+#pragma unroll
+    for (int d = 0; d < DP; ++d)
+      if (d < D) dq[d] = rt::from_f<T>(acc[d]);
+  }
+}
+
+// dK and dV: block (32-key tile, kv head, batch row); thread (split, key).
+// Over the group's G heads and their live 64-row query tiles (Q, dO, lse,
+// delta and positions through the same 3-stage ring), the split taking 8
+// of a tile's queries; the block owns its keys, so dK and dV are written
+// once, without atomics.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, min_blocks<DP>()) dkv_kernel(Args a, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D, G = a.Hq / a.Hkv;
+  const int split = threadIdx.x / kRows, j = threadIdx.x % kRows;
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kRows;
+  const int kj = k0 + j;
+  const bool kok = kj < a.Skv;
+  const size_t krow = ((size_t)b * a.Skv + (kok ? kj : 0)) * a.Hkv + hk;
+  const size_t qstride = (size_t)a.Hq * D;
+
+  // stage st: Q [64][DP], dO [64][DP], lse [64], delta [64], positions [64]
+  constexpr size_t kStage = dkv_stage_bytes<T, DP>();
+  auto qs = [&](int st) { return reinterpret_cast<T*>(smem + st * kStage); };
+  auto gs = [&](int st) { return qs(st) + kTile * DP; };
+  auto ls = [&](int st) { return reinterpret_cast<float*>(gs(st) + kTile * DP); };
+  auto dls = [&](int st) { return ls(st) + kTile; };
+  auto ps = [&](int st) { return reinterpret_cast<int*>(dls(st) + kTile); };
+  int* flags = reinterpret_cast<int*>(smem + kStages * kStage);
+  if (D < DP) {
+    for (int e = threadIdx.x; e < 2 * kStages * kTile * (DP - D); e += kThreads) {
+      const int col = D + e % (DP - D), row = e / (DP - D);
+      T* tile = row < kStages * kTile ? qs(row / kTile) : gs(row / kTile - kStages);
+      tile[(row % kTile) * DP + col] = rt::from_f<T>(0.f);
+    }
+  }
+
+  float kk[DP], vv[DP], dk[DP], dv[DP];
+  own_row<T, DP>(static_cast<const T*>(a.k) + krow * D, D, kok, vec, kk);
+  own_row<T, DP>(static_cast<const T*>(a.v) + krow * D, D, kok, vec, vv);
+#pragma unroll
+  for (int d = 0; d < DP; ++d) dk[d] = dv[d] = 0.f;
+  const int kp = kok ? a.kpos[kj] : 0;
+  const float scale2 = a.scale * kLog2e;
+  int klo, khi;
+  range_of<kRows>(a.kpos, k0, a.Skv, klo, khi);
+
+  // tiles it = gi * nqt + qt: query tile qt of the group's head gi (the
+  // same live set for every head)
+  const int nqt = (a.Sq + kTile - 1) / kTile, n_it = G * nqt;
+  constexpr int kUnroll = unroll<DP>();
+  live_flags<false>(flags, a.qpos, a.Sq, nqt, klo, khi, a.causal, a.window);
+  __syncthreads();
+  auto next_live = [&](int it) {   // the same query tiles are live for every head
+    while (it < n_it && !flags[it % nqt]) ++it;
+    return it;
+  };
+  auto load = [&](int it, int st) {   // a group per tile, empty past the last
+    if (it < n_it) {
+      const int h = hk * G + it / nqt, q0 = (it % nqt) * kTile;
+      const size_t off = (size_t)b * a.Sq * a.Hq + h;
+      load_tile<T, DP>(qs(st), static_cast<const T*>(a.q) + off * D, qstride, q0, a.Sq, D, vec);
+      load_tile<T, DP>(gs(st), static_cast<const T*>(a.dout) + off * D, qstride, q0, a.Sq, D,
+                       vec);
+      load_col<float>(ls(st), a.lse + off, a.Hq, q0, a.Sq);
+      load_col<float>(dls(st), a.delta + off, a.Hq, q0, a.Sq);
+      load_col<int>(ps(st), a.qpos, 1, q0, a.Sq);
+    }
+    commit();
+  };
+
+  int it = next_live(0), st = 0;
+  int it1 = it < n_it ? next_live(it + 1) : n_it;
+  load(it, 0);
+  load(it1, 1);
+  while (it < n_it) {
+    wait_pending<1>();
+    __syncthreads();
+    const int it2 = it1 < n_it ? next_live(it1 + 1) : n_it;
+    load(it2, (st + 2) % kStages);
+    const T* Q = qs(st);
+    const T* Gd = gs(st);
+    const float* LS = ls(st);
+    const float* DL = dls(st);
+    const int* P = ps(st);
+    const int q0 = (it % nqt) * kTile;
+#pragma unroll kUnroll
+    for (int ii = 0; ii < kPer; ++ii) {
+      const int i = split * kPer + ii;
+      float qr[DP], gr[DP];
+      row_f<T, DP>(Q + i * DP, qr);
+      row_f<T, DP>(Gd + i * DP, gr);
+      const float2 sd = dots<DP>(qr, kk, gr, vv);   // s, dp
+      const bool ok = kok && q0 + i < a.Sq && live(P[i], kp, a.causal, a.window);
+      const float p = ok ? exp2f(sd.x * scale2 - LS[i] * kLog2e) : 0.f;
+      const float pr = rt::round_as<T>(p);
+      const float ds = rt::round_as<T>(p * (sd.y - DL[i]) * a.scale);
+#pragma unroll
+      for (int d = 0; d < DP; ++d) {
+        dv[d] += pr * gr[d];
+        dk[d] += ds * qr[d];
+      }
+    }
+    it = it1;
+    it1 = it2;
+    st = (st + 1) % kStages;
+  }
+  float* red = reinterpret_cast<float*>(smem);
+  reduce_splits<DP>(red, dk, split, j);
+  reduce_splits<DP>(red, dv, split, j);
+  if (split == 0 && kok) {
+    T* dkp = static_cast<T*>(a.dk) + krow * D;
+    T* dvp = static_cast<T*>(a.dv) + krow * D;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) {
+      if (d < D) {
+        dkp[d] = rt::from_f<T>(dk[d]);
+        dvp[d] = rt::from_f<T>(dv[d]);
+      }
+    }
+  }
+}
+
+// dq (with delta), then dk/dv.  16-byte loads and copies when every row is
+// whole 16-byte chunks and the operands are 16-byte aligned.
+template <typename T, int DP>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
+                         reinterpret_cast<uintptr_t>(a.o);
+  const int vec = (a.D * (int)sizeof(T)) % 16 == 0 && addr % 16 == 0;
+  const int kv_tiles = (a.Skv + kTile - 1) / kTile, q_tiles = (a.Sq + kTile - 1) / kTile;
+  const size_t smem_q = smem_bytes(dq_stage_bytes<T, DP>(), red_bytes<DP>(), kv_tiles);
+  const size_t smem_k = smem_bytes(dkv_stage_bytes<T, DP>(), red_bytes<DP>(), q_tiles);
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_k);
+  if (err != cudaSuccess) return err;
+  const unsigned nq = (unsigned)((a.Sq + kRows - 1) / kRows);
+  const unsigned nk = (unsigned)((a.Skv + kRows - 1) / kRows);
+  dq_kernel<T, DP><<<dim3(nq, a.Hq, a.B), kThreads, smem_q, st>>>(a, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<T, DP><<<dim3(nk, a.Hkv, a.B), kThreads, smem_k, st>>>(a, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const Args& a, cudaStream_t st) {
+  if (a.D <= 8) return launch<T, 8>(a, st);
+  if (a.D <= 16) return launch<T, 16>(a, st);
+  if (a.D <= 24) return launch<T, 24>(a, st);
+  if (a.D <= 32) return launch<T, 32>(a, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace sh
 
 // ------------------------------------------------------ tensor-core route
 namespace tc = rt::tc;
@@ -924,22 +1436,23 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const TcArgs&
 
 }  // namespace
 
-// The backward's kernels on one stream, in order: `use_tc` names the route
-// (SIMT: delta, dq, dk/dv; tensor cores: prep, dq, dk/dv, at D = 256 dv
-// and dk).  All tensors contiguous in the layouts above;
-// `scratch` fp32: SIMT delta (B, Sq, Hq), tensor cores the (2, B, Hq,
-// ceil(Sq / 64) * 64) planes; `ranges` int32 (ceil(Sq / 64) + ceil(Skv /
-// 64), 2), tensor cores only; window <= 0 means none.
+// The backward's kernels on one stream, in order: `route` names the route
+// (0 SIMT: delta, dq, dk/dv; 1 tensor cores: prep, dq, dk/dv, at D = 256
+// dv and dk; 2 small heads, D <= 32: dq with delta, dk/dv).  All tensors
+// contiguous in the layouts above; `scratch` fp32: SIMT and small heads
+// delta (B, Sq, Hq), tensor cores the (2, B, Hq, ceil(Sq / 64) * 64)
+// planes; `ranges` int32 (ceil(Sq / 64) + ceil(Skv / 64), 2), tensor
+// cores only; window <= 0 means none.
 extern "C" int rt_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                             const void* dout, const void* lse, void* scratch, void* ranges,
                             const void* qpos, const void* kpos, void* dq, void* dk, void* dv,
                             int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
-                            int window, float scale, int dtype, int use_tc, void* stream) {
+                            int window, float scale, int dtype, int route, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 1 || D > 256 ||
       Hq > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_tc) {
+  if (route == 1) {
     const int nqt = (Sq + kT - 1) / kT, nkt = (Skv + kT - 1) / kT;
     if (dtype != rt::kBF16 || (D != 64 && D != 128 && D != 256) || nqt > 65535 || nkt > 65535)
       return cudaErrorInvalidValue;
@@ -957,8 +1470,9 @@ extern "C" int rt_flash_bwd(const void* q, const void* k, const void* v, const v
   Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(scratch),
          static_cast<const int*>(qpos), static_cast<const int*>(kpos), dq, dk, dv,
          B, Sq, Skv, Hq, Hkv, D, causal, window, scale};
+  if (route != 0 && route != 2) return cudaErrorInvalidValue;
   return rt::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
-    return launch_simt_d<T>(a, st);
+    return route == 2 ? sh::launch_d<T>(a, st) : launch_simt_d<T>(a, st);
   });
 }

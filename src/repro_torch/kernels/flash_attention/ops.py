@@ -10,7 +10,8 @@ else; `mha_flash.tc_launches` counts those of the tensor-core route.
 attention gradient; a CPU tensor runs `ref.flash_bwd_ref`, a CUDA tensor
 launches the kernels of the route `_bwd_route` names, or raises.
 `mha_flash_bwd.launches` counts its calls that launched a route,
-`mha_flash_bwd.tc_launches` those of the tensor-core route."""
+`mha_flash_bwd.tc_launches` those of the tensor-core route and
+`mha_flash_bwd.small_launches` those of the small-head route."""
 from __future__ import annotations
 
 import ctypes
@@ -27,9 +28,12 @@ _SIGNATURES = {"rt_flash_attention": [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P
                "rt_flash_attention_tc": [_P] * 5 + [_I] * 8 + [_F, _P]}
 _BWD_SIGNATURES = {"rt_flash_bwd": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 2 + [_P]}
 # what the backward kernels take: D up to 256, any G = Hq / Hkv; the
-# tensor-core route takes bf16 q, k and v at these head dims
+# small-head route takes D up to BWD_SMALL_HEAD_DIM, the tensor-core route
+# bf16 q, k and v at BWD_TC_HEAD_DIMS
 BWD_MAX_HEAD_DIM = 256
+BWD_SMALL_HEAD_DIM = 32
 BWD_TC_HEAD_DIMS = (64, 128, 256)
+_BWD_ROUTE_CODES = {"simt": 0, "tc": 1, "small": 2}   # flash_bwd.cu's `route`
 BWD_TILE = 64   # rows of the tensor-core route's query and key tiles
 _MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
 # what the tensor-core route takes besides bf16 q, k and v
@@ -105,10 +109,11 @@ mha_flash.tc_launches = 0
 
 def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """Which route of the attention backward takes these operands, from
-    dtypes and shapes alone: "tc" (tensor cores) for bf16 q, k and v with
-    D in BWD_TC_HEAD_DIMS and any G = Hq / Hkv; "simt" (the CUDA-core
-    kernels) for float32, and for bf16 with any other D <= 256.  Raises for
-    what neither takes."""
+    dtypes and shapes alone: "small" (a row per thread on the CUDA cores)
+    for D <= BWD_SMALL_HEAD_DIM; "tc" (tensor cores) for bf16 q, k and v
+    with D in BWD_TC_HEAD_DIMS and any G = Hq / Hkv; "simt" (the CUDA-core
+    kernels) for every other D <= 256, float32 or bfloat16.  Raises for
+    what none takes."""
     B, Sq, Hq, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
@@ -117,6 +122,8 @@ def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
         raise ValueError(f"Hq={Hq} Hkv={Hkv} D={D}: need Hkv | Hq and D <= {BWD_MAX_HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         K.dtype_code(name, t)
+    if D <= BWD_SMALL_HEAD_DIM:
+        return "small"
     if q.dtype == k.dtype == v.dtype == torch.bfloat16 and D in BWD_TC_HEAD_DIMS:
         return "tc"
     return "simt"
@@ -141,7 +148,20 @@ def mha_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
         return flash_bwd_ref(q, k, v, out, lse, dout, q_positions, kv_positions,
                              causal=causal, window=window, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
-    route = _bwd_route(q, k, v)
+    return _flash_bwd_launch(None, *tensors, causal=causal, window=window)
+
+
+def _flash_bwd_launch(route: Optional[str], q, k, v, out, lse, dout, q_positions,
+                      kv_positions, *, causal: bool, window: Optional[int]):
+    """`mha_flash_bwd` on the card: its kernels launched on the route
+    `_bwd_route` names, or on `route` where that route also takes these
+    operands ("simt" takes every one), to time one route against
+    another."""
+    chosen = _bwd_route(q, k, v)
+    if route is None:
+        route = chosen
+    elif route not in ("simt", chosen):
+        raise ValueError(f"route {route!r}: these operands take {chosen!r} or 'simt'")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if min(B, Sq, Skv, Hq) < 1:
@@ -174,12 +194,14 @@ def mha_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
                                                      q_positions, kv_positions, dq, dk, dv)),
                                B, Sq, Skv, Hq, Hkv, D, int(causal),
                                0 if window is None else int(window), 1.0 / D ** 0.5, code,
-                               int(route == "tc"), K.stream_of(q))
+                               _BWD_ROUTE_CODES[route], K.stream_of(q))
     _build.check(lib, err, f"flash_bwd ({route})")
     mha_flash_bwd.launches += 1
     mha_flash_bwd.tc_launches += int(route == "tc")
+    mha_flash_bwd.small_launches += int(route == "small")
     return dq, dk, dv
 
 
 mha_flash_bwd.launches = 0
 mha_flash_bwd.tc_launches = 0
+mha_flash_bwd.small_launches = 0

@@ -316,7 +316,7 @@ class BatchEngine:
     def _inject_prefix(self, r: BatchRequest, blk: BS.StoredBlock):
         """(block table, have) with a prefix-tier hit injected: the first
         positions read the block's arena slots (table entries past the
-        cached rows, `engine.gather_rows`) and count as cached, so Eq. 3
+        cached rows, `engine.cache_gather`) and count as cached, so Eq. 3
         drops them from the recompute set."""
         npfx = min(blk.n_tokens, r.plan.n)
         table, have = r.block_table.copy(), r.have.copy()

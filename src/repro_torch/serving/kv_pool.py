@@ -315,15 +315,16 @@ class PagedKVPool:
         self.arena_k.index_put_(idx, k.to(self.arena_k.dtype))
         self.arena_v.index_put_(idx, v.to(self.arena_v.dtype))
 
-    def plane(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Layer `layer` of both arenas as pools of one-slot pages: (k, v)
-        views of shape (n_pages * page_size, 1, Hkv, Dh), row i being
-        physical slot i.  Strided (slots are L planes apart), not copied:
-        the block-gather kernel's second pool, through which the
-        selective layers read store-shared prefix rows."""
+    def planes(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both arenas as stacks of layer planes of one-slot pages: (k, v)
+        views of shape (L, n_pages * page_size, 1, Hkv, Dh), [l, i] being
+        layer l of physical slot i.  Strided (a slot's layers are adjacent,
+        slots L layers apart), not copied: the block-gather kernel's second
+        pool, through which the selective layers read store-shared prefix
+        rows."""
         n, ps, L = self.n_pages, self.page_size, self.n_layers
         tail = tuple(self.arena_k.shape[3:])
-        return tuple(a.view(n * ps, 1, L, *tail)[:, :, layer]
+        return tuple(a.view(n * ps, 1, L, *tail).movedim(2, 0)
                      for a in (self.arena_k, self.arena_v))
 
     def write_prompt(self, rid: int, k, v) -> None:

@@ -24,11 +24,11 @@ from repro.core.engine import SelectiveConfig as JSel
 from repro.data import synth as JSY
 from repro.serving import block_store as JBS
 from repro_torch.core import baselines as BASE
-from repro_torch.core import engine as ENG
 from repro_torch.core import metrics as MET
 from repro_torch.core.engine import SelectiveConfig
 from repro_torch.core.rcllm import make_tiny_system, tiny_config
 from repro_torch.data import synth as SY
+from repro_torch.kernels.block_gather import ops as BO
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving import block_store as BS
 
@@ -146,28 +146,30 @@ def test_rank_scores_match_reference(scores, method):
 def test_cacheblend_rotates_to_original_positions(systems, monkeypatch):
     """CacheBlend's selective layers gather the cached keys at their
     original positions (request position minus the RoPE delta), which
-    differ from the request positions wherever a block was realigned."""
+    differ from the request positions wherever a block was realigned: one
+    rotated gather of layers 1..L-1 per selective pass."""
     _, tsys, _, reqs_t = systems
     calls = []
-    gather = ENG.gather_rows
+    call = BO.PoolGather.__call__
 
-    def tap(cache, layer, table, positions, **kw):
-        if kw.get("rotate"):
-            calls.append(positions.clone())
-        return gather(cache, layer, table, positions, **kw)
+    def tap(self, table, positions=None, layers=0, **kw):
+        if kw.get("rotate", True):
+            calls.append((layers, positions.clone()))
+        return call(self, table, positions, layers, **kw)
 
-    monkeypatch.setattr(ENG, "gather_rows", tap)
+    monkeypatch.setattr(BO.PoolGather, "__call__", tap)
     rt = reqs_t[0]
     tsys.rank(rt, "cacheblend", SelectiveConfig(**SEL))
     plan = tsys.plan_for(rt, tsys.best_instance(rt))
-    assert len(calls) == tsys.cfg.n_layers - 1
+    assert [layers for layers, _ in calls] == [range(1, tsys.cfg.n_layers)]
     want = np.arange(plan.n) - plan.rope_delta
     assert (want != np.arange(plan.n)).sum() > 0
-    for pos in calls:
+    for _, pos in calls:
         np.testing.assert_array_equal(pos.numpy()[:plan.n], want)
     calls.clear()
     tsys.rank(rt, "epic", SelectiveConfig(**SEL))
-    for pos in calls:
+    assert calls
+    for _, pos in calls:
         np.testing.assert_array_equal(pos.numpy()[:plan.n], np.arange(plan.n))
 
 

@@ -107,10 +107,11 @@ def test_selective_liveness_tiles_per_route(G):
         check_live_tiles("simt", G, 8, 32)
 
 
-@pytest.mark.parametrize("D", [16, 64, 112, 128, 256, 288])
+@pytest.mark.parametrize("D", [16, 64, 112, 128, 256, 288, 1, 8, 32, 33])
 @pytest.mark.parametrize("dtypes", DTYPES, ids=lambda d: "-".join(str(t)[6:] for t in d))
 def test_bwd_route(dtypes, D):
-    """The attention backward: all-bf16 operands at D 64, 128 or 256 take
+    """The attention backward: D <= 32 takes the small-head route (a row
+    per thread) in any dtype; all-bf16 operands at D 64, 128 or 256 take
     the tensor cores at any group size; fp32, mixed dtypes and bf16 at
     any other D <= 256 the SIMT kernels; D > 256 and Hkv not dividing Hq
     are refused."""
@@ -123,7 +124,7 @@ def test_bwd_route(dtypes, D):
                 bwd_route(q, k, v)
             continue
         tc = qd == kd == vd == BF16 and D in (64, 128, 256)
-        assert bwd_route(q, k, v) == ("tc" if tc else "simt")
+        assert bwd_route(q, k, v) == ("small" if D <= 32 else "tc" if tc else "simt")
         odd = torch.zeros(B, 3, HKV * G + 1, D, dtype=qd)
         with pytest.raises(ValueError, match=re.escape("Hkv | Hq")):
             bwd_route(odd, k, v)

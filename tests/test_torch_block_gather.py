@@ -25,6 +25,7 @@ from repro.data import synth as JSY
 from repro.kernels.block_gather.ops import assemble_kv as jax_assemble_kv
 from repro.kernels.block_gather.ref import block_gather_ref as jax_block_gather_ref
 from repro.kernels.block_gather.ref import rope_rotate as jax_rope_rotate
+from repro.models.layers import apply_rope as jax_apply_rope
 from repro_torch.core import assembly as TA
 from repro_torch.core import engine as TENG
 from repro_torch.core import item_cache as TIC
@@ -32,7 +33,9 @@ from repro_torch.core import placement as TPL
 from repro_torch.core import semantic_cache as TSC
 from repro_torch.core.cache_rows import ZERO_ROW, CacheRows
 from repro_torch.data import synth as TSY
-from repro_torch.kernels.block_gather.ops import assemble_kv
+from repro_torch.kernels.block_gather.ops import PoolGather, assemble_kv
+from repro_torch.kernels.block_gather.ref import block_gather_ref, gather_pages
+from repro_torch.serving.kv_pool import PagedKVPool
 
 # fp32 keys rotated by positions < 4096: the two frameworks' sin/cos and
 # pow may differ by an ulp, which the angle (up to ~4096 rad) turns into
@@ -188,13 +191,12 @@ def test_plan_assembly_on_the_pool_equals_reference_gather(pools):
             np.testing.assert_array_equal(positions, np.arange(pt.n))
             assert (table[~have] == ZERO_ROW).all()
             tbl, pos = torch.from_numpy(table), torch.from_numpy(positions)
+            gather = TENG.cache_gather(rows, 1e4)
             for layer in range(L_):
-                k, v = TENG.gather_rows(rows, layer, tbl, pos, rope_theta=1e4,
-                                        rotate=False)
+                k, v = gather(tbl, pos, layer, rotate=False)
                 np.testing.assert_array_equal(k.numpy(), kj[:, layer])
                 np.testing.assert_array_equal(v.numpy(), vj[:, layer])
-                kr, vr, kraw = TENG.gather_rows(rows, layer, tbl, pos, rope_theta=1e4,
-                                                rotate=True, keep_raw=True)
+                kr, vr, kraw = gather(tbl, pos, layer, rotate=True, keep_raw=True)
                 np.testing.assert_array_equal(kraw.numpy(), kj[:, layer])
                 np.testing.assert_array_equal(vr.numpy(), vj[:, layer])
                 want = jax_rope_rotate(jnp.asarray(kj[:, layer]),
@@ -218,3 +220,75 @@ def test_cache_rows_pack_every_block_once(pools):
                                       b.k)
     protos = slice(tsem.proto_row, tsem.proto_row + tsem.n_prototypes)
     np.testing.assert_array_equal(rows.v[:, protos, 0].permute(1, 0, 2, 3), tsem.proto_v)
+
+
+# ---------------------------------------------- every layer in one launch
+@pytest.mark.parametrize("two_pools", [False, True])
+@pytest.mark.parametrize("rotate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_all_layer_gather_is_one_plain_call_per_layer(dtype, rotate, two_pools):
+    """The all-layer gather (`PoolGather` over a stack of layer planes,
+    the selective pass's one launch) equals one plain call per layer, bit
+    for bit, in every layer: values and raw keys copied, keys rotated or
+    copied, pad rows reading the zero row, entries into the serving
+    arena's planes (the second pool); a sub-range and a single layer are
+    the same rows."""
+    rng = np.random.default_rng(11 + 2 * rotate + two_pools)
+    L, H, D, n_rows = 4, 2, 16, 40
+    pk = torch.from_numpy(rng.normal(size=(L, n_rows, 1, H, D)).astype(np.float32)).to(dtype)
+    pk[:, ZERO_ROW] = 0
+    pv = -pk
+    extra, n2 = (), 0
+    if two_pools:
+        arena = PagedKVPool(L, H, D, page_size=4, n_pages=6, device="cpu", dtype=dtype)
+        arena.arena_k.copy_(torch.randn(arena.arena_k.shape))
+        arena.arena_v.copy_(torch.randn(arena.arena_v.shape))
+        extra = arena.planes()
+        n2 = extra[0].shape[1]
+    table = rng.integers(0, n_rows + n2, 50).astype(np.int32)
+    table[40:] = ZERO_ROW                                     # pad rows
+    tbl = torch.from_numpy(table)
+    pos = torch.from_numpy(rng.integers(0, 4096, 50).astype(np.int32))
+    g = PoolGather(pk, pv, *extra, rope_theta=1e4)
+    got = g(tbl, pos, range(L), rotate=rotate, keep_raw=rotate)
+    assert len(got) == (3 if rotate else 2)
+    assert all(t.shape == (L, 50, H, D) and t.dtype == dtype for t in got)
+    for layer in range(L):
+        k2 = {"pool2_k": extra[0][layer], "pool2_v": extra[1][layer]} if two_pools else {}
+        want = block_gather_ref(pk[layer], pv[layer], tbl, pos[:, None], rope_theta=1e4,
+                                rotate=rotate, **k2)
+        if rotate:
+            want += (gather_pages(pk[layer], tbl.long(), k2.get("pool2_k")),)
+        one = g(tbl, pos, layer, rotate=rotate, keep_raw=rotate)
+        for a, b, w in zip(got, one, want):
+            assert torch.equal(a[layer], w[:, 0]) and torch.equal(b, w[:, 0])
+    assert not got[1][:, 40:].any()
+    sub = g(tbl, pos, range(1, L), rotate=rotate, keep_raw=rotate)
+    assert all(torch.equal(a[1:], b) for a, b in zip(got, sub))
+
+
+def test_all_layer_gather_of_a_plan_equals_the_reference_assembly(pools):
+    """A plan's block table gathered for every layer in one call of the
+    port's all-layer gather: the values and raw keys are bitwise the JAX
+    package's host assembly (`gather_cached_kv`), and the rotated keys its
+    per-layer rotation (`repro/core/engine.py`'s `apply_rope` of each
+    layer's cached keys to the request positions)."""
+    (jc, jt, jsem, jstore, embed), (tc, tt, tsem, tstore, _), rows = pools
+    instr = JSY.make_instruction(207, jc.vocab_size)
+    g = TENG.cache_gather(rows, 1e4)
+    for a, b in list(zip(jt, tt))[:4]:
+        pj = JA.build_plan(*a.prompt_segments(jc, instr), a.history_marker_mask, jstore, jsem,
+                           embed, instance=1)
+        pt = TA.build_plan(*b.prompt_segments(tc, instr), b.history_marker_mask, tstore, tsem,
+                           embed, instance=1)
+        kj, vj, _ = JA.gather_cached_kv(pj, jstore, jsem, 1, L_, HKV, DH)
+        table, positions, _ = TA.plan_block_table(pt, tstore, tsem, 1)
+        kr, v, kraw = g(torch.from_numpy(table), torch.from_numpy(positions), range(L_),
+                        rotate=True, keep_raw=True)
+        for layer in range(L_):
+            np.testing.assert_array_equal(kraw[layer].numpy(), kj[:, layer])
+            np.testing.assert_array_equal(v[layer].numpy(), vj[:, layer])
+            want = jax_apply_rope(jnp.asarray(kj[None, :, layer]), jnp.asarray(positions)[None],
+                                  1e4)[0]
+            np.testing.assert_allclose(kr[layer].numpy(), np.asarray(want),
+                                       atol=ROT_TOL[torch.float32], rtol=ROT_TOL[torch.float32])

@@ -24,7 +24,6 @@ from repro.serving import block_store as JBS
 from repro.serving import workload as JWL
 from repro.serving.batching import PendingRequest as JPending
 from repro.serving.kv_pool import PagedKVPool as JPool
-from repro_torch.core import engine as TENG
 from repro_torch.core.rcllm import make_tiny_system, tiny_config
 from repro_torch.kernels.block_gather import ops as BO
 from repro_torch.kernels.block_gather.ref import block_gather_ref
@@ -320,7 +319,7 @@ def test_pool_plane_is_the_arena_layer():
     pool.arena_k.copy_(torch.randn(pool.arena_k.shape))
     pool.arena_v.copy_(torch.randn(pool.arena_v.shape))
     for layer in range(3):
-        k, v = pool.plane(layer)
+        k, v = (p[layer] for p in pool.planes())
         assert k.shape == (20, 1, 2, 4)
         assert k.data_ptr() == pool.arena_k[0, 0, layer].data_ptr()   # a view
         assert torch.equal(k[:, 0], pool.arena_k[:, :, layer].reshape(20, 2, 4))
@@ -337,7 +336,7 @@ def test_block_gather_second_pool_plain(rotate):
     pool.arena_v.copy_(torch.randn(pool.arena_v.shape))
     pk = torch.from_numpy(rng.normal(size=(9, 1, 2, 8)).astype(np.float32))
     pv = -pk
-    k2, v2 = pool.plane(1)
+    k2, v2 = (p[1] for p in pool.planes())
     table = torch.from_numpy(rng.integers(0, 9 + 24, 40).astype(np.int32))
     pos = torch.from_numpy(rng.integers(0, 500, (40, 1)).astype(np.int32))
     both_k, both_v = torch.cat([pk, k2]), torch.cat([pv, v2])
@@ -386,13 +385,13 @@ def test_kv_reuse_on_off_tokens_bitwise(systems, zipf, sched, monkeypatch, admit
     _, tsys, _, _ = systems
     _, twork = zipf
     calls = {"pool2": 0}
-    gather = TENG.assemble_kv
+    call = BO.PoolGather.__call__
 
-    def spy(*a, **kw):
-        calls["pool2"] += kw.get("pool2_k") is not None
-        return gather(*a, **kw)
+    def spy(self, table, positions=None, layers=0, **kw):
+        calls["pool2"] += self.two and not isinstance(layers, int)
+        return call(self, table, positions, layers, **kw)
 
-    monkeypatch.setattr(TENG, "assemble_kv", spy)
+    monkeypatch.setattr(BO.PoolGather, "__call__", spy)
     _, off = _run_port(tsys, twork, sched, kv_reuse=False)
     assert calls["pool2"] == 0
     engine, on = _run_port(tsys, twork, sched)

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.block_gather.ops import assemble_kv
+from repro_torch.kernels.block_gather.ops import PoolGather, assemble_kv
 from repro_torch.kernels.block_gather.ref import block_gather_ref
 from repro_torch.kernels.embedding_bag.ops import bag_sum
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
@@ -322,10 +322,10 @@ def test_block_gather_kernel_matches_plain(cuda, seed, dtype):
     n_logical = int(rng.integers(1, 2 * n_pages))
     bt = torch.from_numpy(rng.integers(0, n_pages, n_logical).astype(np.int32)).to(cuda)
     pos = torch.from_numpy(rng.integers(0, 4096, (n_logical, page)).astype(np.int32)).to(cuda)
-    before = assemble_kv.launches
+    before = PoolGather.launches
     k, v = assemble_kv(pk, pv, bt, pos, rotate=False)
     kr, vr, kraw = assemble_kv(pk, pv, bt, pos, rotate=True, keep_raw=True)
-    assert assemble_kv.launches == before + 2
+    assert PoolGather.launches == before + 2
     want_k, want_v = block_gather_ref(pk, pv, bt, pos, rotate=False)
     torch.cuda.synchronize()
     assert torch.equal(k, want_k) and torch.equal(v, want_v)
@@ -463,9 +463,9 @@ def test_tiny_rcllm_serving_card_equals_cpu(cuda):
 def test_tiny_rcllm_chunked_serving_card_equals_cpu(cuda):
     """The same under the chunked scheduler (block gather, selective and
     paged decode kernels on the card)."""
-    before = assemble_kv.launches
+    before = PoolGather.launches
     tokens = _tiny_tokens(cuda, "chunked")
-    assert assemble_kv.launches > before
+    assert PoolGather.launches > before
     assert tokens["cuda"] == tokens["cpu"]
 
 
@@ -475,9 +475,9 @@ def test_tiny_rcllm_kv_reuse_serving_card_equals_cpu(cuda, sched):
     """Serving through the shared block store on the card decodes the plain
     versions' tokens on the CPU; the prefix tier's hits reach the selective
     layers through the block gather's second pool."""
-    before = assemble_kv.pool2_launches
+    before = PoolGather.pool2_launches
     tokens = _tiny_tokens(cuda, sched, kv_reuse=True)
-    assert assemble_kv.pool2_launches > before
+    assert PoolGather.pool2_launches > before
     assert tokens["cuda"] == tokens["cpu"]
 
 
@@ -497,16 +497,16 @@ def test_block_gather_kernel_second_pool(cuda, dtype, rotate):
     arena.arena_v.normal_()
     pk = torch.from_numpy(rng.normal(size=(300, 1, 8, 128)).astype(np.float32))
     pk, pv = pk.to(cuda, dtype), (-pk).to(cuda, dtype)
-    k2, v2 = arena.plane(3)
+    k2, v2 = (p[3] for p in arena.planes())
     n2 = k2.shape[0]
     table = rng.integers(0, 300 + n2, 700).astype(np.int32)
     table[:5] = 300 + n2 + np.arange(5)            # past both pools
     bt = torch.from_numpy(table).to(cuda)
     pos = torch.from_numpy(rng.integers(0, 4096, (700, 1)).astype(np.int32)).to(cuda)
-    before = (assemble_kv.launches, assemble_kv.pool2_launches)
+    before = (PoolGather.launches, PoolGather.pool2_launches)
     got = assemble_kv(pk, pv, bt, pos, rotate=rotate, keep_raw=rotate, pool2_k=k2,
                       pool2_v=v2)
-    assert (assemble_kv.launches, assemble_kv.pool2_launches) == (before[0] + 1,
+    assert (PoolGather.launches, PoolGather.pool2_launches) == (before[0] + 1,
                                                                   before[1] + 1)
     safe = bt.clone()
     safe[:5] = 0
@@ -520,6 +520,93 @@ def test_block_gather_kernel_second_pool(cuda, dtype, rotate):
         _close(got[0][5:], want[0][5:], 1e-5 if dtype == torch.float32 else 1e-2)
     else:
         assert torch.equal(got[0][5:], want[0][5:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_pools", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_gather_all_layers_is_bitwise_the_per_layer_launches(cuda, dtype, two_pools):
+    """One launch gathers layers 1..L-1 of a cached-row pool (and of the
+    serving arena's layer planes as the second pool): bitwise the plain
+    version, and bitwise L-1 one-layer launches, rotated keys included;
+    pad rows read the zero row, entries past both pools give zeros."""
+    from repro_torch.kernels.block_gather.ref import block_gather_layers_ref
+    from repro_torch.serving.kv_pool import PagedKVPool
+
+    L, H, D, n_rows = 6, 8, 128, 300
+    rng = np.random.default_rng(5 + two_pools + 2 * (dtype == torch.bfloat16))
+    pk = torch.from_numpy(rng.normal(size=(L, n_rows, 1, H, D)).astype(np.float32))
+    pk, pv = pk.to(cuda, dtype), (-pk).to(cuda, dtype)
+    pk[:, 0] = 0
+    pv[:, 0] = 0
+    extra, n2 = (), 0
+    if two_pools:
+        arena = PagedKVPool(L, H, D, page_size=16, n_pages=12, device=cuda, dtype=dtype)
+        arena.arena_k.normal_()
+        arena.arena_v.normal_()
+        extra = arena.planes()
+        n2 = extra[0].shape[1]
+    table = rng.integers(0, n_rows + n2, 700).astype(np.int32)
+    table[600:] = 0                                  # pad rows: the zero row
+    if two_pools:
+        table[:5] = n_rows + n2 + np.arange(5)       # past both pools
+    bt = torch.from_numpy(table).to(cuda)
+    pos = torch.from_numpy(rng.integers(0, 4096, 700).astype(np.int32)).to(cuda)
+    g = PoolGather(pk, pv, *extra, rope_theta=1e4)
+    before = (PoolGather.launches, PoolGather.layer_launches, PoolGather.pool2_launches)
+    got = g(bt, pos, range(1, L), rotate=True, keep_raw=True)
+    assert (PoolGather.launches, PoolGather.layer_launches, PoolGather.pool2_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + two_pools)
+    assert all(t.shape == (L - 1, 700, H, D) and t.is_contiguous() for t in got)
+    per_layer = [g(bt, pos, l, rotate=True, keep_raw=True) for l in range(1, L)]
+    safe = bt.clone()
+    safe[:5 if two_pools else 0] = 0
+    want = block_gather_layers_ref(pk[1:], pv[1:], safe, pos[:, None], rope_theta=1e4,
+                                   keep_raw=True,
+                                   **({"pool2_k": extra[0][1:], "pool2_v": extra[1][1:]}
+                                      if two_pools else {}))
+    copy = g(bt, None, range(1, L), rotate=False)
+    torch.cuda.synchronize()
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert torch.equal(a, torch.stack([p[i] for p in per_layer]))
+        w = w[:, :, 0]
+        if two_pools:
+            assert not a[:, :5].any()
+            a, w = a[:, 5:], w[:, 5:]
+        assert torch.equal(a, w)
+    assert torch.equal(copy[0], got[2]) and torch.equal(copy[1], got[1])
+    assert not got[1][:, 600:].any() and not got[2][:, 600:].any()
+
+
+@pytest.mark.cuda
+def test_selective_pass_gathers_every_layer_in_one_launch(cuda):
+    """The selective prefill of the tiny system on the card: one block-
+    gather launch per request for layer 0's rows, and one for layers 1..L-1
+    of each selective pass (a shape bucket), not one per layer."""
+    from repro_torch.core import engine as ENG
+    from repro_torch.core.rcllm import make_tiny_system
+    from repro_torch.data import synth as SY
+
+    sys_, pool_rv, prof, _ = make_tiny_system(n_items=60, n_requests_hist=30, k_instances=2,
+                                              n_layers=4, d_model=32, device=cuda)
+    reqs = SY.make_trace(sys_.catalog, pool_rv, prof, 3, qps=5.0, n_users=4, n_candidates=8,
+                         reviews_per_user=2, seed=7)
+    items = []
+    for r in reqs:
+        plan = sys_.plan_for(r, 0)
+        table, positions, have = sys_.cached_kv(plan, 0)
+        items.append((plan, table, positions, have))
+    before = (PoolGather.launches, PoolGather.layer_launches)
+    out = ENG.selective_prefill_batch(sys_.model, sys_.cfg, items, ENG.SelectiveConfig(),
+                                      sys_.rows)
+    torch.cuda.synchronize()
+    n_bucket = len({(-(-p.n // 128) * 128, max(64, -(-int(s.n_recomputed) // 64) * 64))
+                    for (p, *_), (_, s, _, _) in zip(items, out)})
+    assert PoolGather.layer_launches == before[1] + n_bucket
+    assert PoolGather.launches == before[0] + len(items) + n_bucket
+    for (plan, *_), (logits, _, k_all, v_all) in zip(items, out):
+        assert k_all.shape == (plan.n, 4) + tuple(sys_.rows.k.shape[3:])
+        assert np.isfinite(logits).all() and torch.isfinite(k_all).all()
 
 
 @pytest.mark.cuda
@@ -640,11 +727,11 @@ def test_block_gather_rotates_to_original_positions_bitwise(cuda):
     assert (original != np.arange(plan.n))[have].any()
     tbl, pos = (torch.from_numpy(a).to(cuda) for a in (table, original))
     theta = sys_.cfg.rope_theta
+    gather = ENG.cache_gather(sys_.rows, theta)
     for layer in range(sys_.cfg.n_layers):
-        before = assemble_kv.launches
-        k, v, kraw = ENG.gather_rows(sys_.rows, layer, tbl, pos, rope_theta=theta,
-                                     rotate=True, keep_raw=True)
-        assert assemble_kv.launches == before + 1
+        before = PoolGather.launches
+        k, v, kraw = gather(tbl, pos, layer, rotate=True, keep_raw=True)
+        assert PoolGather.launches == before + 1
         want_k, want_v = block_gather_ref(sys_.rows.k[layer], sys_.rows.v[layer], tbl,
                                           pos[:, None], rope_theta=theta, rotate=True)
         raw_k, _ = block_gather_ref(sys_.rows.k[layer], sys_.rows.v[layer], tbl,
@@ -829,8 +916,11 @@ def _bwd_inputs(cuda, case, dtype, D=None, G=None, seed=0):
 
 
 def _bwd_want_route(dtype, D):
-    """K6's route, written out again: the tensor cores take bf16 at D 64,
-    128 or 256, the SIMT kernels everything else."""
+    """K6's route, written out again: the small-head kernels take D <= 32,
+    the tensor cores bf16 at D 64, 128 or 256, the SIMT kernels everything
+    else."""
+    if D <= 32:
+        return "small"
     return "tc" if dtype == torch.bfloat16 and D in (64, 128, 256) else "simt"
 
 
@@ -844,8 +934,10 @@ def _bwd_check(cuda, args, kw, tol):
     route = _bwd_want_route(q.dtype, q.shape[3])
     assert _bwd_route(*args[:3]) == route
     before = (mha_flash_bwd.launches, mha_flash_bwd.tc_launches)
+    small = mha_flash_bwd.small_launches
     got = mha_flash_bwd(*args, **kw)
     _launched(mha_flash_bwd, route, before)
+    assert mha_flash_bwd.small_launches == small + (route == "small")
     want = flash_bwd_ref(*args, **kw)
     for a, b in zip(got, want):
         _close(a, b, tol * max(1.0, float(b.float().abs().max())))
@@ -860,6 +952,18 @@ def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
     within 2e-2 of max(1, max|grad|) (the same roundings of p and dS; the
     order of sums differs)."""
     args, kw = _bwd_inputs(cuda, case, dtype)
+    _bwd_check(cuda, args, kw, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 112)])
+@pytest.mark.parametrize("case", ["window", "full_window"])
+def test_flash_bwd_simt_route_windowed(cuda, case, dtype, D):
+    """The SIMT kernels with a window, causal and not: fp32 at D 64 and
+    bf16 at D 112, which no other route takes (the cases' own head dims
+    take the small-head route)."""
+    args, kw = _bwd_inputs(cuda, case, dtype, D=D)
+    assert _bwd_want_route(dtype, D) == "simt"
     _bwd_check(cuda, args, kw, 1e-4 if dtype == torch.float32 else 2e-2)
 
 
@@ -923,6 +1027,79 @@ def test_flash_bwd_tc_route_is_deterministic(cuda, D):
     from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
 
     args, kw = _bwd_tc_inputs(cuda, "window", 6, D, seed=D)
+    first = [t.clone() for t in mha_flash_bwd(*args, **kw)]
+    second = mha_flash_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# K6's small-head route (D <= 32): (B, Sq, Skv, Hkv, causal, window, q
+# offset); Hq = Hkv * G.  Several 64-row tiles, ragged ends, a suffix of
+# queries at offset positions against a longer key range
+_BWD_SMALL_CASES = {
+    "causal": (2, 130, 130, 2, True, None, 0),
+    "full": (2, 100, 150, 2, False, None, 0),
+    "window": (1, 200, 200, 2, True, 33, 0),
+    "full_window": (1, 120, 140, 2, False, 20, 0),
+    "ragged_suffix": (1, 77, 250, 2, True, None, 173),
+}
+
+
+def _bwd_small_inputs(cuda, case, G, D, dtype, seed=0):
+    from repro_torch.models.layers import chunked_attention
+
+    B, Sq, Skv, Hkv, causal, window, off = _BWD_SMALL_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dtype)
+    q, k, v = mk(B, Sq, Hkv * G, D), mk(B, Skv, Hkv, D), mk(B, Skv, Hkv, D)
+    dout = mk(B, Sq, Hkv * G, D)
+    qpos = torch.arange(off, off + Sq, device=cuda, dtype=torch.int32)
+    kpos = torch.arange(Skv, device=cuda, dtype=torch.int32)
+    out, lse = chunked_attention(q, k, v, causal=causal, q_positions=qpos, kv_positions=kpos,
+                                 sliding_window=window, q_chunk=64, kv_chunk=64,
+                                 return_lse=True)
+    return ((q, k, v, out.contiguous(), lse.contiguous(), dout, qpos, kpos),
+            dict(causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_BWD_SMALL_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 12, 16, 32])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_bwd_small_route_matches_plain(cuda, G, D, dtype, case):
+    """The small-head route (a row per thread) against `flash_bwd_ref`:
+    causal, non-causal, windowed, a ragged suffix of queries against a
+    longer key range; fp32 within 1e-4 and bf16 within 2e-2 of max|plain|
+    (D 12 pads each row to 16 columns, and in bf16 its 24-byte rows are
+    copied without the 16-byte path)."""
+    from repro_torch.kernels.flash_attention.ops import _bwd_route, mha_flash_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+
+    args, kw = _bwd_small_inputs(cuda, case, G, D, dtype, seed=G * 100 + D)
+    assert _bwd_route(*args[:3]) == "small"
+    before = (mha_flash_bwd.launches, mha_flash_bwd.tc_launches, mha_flash_bwd.small_launches)
+    got = mha_flash_bwd(*args, **kw)
+    assert (mha_flash_bwd.launches, mha_flash_bwd.tc_launches,
+            mha_flash_bwd.small_launches) == (before[0] + 1, before[1], before[2] + 1)
+    want = flash_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a).all()
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_small_route_is_deterministic(cuda, dtype):
+    """No atomics: two calls of the small-head route give bitwise equal dQ,
+    dK and dV (a key's dK / dV sums G = 4 heads over four splits)."""
+    from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
+
+    args, kw = _bwd_small_inputs(cuda, "window", 4, 16, dtype, seed=3)
     first = [t.clone() for t in mha_flash_bwd(*args, **kw)]
     second = mha_flash_bwd(*args, **kw)
     torch.cuda.synchronize()

@@ -64,7 +64,8 @@ def _assembled(tsys, table, layers=None):
     """The port's device pool of cached rows gathered by a block table
     through the block-gather wrapper, unrotated: (n, L, Hkv, Dh) k and v."""
     t = torch.from_numpy(np.asarray(table, np.int32))
-    planes = [TENG.gather_rows(tsys.rows, l, t, t, rope_theta=1e4, rotate=False)
+    gather = TENG.cache_gather(tsys.rows, 1e4)
+    planes = [gather(t, t, l, rotate=False)
               for l in (range(tsys.cfg.n_layers) if layers is None else layers)]
     return (torch.stack([k for k, _ in planes], dim=1).numpy(),
             torch.stack([v for _, v in planes], dim=1).numpy())
