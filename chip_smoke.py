@@ -80,7 +80,9 @@ else (no network, no JAX).  Phases:
    tiny ranker trained 200 steps, its first 10 losses equal to the CPU's,
    the system rebuilt on the trained weights, NDCG@10 of rcllm,
    CacheBlend and EPIC against Full-Recompute at r = 0.1 / 0.3 / 0.5,
-   reported; B1, B2 and B4 must launch); then one train step of every
+   reported; B1, B2 and B4 must launch, B1 and B2 on their small-head
+   routes only, whose largest calls there are recorded as
+   "...:small:planted"); then one train step of every
    LM, recsys and SchNet cell at reduced() size on the card against the
    CPU.  K6 takes its tensor-core route on every backward call of the
    five archs (bf16, D 128 / 256) and its small-head route (D <= 32) on
@@ -98,11 +100,14 @@ else (no network, no JAX).  Phases:
    logits finite; and
    the tiny rcllm model served on the card, wave and chunked, decodes
    the same tokens as on the CPU (the plain versions).  The flash and
-   selective kernels have two routes each: the tensor-core route is
+   selective kernels have three routes each: the tensor-core route is
    held to its plain version at the largest served call (the records
-   "flash_attention" and "selective_attention"), the SIMT kernel at the
-   largest fp32 call of the tiny runs (the records "...:fp32", whose
-   launches are those runs') and at the served call cast to fp32.  The
+   "flash_attention" and "selective_attention"), the small-head route
+   (D <= 32) at the largest call of the tiny runs (the records
+   "...:small", a second call bitwise equal; the tiny runs must launch no
+   SIMT kernel), and the SIMT kernel at the served call cast to fp32 and
+   forced onto the tiny call, where it is timed in turns with the
+   small-head route (the small records' "simt_route").  The
    paged-decode kernel also against its split-K plain version at the
    split it chose, and it must run at least two blocks per SM.  The
    embedding bag on its serve_p99 and serve_bulk inputs, also with a bf16 and a d = 32
@@ -248,13 +253,17 @@ LM_GEN_PROMPT, LM_GEN_TOKENS = 4608, 8
 LM_TOL = 1e-4
 LM_RESIDENT_GB = 2.0
 
-# kernels with two routes, each with the suffix of its SIMT route's count:
-# "<name>" counts and records the tensor-core route (bf16, the served and
-# trained paths at full width), "<name><suffix>" the SIMT kernels (the
-# tiny fp32 card == CPU path).  K6 has a third route, counted and recorded
-# as "flash_bwd:small" (D <= 32: the tiny ranker's fp32 backward, kimi-k2's
-# bf16 at reduced()); its SIMT kernels take what no other route takes
+# kernels with three routes, each with the suffix of its SIMT route's
+# count: "<name>" counts and records the tensor-core route (bf16, the
+# served and trained paths at full width), "<name>:small" the small-head
+# route (D <= 32: the tiny card == CPU models, the planted ranker's
+# evaluation and backward, kimi-k2's bf16 backward at reduced()), and
+# "<name><suffix>" the SIMT kernels, which take what no other route takes
+# (none of these paths: the served call cast to fp32 is held to its plain
+# version on them, and each small-head record times them in turns)
 OTHER_ROUTE = {"flash_attention": ":fp32", "selective_attention": ":fp32", "flash_bwd": ":simt"}
+# the forward kernels whose small-head route the tiny model's calls take
+SMALL_FWD = ("flash_attention", "selective_attention")
 
 KERNELS = {
     "flash_attention": dict(
@@ -300,9 +309,9 @@ def reset_counts():
         spec["fn"].launches = 0
         if name in OTHER_ROUTE:
             spec["fn"].tc_launches = 0
+            spec["fn"].small_launches = 0
     BO.PoolGather.layer_launches = 0
     BO.PoolGather.pool2_launches = 0
-    FO.mha_flash_bwd.small_launches = 0
 
 
 # ------------------------------------------------------------- recording
@@ -766,28 +775,27 @@ def shapes(args, kw):
 
 
 def counts():
-    """Launches per kernel since the last reset_counts(): the two routes of
-    OTHER_ROUTE's kernels apart, K6's small-head route apart
-    ("flash_bwd:small"), and of all the block gather's launches those that
-    gathered a range of layers ("block_gather:layers") and those that read
-    the second pool ("block_gather:prefix")."""
+    """Launches per kernel since the last reset_counts(): the three routes
+    of OTHER_ROUTE's kernels apart ("<name>" tensor cores, "<name>:small",
+    "<name><suffix>" SIMT), and of all the block gather's launches those
+    that gathered a range of layers ("block_gather:layers") and those that
+    read the second pool ("block_gather:prefix")."""
     out = {}
     for n, spec in KERNELS.items():
         fn = spec["fn"]
         if n in OTHER_ROUTE:
             out[n] = fn.tc_launches
-            out[n + OTHER_ROUTE[n]] = (fn.launches - fn.tc_launches
-                                       - getattr(fn, "small_launches", 0))
+            out[n + ":small"] = fn.small_launches
+            out[n + OTHER_ROUTE[n]] = fn.launches - fn.tc_launches - fn.small_launches
         else:
             out[n] = fn.launches
-    out["flash_bwd:small"] = FO.mha_flash_bwd.small_launches
     out["block_gather:layers"] = BO.PoolGather.layer_launches
     out["block_gather:prefix"] = BO.PoolGather.pool2_launches
     return out
 
 
 def route_of(name, a, kw):
-    """The route ("tc" or "simt") the wrapper takes for this call."""
+    """The route ("small", "tc" or "simt") the wrapper takes for this call."""
     if name == "flash_attention":
         kvv = kw.get("kv_valid")
         return FO._route(a[0], a[1], a[2], 1 if kvv is None else kvv.shape[0])
@@ -1087,7 +1095,8 @@ def paged_split_record(a, kw):
 def checked_record(name, spec, launches, a, kw, extra, fp32_too=False, label=None):
     """The kernel against its plain version on these inputs (within
     TOL of their working dtype; with `fp32_too` also the same call cast to
-    fp32, which takes the SIMT route), then its timed record."""
+    fp32, which takes the SIMT route at D > 32, held to the plain version
+    and timed), then its timed record."""
     fn = spec["fn"]
     out = fn(*a, **kw)
     plain = plain_call(name, a, kw)
@@ -1104,12 +1113,77 @@ def checked_record(name, spec, launches, a, kw, extra, fp32_too=False, label=Non
         err32 = float((out32 - plain_call(name, a32, kw32)).abs().max())
         if err32 > TOL[torch.float32]:
             raise RuntimeError(f"{name}: fp32 max|kernel-plain| {err32} > {TOL[torch.float32]}")
-        extra["fp32_max_abs_err"] = err32
-        msg = f"; same call in fp32 {err32:.3g} (tol {TOL[torch.float32]})"
+        call32 = lambda: fn(*a32, **kw32)
+        extra.update(fp32_max_abs_err=err32, fp32_ms=time_ms(call32),
+                     fp32_device_ms=device_ms(call32)["ms"])
+        msg = (f"; same call in fp32 {err32:.3g} (tol {TOL[torch.float32]}), "
+               f"{extra['fp32_ms']:.4f} ms (device {extra['fp32_device_ms']})")
+        if name in OTHER_ROUTE:
+            extra["fp32_route"] = route_of(name, a32, kw32)
+            msg += f" on the {extra['fp32_route']} route"
     route = f" ({extra['kernel_route']} route)" if "kernel_route" in extra else ""
     log(f"check {label or name}{route}: {shapes(a, kw)} max|kernel-plain| {err:.3g} "
         f"(tol {TOL[wdt]}, {str(wdt).replace('torch.', '')}){msg}")
     return timed_record(name, spec, launches, a, kw, out, err, wdt, extra, label=label)
+
+
+def forced_route(name, route, a, kw):
+    """B1 or B2 at a recorded call, launched on `route` through the
+    wrapper's route-taking entry (`_flash_launch` / `_selective_launch`,
+    the wrapper after its CPU check), so two routes pay the same host
+    work."""
+    if name == "flash_attention":
+        return lambda: FO._flash_launch(route, *a, kv_valid=kw.get("kv_valid"),
+                                        causal=kw.get("causal", True))
+    return lambda: SO._selective_launch(route, *a, live=kw.get("live"),
+                                        window=kw.get("window", 256),
+                                        q_block=kw.get("q_block", 64),
+                                        kv_block=kw.get("kv_block", 64))
+
+
+def simt_vs_small_fwd(name, a, kw):
+    """The SIMT route at a small-head call of B1 or B2: within TOL of the
+    plain version, then both routes timed in turns (small, SIMT, SIMT,
+    small) by CUDA events and device time.  -> {"max_abs_err", "ms" and
+    "device_ms" (the SIMT turns' medians), "turns"}."""
+    simt, small = forced_route(name, "simt", a, kw), forced_route(name, "small", a, kw)
+    got, want = simt(), plain_call(name, a, kw)
+    torch.cuda.synchronize()
+    wdt = a[0].dtype
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.isfinite(got).all() or err > TOL[wdt]:
+        raise RuntimeError(f"{name} SIMT route at a small-head call: max|kernel-plain| {err} > "
+                           f"{TOL[wdt]}")
+    turns = []
+    for route, fn in (("small", small), ("simt", simt), ("simt", simt), ("small", small)):
+        turns.append({"route": route, "ms": time_ms(fn), "device_ms": device_ms(fn)["ms"]})
+    simt_turns = [t for t in turns if t["route"] == "simt"]
+    dev = [t["device_ms"] for t in simt_turns if t["device_ms"] is not None]
+    log(f"  {name} at a small-head call, small vs SIMT route in turns: " + "; ".join(
+        f"{t['route']} {t['ms']:.4f} ms (device "
+        f"{'n/a' if t['device_ms'] is None else format(t['device_ms'], '.4f')})" for t in turns)
+        + f"; SIMT max|kernel-plain| {err:.3g}")
+    return {"max_abs_err": err, "ms": statistics.median(t["ms"] for t in simt_turns),
+            "device_ms": statistics.median(dev) if dev else None, "turns": turns}
+
+
+def small_route_record(name, a, kw, launches, label):
+    """B1 or B2 at a recorded call of the tiny model (D <= 32), which must
+    take the small-head route: within TOL of its plain version, a second
+    call bitwise equal, timed beside its bound and library call
+    (`checked_record`), and the SIMT route at the same call held to the
+    plain version and timed in turns with it ("simt_route")."""
+    spec = KERNELS[name]
+    extra = {"kernel_route": check_route(name, a, kw, "small")}
+    first, again = spec["fn"](*a, **kw), spec["fn"](*a, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise RuntimeError(f"{label}: two calls on the same inputs differ")
+    del first, again
+    extra["bitwise_repeat"] = True
+    rec = checked_record(name, spec, launches, a, kw, extra, label=label)
+    rec["simt_route"] = simt_vs_small_fwd(name, a, kw)
+    return rec
 
 
 # ---------------------------------------------------------------- recsys
@@ -2583,7 +2657,9 @@ def planted_protocol(dev, bwd_rec):
     on a CPU copy, within TRAIN_TOL), the system rebuilt on the trained
     weights, and NDCG@10 against Full-Recompute of each method at each
     recompute ratio over PLANTED_EVAL's requests (B1, B2 and B4 must
-    launch in that evaluation)."""
+    launch in that evaluation, B1 and B2 only on their small-head routes;
+    the inputs of their largest calls go to the report's "attn_calls", for
+    `small_route_record`)."""
     from repro_torch.core import ranker_training as RT
     from repro_torch.core.rcllm import RcLLMSystem, make_tiny_system
 
@@ -2625,32 +2701,41 @@ def planted_protocol(dev, bwd_rec):
     zero_div = layer0_divergence_zero(trained, reqs[:3])
     t4 = time.perf_counter()
     before = counts()
-    full = [trained.rank(r, "full")[0] for r in reqs]
-    ndcg, frac = {}, {}
-    for ratio in PLANTED_RATIOS:
-        sel = ENG.SelectiveConfig(r_item=ratio, r_rev=ratio, window=16)
-        for m in PLANTED_METHODS:
-            f, fr = [], []
-            for r, fs in zip(reqs, full):
-                sc, st = trained.rank(r, m, sel)
-                if sc.shape != fs.shape or not np.isfinite(sc).all():
-                    raise RuntimeError(f"planted rank {m}: scores {sc}")
-                f.append(MET.ranking_agreement_ndcg(fs, sc, k=10))
-                fr.append(st.recompute_fraction())
-            ndcg[f"r={ratio}/{m}"] = float(np.mean(f))
-            frac[f"r={ratio}/{m}"] = float(np.mean(fr))
-    torch.cuda.synchronize()
+    rec, saved = install_recorders()
+    try:
+        full = [trained.rank(r, "full")[0] for r in reqs]
+        ndcg, frac = {}, {}
+        for ratio in PLANTED_RATIOS:
+            sel = ENG.SelectiveConfig(r_item=ratio, r_rev=ratio, window=16)
+            for m in PLANTED_METHODS:
+                f, fr = [], []
+                for r, fs in zip(reqs, full):
+                    sc, st = trained.rank(r, m, sel)
+                    if sc.shape != fs.shape or not np.isfinite(sc).all():
+                        raise RuntimeError(f"planted rank {m}: scores {sc}")
+                    f.append(MET.ranking_agreement_ndcg(fs, sc, k=10))
+                    fr.append(st.recompute_fraction())
+                ndcg[f"r={ratio}/{m}"] = float(np.mean(f))
+                frac[f"r={ratio}/{m}"] = float(np.mean(fr))
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     launched = {k: v - before[k] for k, v in counts().items()}
-    missing = [n for n in ("flash_attention", "selective_attention", "block_gather")
-               if launched[n] + launched.get(f"{n}:fp32", 0) == 0]
-    if missing:
-        raise RuntimeError(f"planted evaluation: kernels never launched {missing}")
+    missing = [n for n in ("flash_attention:small", "selective_attention:small",
+                           "block_gather") if launched[n] == 0]
+    simt = {n: launched[n + ":fp32"] for n in SMALL_FWD if launched[n + ":fp32"]}
+    if missing or simt:
+        raise RuntimeError(f"planted evaluation: kernels never launched {missing}, SIMT "
+                           f"launches {simt} (want none: the ranker's D 16 takes the "
+                           "small-head routes)")
     rep = {"train_losses": card_l.tolist(), "cpu_losses": cpu_l.tolist(),
            "card_vs_cpu_max_abs": err, "flash_bwd_launches": k6,
            "fidelity_ndcg10": ndcg, "recompute_frac": frac, "eval_launches": launched,
            "setup_s": t1 - t0, "cpu_train_s": t2 - t1, "card_train_s": t3 - t2,
            "rebuild_s": t4 - t3, "eval_s": time.perf_counter() - t4,
-           "requests": len(reqs), "layer0_zero_divergence_tokens": zero_div}
+           "requests": len(reqs), "layer0_zero_divergence_tokens": zero_div,
+           "attn_calls": {n: (rec[n].args, rec[n].kwargs) for n in SMALL_FWD}}
     log(f"  planted protocol: train_ranker {PLANTED_STEPS} steps on the card, loss "
         f"{card_l[0]:.4f} -> {card_l[-1]:.4f} ({rep['card_train_s']:.1f} s; K6 launches {k6}); "
         f"first {PLANTED_CPU_STEPS} == CPU within {TRAIN_TOL} (max {err:.2e}); layer-0 "
@@ -2993,6 +3078,13 @@ def training_phase(dev):
     t0 = time.perf_counter()
     records = flash_bwd_records(bwd_rec.calls, k6)
     records.append(bag_backward_record(bag_rec.call, launches["recsys"]["bag_backward"]))
+    # B1 and B2 at the planted evaluation's largest calls (the shapes it
+    # launches them at 80 and 540 times)
+    for name, (a, kw) in report["planted"].pop("attn_calls").items():
+        a, kw = device_inputs(name, a, kw, dev)
+        records.append(small_route_record(name, a, kw,
+                                          report["planted"]["eval_launches"][name + ":small"],
+                                          label=f"{name}:small:planted"))
     laps["kernel_records"] = time.perf_counter() - t0
     report.update(launches=launches, seconds=laps,
                   graph_build_s=graph_job[1].get("build_s"))
@@ -3254,7 +3346,8 @@ def serving_phases(args, dev):
 
     # small-input reference: the tiny rcllm model served on the card
     # (kernels) decodes the same greedy tokens as on the CPU (plain), under
-    # both schedulers.  Its fp32 calls are the SIMT routes of B1 and B2.
+    # both schedulers.  Its fp32 D 16 calls take the small-head routes of
+    # B1 and B2, and none their SIMT routes.
     reset_counts()
     tiny_rec, tiny_saved = install_recorders()
     try:
@@ -3278,17 +3371,15 @@ def serving_phases(args, dev):
             setattr(mod, name, fn)
     launches["tiny"] = counts()
     log(f"  kernel launches in the tiny card runs (wave + chunked): {launches['tiny']}")
-    for name, suffix in OTHER_ROUTE.items():
-        if name in TRAIN_KERNELS:
-            continue    # phase 2j records its routes
-        label = name + suffix
-        if launches["tiny"][label] == 0:
-            raise RuntimeError(f"the SIMT route of {name} never launched on the tiny fp32 path")
+    for name in SMALL_FWD:
+        if launches["tiny"][name + ":small"] == 0 or launches["tiny"][name + ":fp32"] != 0:
+            raise RuntimeError(f"{name} on the tiny fp32 path: {launches['tiny'][name + ':small']}"
+                               f" small-head and {launches['tiny'][name + ':fp32']} SIMT "
+                               "launches (want some and none)")
         a, kw = device_inputs(name, tiny_rec[name].args, tiny_rec[name].kwargs, dev)
-        extra = {"kernel_route": check_route(name, a, kw, "simt")}
-        records.append(checked_record(name, KERNELS[name],
-                                      sum(run[label] for run in launches.values()), a, kw,
-                                      extra, label=label))
+        records.append(small_route_record(
+            name, a, kw, sum(run[name + ":small"] for run in launches.values()),
+            label=name + ":small"))
     del tiny_rec
     PHASE_S["recsys records and tiny runs"] = time.perf_counter() - t_tiny
 

@@ -30,7 +30,8 @@ SOURCES = {
     "block_gather": KERNEL_DIR / "block_gather" / "gather.cu",
     "embedding_bag": KERNEL_DIR / "embedding_bag" / "bag.cu",
 }
-HEADERS = (KERNEL_DIR / "attn_common.cuh", KERNEL_DIR / "attn_tile.cuh")
+HEADERS = (KERNEL_DIR / "attn_common.cuh", KERNEL_DIR / "attn_small.cuh",
+           KERNEL_DIR / "attn_tile.cuh")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -11,9 +11,24 @@
 // `kv_valid` has NB rows; flattened head row b*Hq+h reads row
 // (b*Hq+h)*NB / (B*Hq), as in the TPU kernel's BlockSpec.
 //
-// Two routes, chosen by the wrapper (`ops.py:_route`) from dtypes and
+// Three routes, chosen by the wrapper (`ops.py:_route`) from dtypes and
 // shapes alone:
 //
+// * small heads (`rt_flash_attention_small`, D <= 32, q, k and v each fp32
+//   or bf16, any G, any NB | B*Hq: the tiny card == CPU models and the
+//   planted ranker's evaluation, q (64, 64, 4, 16) fp32).  The forward of
+//   `attn_small.cuh` with this file's mask: (query, head) rows of one kv
+//   group per block, a row's keys split over the 4 quarters of 1 warp
+//   (many rows, as here) or 4 warps (few rows), the splits merged once at
+//   the end; 64-key K/V tiles through a 3-stage cp.async ring sized to the
+//   padded D; causal blocks stop at the block's last query.  Bound on the
+//   card at the tiny call: bytes, 3.1 MB of Q, K, V and O, 0.0009 ms.  What
+//   holds it far above that is moving every key's K and V rows from shared
+//   memory into each row's registers (a CUDA-core product has no other
+//   way): the design makes those loads broadcasts (a quarter-warp's 8 rows
+//   read one key row, the 4 quarters adjacent rows) and keeps the ~2-cycle
+//   load; the SIMT kernel it replaced there sized every block for D 128
+//   and reloaded each K/V tile for each of a group's heads.
 // * tensor cores (`rt_flash_attention_tc`): bf16 q, k, v, D in {64, 128},
 //   G = Hq / Hkv in {1, 2, 4, 8}, NB dividing B*Hkv.  The tile routine of
 //   `attn_tile.cuh`: one warpgroup per 64 rows = 64/G queries x G heads,
@@ -24,12 +39,14 @@
 //   the offline build (q (64, 64, 32, 128), k/v (64, 64, 8, 128) bf16):
 //   bytes, Q, K, V and O read or written once, 0.025 ms; the packing of G
 //   heads is what lets a block read K and V once for all of them.
-// * SIMT (the CUDA-core kernel, everything else: fp32 inputs such as the tiny
-//   card == CPU models, held to 1e-5 that one bf16 product cannot meet):
-//   one block of 4 warps per (16-row query tile, head, batch row), each
-//   warp carrying 4 rows' running (m, l, acc) in registers while 32-key
-//   K/V tiles stream through shared memory in fp32; CUDA-core FMAs.
+// * SIMT (`rt_flash_attention`, the CUDA-core kernel, everything else:
+//   fp32 or mixed dtypes at 32 < D <= 128, such as the served call cast to
+//   fp32, held to 1e-5 that one bf16 product cannot meet): one block of 4
+//   warps per (16-row query tile, head, batch row), each warp carrying 4
+//   rows' running (m, l, acc) in registers while 32-key K/V tiles stream
+//   through shared memory in fp32; CUDA-core FMAs.
 #include "../attn_common.cuh"
+#include "../attn_small.cuh"
 #include "../attn_tile.cuh"
 
 namespace {
@@ -219,4 +236,53 @@ extern "C" int rt_flash_attention_tc(const void* q, const void* k, const void* v
                                                                log2g, scale, pol, st)
                   : launch_tc<FlashPolicy, __nv_bfloat16, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv,
                                                               log2g, scale, pol, st);
+}
+
+namespace {
+
+// Mask of the small-head route, per (query, head) row: keys below Skv with
+// the row's own kv_valid bit (row (b*Hq+h)*NB / (B*Hq)), at most the query
+// index when causal.
+struct FlashSmallMask {
+  const uint8_t* kv_valid;
+  int NB, causal;
+
+  struct Row {
+    const uint8_t* valid;
+    int qi;
+  };
+  __device__ Row row(const rt::small::Args& a, int b, int h, int qi) const {
+    if (kv_valid == nullptr) return {nullptr, qi};
+    const long long mrow = (long long)(b * a.Hq + h) * NB / ((long long)a.B * a.Hq);
+    return {kv_valid + mrow * a.Skv, qi};
+  }
+  __device__ bool all_keys(const Row&) const { return false; }
+  __device__ unsigned flag(const rt::small::Args&, const Row& r, int kj) const {
+    return r.valid == nullptr ? 1u : r.valid[kj];
+  }
+  __device__ bool ok(const rt::small::Args&, const Row& r, int kj, unsigned flag) const {
+    return (!causal || r.qi >= kj) && flag != 0;
+  }
+  __device__ int key_end(const rt::small::Args& a, int q_last) const {
+    return causal ? min(a.Skv, q_last + 1) : a.Skv;
+  }
+  __device__ bool tile_live(const rt::small::Args&, int, int, int, int, int, int) const {
+    return true;
+  }
+};
+
+}  // namespace
+
+// The small-head route: D <= 32, q, k and v each fp32 or bf16 (dtype codes).
+extern "C" int rt_flash_attention_small(const void* q, const void* k, const void* v,
+                                        const void* kv_valid, void* o, int B, int Sq, int Skv,
+                                        int Hq, int Hkv, int D, int NB, int causal, float scale,
+                                        int q_dtype, int k_dtype, int v_dtype, void* stream) {
+  if (D < 1 || D > 32 || Hkv < 1 || Hq % Hkv != 0 || NB < 1 || B < 1 || Sq < 1 || Skv < 1 ||
+      (B * Hq) % NB != 0 || (q_dtype != rt::kF32 && q_dtype != rt::kBF16))
+    return cudaErrorInvalidValue;
+  const rt::small::Args a{q, k, v, o, B, Sq, Skv, Hq, Hkv, D, q_dtype == rt::kBF16, 0,
+                          scale * rt::small::kLog2e};
+  const FlashSmallMask mask{static_cast<const uint8_t*>(kv_valid), NB, causal};
+  return rt::small::launch(a, mask, k_dtype, v_dtype, static_cast<cudaStream_t>(stream));
 }

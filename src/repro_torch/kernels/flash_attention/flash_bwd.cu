@@ -95,6 +95,9 @@
 //     (p rounded to T before dV, dS before dQ and dK), with p = 2^x of
 //     log2(e)-scaled scores as on the tensor cores and each dot product
 //     as two interleaved partial sums: both differ by fp32 rounding only.
+//   - Its cp.async copies and 16-byte shared-memory row reads (`cp16`,
+//     `cp4`, `commit`, `wait_pending`, `row_f`) live in `attn_small.cuh`,
+//     which B1's and B2's small-head forward route shares.
 // * SIMT (fp32 at D > 32, and bf16 with any other D <= 256: kimi-k2's
 //   112): the CUDA-core kernels, three launches.
 //   - dq: one block of 4 warps per (16-row query tile, query head, batch
@@ -109,6 +112,7 @@
 #include <climits>
 
 #include "../attn_common.cuh"
+#include "../attn_small.cuh"
 #include "../attn_tile.cuh"
 
 namespace {
@@ -467,24 +471,12 @@ __host__ __device__ constexpr int min_blocks() { return DP <= 16 ? 2 : 1; }
 template <int DP>
 __host__ __device__ constexpr int unroll() { return DP <= 8 ? 2 : 1; }
 
-// Asynchronous copies into shared memory of 16 bytes (.cg) or 4 (.ca).
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// Wait until at most N of this thread's cp.async groups are pending.
-template <int N>
-__device__ __forceinline__ void wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using rt::commit;
+using rt::cp16;
+using rt::cp4;
+using rt::row_f;
+using rt::unpack16;
+using rt::wait_pending;
 
 // min and max of pos[start, start + count) below n (count 32 or 64), by
 // every warp alike (an empty range comes out as INT_MAX, INT_MIN).
@@ -505,32 +497,6 @@ __device__ __forceinline__ void range_of(const int* pos, int start, int n, int& 
     lo = min(lo, __shfl_xor_sync(rt::kFull, lo, o));
     hi = max(hi, __shfl_xor_sync(rt::kFull, hi, o));
   }
-}
-
-// 16 bytes of T (4 fp32 or 8 bf16 values) as fp32, into x[0 ..).
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4 u, float* x) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if constexpr (sizeof(T) == 4) {
-      x[j] = __uint_as_float(w[j]);
-    } else {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-      x[2 * j] = f.x;
-      x[2 * j + 1] = f.y;
-    }
-  }
-}
-
-// One row of DP elements of T in shared memory (16-byte aligned) as fp32,
-// read with 16-byte loads: every thread of a warp reads the same row, a
-// broadcast.
-template <typename T, int DP>
-__device__ __forceinline__ void row_f(const T* src, float (&x)[DP]) {
-  constexpr int kE = 16 / sizeof(T);
-#pragma unroll
-  for (int c = 0; c < DP / kE; ++c) unpack16<T>(reinterpret_cast<const uint4*>(src)[c], x + kE * c);
 }
 
 // (x . y, u . w) over DP elements, each as two interleaved partial sums

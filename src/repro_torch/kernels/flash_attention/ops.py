@@ -3,8 +3,9 @@
 `mha_flash` (kernel B1): a CPU tensor runs the plain version
 (`ref.mha_flash_ref`); a CUDA tensor launches the route of the
 hand-written kernel (`flash.cu`) that `_route` names, or raises.
-`mha_flash.launches` counts kernel launches of either route and nothing
-else; `mha_flash.tc_launches` counts those of the tensor-core route.
+`mha_flash.launches` counts kernel launches of any route and nothing
+else; `mha_flash.tc_launches` counts those of the tensor-core route and
+`mha_flash.small_launches` those of the small-head route.
 
 `mha_flash_bwd` (kernel K6, `flash_bwd.cu`): the training path's
 attention gradient; a CPU tensor runs `ref.flash_bwd_ref`, a CUDA tensor
@@ -25,6 +26,7 @@ from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, mha_flash_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"rt_flash_attention": [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
+               "rt_flash_attention_small": [_P] * 5 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
                "rt_flash_attention_tc": [_P] * 5 + [_I] * 8 + [_F, _P]}
 _BWD_SIGNATURES = {"rt_flash_bwd": [_P] * 13 + [_I] * 8 + [_F] + [_I] * 2 + [_P]}
 # what the backward kernels take: D up to 256, any G = Hq / Hkv; the
@@ -39,16 +41,18 @@ _MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
 # what the tensor-core route takes besides bf16 q, k and v
 TC_HEAD_DIMS = (64, 128)
 TC_GROUPS = (1, 2, 4, 8)
+# the small-head route takes every head dim up to this, in any dtypes
+SMALL_HEAD_DIM = 32
 
 
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nb: int) -> str:
     """Which kernel route takes these operands, from dtypes and shapes
-    alone: "tc" (tensor cores) for bf16 q, k and v, D in TC_HEAD_DIMS,
-    G = Hq / Hkv in TC_GROUPS and NB | B*Hkv (the G heads of a kv group
-    read one kv_valid row; NB = 1 without kv_valid); "simt" (the
-    CUDA-core kernel) for every other float32/bfloat16 case with
-    Hkv | Hq, D <= 128 and NB | B*Hq.  Raises for what neither route
-    takes."""
+    alone: "small" (a row to a few threads on the CUDA cores) for
+    D <= SMALL_HEAD_DIM; "tc" (tensor cores) for bf16 q, k and v, D in
+    TC_HEAD_DIMS, G = Hq / Hkv in TC_GROUPS and NB | B*Hkv (the G heads of
+    a kv group read one kv_valid row; NB = 1 without kv_valid); "simt" (the
+    CUDA-core kernel) for every other float32/bfloat16 case.  Every route
+    takes Hkv | Hq, D <= 128 and NB | B*Hq; raises for what none takes."""
     B, Sq, Hq, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
@@ -59,6 +63,8 @@ def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nb: int) -> str:
         K.dtype_code(name, t)
     if nb < 1 or (B * Hq) % nb:
         raise ValueError(f"NB={nb} kv_valid rows: need NB | B*Hq = {B * Hq}")
+    if D <= SMALL_HEAD_DIM:
+        return "small"
     if (q.dtype == k.dtype == v.dtype == torch.bfloat16 and D in TC_HEAD_DIMS
             and Hq // Hkv in TC_GROUPS and (B * Hkv) % nb == 0):
         return "tc"
@@ -75,9 +81,21 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     operands = (q, k, v) if kv_valid is None else (q, k, v, kv_valid)
     if not K.on_cuda(*operands):
         return mha_flash_ref(q, k, v, kv_valid=kv_valid, causal=causal)
+    return _flash_launch(None, q, k, v, kv_valid=kv_valid, causal=causal)
+
+
+def _flash_launch(route: Optional[str], q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  kv_valid: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """`mha_flash` on the card: the kernel launched on the route `_route`
+    names, or on `route` where that route also takes these operands
+    ("simt" takes every one), to time one route against another."""
     B, Sq, Hq, D = q.shape
     nb = 1 if kv_valid is None else kv_valid.shape[0]
-    route = _route(q, k, v, nb)
+    chosen = _route(q, k, v, nb)
+    if route is None:
+        route = chosen
+    elif route not in ("simt", chosen):
+        raise ValueError(f"route {route!r}: these operands take {chosen!r} or 'simt'")
     Skv, Hkv = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         K.check_cuda_operand(name, t)
@@ -95,16 +113,19 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if route == "tc":
             err = lib.rt_flash_attention_tc(*args, K.stream_of(q))
         else:
-            err = lib.rt_flash_attention(*args, K.dtype_code("q", q), K.dtype_code("k", k),
-                                         K.dtype_code("v", v), K.stream_of(q))
+            launch = lib.rt_flash_attention_small if route == "small" else lib.rt_flash_attention
+            err = launch(*args, K.dtype_code("q", q), K.dtype_code("k", k),
+                         K.dtype_code("v", v), K.stream_of(q))
     _build.check(lib, err, f"flash_attention ({route})")
     mha_flash.launches += 1
     mha_flash.tc_launches += int(route == "tc")
+    mha_flash.small_launches += int(route == "small")
     return out
 
 
 mha_flash.launches = 0
 mha_flash.tc_launches = 0
+mha_flash.small_launches = 0
 
 
 def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:

@@ -3,8 +3,9 @@
 A CPU tensor runs the plain version (`ref.selective_mha_ref`); a CUDA
 tensor launches the route of the hand-written kernel (`selective.cu`)
 that `_route` names, or raises.  `selective_mha.launches` counts kernel
-launches of either route and nothing else; `selective_mha.tc_launches`
-counts those of the tensor-core route."""
+launches of any route and nothing else; `selective_mha.tc_launches`
+counts those of the tensor-core route and `selective_mha.small_launches`
+those of the small-head route."""
 from __future__ import annotations
 
 import ctypes
@@ -19,21 +20,26 @@ from repro_torch.kernels.selective_attention.ref import selective_mha_ref
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"rt_selective_attention": [_P] * 7 + [_I] * 12 + [_F]
                + [_I] * 3 + [_P],
+               "rt_selective_attention_small": [_P] * 7 + [_I] * 12 + [_F]
+               + [_I] * 3 + [_P],
                "rt_selective_attention_tc": [_P] * 7 + [_I] * 12 + [_F, _I, _P]}
 # what the tensor-core route takes besides bf16 q and v
 TC_HEAD_DIMS = (64, 128)
 TC_GROUPS = (1, 2, 4, 8)
 TC_ROWS = 64        # rows of a tensor-core tile: 64 / G queries x G heads
 TC_KEYS = 64        # keys per tensor-core tile
+# the small-head route takes every head dim up to this, in any dtypes
+SMALL_HEAD_DIM = 32
 
 
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nb: int) -> str:
     """Which kernel route takes these operands, from dtypes and shapes
-    alone: "tc" (tensor cores) for bf16 q and v, bf16 or fp32 k, D in
-    TC_HEAD_DIMS, G = Hq / Hkv in TC_GROUPS and NB | B*Hkv (the G heads
-    of a kv group read one mask row); "simt" (the CUDA-core kernel) for
-    every other float32/bfloat16 case with Hkv | Hq, D <= 128 and
-    NB | B*Hq.  Raises for what neither route takes."""
+    alone: "small" (a row to a few threads on the CUDA cores) for
+    D <= SMALL_HEAD_DIM; "tc" (tensor cores) for bf16 q and v, bf16 or
+    fp32 k, D in TC_HEAD_DIMS, G = Hq / Hkv in TC_GROUPS and NB | B*Hkv
+    (the G heads of a kv group read one mask row); "simt" (the CUDA-core
+    kernel) for every other float32/bfloat16 case.  Every route takes
+    Hkv | Hq, D <= 128 and NB | B*Hq; raises for what none takes."""
     B, R, Hq, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
@@ -44,6 +50,8 @@ def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nb: int) -> str:
         K.dtype_code(name, t)
     if nb < 1 or (B * Hq) % nb:
         raise ValueError(f"NB={nb} mask rows: need NB | B*Hq = {B * Hq}")
+    if D <= SMALL_HEAD_DIM:
+        return "small"
     if (q.dtype == v.dtype == torch.bfloat16 and D in TC_HEAD_DIMS
             and Hq // Hkv in TC_GROUPS and (B * Hkv) % nb == 0):
         return "tc"
@@ -102,9 +110,12 @@ def check_live_tiles(route: str, group: int, q_block: int, kv_block: int) -> Non
     """Raise unless `route` can honour (q_block, kv_block) liveness tiles:
     each of its query tiles must lie inside one liveness row and each of
     its key tiles inside one liveness column (tensor cores: 64 / G queries
-    and 64 keys; SIMT: 16 queries and 32 keys)."""
-    tile_q, tile_k = (TC_ROWS // group, TC_KEYS) if route == "tc" else (16, 32)
-    if q_block % tile_q or kv_block % tile_k:
+    and 64 keys; SIMT: 16 queries and 32 keys).  The small-head route
+    takes tiles of any size: a block ORs every liveness entry its rows and
+    key tile touch."""
+    tile_q, tile_k = {"tc": (TC_ROWS // group, TC_KEYS), "simt": (16, 32),
+                      "small": (1, 1)}[route]
+    if q_block < 1 or kv_block < 1 or q_block % tile_q or kv_block % tile_k:
         raise ValueError(f"liveness tiles ({q_block}, {kv_block}) must be multiples of "
                          f"({tile_q}, {tile_k}) for the {route} route")
 
@@ -121,6 +132,17 @@ def selective_mha(q: torch.Tensor, q_positions, k: torch.Tensor,
     if not K.on_cuda(q, k, v):
         return selective_mha_ref(q, torch.as_tensor(q_positions, device=q.device), k, v,
                                  torch.as_tensor(hh_mask, device=q.device), window=window)
+    return _selective_launch(None, q, q_positions, k, v, hh_mask, live=live, window=window,
+                             q_block=q_block, kv_block=kv_block)
+
+
+def _selective_launch(route, q: torch.Tensor, q_positions, k: torch.Tensor, v: torch.Tensor,
+                      hh_mask, *, live, window: int, q_block: int,
+                      kv_block: int) -> torch.Tensor:
+    """`selective_mha` on the card: the kernel launched on the route
+    `_route` names, or on `route` where that route also takes these
+    operands ("simt" takes every one), to time one route against
+    another."""
     B, R, Hq, D = q.shape
     # in the kernel's dtypes; the engine passes them so, and then nothing
     # is copied or converted here
@@ -129,7 +151,11 @@ def selective_mha(q: torch.Tensor, q_positions, k: torch.Tensor,
     qp = qp if qp.dim() == 2 else qp[None]
     hh = hh if hh.dim() == 2 else hh[None]
     nb = qp.shape[0]
-    route = _route(q, k, v, nb)
+    chosen = _route(q, k, v, nb)
+    if route is None:
+        route = chosen
+    elif route not in ("simt", chosen):
+        raise ValueError(f"route {route!r}: these operands take {chosen!r} or 'simt'")
     S, Hkv = k.shape[1], k.shape[2]
     if qp.shape != (nb, R) or hh.shape != (nb, S):
         raise ValueError(f"q_positions {tuple(qp.shape)} / hh_mask {tuple(hh.shape)}: "
@@ -156,14 +182,17 @@ def selective_mha(q: torch.Tensor, q_positions, k: torch.Tensor,
         if route == "tc":
             err = lib.rt_selective_attention_tc(*args, K.dtype_code("k", k), K.stream_of(q))
         else:
-            err = lib.rt_selective_attention(
-                *args, K.dtype_code("q", q), K.dtype_code("k", k), K.dtype_code("v", v),
-                K.stream_of(q))
+            launch = (lib.rt_selective_attention_small if route == "small"
+                      else lib.rt_selective_attention)
+            err = launch(*args, K.dtype_code("q", q), K.dtype_code("k", k),
+                         K.dtype_code("v", v), K.stream_of(q))
     _build.check(lib, err, f"selective_attention ({route})")
     selective_mha.launches += 1
     selective_mha.tc_launches += int(route == "tc")
+    selective_mha.small_launches += int(route == "small")
     return out
 
 
 selective_mha.launches = 0
 selective_mha.tc_launches = 0
+selective_mha.small_launches = 0

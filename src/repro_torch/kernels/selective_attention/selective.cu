@@ -14,9 +14,31 @@
 // tiles.  Flattened head row b*Hq+h reads mask row (b*Hq+h)*NB/(B*Hq).
 // GQA by index: query head h reads kv head h / (Hq / Hkv).
 //
-// Two routes, chosen by the wrapper (`ops.py:_route`) from dtypes and
+// Three routes, chosen by the wrapper (`ops.py:_route`) from dtypes and
 // shapes alone:
 //
+// * small heads (`rt_selective_attention_small`, D <= 32, q, k and v each
+//   fp32 or bf16, any G, any NB | B*Hq: the tiny card == CPU models and the
+//   planted ranker's evaluation, q (3, 320, 4, 16) over k (3, 448, 2, 16)
+//   fp32).  The forward of `attn_small.cuh` with this file's mask: (query,
+//   head) rows of one kv group per block, a row's keys split over the 4
+//   quarters of 4 warps (few rows over many keys, as here) or 1 warp, the
+//   splits merged once at the end; 64-key K/V tiles through a 3-stage
+//   cp.async ring sized to the padded D.  A key tile is loaded only if
+//   the liveness map marks it live for some mask row and liveness row the
+//   block's rows touch (an OR over them, so any tile sizes work, and a row
+//   reads its own mask row: NB need not divide B*Hkv); each key is then
+//   masked per row, and a pad row (q_pos = -1) takes the plain version's
+//   uniform softmax over every key.  Bound on the card at the tiny call:
+//   operations, 4 D flops per live (query, head, key), 0.0007 ms at the
+//   67 TFLOP/s of fp32.  What holds it far above that is moving every
+//   key's K and V rows from shared memory into each row's registers, and
+//   latency (few rows, a serial chain of 7 tiles a block): the design
+//   makes those loads broadcasts, spreads a row over 16 threads so the
+//   card holds ~15 warps an SM, and skips dead tiles; the SIMT kernel it
+//   replaced there sized every block for D 128, reloaded each K/V tile
+//   for each of a group's heads and paid two barriers and a warp-wide max
+//   and sum per row for every 32 keys.
 // * tensor cores (`rt_selective_attention_tc`, the served bf16 call):
 //   bf16 q and v, bf16 or fp32 k, D in {64, 128}, G = Hq / Hkv in
 //   {1, 2, 4, 8}, NB dividing B*Hkv (so the G heads of a kv group share
@@ -33,11 +55,12 @@
 //   0.012 ms; the live pairs' products, hi/lo split included, take less
 //   at the bf16 tensor-core peak.
 // * SIMT (`rt_selective_attention`, the CUDA-core kernel, everything else:
-//   fp32 queries such as the tiny card == CPU models, which are held to
-//   1e-5 that one bf16 product cannot meet): 4 warps x 4 query rows,
-//   32-key tiles in shared memory, CUDA-core FMAs, the same liveness skip
-//   (live_qb a multiple of 16, live_kb of 32).
+//   fp32 or mixed dtypes at 32 < D <= 128, such as the served call cast to
+//   fp32, held to 1e-5 that one bf16 product cannot meet): 4 warps x 4
+//   query rows, 32-key tiles in shared memory, CUDA-core FMAs, the same
+//   liveness skip (live_qb a multiple of 16, live_kb of 32).
 #include "../attn_common.cuh"
+#include "../attn_small.cuh"
 #include "../attn_tile.cuh"
 
 namespace {
@@ -249,4 +272,70 @@ extern "C" int rt_selective_attention_tc(const void* q, const void* q_pos, const
                     : launch_tc<SelectivePolicy, __nv_bfloat16, 64>(q, k, v, o, B, R, S, Hq, Hkv,
                                                                     log2g, scale, pol, st);
   return cudaErrorInvalidValue;
+}
+
+namespace {
+
+// Mask of the small-head route, per (query, head) row with its own mask row
+// (b*Hq+h)*NB / (B*Hq): key k is live for the row's position p iff k < S,
+// p >= k and (p - k < window or hh[k]); a pad row (p = -1) sees no key.
+// A key tile may be live if any liveness entry of the mask rows of the
+// block's kv group, the liveness rows of its queries and the liveness
+// columns of the tile's keys is set.
+struct SelectiveSmallMask {
+  const int* q_pos;
+  const uint8_t* hh;
+  const int* live;
+  int NB, window, live_qb, live_kb, live_nq, live_nk;
+
+  struct Row {
+    const uint8_t* hh;
+    int p;
+  };
+  __device__ long long mask_row(const rt::small::Args& a, int b, int h) const {
+    return (long long)(b * a.Hq + h) * NB / ((long long)a.B * a.Hq);
+  }
+  __device__ Row row(const rt::small::Args& a, int b, int h, int qi) const {
+    const long long m = mask_row(a, b, h);
+    return {hh + m * a.Skv, q_pos[m * a.Sq + qi]};
+  }
+  __device__ bool all_keys(const Row& r) const { return r.p < 0; }
+  __device__ unsigned flag(const rt::small::Args&, const Row& r, int kj) const {
+    return r.hh[kj];
+  }
+  __device__ bool ok(const rt::small::Args&, const Row& r, int kj, unsigned flag) const {
+    return r.p >= kj && (r.p - kj < window || flag != 0);
+  }
+  __device__ int key_end(const rt::small::Args& a, int) const { return a.Skv; }
+  __device__ bool tile_live(const rt::small::Args& a, int b, int hk, int q_first, int q_last,
+                            int k0, int k1) const {
+    const int G = a.Hq / a.Hkv;
+    for (long long m = mask_row(a, b, hk * G); m <= mask_row(a, b, hk * G + G - 1); ++m)
+      for (int lq = q_first / live_qb; lq <= q_last / live_qb; ++lq)
+        for (int c = k0 / live_kb; c <= k1 / live_kb; ++c)
+          if (live[(m * live_nq + lq) * live_nk + c] != 0) return true;
+    return false;
+  }
+};
+
+}  // namespace
+
+// The small-head route: D <= 32, q, k and v each fp32 or bf16 (dtype codes);
+// liveness tiles of any size.
+extern "C" int rt_selective_attention_small(const void* q, const void* q_pos, const void* k,
+                                            const void* v, const void* hh, const void* live,
+                                            void* o, int B, int R, int S, int Hq, int Hkv, int D,
+                                            int NB, int window, int live_qb, int live_kb,
+                                            int live_nq, int live_nk, float scale, int q_dtype,
+                                            int k_dtype, int v_dtype, void* stream) {
+  if (D < 1 || D > 32 || Hkv < 1 || Hq % Hkv != 0 || NB < 1 || B < 1 || R < 1 || S < 1 ||
+      (B * Hq) % NB != 0 || live_qb < 1 || live_kb < 1 || live_nq * live_qb < R ||
+      live_nk * live_kb < S || (q_dtype != rt::kF32 && q_dtype != rt::kBF16))
+    return cudaErrorInvalidValue;
+  const rt::small::Args a{q, k, v, o, B, R, S, Hq, Hkv, D, q_dtype == rt::kBF16, 0,
+                          scale * rt::small::kLog2e};
+  const SelectiveSmallMask mask{static_cast<const int*>(q_pos), static_cast<const uint8_t*>(hh),
+                                static_cast<const int*>(live), NB, window, live_qb, live_kb,
+                                live_nq, live_nk};
+  return rt::small::launch(a, mask, k_dtype, v_dtype, static_cast<cudaStream_t>(stream));
 }

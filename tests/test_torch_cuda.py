@@ -44,12 +44,17 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _counts(wrapper):
+    return wrapper.launches, wrapper.tc_launches, wrapper.small_launches
+
+
 def _launched(wrapper, route, before):
     """The wrapper launched once more, on the tensor-core route iff
-    `route` says "tc"."""
-    launches, tc = before
+    `route` says "tc" and on the small-head route iff it says "small"."""
+    launches, tc, small = before
     assert wrapper.launches == launches + 1
     assert wrapper.tc_launches == tc + (route == "tc")
+    assert wrapper.small_launches == small + (route == "small")
 
 
 @pytest.mark.cuda
@@ -58,9 +63,10 @@ def _launched(wrapper, route, before):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("seed", range(2))
 def test_flash_kernel_matches_plain(cuda, seed, dtype, G, D):
-    """bf16 with D in {64, 128} runs the tensor-core route, everything else
-    the SIMT kernel; causal and not, with and without kv_valid, Sq up to
-    512 (several 64-row tiles and 64-key tiles, ragged edges)."""
+    """D 16 runs the small-head route, bf16 with D in {64, 128} the
+    tensor-core route, everything else the SIMT kernel; causal and not,
+    with and without kv_valid, Sq up to 512 (several 64-row tiles and
+    64-key tiles, ragged edges)."""
     rng = np.random.default_rng(seed * 1000 + G * 10 + D)
     B, Hkv = int(rng.integers(1, 4)), int(rng.choice([1, 2, 8]))
     Sq = int(rng.integers(1, 513))
@@ -69,12 +75,13 @@ def test_flash_kernel_matches_plain(cuda, seed, dtype, G, D):
     q, k, v = g(B, Sq, Hkv * G, D), g(B, Skv, Hkv, D), g(B, Skv, Hkv, D)
     valid = torch.from_numpy(rng.random((B, Skv)) < 0.8).to(cuda)
     valid[:, 0] = True                                  # >= 1 live key per row
-    want_route = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    want_route = ("small" if D <= 32 else
+                  "tc" if dtype == torch.bfloat16 and D in (64, 128) else "simt")
     for causal in (True, False):
         for kv_valid in (None, valid):
             route = _flash_route(q, k, v, 1 if kv_valid is None else B)
             assert route == want_route
-            before = (mha_flash.launches, mha_flash.tc_launches)
+            before = _counts(mha_flash)
             got = mha_flash(q, k, v, kv_valid=kv_valid, causal=causal)
             _launched(mha_flash, route, before)
             _close(got, mha_flash_ref(q, k, v, kv_valid=kv_valid, causal=causal),
@@ -116,7 +123,7 @@ def test_selective_kernel_matches_plain(cuda, seed, G):
         q, qp, k, v, hht, live = _selective_case(rng, cuda, B, Hkv, G, D, n, R, window,
                                                  dtypes)
         assert _selective_route(q, k, v, qp.shape[0]) == want_route
-        before = (selective_mha.launches, selective_mha.tc_launches)
+        before = _counts(selective_mha)
         got = selective_mha(q, qp, k, v, hht, live=live, window=window)
         _launched(selective_mha, want_route, before)
         _close(got, selective_mha_ref(q, qp, k, v, hht, window=window),
@@ -129,7 +136,7 @@ def test_selective_kernel_matches_plain(cuda, seed, G):
                           q_block=64, kv_block=64)
     route = _selective_route(q, k, v, qp.shape[0])
     assert route == ("tc" if G == 1 else "simt")
-    before = (selective_mha.launches, selective_mha.tc_launches)
+    before = _counts(selective_mha)
     got = selective_mha(q, qp, k, v, hht, live=live, window=window)
     _launched(selective_mha, route, before)
     _close(got, selective_mha_ref(q, qp, k, v, hht, window=window), BF16_TOL)
@@ -153,7 +160,7 @@ def test_selective_kernel_skips_dead_leading_tiles(cuda, kd):
     g = lambda dt, *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dt)
     q, k, v = g(torch.bfloat16, B, R, Hkv * G, D), g(kd, B, n, Hkv, D), g(torch.bfloat16, B, n, Hkv, D)
     qp, hht = torch.from_numpy(r_pos).to(cuda), torch.from_numpy(hh).to(cuda)
-    before = (selective_mha.launches, selective_mha.tc_launches)
+    before = _counts(selective_mha)
     got = selective_mha(q, qp, k, v, hht, live=live, window=window)
     _launched(selective_mha, "tc", before)
     _close(got, selective_mha_ref(q, qp, k, v, hht, window=window), BF16_TOL)
@@ -177,10 +184,169 @@ def test_selective_kernel_keeps_fp32_keys(cuda):
     moved = selective_mha_ref(q, qp, k.to(torch.bfloat16).float(), v, hht, window=0)
     assert not torch.allclose(moved.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
     assert _selective_route(q, k, v, 1) == "tc"
-    before = (selective_mha.launches, selective_mha.tc_launches)
+    before = _counts(selective_mha)
     got = selective_mha(q, qp, k, v, hht, live=live, window=0)
     _launched(selective_mha, "tc", before)
     _close(got, want, BF16_TOL)
+
+
+# ------------------------------------------- small-head route of B1 and B2
+_SMALL_DIMS = [1, 5, 8, 12, 16, 32]   # 1, 5: element (bf16) or word copies; 12: words (bf16)
+
+
+def _same_twice(fn, want_route, wrapper, tol, want):
+    """Two calls on the route `want_route`: each one launch of it, within
+    `tol` of `want` and bitwise equal to each other."""
+    outs = []
+    for _ in range(2):
+        before = _counts(wrapper)
+        outs.append(fn())
+        _launched(wrapper, want_route, before)
+    _close(outs[0], want, tol)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", _SMALL_DIMS)
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_small_route_matches_plain(cuda, dtype, G, D):
+    """D <= 32 takes the small-head route in any dtype: causal and not,
+    kv_valid with one row, a row per batch row and a row per query head
+    (rows a group's heads do not share), rows whose keys are all masked
+    (the plain version's uniform softmax over every key); a second call
+    bitwise equal."""
+    rng = np.random.default_rng(100 * G + D)
+    B, Hkv = 2, 2
+    Hq = Hkv * G
+    Sq = int(rng.integers(40, 300))
+    Skv = Sq + int(rng.integers(0, 70))
+    g = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dtype)
+    q, k, v = g(B, Sq, Hq, D), g(B, Skv, Hkv, D), g(B, Skv, Hkv, D)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for nb in (1, B, B * Hq):
+        valid = torch.from_numpy(rng.random((nb, Skv)) < 0.7).to(cuda)
+        valid[-1, :3] = False           # the first queries of the last row see no key
+        if nb > 1:
+            valid[0] = False            # a mask row with no key at all
+        for causal in (True, False):
+            for kvv in (None, valid) if nb == 1 else (valid,):
+                assert _flash_route(q, k, v, nb) == "small"
+                _same_twice(lambda: mha_flash(q, k, v, kv_valid=kvv, causal=causal), "small",
+                            mha_flash, tol, mha_flash_ref(q, k, v, kv_valid=kvv, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.float32, torch.bfloat16)])
+def test_flash_small_route_mixed_dtypes(cuda, dtypes):
+    """Mixed q / k / v dtypes at D 16: probabilities rounded to v's dtype,
+    the output in q's."""
+    rng = np.random.default_rng(5)
+    qd, kd, vd = dtypes
+    g = lambda dt, *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dt)
+    q, k, v = g(qd, 3, 130, 4, 16), g(kd, 3, 150, 2, 16), g(vd, 3, 150, 2, 16)
+    tol = BF16_TOL if torch.bfloat16 in (qd, vd) else F32_TOL
+    _same_twice(lambda: mha_flash(q, k, v, causal=True), "small", mha_flash, tol,
+                mha_flash_ref(q, k, v, causal=True))
+
+
+def _small_selective_case(rng, cuda, B, Hkv, G, D, n, R, window, dtypes, nb, pad):
+    """Positions inside each batch row's valid keys, the last `pad` rows of
+    batch row 0 pad rows (-1); `nb` mask rows: batch row 0's alone (1),
+    one per batch row (B) or repeated per query head (B*Hq, with a window
+    every other row's heavy-hitter bits cleared, so the rows differ)."""
+    q, qp, k, v, hht, _ = _selective_case(rng, cuda, B, Hkv, G, D, n, R, window, dtypes)
+    qp = qp.clone()
+    if pad:
+        qp[0, R - pad:] = -1
+    if nb < B:
+        qp, hht = qp[:nb], hht[:nb]
+    elif nb > B:
+        qp = qp.repeat_interleave(nb // B, dim=0)
+        hht = hht.repeat_interleave(nb // B, dim=0).clone()
+        if window:
+            hht[1::2] = 0
+    return q, qp, k, v, hht
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", _SMALL_DIMS)
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_small_route_matches_plain(cuda, dtype, G, D):
+    """D <= 32 takes the small-head route: causal over valid keys (window
+    0, the served call's mask), a window with heavy hitters, pad rows
+    (q_pos = -1: no live key, the plain version's uniform softmax), one
+    mask row, one per batch row, one per query head; the engine's 64 x 64
+    liveness tiles and odd ones (the route ORs every entry a block
+    touches); bf16 with fp32 keys; a second call bitwise equal."""
+    rng = np.random.default_rng(200 * G + D)
+    B, Hkv = 2, 2
+    Hq = Hkv * G
+    n = int(rng.choice([130, 448]))
+    R = int(rng.choice([r for r in (40, 100, 128) if r < n]))
+    kd = torch.float32 if dtype == torch.bfloat16 and D % 2 == 0 else dtype
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for window, nb, blocks in ((0, B, (64, 64)), (16, 1, (64, 64)), (16, B * Hq, (64, 64)),
+                               (0, B * Hq, (16, 32)), (200, B, (48, 80))):
+        q, qp, k, v, hht = _small_selective_case(rng, cuda, B, Hkv, G, D, n, R, window,
+                                                 (dtype, kd, dtype), nb, pad=7)
+        live = block_liveness(qp.cpu().numpy(), hht.cpu().numpy(), window=window,
+                              q_block=blocks[0], kv_block=blocks[1])
+        assert _selective_route(q, k, v, qp.shape[0]) == "small"
+        kw = dict(live=live, window=window, q_block=blocks[0], kv_block=blocks[1])
+        _same_twice(lambda: selective_mha(q, qp, k, v, hht, **kw), "small", selective_mha,
+                    tol, selective_mha_ref(q, qp, k, v, hht, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_small_route_skips_dead_leading_tiles(cuda, dtype):
+    """No heavy hitter among the first 128 keys and every query past them
+    with a short window: the leading key tiles are dead for every row, and
+    the small-head route never loads them."""
+    rng = np.random.default_rng(12)
+    B, Hkv, G, D, n, R, window = 2, 2, 2, 16, 448, 64, 16
+    hh = (rng.random((B, n)) < 0.3).astype(np.int8)
+    hh[:, :128] = 0
+    r_pos = np.stack([np.sort(rng.choice(np.arange(200, n), R, replace=False))
+                      for _ in range(B)])
+    live = block_liveness(r_pos, hh, window=window, q_block=64, kv_block=64)
+    assert not live[:, :, :2].any() and live.any()
+    g = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda, dtype)
+    q, k, v = g(B, R, Hkv * G, D), g(B, n, Hkv, D), g(B, n, Hkv, D)
+    qp, hht = torch.from_numpy(r_pos).to(cuda), torch.from_numpy(hh).to(cuda)
+    _same_twice(lambda: selective_mha(q, qp, k, v, hht, live=live, window=window), "small",
+                selective_mha, F32_TOL if dtype == torch.float32 else BF16_TOL,
+                selective_mha_ref(q, qp, k, v, hht, window=window))
+
+
+@pytest.mark.cuda
+def test_simt_routes_forced_at_small_heads(cuda):
+    """The SIMT kernels still take a small-head call when asked (chip_smoke
+    times them against the small-head route there)."""
+    from repro_torch.kernels.flash_attention.ops import _flash_launch
+    from repro_torch.kernels.selective_attention.ops import _selective_launch
+
+    rng = np.random.default_rng(3)
+    g = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+    q, k, v = g(4, 64, 4, 16), g(4, 64, 2, 16), g(4, 64, 2, 16)
+    valid = torch.from_numpy(rng.random((4, 64)) < 0.8).to(cuda)
+    valid[:, 0] = True
+    before = _counts(mha_flash)
+    got = _flash_launch("simt", q, k, v, kv_valid=valid, causal=True)
+    _launched(mha_flash, "simt", before)
+    _close(got, mha_flash_ref(q, k, v, kv_valid=valid, causal=True), F32_TOL)
+    with pytest.raises(ValueError, match="route"):
+        _flash_launch("tc", q, k, v, kv_valid=valid, causal=True)
+    q, qp, k, v, hht, live = _selective_case(rng, cuda, 2, 2, 2, 16, 448, 128, 0,
+                                             (torch.float32,) * 3)
+    before = _counts(selective_mha)
+    got = _selective_launch("simt", q, qp, k, v, hht, live=live, window=0, q_block=64,
+                            kv_block=64)
+    _launched(selective_mha, "simt", before)
+    _close(got, selective_mha_ref(q, qp, k, v, hht, window=0), F32_TOL)
 
 
 def _paged_inputs(cuda, rng, lens, page, n_pages, L, Hkv, G, D, qd, ad):
@@ -933,11 +1099,9 @@ def _bwd_check(cuda, args, kw, tol):
     q = args[0]
     route = _bwd_want_route(q.dtype, q.shape[3])
     assert _bwd_route(*args[:3]) == route
-    before = (mha_flash_bwd.launches, mha_flash_bwd.tc_launches)
-    small = mha_flash_bwd.small_launches
+    before = _counts(mha_flash_bwd)
     got = mha_flash_bwd(*args, **kw)
     _launched(mha_flash_bwd, route, before)
-    assert mha_flash_bwd.small_launches == small + (route == "small")
     want = flash_bwd_ref(*args, **kw)
     for a, b in zip(got, want):
         _close(a, b, tol * max(1.0, float(b.float().abs().max())))
