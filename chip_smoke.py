@@ -43,6 +43,26 @@ else (no network, no JAX).  Phases:
    CacheBlend's block gathers rotate keys to the blocks' original
    positions.  The tiny model then ranks on the card as on the CPU (fp32,
    1e-4), and its int8 fidelity drop on the card is at most 0.02;
+2k. the attention-backend seam over the phase-2 system: phase 2's
+   requests built by `rcllm_batch_requests`, one `BatchEngine.prefill`
+   and 8 greedy decode steps under (a) attn_backend "cuda", (b) "plain"
+   (the kernels' plain versions on the card), (c) "plain" with the decode
+   pinned to the paged-decode kernel and (d) "cuda" with the per-request
+   rcllm prefill, then (b) and (a) again in turns for the times.  The
+   tokens of every run pass the token gate against (a)'s and, in each
+   prefill row, the logit at (a)'s greedy pick lies within 2e-2 of (a)'s;
+   (b)'s and (c)'s prefill logits are bitwise equal; (b) launches no
+   kernel, (c) only the paged-decode kernel, (a) and (d) the counts their
+   selective passes and decode steps make.  The whole rows are held on
+   the same weights cast to fp32, where (a) and (b) run again: tokens
+   through the token gate, every logit within 1e-4 of the row max, and
+   the fp32 routes' launch counts.  Each request's
+   `reuse_fraction`, each distinct B2 call's `flop_reduction` beside its
+   live-tile share, and the pool's utilization and fragmentation after
+   prefill are printed.  Then the port's two examples that run a model
+   run on the card at small sizes (`examples/torch_quickstart.py` and
+   `torch_train_ranker.py --steps 20 --eval 8`, whose training launches
+   K6's small-head route and whose evaluation B1's and B2's);
 2d. recsys scoring and retrieval: Wide&Deep, AutoInt, DIEN and BERT4Rec
    at their published widths (random weights from a seeded generator)
    score a serve_p99 batch (512) and one retrieval_cand query against
@@ -1810,7 +1830,8 @@ def cluster_phase(system2, pool_rv, prof, cfg, args):
             f"avoided {line['transfers_avoided']}; peak {peak:.1f} GB; per worker "
             f"{line['assigned_per_worker']}")
         log(f"    kernel launches: {launches[label]}")
-        out["runs"][label] = {"line": line, "serve": rep}
+        out["runs"][label] = {"line": line, "serve": rep, "summary": crep.summary()}
+        log(f"    ClusterReport.summary(): {out['runs'][label]['summary']}")
         if label == "wave_round_robin":
             recs = [(w, t) for w, b in enumerate(cluster.backends) for t in b.shard.transfers]
             bad = [(w, t) for w, t in recs if t.item_id in hot or t.src_instance == w]
@@ -2115,6 +2136,355 @@ def ranking_phase(system, pool_rv, prof, dev):
 
 
 # ------------------------------------------------------------ LM steps
+# ------------------------------------------------------ attention-backend seam
+# phase 2k: phase 2's requests straight through the engine
+# (`rcllm_batch_requests`, one `BatchEngine.prefill(mode="rcllm")`, then
+# SEAM_STEPS greedy decode steps) under four configurations of the
+# attention-backend seam: (a) the kernels, (b) their plain versions on the
+# card, (c) plain with the decode pinned to the paged-decode kernel, (d) the
+# kernels with the per-request rcllm prefill.  Then (b) and (a) once more,
+# in turns, for the times (prefill s; decode ms per step, the median of
+# steps 2..SEAM_STEPS).  Each run's tokens pass the token gate against
+# (a)'s, and at each last position the logit of (a)'s greedy pick lies
+# within SEAM_TOL of (a)'s, relative to max(1, |(a)'s|).  The whole rows
+# of the bf16 runs are reported; they are gated on a second witness, the
+# same weights cast to fp32, where (a) and (b) run again (a32, b32) and
+# every logit of b32 lies within SEAM_TOL_FP32 of a32's, relative to
+# max(1, the row's largest |logit|)
+SEAM_STEPS = 8
+SEAM_TOL = TOL[torch.bfloat16]
+SEAM_TOL_FP32 = TOL[torch.float32]
+SEAM_RUNS = (("a", dict(attn_backend="cuda"), True),
+             ("b", dict(attn_backend="plain"), True),
+             ("c", dict(attn_backend="plain", decode_kernel="paged"), True),
+             ("d", dict(attn_backend="cuda"), False),
+             ("b_2", dict(attn_backend="plain"), True),
+             ("a_2", dict(attn_backend="cuda"), True))
+SEAM_KERNELS = ("flash_attention", "flash_attention:small", "flash_attention:fp32",
+                "selective_attention", "selective_attention:small",
+                "selective_attention:fp32", "paged_decode_attention", "block_gather")
+# the examples on the card: (file, arguments, kernels that must launch)
+EXAMPLES = (("torch_quickstart", [], ("flash_attention:small", "selective_attention:small",
+                                      "block_gather")),
+            ("torch_train_ranker", ["--steps", "20", "--eval", "8"],
+             ("flash_bwd:small", "flash_attention:small", "selective_attention:small",
+              "block_gather")))
+
+
+class SelectiveTap:
+    """Wraps the engine's selective-attention wrapper: one entry per
+    distinct call of a selective pass (its layers share shapes and the
+    liveness map) with its `flop_reduction` and the live-tile share of its
+    `block_liveness` map."""
+
+    def __init__(self):
+        self.calls = {}
+        self.fn = ENG.selective_mha
+
+    def __call__(self, q, qp, k, v, hh, **kw):
+        live = kw.get("live")
+        key = (tuple(q.shape), tuple(k.shape), None if live is None else live.data_ptr())
+        if key not in self.calls:
+            n_hh = float(torch.as_tensor(hh).float().sum(-1).mean())
+            self.calls[key] = {
+                "q": list(q.shape), "k": list(k.shape), "calls": 0,
+                "flop_reduction": SO.flop_reduction(q.shape[1], k.shape[1], round(n_hh),
+                                                    kw.get("window", 0)),
+                "live_tile_share": None if live is None else float(live.float().mean())}
+        self.calls[key]["calls"] += 1
+        return self.fn(q, qp, k, v, hh, **kw)
+
+    def __enter__(self):
+        ENG.selective_mha = self
+        return self
+
+    def __exit__(self, *exc):
+        ENG.selective_mha = self.fn
+
+
+def _rows_of(logits):
+    """(greedy token, top-1 logit, top-1 minus top-2 gap) per row."""
+    out = []
+    for lg in np.asarray(logits, np.float64):
+        top = np.partition(lg, -2)[-2:]
+        out.append((int(np.argmax(lg)), float(top[1]), float(top[1] - top[0])))
+    return out
+
+
+def seam_run(model, cfg, rows, brs, knobs, batched):
+    """One configuration: a fresh engine over `model` and the phase-2
+    system's cached rows, one rcllm prefill of every request, SEAM_STEPS
+    greedy decode steps, every request released.  The counts are set to 0
+    just before and read just after."""
+    config = ServeConfig(decode_steps=SEAM_STEPS, **knobs)
+    sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev, window=16)
+    engine = API.build_engine(model, cfg, config, sel=sel, cache=rows,
+                              batched_selective=batched)
+    rids = [r.rid for r in brs]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = engine.prefill(brs, "rcllm")
+    prefill_s = time.perf_counter() - t0
+    stats = engine.pool.stats()
+    toks = {rid: [int(np.argmax(lg))] for rid, lg in zip(rids, logits)}
+    rows = {rid: [row] for rid, row in zip(rids, _rows_of(logits))}
+    step_ms = []
+    for _ in range(SEAM_STEPS):
+        t0 = time.perf_counter()
+        out = engine.decode(rids, [toks[r][-1] for r in rids])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for rid, row in zip(rids, _rows_of(out)):
+            toks[rid].append(row[0])
+            rows[rid].append(row)
+    torch.cuda.synchronize()
+    launched = counts()
+    recompute = {rid: engine.last_stats[rid].recompute_fraction() for rid in rids}
+    for rid in rids:
+        engine.release(rid)
+    res = {"tokens": toks, "rows": rows, "logits": logits, "prefill_s": prefill_s,
+           "decode_step_ms": step_ms,
+           "decode_ms_median_steps_2_on": statistics.median(step_ms[1:]),
+           "launches": launched, "utilization": stats.utilization,
+           "internal_fragmentation": stats.internal_fragmentation,
+           "resolved": (engine.attn_kernels, engine.paged), "recompute": recompute}
+    del engine
+    gc.collect()                # the engine's cycles hold its arena and model
+    torch.cuda.empty_cache()
+    return res
+
+
+def logits_diff(got, want):
+    """How far `got`'s rows lie from `want`'s: at the index of want's
+    largest logit, the largest |difference| over max(1, |want's logit|);
+    of whole rows the largest |difference|, that over max(1, max |want|),
+    and the L2 norm of the difference over want's."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rows = np.arange(len(want))
+    top = want.argmax(axis=1)
+    d = np.abs(got - want)
+    return {"at_argmax_rel": float((d[rows, top]
+                                    / np.maximum(1.0, np.abs(want[rows, top]))).max()),
+            "max_abs": float(d.max()),
+            "max_rel_row_max": float((d.max(axis=1)
+                                      / np.maximum(1.0, np.abs(want).max(axis=1))).max()),
+            "l2_rel": float((np.linalg.norm(got - want, axis=1)
+                             / np.linalg.norm(want, axis=1)).max()),
+            "bitwise": bool(np.array_equal(got, want))}
+
+
+def fp32_copy(model, cfg):
+    """The model's weights cast to fp32, in a model of their own beside
+    it (the bf16 model is untouched).  -> (model, cfg)."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = TT.Transformer(cfg32, device=model.device)
+    with torch.no_grad():
+        for (n32, p32), (n, p) in zip(m32.named_parameters(), model.named_parameters()):
+            assert n32 == n and p32.shape == p.shape, (n32, n)
+            p32.copy_(p)
+    return m32, cfg32
+
+
+def seam_launches_want(cfg, run, n_req, suffix=""):
+    """The launches a kernel run of phase 2k makes: one B4 launch a
+    selective pass and a layer-0 copy a request, (n_layers - 1) B2
+    launches a pass on the route `suffix` names, n_layers B3 launches a
+    decode step; no other attention route."""
+    passes = run["block_gather:layers"]
+    want = {n: 0 for n in SEAM_KERNELS}
+    want.update({"selective_attention" + suffix: (cfg.n_layers - 1) * passes,
+                 "paged_decode_attention": cfg.n_layers * SEAM_STEPS,
+                 "block_gather": passes + n_req})
+    return want, passes
+
+
+def run_example(name, argv):
+    """One `examples/<name>.py` on the card through its `main(argv)`, the
+    counts set to 0 just before and read just after."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    torch.cuda.synchronize()
+    return out, counts(), time.perf_counter() - t0
+
+
+def seam_phase(system, pool_rv, prof, cfg, args, wave_tokens):
+    """Phase 2k: the attention-backend seam at full width and depth (the
+    phase-2 system), its fp32 witness, then the two examples that run a
+    model, on the card at small sizes.  -> (report, launches per run)."""
+    trace = SERVE.launcher_trace(system, pool_rv, prof, args.requests, args.qps)
+    brs = WL.rcllm_batch_requests(system, trace, n_reserve=SEAM_STEPS)
+    log(f"attention-backend seam (phase 2k): {len(brs)} requests (phase 2's) through "
+        f"`rcllm_batch_requests` and one `BatchEngine.prefill`, then {SEAM_STEPS} greedy "
+        f"decode steps; depth {cfg.n_layers}; (a) cuda, (b) plain, (c) plain + paged "
+        "decode, (d) cuda with the per-request prefill; then (b), (a) again in turns")
+    log("  reuse_fraction per request: " + ", ".join(
+        f"{r.rid} {r.plan.reuse_fraction():.4f}" for r in brs))
+    runs, launches = {}, {}
+    for label, knobs, batched in SEAM_RUNS:
+        if label == "a":
+            with SelectiveTap() as tap:
+                runs[label] = seam_run(system.model, cfg, system.rows, brs, knobs, batched)
+            runs[label]["b2_calls"] = list(tap.calls.values())
+        else:
+            runs[label] = seam_run(system.model, cfg, system.rows, brs, knobs, batched)
+        r = runs[label]
+        launches["2k_" + label] = r["launches"]
+        log(f"  ({label}) {knobs}{'' if batched else ', batched_selective=False'}: resolved "
+            f"kernels / paged {r['resolved']}; prefill {r['prefill_s']:.4f} s, decode "
+            f"{r['decode_ms_median_steps_2_on']:.2f} ms a step (median of steps 2-"
+            f"{SEAM_STEPS}; all {['%.2f' % t for t in r['decode_step_ms']]}); pool after "
+            f"prefill: utilization {r['utilization']:.4f}, internal fragmentation "
+            f"{r['internal_fragmentation']:.4f}")
+        log(f"    launches: { {k: r['launches'][k] for k in SEAM_KERNELS} }, "
+            f"block_gather:layers {r['launches']['block_gather:layers']}")
+    for c in runs["a"]["b2_calls"]:
+        log(f"  B2 call q {c['q']} k {c['k']} x {c['calls']} (one a layer): flop_reduction "
+            f"{c['flop_reduction']:.4f}, live-tile share {c['live_tile_share']:.4f}")
+    # ---- gates ----
+    a = runs["a"]
+    n_req = len(brs)
+    gates = {}
+    for label in ("b", "c", "d", "b_2", "a_2"):
+        r = runs[label]
+        g = token_gate(r["tokens"], a["tokens"], r["rows"], a["rows"],
+                       label=f"phase 2k ({label} vs a)")
+        g["logits"] = diff = logits_diff(r["logits"], a["logits"])
+        gates[label] = g
+        log_gate(f"token gate ({label} vs a)", g, n_req)
+        log(f"    last-position logits ({label} vs a): at (a)'s argmax "
+            f"{diff['at_argmax_rel']:.4g} of max(1, |(a)'s|) (tol {SEAM_TOL}); whole rows "
+            f"(reported; gated in fp32 below): max |diff| {diff['max_abs']:.4g}, "
+            f"{diff['max_rel_row_max']:.4g} of the row max, L2 {diff['l2_rel']:.4g} of (a)'s"
+            f"{', bitwise equal' if diff['bitwise'] else ''}")
+        if not np.isfinite(r["logits"]).all() or diff["at_argmax_rel"] > SEAM_TOL:
+            raise RuntimeError(f"phase 2k ({label}): prefill logits at (a)'s argmax {diff} "
+                               f"from (a)'s, tol {SEAM_TOL}")
+    if not np.array_equal(runs["b"]["logits"], runs["c"]["logits"]):
+        raise RuntimeError("phase 2k: (b) and (c) prefill logits differ: the decode pin "
+                           "must not touch prefill")
+    log("  (b) and (c) prefill logits bitwise equal")
+    la, lb, lc, ld = (runs[k]["launches"] for k in ("a", "b", "c", "d"))
+    kernel_counts = {k: {n: runs[k]["launches"][n] for n in SEAM_KERNELS}
+                     for k in ("a", "b", "c", "d")}
+    if any(lb[n] for n in SEAM_KERNELS) or any(runs["b_2"]["launches"][n]
+                                               for n in SEAM_KERNELS):
+        raise RuntimeError(f"phase 2k (b) launched kernels: {kernel_counts['b']}")
+    if lc["paged_decode_attention"] == 0 or any(lc[n] for n in SEAM_KERNELS
+                                                if n != "paged_decode_attention"):
+        raise RuntimeError(f"phase 2k (c) launches {kernel_counts['c']}: want B3 only")
+    decode_launches = cfg.n_layers * SEAM_STEPS
+    for label, run in (("a", la), ("d", ld)):
+        want, passes = seam_launches_want(cfg, run, n_req)
+        got = {n: run[n] for n in want}
+        if got != want or passes < 1 or (label == "d" and passes != n_req):
+            raise RuntimeError(f"phase 2k ({label}) launches {got}, {passes} selective "
+                               f"passes: want {want}")
+    log(f"  launches as predicted: (a) {la['block_gather:layers']} selective passes (one "
+        f"B4 launch each + {n_req} layer-0 copies, {cfg.n_layers - 1} B2 launches each), "
+        f"(d) {n_req} passes; B3 {decode_launches} in each")
+    same = sum(a["tokens"][rid][:len(t)] == t for rid, t in wave_tokens.items())
+    log(f"  (a) decodes phase 2's wave tokens for {same} of {len(wave_tokens)} requests "
+        "(phase 2's batches formed on measured step times)")
+    turns = {k: {"prefill_s": runs[k]["prefill_s"],
+                 "decode_ms": runs[k]["decode_ms_median_steps_2_on"]}
+             for k in ("a", "b", "b_2", "a_2")}
+    log("  in turns a, b, ..., b, a: " + "; ".join(
+        f"({k}) prefill {v['prefill_s']:.4f} s, decode {v['decode_ms']:.2f} ms"
+        for k, v in turns.items()))
+    # ---- the fp32 witness: (a) and (b) again on the weights cast to fp32 ----
+    before = torch.cuda.memory_allocated()
+    m32, cfg32 = fp32_copy(system.model, cfg)
+    log(f"  fp32 witness: the phase-2 weights cast to fp32 "
+        f"({sum(p.numel() for p in m32.parameters()) * 4 / 1e9:.2f} GB beside the bf16 "
+        f"model; {before / 1e9:.1f} GB allocated before it); (a32) cuda, (b32) plain")
+    for label, knobs in (("a32", dict(attn_backend="cuda")),
+                         ("b32", dict(attn_backend="plain"))):
+        runs[label] = r = seam_run(m32, cfg32, system.rows, brs, knobs, True)
+        launches["2k_" + label] = r["launches"]
+        log(f"  ({label}) {knobs}: resolved kernels / paged {r['resolved']}; prefill "
+            f"{r['prefill_s']:.4f} s, decode {r['decode_ms_median_steps_2_on']:.2f} ms a "
+            f"step (median of steps 2-{SEAM_STEPS}); launches "
+            f"{ {k: r['launches'][k] for k in SEAM_KERNELS} }")
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  fp32 model freed: {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    a32, b32 = runs["a32"], runs["b32"]
+    g = token_gate(b32["tokens"], a32["tokens"], b32["rows"], a32["rows"],
+                   label="phase 2k (b32 vs a32)")
+    g["logits"] = diff = logits_diff(b32["logits"], a32["logits"])
+    gates["b32"] = g
+    log_gate("token gate (b32 vs a32)", g, n_req)
+    log(f"    last-position logits (b32 vs a32), whole rows: max |diff| "
+        f"{diff['max_abs']:.4g}, {diff['max_rel_row_max']:.4g} of the row max (tol "
+        f"{SEAM_TOL_FP32}), L2 {diff['l2_rel']:.4g} of (a32)'s; at (a32)'s argmax "
+        f"{diff['at_argmax_rel']:.4g}")
+    if (not np.isfinite(b32["logits"]).all() or not np.isfinite(a32["logits"]).all()
+            or diff["max_rel_row_max"] > SEAM_TOL_FP32):
+        raise RuntimeError(f"phase 2k (b32 vs a32): whole-row prefill logits {diff}, tol "
+                           f"{SEAM_TOL_FP32} of the row max")
+    if any(b32["launches"][n] for n in SEAM_KERNELS):
+        raise RuntimeError(f"phase 2k (b32) launched kernels: "
+                           f"{ {n: b32['launches'][n] for n in SEAM_KERNELS} }")
+    want, passes = seam_launches_want(cfg, a32["launches"], n_req, ":fp32")
+    got = {n: a32["launches"][n] for n in want}
+    if got != want or passes < 1:
+        raise RuntimeError(f"phase 2k (a32) launches {got}, {passes} selective passes: "
+                           f"want {want}")
+    # the bf16 runs against the fp32 result: how far each rounding lands
+    to_fp32 = {k: logits_diff(runs[k]["logits"], a32["logits"]) for k in ("a", "b")}
+    gates["bf16_vs_fp32"] = to_fp32
+    kernel_counts.update({k: {n: runs[k]["launches"][n] for n in SEAM_KERNELS}
+                          for k in ("a32", "b32")})
+    log("  bf16 against fp32 (a32), whole rows: " + "; ".join(
+        f"({k}) max |diff| {v['max_abs']:.4g}, {v['max_rel_row_max']:.4g} of the row max, "
+        f"L2 {v['l2_rel']:.4g}" for k, v in to_fp32.items()))
+    # ---- the examples, on the card at small sizes ----
+    examples = {}
+    for name, argv, required in EXAMPLES:
+        out, ran, secs = run_example(name, argv)
+        launches["example_" + name] = ran
+        missing = [n for n in required if ran[n] == 0]
+        simt = {n: ran[n + ":fp32"] for n in SMALL_FWD if ran[n + ":fp32"]}
+        if missing or simt:
+            raise RuntimeError(f"example {name}: kernels never launched {missing}, SIMT "
+                               f"launches {simt}")
+        examples[name] = {"argv": argv, "seconds": secs,
+                          "launches": {k: v for k, v in ran.items() if v}}
+        if name == "torch_quickstart":
+            if not (np.isfinite(out["scores"]).all() and np.isfinite(out["full"]).all()):
+                raise RuntimeError(f"example {name}: scores {out['scores']}")
+            examples[name].update(ndcg5=out["ndcg5"],
+                                  reuse_fraction=out["plan"].reuse_fraction())
+        else:
+            losses = [l for _, l in out["history"]]
+            if not np.isfinite(losses).all():
+                raise RuntimeError(f"example {name}: losses {losses}")
+            examples[name].update(losses=losses, table=out["table"])
+        log(f"  example {name} {' '.join(argv)} on the card: {secs:.1f} s, launches "
+            f"{examples[name]['launches']}")
+    report = {"requests": n_req, "decode_steps": SEAM_STEPS,
+              "reuse_fraction": {r.rid: r.plan.reuse_fraction() for r in brs},
+              "b2_calls": runs["a"]["b2_calls"], "kernel_launches": kernel_counts,
+              "turns": turns, "gates": gates, "wave_tokens_equal": same,
+              "fp32_witness": {k: {"prefill_s": runs[k]["prefill_s"],
+                                   "decode_ms": runs[k]["decode_ms_median_steps_2_on"]}
+                               for k in ("a32", "b32")},
+              "pool_after_prefill": {k: {"utilization": runs[k]["utilization"],
+                                         "internal_fragmentation":
+                                         runs[k]["internal_fragmentation"]}
+                                     for k in ("a", "d")},
+              "decode_step_ms": {k: r["decode_step_ms"] for k, r in runs.items()},
+              "examples": examples}
+    return report, launches
+
+
 def _sync_s(fn):
     """(fn(), host seconds with the card synchronised before and after)."""
     torch.cuda.synchronize()
@@ -2765,7 +3135,8 @@ def layer0_divergence_zero(system, reqs):
         toks = np.concatenate([plan.tokens.astype(np.int32), np.zeros(pad - n, np.int32)])
         t = torch.from_numpy(np.concatenate([np.asarray(table, np.int32),
                                              np.zeros(pad - n, np.int32)])).to(system.model.device)
-        ck0, cv0 = ENG.cache_gather(system.rows, system.cfg.rope_theta)(t, t, 0, rotate=False)
+        ck0, cv0 = ENG.cache_gather(system.rows, system.cfg.rope_theta, None,
+                                    kernels=True)(t, t, 0, rotate=False)
         div = ENG.layer0(system.model, toks, np.arange(pad) < n, ck0, cv0)[2]
         items = (plan.source == FROM_ITEM) & have
         d = div.cpu().numpy()[:n][items]
@@ -3270,6 +3641,15 @@ def serving_phases(args, dev):
     torch.cuda.empty_cache()
     PHASE_S["2h"] = t_rank = time.perf_counter() - t0
     log(f"  ranking phase {t_rank:.1f} s")
+
+    # ---- phase 2k: the attention-backend seam, then the examples ----
+    t0 = time.perf_counter()
+    seam_report, seam_launches = seam_phase(system, pool_rv, prof, cfg, args,
+                                            closed["wave"][0])
+    launches.update(seam_launches)
+    torch.cuda.empty_cache()
+    PHASE_S["2k"] = t_seam = time.perf_counter() - t0
+    log(f"  seam phase and examples {t_seam:.1f} s")
     t_3 = time.perf_counter()
 
     # ---- phase 3: checks ----
@@ -3388,6 +3768,7 @@ def serving_phases(args, dev):
               "cluster_s": t_cluster, "cluster": cluster_report,
               "server_s": t_server, "server": server_report,
               "ranking_s": t_rank, "ranking": rank_report,
+              "seam_s": t_seam, "seam": seam_report,
               "recsys_s": t_recsys, "peak_cuda_gb": peak_gb,
               "depth": cfg.n_layers, "serve": rep, "serve_chunked": crep,
               "chunked_ticks": [dataclasses.asdict(t) for t in ticks],

@@ -1,8 +1,9 @@
 """Model configurations for the port: the JAX package's `MoEConfig`,
 `RecsysConfig` and `GNNConfig` field for field, the subset of its
 `LMConfig` the port reads (dense or MoE, sliding window, attention
-chunks, `remat` and `optimizer` for training; the mesh and
-kernel-backend knobs stay with the reference), and `reduced()` for all
+chunks, `remat` and `optimizer` for training, and the serving path's
+attention backend and decode kernel, whose values name the port's
+routes; the mesh knobs stay with the reference), and `reduced()` for all
 three families."""
 from __future__ import annotations
 
@@ -11,6 +12,12 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+# The serving path's execution knobs (`core.engine.attn_uses_kernels`,
+# `decode_uses_paged`).  `LMConfig` owns the fields; the serving API
+# validates against the same tuples.
+ATTN_BACKENDS = ("auto", "plain", "cuda")
+DECODE_KERNELS = ("auto", "gather", "paged")
 
 
 @dataclass(frozen=True)
@@ -48,6 +55,26 @@ class LMConfig:
     # (`training.optimizer.get`: adamw | adafactor)
     remat: bool = True
     optimizer: str = "adamw"
+    # serving attention backend: "cuda" runs the hand-written kernels of
+    # the offline build, the cached-KV assembly and the selective layers
+    # (flash, block gather, selective), "plain" their plain PyTorch
+    # versions on the model's device, "auto" the kernels for a CUDA model
+    # and the plain versions for a CPU one.  Layer 0's Eq. 3 scoring is
+    # plain torch under every backend (it needs the probabilities)
+    attn_backend: str = "auto"
+    # serving decode: "auto" follows the backend, "paged" pins the
+    # paged-decode kernel and "gather" its plain version (which gathers
+    # the pages), whatever the backend: a decode-only difference cannot
+    # hide behind a prefill one
+    decode_kernel: str = "auto"
+
+    def __post_init__(self):
+        # frozen: dataclasses.replace re-runs this, so no invalid knob can
+        # come in through a replace
+        if self.attn_backend not in ATTN_BACKENDS:
+            raise ValueError(f"attn_backend={self.attn_backend!r} not in {ATTN_BACKENDS}")
+        if self.decode_kernel not in DECODE_KERNELS:
+            raise ValueError(f"decode_kernel={self.decode_kernel!r} not in {DECODE_KERNELS}")
 
     @property
     def resolved_head_dim(self) -> int:

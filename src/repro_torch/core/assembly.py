@@ -43,6 +43,11 @@ class AssemblyPlan:
     def n(self) -> int:
         return len(self.tokens)
 
+    def reuse_fraction(self) -> float:
+        """The share of the prompt's tokens served from a cache (item
+        blocks or semantic prototypes) rather than recomputed."""
+        return float((self.source != RECOMPUTE).mean())
+
 
 def build_plan(tokens: np.ndarray, seg_kind: np.ndarray, seg_id: np.ndarray,
                marker_mask: Optional[np.ndarray],

@@ -16,6 +16,10 @@ attention (`kernels.flash_attention`) in the offline KV build and full
 prefill, selective attention (`kernels.selective_attention`) in layers
 1..L−1.  Layer 0 needs the materialised probabilities for Eq. 3, so it
 runs plain torch attention, as the JAX package runs jnp there.  The
+config's `attn_backend` picks the kernels or their plain PyTorch versions
+above the wrappers (`attn_uses_kernels`), and `decode_kernel` the serving
+decode's (`decode_uses_paged`); the wrappers themselves still launch on a
+CUDA tensor and run the plain version on a CPU one.  The
 cached KV stays on the model's device (`core.cache_rows`): a request
 brings a block table into that pool, and the block-gather kernel
 (`kernels.block_gather`, bound to the pools once per batch or request:
@@ -42,10 +46,12 @@ import torch
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.assembly import FROM_ITEM, FROM_SEMANTIC, AssemblyPlan
 from repro_torch.core.cache_rows import ZERO_ROW, CacheRows
-from repro_torch.kernels.block_gather.ops import PoolGather
+from repro_torch.kernels.block_gather.ops import PlainGather, PoolGather
 from repro_torch.kernels.flash_attention.ops import mha_flash
+from repro_torch.kernels.flash_attention.ref import mha_flash_ref
 from repro_torch.kernels.selective_attention.ops import (block_liveness,
                                                          selective_mha)
+from repro_torch.kernels.selective_attention.ref import selective_mha_ref
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Block, Transformer
 from repro_torch.models.transformer import forward as model_forward
@@ -54,6 +60,39 @@ from repro_torch.models.transformer import forward as model_forward
 # shape buckets are multiples of 64, as in the JAX package.
 LIVE_Q_BLOCK = 64
 LIVE_KV_BLOCK = 64
+
+
+def attn_uses_kernels(cfg: LMConfig, device) -> bool:
+    """Resolve `cfg.attn_backend` for a model on `device`: does the serving
+    path run the hand-written kernels of the offline build, the cached-KV
+    assembly and the selective layers (True), or their plain PyTorch
+    versions (False)?  "auto" follows the device; "cuda" on a model that
+    is not on a CUDA device raises.  `LMConfig` validated the value."""
+    on_card = torch.device(device).type == "cuda"
+    if cfg.attn_backend == "auto":
+        return on_card
+    if cfg.attn_backend == "cuda" and not on_card:
+        raise ValueError(f"attn_backend='cuda' runs the kernels on the card: the model is "
+                         f"on {device} (use 'plain' or 'auto')")
+    return cfg.attn_backend == "cuda"
+
+
+def decode_uses_paged(cfg: LMConfig, device) -> bool:
+    """Resolve `cfg.decode_kernel` for the serving decode step of a model
+    on `device`: does it read K/V through the paged-decode kernel (True)
+    or through that kernel's plain version, which gathers the pages
+    (False)?  "auto" follows the attention backend (`attn_uses_kernels`);
+    "paged" and "gather" pin either path whatever the backend, so a
+    decode-only difference cannot hide behind a prefill one.  "paged" on
+    a model that is not on a CUDA device raises."""
+    if cfg.decode_kernel == "gather":
+        return False
+    if cfg.decode_kernel == "paged":
+        if torch.device(device).type != "cuda":
+            raise ValueError(f"decode_kernel='paged' runs the kernel on the card: the model "
+                             f"is on {device} (use 'gather' or 'auto')")
+        return True
+    return attn_uses_kernels(cfg, device)
 
 
 @dataclass
@@ -159,11 +198,13 @@ def _layer_step(x, lp: Block, cfg: LMConfig, o):
 
 @torch.no_grad()
 def batched_forward(model: Transformer, toks: torch.Tensor,
-                    valid: torch.Tensor):
+                    valid: torch.Tensor, kernels: bool):
     """Padded (N, S) forward pass.  -> (x, k_all, v_all): the final
     residual stream (N, S, D) plus the pre-RoPE per-layer caches
-    (N, S, L, Hkv, Dh).  Invalid keys are masked out via `valid`."""
+    (N, S, L, Hkv, Dh).  Invalid keys are masked out via `valid`.
+    `kernels` False runs the flash kernel's plain version on any device."""
     cfg = model.cfg
+    flash = mha_flash if kernels else mha_flash_ref
     S = toks.shape[1]
     pos = torch.arange(S, device=toks.device)
     x = model.embed_tokens(toks)
@@ -180,7 +221,7 @@ def batched_forward(model: Transformer, toks: torch.Tensor,
         vs.append(v)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k_raw, pos, cfg.rope_theta)
-        o = mha_flash(q, k, v, kv_valid=valid, causal=True)
+        o = flash(q, k, v, kv_valid=valid, causal=True)
         x = _layer_step(x, lp, cfg, o)
     return x, torch.stack(ks, dim=2), torch.stack(vs, dim=2)
 
@@ -189,6 +230,7 @@ def precompute_kv_batch(model: Transformer, cfg: LMConfig, docs,
                         bucket: int = 64):
     """Batched offline KV materialization with length bucketing.
     -> list of (S_i, L, Hkv, Dh) pre-RoPE (k, v) fp32 numpy arrays."""
+    kernels = attn_uses_kernels(cfg, model.device)
     order = np.argsort([len(d) for d in docs])
     out = [None] * len(docs)
     i = 0
@@ -200,7 +242,7 @@ def precompute_kv_batch(model: Transformer, cfg: LMConfig, docs,
         for gi, j in enumerate(group):
             batch[gi, :len(docs[j])] = docs[j]
         toks = torch.from_numpy(batch).to(model.device)
-        _, k, v = batched_forward(model, toks, toks != 0)
+        _, k, v = batched_forward(model, toks, toks != 0, kernels)
         k, v = _host(k), _host(v)
         for gi, j in enumerate(group):
             s = len(docs[j])
@@ -210,16 +252,18 @@ def precompute_kv_batch(model: Transformer, cfg: LMConfig, docs,
 
 
 @torch.no_grad()
-def batched_prefill(model: Transformer, toks: np.ndarray, last_idx: np.ndarray):
+def batched_prefill(model: Transformer, toks: np.ndarray, last_idx: np.ndarray,
+                    kernels: bool):
     """Padded multi-request full prefill.  toks: (N, S); last_idx: (N,)
-    index of each request's final real token.  -> (logits (N, V) host
-    fp32, pre-RoPE k, v (N, S, L, Hkv, Dh) on the device)."""
+    index of each request's final real token; `kernels` as
+    `batched_forward` takes it.  -> (logits (N, V) host fp32, pre-RoPE k,
+    v (N, S, L, Hkv, Dh) on the device)."""
     dev = model.device
     t = torch.from_numpy(np.asarray(toks, np.int64)).to(dev)
     last = torch.from_numpy(np.asarray(last_idx, np.int64)).to(dev)
     S = t.shape[1]
     valid = torch.arange(S, device=dev)[None, :] <= last[:, None]
-    x, k_all, v_all = batched_forward(model, t, valid)
+    x, k_all, v_all = batched_forward(model, t, valid, kernels)
     x_last = x[torch.arange(t.shape[0], device=dev), last]
     xf = L.rms_norm(x_last, model.final_norm, model.cfg.norm_eps)
     return _host(xf @ model.head()), k_all, v_all
@@ -232,7 +276,8 @@ def full_prefill_logits(model: Transformer, cfg: LMConfig, tokens: np.ndarray,
     n = len(tokens)
     n_pad = ((n + bucket - 1) // bucket) * bucket
     toks = np.pad(np.asarray(tokens, np.int64), (0, n_pad - n))
-    logits = model_forward(model, torch.from_numpy(toks)[None].to(model.device))
+    logits = model_forward(model, torch.from_numpy(toks)[None].to(model.device),
+                           kernels=attn_uses_kernels(cfg, model.device))
     return _host(logits[0, n - 1])
 
 
@@ -250,7 +295,7 @@ def _pad_table(table: np.ndarray, positions: np.ndarray, n_pad: int):
     return tbl, pos
 
 
-def cache_gather(cache: CacheRows, rope_theta: float, shared=None) -> PoolGather:
+def cache_gather(cache: CacheRows, rope_theta: float, shared, kernels: bool) -> PlainGather:
     """The block-gather kernel bound to the cached rows' layer planes and,
     with `shared`, to that arena's (`shared.planes()`) as its second
     pool: table entries from `cache.n_rows` on read slot (entry - n_rows)
@@ -258,9 +303,11 @@ def cache_gather(cache: CacheRows, rope_theta: float, shared=None) -> PoolGather
     keep_raw=): table/positions (N,) int32 on the pool's device ->
     (k, v[, k_raw]) each (N, Hkv, Dh) for one layer, (n_layers, N, Hkv,
     Dh) for a range, in the pool dtype; `rotate=False` is a bitwise copy
-    of the rows."""
+    of the rows.  `kernels` False binds the kernel's plain version
+    instead (`PlainGather`), on any device."""
     k2, v2 = shared.planes() if shared is not None else (None, None)
-    return PoolGather(cache.k, cache.v, k2, v2, rope_theta=rope_theta)
+    bind = PoolGather if kernels else PlainGather
+    return bind(cache.k, cache.v, k2, v2, rope_theta=rope_theta)
 
 
 def _device_table(cache: CacheRows, table: np.ndarray, n_pad: int) -> torch.Tensor:
@@ -341,17 +388,18 @@ def select_recompute(plan: AssemblyPlan, have: np.ndarray,
 
 @torch.no_grad()
 def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
-                     r_valid: np.ndarray, gather: PoolGather, table: torch.Tensor,
+                     r_valid: np.ndarray, gather: PlainGather, table: torch.Tensor,
                      positions: torch.Tensor, valid: np.ndarray,
-                     final_slot: np.ndarray):
+                     final_slot: np.ndarray, kernels: bool):
     """Batched layers 1..L-1 over the recompute sets.
 
     x: (B, n, D); r_idx/r_valid: (B, R) host; gather: the block-gather
     kernel bound to the cached rows (`cache_gather`); table/positions:
     (B, n) int32 on the device, each key's cached row (or store-shared
     slot) and target position; valid: (B, n) host key validity;
-    final_slot: (B,).  -> (logits (B, V), merged pre-RoPE k, v (B, n,
-    L-1, Hkv, Dh)) on the device (views of layer-major tensors).
+    final_slot: (B,); `kernels` False runs the selective kernel's plain
+    version on any device.  -> (logits (B, V), merged pre-RoPE k, v (B,
+    n, L-1, Hkv, Dh)) on the device (views of layer-major tensors).
 
     One block-gather launch assembles every layer's cached keys, rotated
     to their request positions (exact realignment), with the pre-RoPE base
@@ -369,9 +417,11 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
     # layers and in the kernel's dtypes (int32 positions, uint8 validity,
     # int32 liveness), so no layer's call copies or converts them
     valid_u8 = np.asarray(valid, np.uint8)
-    live = torch.from_numpy(block_liveness(
-        r_pos_np, valid_u8, window=0, q_block=LIVE_Q_BLOCK,
-        kv_block=LIVE_KV_BLOCK)).to(dev)
+    live = None
+    if kernels:
+        live = torch.from_numpy(block_liveness(
+            r_pos_np, valid_u8, window=0, q_block=LIVE_Q_BLOCK,
+            kv_block=LIVE_KV_BLOCK)).to(dev)
     r_pos32 = r_pos.to(torch.int32)
     valid_t = torch.from_numpy(valid_u8).to(dev)
     rv = torch.from_numpy(np.asarray(r_valid, bool)).to(dev)
@@ -397,8 +447,11 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
         v_l[rows, widx] = vr[rv].to(v_l.dtype)
         # merged pre-RoPE cache: cached blocks + fresh recomputed keys
         k_m[rows, widx] = kr_raw[rv].to(k_m.dtype)
-        o = selective_mha(qr, r_pos32, k_l, v_l.to(kr.dtype), valid_t, live=live,
-                          window=0, q_block=LIVE_Q_BLOCK, kv_block=LIVE_KV_BLOCK)
+        if kernels:
+            o = selective_mha(qr, r_pos32, k_l, v_l.to(kr.dtype), valid_t, live=live,
+                              window=0, q_block=LIVE_Q_BLOCK, kv_block=LIVE_KV_BLOCK)
+        else:
+            o = selective_mha_ref(qr, r_pos32, k_l, v_l.to(kr.dtype), valid_t, window=0)
         xr = _layer_step(xr, lp, cfg, o)
 
     fs = torch.from_numpy(np.asarray(final_slot, np.int64)).to(dev)
@@ -411,7 +464,7 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
 
 def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
                            cache: CacheRows, r_bucket: int = 64, shared=None,
-                           gather: Optional[PoolGather] = None):
+                           gather: Optional[PlainGather] = None):
     """Bucketed batched selective-layer pass (phase 2 of the selective
     prefill): requests are grouped by (padded length, padded recompute
     budget) and ONE selective step runs per bucket.  PyTorch runs eagerly,
@@ -423,12 +476,14 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
     k_rest, v_rest) per item in input order; k_rest/v_rest are the merged
     pre-RoPE layers 1..L-1, (n_pad, L-1, Hkv, Dh) on the device.
     `shared`: the arena whose slots tables may address (`cache_gather`);
-    `gather`: `cache_gather(cache, cfg.rope_theta, shared)` when the
-    caller has bound it already.
+    `gather`: `cache_gather(cache, cfg.rope_theta, shared, kernels)` when
+    the caller has bound it already.  `cfg.attn_backend` picks kernels or
+    plain versions (`attn_uses_kernels`).
     """
     dev = model.device
+    kernels = attn_uses_kernels(cfg, dev)
     if gather is None:
-        gather = cache_gather(cache, cfg.rope_theta, shared)
+        gather = cache_gather(cache, cfg.rope_theta, shared, kernels)
     results = [None] * len(items)
     by_shape: Dict[tuple, list] = {}
     for i, (plan, x, recompute, _, _) in enumerate(items):
@@ -457,7 +512,7 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
         tables_t = torch.from_numpy(tables).to(dev)
         logits, k_rest, v_rest = selective_layers(
             model, x, r_idx_p, r_valid, gather, tables_t[0], tables_t[1], valid,
-            final_slot)
+            final_slot, kernels)
         logits = _host(logits)
         for bi, i in enumerate(idxs):
             results[i] = (logits[bi], k_rest[bi], v_rest[bi])
@@ -466,7 +521,7 @@ def selective_layers_batch(model: Transformer, cfg: LMConfig, items,
 
 def plan_layer0(model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
                 table: np.ndarray, positions: np.ndarray, cache: CacheRows,
-                bucket: int = 128, shared=None, gather: Optional[PoolGather] = None):
+                bucket: int = 128, shared=None, gather: Optional[PlainGather] = None):
     """Layer 0 of one request over its prompt padded to a `bucket`
     multiple, against its cached layer-0 rows copied out of `cache` by the
     block-gather kernel (`table`/`positions` as `cache_gather` takes them;
@@ -478,7 +533,8 @@ def plan_layer0(model: Transformer, cfg: LMConfig, plan: AssemblyPlan,
     valid[:plan.n] = True
     tbl = _device_table(cache, table, n_pad)
     if gather is None:
-        gather = cache_gather(cache, cfg.rope_theta, shared)
+        gather = cache_gather(cache, cfg.rope_theta, shared,
+                              attn_uses_kernels(cfg, model.device))
     ck0, cv0 = gather(tbl, None, 0, rotate=False)
     return layer0(model, toks, valid, ck0, cv0)
 
@@ -527,7 +583,8 @@ def selective_prefill_batch(
     """
     if not items:
         return []
-    gather = cache_gather(cache, cfg.rope_theta, shared)
+    gather = cache_gather(cache, cfg.rope_theta, shared,
+                          attn_uses_kernels(cfg, model.device))
     sel_items, stats_of, k0_of, v0_of = [], [], [], []
     for plan, table, positions, have in items:
         x, attn_mass, div_raw, k0, v0 = plan_layer0(model, cfg, plan, table, positions,
@@ -639,7 +696,8 @@ class ChunkedPrefill:
         dev = model.device
         self.valid = torch.arange(self.n_pad, device=dev) < n
         self._tbl = _device_table(cache, table, self.n_pad)
-        self._gather = cache_gather(cache, cfg.rope_theta, shared)
+        self._kernels = attn_uses_kernels(cfg, model.device)
+        self._gather = cache_gather(cache, cfg.rope_theta, shared, self._kernels)
         w = model.layers[0].wk
         self.kbuf = torch.zeros((self.n_pad,) + tuple(w.shape[1:]), dtype=w.dtype,
                                 device=dev)
@@ -663,7 +721,12 @@ class ChunkedPrefill:
         store holds the injected prefix rows at other slots."""
         self.table, self.shared = table, shared
         self._tbl = _device_table(self.cache, table, self.n_pad)
-        self._gather = cache_gather(self.cache, self.cfg.rope_theta, shared)
+        self._gather = cache_gather(self.cache, self.cfg.rope_theta, shared, self._kernels)
+
+    def pending_tokens(self) -> int:
+        """Chunk-grid tokens still to scan (padded: what a budget is
+        charged for, since the dispatch width is the work)."""
+        return self.n_pad - self.offset
 
     def next_chunk_tokens(self) -> int:
         """Dispatch width of the next chunk (ragged at the tail)."""

@@ -49,6 +49,9 @@ class ItemKVStore:
     shards: List[ItemCacheShard]
     token_count: np.ndarray                # per-item block length
 
+    def footprint_tokens_per_replica(self) -> float:
+        return float(np.mean([s.n_tokens() for s in self.shards]))
+
     def lookup(self, items: Sequence[int], instance: int
                ) -> Tuple[List[int], List[int], List[int]]:
         """-> (local hits, remote hits, misses) by item id."""

@@ -185,3 +185,13 @@ def random_placement(n_items: int, popularity: np.ndarray, k: int,
             heat[shard_of[i]] += popularity[i]
     return Placement(k=k, hot_items=np.sort(order[:n_hot]).astype(np.int32),
                      shard_of=shard_of, edge_cut=float("nan"), balance=heat)
+
+
+def needs_refresh(old_pop: np.ndarray, new_pop: np.ndarray,
+                  drift_threshold: float = 0.25) -> bool:
+    """Popularity-drift trigger for a background re-run of Algorithm 1:
+    the total-variation distance between the normalised popularities
+    exceeds `drift_threshold`."""
+    a = old_pop / max(old_pop.sum(), 1e-9)
+    b = new_pop / max(new_pop.sum(), 1e-9)
+    return float(np.abs(a - b).sum()) / 2.0 > drift_threshold

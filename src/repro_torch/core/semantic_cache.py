@@ -58,6 +58,10 @@ class SemanticCache:
     proto_v: Optional[np.ndarray] = None
     proto_row: int = -1                     # first row in the device pool
 
+    def size_bytes(self) -> int:
+        """Bytes of the prototypes' layer-wise KV (host copies)."""
+        return sum(a.nbytes for a in (self.proto_k, self.proto_v) if a is not None)
+
     @property
     def n_prototypes(self) -> int:
         return len(self.proto_token)

@@ -29,6 +29,9 @@ class Catalog:
     cluster_of: np.ndarray                 # co-occurrence cluster id per item
     vocab_size: int
 
+    def item_len(self, i: int) -> int:
+        return len(self.item_tokens[i])
+
 
 @dataclass
 class DatasetProfile:

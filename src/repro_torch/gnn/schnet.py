@@ -146,6 +146,17 @@ def node_logits(model: SchNet, batch: Batch) -> torch.Tensor:
     return h @ model.cls_w + model.cls_b
 
 
+def molecule_energy(model: SchNet, atom_types: torch.Tensor, positions: torch.Tensor,
+                    edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                    edge_mask: torch.Tensor) -> torch.Tensor:
+    """One molecule's energy (the atomwise readout summed): atom_types
+    (N,), positions (N, 3), edges (E,) and their mask (E,) -> ()."""
+    h = model.atom_embed[atom_types.long()]
+    h = interactions(model, h, positions, edge_src, edge_dst, edge_mask=edge_mask)
+    e_atom = ssp(h @ model.head_w1 + model.head_b1) @ model.head_w2
+    return e_atom[:, 0].sum()
+
+
 def batched_energy(model: SchNet, batch: Batch) -> torch.Tensor:
     """(B,) energies of the `molecule` cell: B molecules of N atoms and E
     edges as one graph of B*N atoms, each atom's energy summed into its

@@ -11,7 +11,8 @@ selective prefill's layers 1..L-1 in one launch).  `assemble_kv` binds
 one plane and calls it in one step.
 
 A CPU tensor runs the plain version (`ref.py`); a CUDA tensor launches
-the hand-written kernel (`gather.cu`) or raises.  `PoolGather.launches`
+the hand-written kernel (`gather.cu`) or raises.  `PlainGather` binds the
+plain version alone, on any device (the plain attention backend).  `PoolGather.launches`
 counts kernel launches and nothing else, `PoolGather.layer_launches`
 those of them that were given a range of layers, and
 `PoolGather.pool2_launches` those given a second pool."""
@@ -51,22 +52,12 @@ def device_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
     return f
 
 
-class PoolGather:
-    """The block-gather kernel bound to its pools.
-
-    pool_k/pool_v: (L, n_pages, page, d) or (L, n_pages, page, Hkv, Dh)
-    stacks of layer planes, keys pre-RoPE, with one layer stride and one
-    page stride each (K and V alike) and every page contiguous: the
-    cached-row pool's (L, n_rows, 1, Hkv, Dh), or `PagedKVPool.planes()`.
-    pool2_k/pool2_v (optional, together): a second stack of the same
-    layers, page shape and dtypes, read by table entries in [n_pages,
-    n_pages + n_pages2) (entry - n_pages).  Everything about the pools is
-    checked here, once; `rope_theta` fixes the rotation's frequencies.
-    The class counts the launches of every binding (module docstring)."""
-
-    launches = 0
-    layer_launches = 0
-    pool2_launches = 0
+class PlainGather:
+    """The plain version (`ref.block_gather_layers_ref`) of `PoolGather`'s
+    calls, bound to the same pools on any device and launching nothing:
+    what the serving path gathers with under the plain attention backend
+    (`core.engine.cache_gather`).  Pools, calls and outputs as
+    `PoolGather` takes and gives them."""
 
     def __init__(self, pool_k: torch.Tensor, pool_v: torch.Tensor,
                  pool2_k: Optional[torch.Tensor] = None,
@@ -86,8 +77,72 @@ class PoolGather:
                              f"{tuple(pool_k.shape[:1] + pool_k.shape[2:])} and dtypes")
         self.pool_k, self.pool_v, self.pool2_k, self.pool2_v = pool_k, pool_v, pool2_k, pool2_v
         self.rope_theta = float(rope_theta)
-        self.n_layers, n_pages, self.page = pool_k.shape[:3]
+        self.n_layers, _, self.page = pool_k.shape[:3]
         self.tail = tuple(pool_k.shape[3:])
+
+    def _layer_range(self, layers) -> Tuple[bool, int, int]:
+        """(one layer?, first layer, number of layers) of a call's `layers`."""
+        single = isinstance(layers, int)
+        lo, n = (layers, 1) if single else (layers.start, len(layers))
+        if lo < 0 or n < 1 or lo + n > self.n_layers or not (single or layers.step == 1):
+            raise ValueError(f"layers {layers}: need a layer or a non-empty step-1 range "
+                             f"within [0, {self.n_layers})")
+        return single, lo, n
+
+    def _check_call(self, block_table: torch.Tensor, rotate: bool, keep_raw: bool):
+        if keep_raw and not rotate:
+            raise ValueError("keep_raw returns the unrotated keys beside rotated ones: "
+                             "it needs rotate=True")
+        if block_table.dim() != 1:
+            raise ValueError(f"block_table {tuple(block_table.shape)}: need (n_logical,)")
+
+    def __call__(self, block_table: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                 layers=0, *, rotate: bool = True, keep_raw: bool = False):
+        self._check_call(block_table, rotate, keep_raw)
+        self._layer_range(layers)
+        K.on_cuda(self.pool_k, block_table, *((positions,) if rotate else ()))
+        return self.plain(block_table, positions, layers, rotate=rotate, keep_raw=keep_raw)
+
+    def plain(self, block_table: torch.Tensor, positions: Optional[torch.Tensor] = None,
+              layers=0, *, rotate: bool = True, keep_raw: bool = False):
+        """The plain version (`ref.block_gather_layers_ref`) of a call, on
+        the pools' device, in the call's output shapes."""
+        single = isinstance(layers, int)
+        sl = slice(layers, layers + 1) if single else slice(layers.start, layers.stop)
+        n_logical = block_table.shape[0]
+        out = block_gather_layers_ref(
+            self.pool_k[sl], self.pool_v[sl], block_table,
+            positions.reshape(n_logical, self.page) if rotate else None,
+            rope_theta=self.rope_theta, rotate=rotate, keep_raw=keep_raw,
+            pool2_k=self.pool2_k[sl] if self.two else None,
+            pool2_v=self.pool2_v[sl] if self.two else None)
+        rows = n_logical * self.page
+        shape = (rows,) + self.tail if single else (len(out[0]), rows) + self.tail
+        return tuple(t.reshape(shape) for t in out)
+
+
+class PoolGather(PlainGather):
+    """The block-gather kernel bound to its pools.
+
+    pool_k/pool_v: (L, n_pages, page, d) or (L, n_pages, page, Hkv, Dh)
+    stacks of layer planes, keys pre-RoPE, with one layer stride and one
+    page stride each (K and V alike) and every page contiguous: the
+    cached-row pool's (L, n_rows, 1, Hkv, Dh), or `PagedKVPool.planes()`.
+    pool2_k/pool2_v (optional, together): a second stack of the same
+    layers, page shape and dtypes, read by table entries in [n_pages,
+    n_pages + n_pages2) (entry - n_pages).  Everything about the pools is
+    checked here, once; `rope_theta` fixes the rotation's frequencies.
+    The class counts the launches of every binding (module docstring)."""
+
+    launches = 0
+    layer_launches = 0
+    pool2_launches = 0
+
+    def __init__(self, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                 pool2_k: Optional[torch.Tensor] = None,
+                 pool2_v: Optional[torch.Tensor] = None, *, rope_theta: float = 10_000.0):
+        super().__init__(pool_k, pool_v, pool2_k, pool2_v, rope_theta=rope_theta)
+        n_pages = pool_k.shape[1]
         extra = (pool2_k, pool2_v) if self.two else ()
         self.cuda = K.on_cuda(pool_k, pool_v, *extra)
         if not self.cuda:
@@ -136,21 +191,13 @@ class PoolGather:
         same launch: (k, v, k_raw), each (n_logical * page, ...) for one
         layer, (len(layers), n_logical * page, ...) for a range, in its
         pool's dtype."""
-        if keep_raw and not rotate:
-            raise ValueError("keep_raw returns the unrotated keys beside rotated ones: "
-                             "it needs rotate=True")
-        single = isinstance(layers, int)
-        lo, n = (layers, 1) if single else (layers.start, len(layers))
-        if lo < 0 or n < 1 or lo + n > self.n_layers or not (single or layers.step == 1):
-            raise ValueError(f"layers {layers}: need a layer or a non-empty step-1 range "
-                             f"within [0, {self.n_layers})")
-        if block_table.dim() != 1:
-            raise ValueError(f"block_table {tuple(block_table.shape)}: need (n_logical,)")
+        if not self.cuda:
+            return super().__call__(block_table, positions, layers, rotate=rotate,
+                                    keep_raw=keep_raw)
+        self._check_call(block_table, rotate, keep_raw)
+        single, lo, n = self._layer_range(layers)
         n_logical = block_table.shape[0]
         rows = n_logical * self.page
-        if not self.cuda:
-            K.on_cuda(self.pool_k, block_table, *((positions,) if rotate else ()))
-            return self.plain(block_table, positions, layers, rotate=rotate, keep_raw=keep_raw)
         self._operand("block_table", block_table, n_logical)
         if rotate:
             self._operand("positions", positions, rows)
@@ -174,23 +221,6 @@ class PoolGather:
         PoolGather.layer_launches += not single
         PoolGather.pool2_launches += self.two
         return (k, v, raw) if keep_raw else (k, v)
-
-    def plain(self, block_table: torch.Tensor, positions: Optional[torch.Tensor] = None,
-              layers=0, *, rotate: bool = True, keep_raw: bool = False):
-        """The plain version (`ref.block_gather_layers_ref`) of a call, on
-        the pools' device, in the call's output shapes."""
-        single = isinstance(layers, int)
-        sl = slice(layers, layers + 1) if single else slice(layers.start, layers.stop)
-        n_logical = block_table.shape[0]
-        out = block_gather_layers_ref(
-            self.pool_k[sl], self.pool_v[sl], block_table,
-            positions.reshape(n_logical, self.page) if rotate else None,
-            rope_theta=self.rope_theta, rotate=rotate, keep_raw=keep_raw,
-            pool2_k=self.pool2_k[sl] if self.two else None,
-            pool2_v=self.pool2_v[sl] if self.two else None)
-        rows = n_logical * self.page
-        shape = (rows,) + self.tail if single else (len(out[0]), rows) + self.tail
-        return tuple(t.reshape(shape) for t in out)
 
 
 def assemble_kv(pool_k: torch.Tensor, pool_v: torch.Tensor,

@@ -106,6 +106,13 @@ def block_liveness(q_positions, hh_mask, *, window: int,
     return live
 
 
+def flop_reduction(r: int, s: int, n_hh: int, window: int) -> float:
+    """Analytic attention FLOPs of R = `r` recomputed queries, each over
+    its window plus `n_hh` heavy-hitter keys, as a share of full
+    attention over `s` tokens (the paper's ~r * n^2 saving)."""
+    return r * min(window + n_hh, s) / (s * s)
+
+
 def check_live_tiles(route: str, group: int, q_block: int, kv_block: int) -> None:
     """Raise unless `route` can honour (q_block, kv_block) liveness tiles:
     each of its query tiles must lie inside one liveness row and each of

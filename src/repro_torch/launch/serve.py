@@ -9,6 +9,12 @@ device (``--k``, `serving.cluster`).
     # the same on the CPU, through the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 3
 
+    # on the card through the kernels' plain versions, or with only the
+    # decode on its kernel (the attention-backend seam)
+    PYTHONPATH=src python -m repro_torch.launch.serve --attn-backend plain --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --attn-backend plain \\
+        --decode-kernel paged --requests 8
+
     # the chunked scheduler: layer-0 chunks of 128 tokens, 512-token ticks
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --sched chunked \\
         --requests 3
@@ -229,13 +235,12 @@ def report(config: ServeConfig, engine, backend, workers, done,
     """The JAX launcher's engine-report keys for one run of `workers`
     (the batcher's `WorkerState`s)."""
     stats = engine.pool.stats()
-    dev = engine.model.device
     out = {
         "engine": "torch",
         "mode": config.mode,
         "sched": config.sched,
-        "attn_backend": "cuda" if dev.type == "cuda" else "plain",
-        "decode_kernel": "paged",
+        "attn_backend": backend.attn_backend,
+        "decode_kernel": backend.decode_kernel,
         "requests": len(done),
         "kv_reuse": "on" if config.kv_reuse else "off",
         "store": (dataclasses.asdict(config.store) if config.store.enabled else None),
@@ -272,8 +277,8 @@ def cluster_report(config: ServeConfig, cluster, rep, warmup: bool) -> dict:
         "k": config.k,
         "mode": config.mode,
         "sched": config.sched,
-        "attn_backend": "cuda" if cluster.system.model.device.type == "cuda" else "plain",
-        "decode_kernel": "paged",
+        "attn_backend": cluster.backends[0].attn_backend,
+        "decode_kernel": cluster.backends[0].decode_kernel,
         "kv_reuse": "on" if config.kv_reuse else "off",
         "disagg": (dataclasses.asdict(config.disagg) if config.disagg.enabled else None),
         "store": (dataclasses.asdict(config.store) if config.store.enabled else None),
@@ -442,6 +447,13 @@ def main(argv=None):
     ap.add_argument("--sched", default=None, choices=list(API.SCHEDS),
                     help="wave: whole-prefill batches; chunked: unified ticks of "
                     "decode + layer-0 chunks + selective finalizes (rcllm only)")
+    ap.add_argument("--attn-backend", default=None, choices=list(API.ATTN_BACKENDS),
+                    help="cuda: the hand-written kernels; plain: their plain PyTorch "
+                    "versions on the same device; auto (default): cuda for a CUDA "
+                    "model, plain for a CPU one")
+    ap.add_argument("--decode-kernel", default=None, choices=list(API.DECODE_KERNELS),
+                    help="auto (default): follow --attn-backend; paged / gather: pin "
+                    "the paged-decode kernel / its plain version")
     ap.add_argument("--chunk-tokens", type=int, default=None)
     ap.add_argument("--step-tokens", type=int, default=None,
                     help="per-tick token budget (default max(4 * chunk, 512))")

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.flash_attention.ops import mha_flash
+from repro_torch.kernels.flash_attention.ref import mha_flash_ref
 from repro_torch.models import layers as L
 
 
@@ -93,8 +94,8 @@ class Transformer(nn.Module):
             x = x * (self.cfg.d_model ** 0.5)
         return x
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self, tokens)
+    def forward(self, tokens: torch.Tensor, kernels: bool) -> torch.Tensor:
+        return forward(self, tokens, kernels)
 
 
 def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
@@ -141,20 +142,22 @@ def qkv(x: torch.Tensor, lp: Block, cfg: LMConfig,
             L.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig) -> torch.Tensor:
-    """Causal self-attention over (B, S, D) at positions 0..S-1."""
+def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
+                    kernels: bool) -> torch.Tensor:
+    """Causal self-attention over (B, S, D) at positions 0..S-1; `kernels`
+    False runs the flash kernel's plain version on any device."""
     q, k, v = qkv(x, lp, cfg, torch.arange(x.shape[1], device=x.device))
-    o = mha_flash(q, k, v.contiguous(), causal=True)
+    o = (mha_flash if kernels else mha_flash_ref)(q, k, v.contiguous(), causal=True)
     return torch.einsum("bshe,hed->bsd", o, lp.wo)
 
 
 @torch.no_grad()
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def forward(model: Transformer, tokens: torch.Tensor, kernels: bool) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, V)."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
     for lp in model.layers:
-        x = x + attention_block(x, lp, cfg)
+        x = x + attention_block(x, lp, cfg, kernels)
         x = x + L.mlp_apply(L.rms_norm(x, lp.mlp_norm, cfg.norm_eps), lp.mlp,
                             cfg.mlp_type)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)

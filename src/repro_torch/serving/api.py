@@ -1,5 +1,7 @@
 """Typed serving API of the port — the JAX package's `serving/api.py`
-without the mesh: `ServeConfig` with the block store's knobs
+without the mesh: `ServeConfig` with the attention-backend seam
+(`attn_backend`, `decode_kernel`, sliced onto the model's `LMConfig` by
+`apply_to`), the block store's knobs
 (`kv_reuse`, `StoreConfig`), the cluster's (`k`, `policy`),
 disaggregation's (`DisaggConfig`) and the analytic simulator's
 (``engine="sim"``, ``mode="prefix"``), the ``--config key=value,...``
@@ -15,6 +17,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.configs.base import ATTN_BACKENDS, DECODE_KERNELS
 from repro_torch.core.scheduler import POLICIES
 
 ENGINES = ("sim", "torch")
@@ -120,13 +123,18 @@ class ServeConfig:
     ``disagg`` splits them into prefill and decode roles.  ``kv_reuse``
     turns on the shared block store and ``store`` configures its tiers.
     ``step_tokens=None`` resolves to ``max(4 * chunk_tokens, 512)``
-    (`resolved_step_tokens`), the chunked scheduler's default budget."""
+    (`resolved_step_tokens`), the chunked scheduler's default budget.
+    ``attn_backend`` (auto | plain | cuda) and ``decode_kernel`` (auto |
+    gather | paged) pick the engine's kernels or their plain versions
+    (`core.engine.attn_uses_kernels`, `decode_uses_paged`)."""
 
     engine: str = "torch"
     k: int = 1
     mode: str = "rcllm"
     policy: str = "affinity"
     sched: str = "wave"
+    attn_backend: str = "auto"
+    decode_kernel: str = "auto"
     kv_reuse: bool = False
     chunk_tokens: int = 128
     step_tokens: Optional[int] = None
@@ -149,11 +157,20 @@ class ServeConfig:
             ("mode", self.mode, MODES),
             ("policy", self.policy, POLICIES),
             ("sched", self.sched, SCHEDS),
+            ("attn_backend", self.attn_backend, ATTN_BACKENDS),
+            ("decode_kernel", self.decode_kernel, DECODE_KERNELS),
         ):
             if val not in choices:
                 bad(f"{name}={val!r} not in {choices}")
         if self.engine == "sim":
-            # the simulator has no pool and no chunk-resumable prefill
+            # the simulator runs no attention, has no pool and no
+            # chunk-resumable prefill
+            if self.attn_backend != "auto":
+                bad(f"attn_backend={self.attn_backend!r} needs engine='torch' "
+                    "(the simulator runs no attention)")
+            if self.decode_kernel != "auto":
+                bad(f"decode_kernel={self.decode_kernel!r} needs engine='torch' "
+                    "(the simulator has no decode kernel)")
             if self.kv_reuse:
                 bad("kv_reuse=True needs engine='torch' (no pool to share)")
             if self.sched == "chunked":
@@ -208,11 +225,19 @@ class ServeConfig:
         """A modified copy, re-validated."""
         return dataclasses.replace(self, **kw)
 
+    def apply_to(self, lm_cfg):
+        """The model-execution knobs (``attn_backend``, ``decode_kernel``)
+        sliced onto an `LMConfig`.  The engine resolves them against the
+        model's device when it is built."""
+        return dataclasses.replace(lm_cfg, attn_backend=self.attn_backend,
+                                   decode_kernel=self.decode_kernel)
+
     #: ``argparse`` attribute -> ServeConfig field for the launcher's
     #: per-knob flags (`--pages` is ``n_pages``; ``--kv-reuse off|on`` the
     #: bool)
     FLAG_FIELDS = {
         "engine": "engine", "k": "k", "mode": "mode", "policy": "policy", "sched": "sched",
+        "attn_backend": "attn_backend", "decode_kernel": "decode_kernel",
         "kv_reuse": "kv_reuse", "chunk_tokens": "chunk_tokens",
         "step_tokens": "step_tokens", "max_batch_tokens": "max_batch_tokens",
         "page_size": "page_size", "pages": "n_pages", "decode_steps": "decode_steps",
@@ -440,15 +465,17 @@ class Completion:
 
 # ------------------------------------------------------- sliced builders
 def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
-                 cache=None):
-    """`BatchEngine` on the model's device from the config's pool and
-    reuse slices; `cache` is the device pool of cached rows
-    (`RcLLMSystem.rows`) that rcllm requests' block tables index."""
+                 cache=None, batched_selective: bool = True):
+    """`BatchEngine` on the model's device from the config's pool, reuse
+    and execution slices (`ServeConfig.apply_to`); `cache` is the device
+    pool of cached rows (`RcLLMSystem.rows`) that rcllm requests' block
+    tables index."""
     from repro_torch.core import engine as ENG
     from repro_torch.serving.batch_engine import BatchEngine
     from repro_torch.serving.block_store import SharedBlockStore
     from repro_torch.serving.kv_pool import pool_for
 
+    lm_cfg = config.apply_to(lm_cfg)
     if pool is None:
         pool = pool_for(lm_cfg, page_size=config.page_size,
                         n_pages=config.n_pages, device=model.device)
@@ -461,7 +488,8 @@ def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
             spill_mb=config.store.spill_mb,
             prefetch_pages_per_tick=config.store.prefetch_pages_per_tick)
     return BatchEngine(model, lm_cfg, pool=pool, sel=sel, cache=cache,
-                       chunk_tokens=config.chunk_tokens, store=store)
+                       chunk_tokens=config.chunk_tokens, store=store,
+                       batched_selective=batched_selective)
 
 
 def build_backend(engine, config: ServeConfig, plans=None, reuse=None):

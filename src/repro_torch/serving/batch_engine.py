@@ -39,6 +39,14 @@ JAX package's `serving/batch_engine.py`, with the shared block store
   paged-decode kernel over per-request page views
   (`kv_pool.page_views`): keys are rotated to their positions inside the
   kernel and nothing is gathered.
+
+The config's `attn_backend` picks the kernels of prefill (flash, block
+gather, selective) or their plain PyTorch versions
+(`core.engine.attn_uses_kernels`), and `decode_kernel` the paged-decode
+kernel or its plain version, which gathers the pages
+(`core.engine.decode_uses_paged`); both are resolved once, when the
+engine is built.  ``batched_selective=False`` runs the rcllm prefill one
+request at a time, the reference's per-request loop.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch.core import engine as ENG
 from repro_torch.core.assembly import AssemblyPlan
 from repro_torch.core.cache_rows import CacheRows
 from repro_torch.kernels.paged_attention.ops import paged_decode_mha
+from repro_torch.kernels.paged_attention.ref import paged_decode_ref
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving import block_store as BS
@@ -153,13 +162,15 @@ class StepReport:
 def decode_step(model: Transformer, toks: np.ndarray, seq_lens: np.ndarray,
                 new_pages: np.ndarray, new_slots: np.ndarray,
                 page_ids: np.ndarray, slot_pos: np.ndarray,
-                pool: PagedKVPool) -> np.ndarray:
+                pool: PagedKVPool, paged: bool = True) -> np.ndarray:
     """One decode token per request through the paged arena.
 
     toks: (N,) last sampled token ids; seq_lens: (N,) tokens resident
     before this step (= the new token's position); new_pages/new_slots:
     (N,) the slot claimed for the new token; page_ids/slot_pos: the page
-    view (`kv_pool.page_views`) including that slot.  -> logits (N, V).
+    view (`kv_pool.page_views`) including that slot; `paged` False runs
+    the paged-decode kernel's plain version on any device.  -> logits
+    (N, V).
 
     Each layer writes its fresh pre-RoPE K/V into the arena **in place**
     before attention, so the kernel reads the new token through the same
@@ -172,6 +183,7 @@ def decode_step(model: Transformer, toks: np.ndarray, seq_lens: np.ndarray,
     pos_new = t(seq_lens)
     pages, slots = t(new_pages), t(new_slots)
     pg_ids, sl_pos = t(page_ids, torch.int32), t(slot_pos, torch.int32)
+    attend = paged_decode_mha if paged else paged_decode_ref
     for layer, lp in enumerate(model.layers):
         h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
         q = torch.einsum("nd,dhe->nhe", h, lp.wq)
@@ -181,8 +193,8 @@ def decode_step(model: Transformer, toks: np.ndarray, seq_lens: np.ndarray,
         pool.arena_k.index_put_((pages, slots, lidx), k_new.to(pool.arena_k.dtype))
         pool.arena_v.index_put_((pages, slots, lidx), v_new.to(pool.arena_v.dtype))
         q = L.apply_rope(q[:, None], pos_new[:, None], cfg.rope_theta)[:, 0]
-        o = paged_decode_mha(q, pool.arena_k, pool.arena_v, pg_ids, sl_pos,
-                             layer=layer, rope_theta=cfg.rope_theta)
+        o = attend(q, pool.arena_k, pool.arena_v, pg_ids, sl_pos, layer=layer,
+                   rope_theta=cfg.rope_theta)
         x = ENG._layer_step(x, lp, cfg, o)
     xf = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return (xf @ model.head()).float().cpu().numpy()
@@ -194,16 +206,24 @@ class BatchEngine:
     `cache` is the device pool of cached rows that rcllm requests' block
     tables index (`RcLLMSystem.rows`); full prefill needs none.  `store`
     (a `block_store.SharedBlockStore` over this engine's pool) turns on
-    cross-request KV reuse for the rcllm path."""
+    cross-request KV reuse for the rcllm path.  `cfg.attn_backend` and
+    `cfg.decode_kernel` are resolved here against the model's device
+    (`attn_kernels`, `paged`; an invalid pair raises).
+    `batched_selective=False` runs the rcllm prefill one request at a
+    time (the reference's per-request loop; the same function)."""
 
     def __init__(self, model: Transformer, cfg: LMConfig,
                  pool: Optional[PagedKVPool] = None,
                  sel: Optional[ENG.SelectiveConfig] = None,
                  bucket: int = 64, cache: Optional[CacheRows] = None,
                  chunk_tokens: int = 128,
-                 store: Optional[BS.SharedBlockStore] = None):
+                 store: Optional[BS.SharedBlockStore] = None,
+                 batched_selective: bool = True):
         self.model = model
         self.cfg = cfg
+        self.attn_kernels = ENG.attn_uses_kernels(cfg, model.device)
+        self.paged = ENG.decode_uses_paged(cfg, model.device)
+        self.batched_selective = batched_selective
         self.pool = pool if pool is not None else pool_for(cfg, device=model.device)
         self.sel = sel or ENG.SelectiveConfig()
         self.bucket = bucket
@@ -238,7 +258,7 @@ class BatchEngine:
         for i, r in enumerate(reqs):
             toks[i, : lens[i]] = r.tokens
         last = np.asarray([n - 1 for n in lens], np.int64)
-        logits, k, v = ENG.batched_prefill(self.model, toks, last)
+        logits, k, v = ENG.batched_prefill(self.model, toks, last, self.attn_kernels)
         for i, r in enumerate(reqs):
             self.pool.alloc(r.rid, lens[i] + r.n_reserve)
             self.pool.write_prompt(r.rid, k[i, : lens[i]], v[i, : lens[i]])
@@ -255,14 +275,22 @@ class BatchEngine:
     def _item(self, r: BatchRequest) -> tuple:
         return (r.plan, r.block_table, r.positions, r.have)
 
+    def _selective(self, items: Sequence[tuple], shared=None) -> list:
+        """`engine.selective_prefill_batch` over `items`: batched, or one
+        request at a time without `batched_selective`."""
+        run = lambda its: ENG.selective_prefill_batch(
+            self.model, self.cfg, its, self.sel, self.cache, bucket=self.bucket,
+            shared=shared)
+        if self.batched_selective:
+            return run(items)
+        return [run([it])[0] for it in items]
+
     def _prefill_selective_batch(self, reqs: Sequence[BatchRequest]) -> np.ndarray:
         """Batched rcllm prefill, then one arena scatter of the merged
         rows for the whole batch."""
         for r in reqs:
             self._check_plan(r)
-        results = ENG.selective_prefill_batch(
-            self.model, self.cfg, [self._item(r) for r in reqs], self.sel,
-            self.cache, bucket=self.bucket)
+        results = self._selective([self._item(r) for r in reqs])
         out, entries = [], []
         for r, (logits, stats, k_all, v_all) in zip(reqs, results):
             self.last_stats[r.rid] = stats
@@ -344,9 +372,7 @@ class BatchEngine:
                 prefix_hits[r.rid] = (key, blk)
                 table, have = self._inject_prefix(r, blk)
             items_in.append((r.plan, table, r.positions, have))
-        results = ENG.selective_prefill_batch(
-            self.model, self.cfg, items_in, self.sel, self.cache, bucket=self.bucket,
-            shared=self.pool if prefix_hits else None)
+        results = self._selective(items_in, shared=self.pool if prefix_hits else None)
         return self._insert_batch_shared(reqs, results, prefix_hits)
 
     def _insert_batch_shared(self, reqs, results, prefix_hits) -> np.ndarray:
@@ -840,7 +866,7 @@ class BatchEngine:
         pg_ids, sl_pos = page_views(tables, lens, pages, slots,
                                     self.pool.page_size)
         return decode_step(self.model, np.asarray(last_tokens, np.int64), lens,
-                           pages, slots, pg_ids, sl_pos, self.pool)
+                           pages, slots, pg_ids, sl_pos, self.pool, self.paged)
 
     def release(self, rid: int) -> None:
         """Free a request's private pages and drop its shared-block

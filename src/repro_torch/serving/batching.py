@@ -153,6 +153,18 @@ class TorchEngineBackend:
         if stop:
             self.stop_seqs[rid] = tuple(tuple(s) for s in stop)
 
+    @property
+    def attn_backend(self) -> str:
+        """The attention route the wrapped engine resolved: "cuda" (the
+        kernels) or "plain" (their plain versions)."""
+        return "cuda" if self.engine.attn_kernels else "plain"
+
+    @property
+    def decode_kernel(self) -> str:
+        """The decode route the wrapped engine resolved: "paged" (the
+        paged-decode kernel) or "gather" (its plain version)."""
+        return "paged" if self.engine.paged else "gather"
+
     def _pick(self, rid: int, lg) -> int:
         params = self.sampling.get(rid, GREEDY)
         if params.greedy:

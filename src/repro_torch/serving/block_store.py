@@ -218,6 +218,14 @@ class StoredBlock:
     def n_tokens(self) -> int:
         return len(self.slots)
 
+    @property
+    def nbytes(self) -> int:
+        """The payload's bytes: the int8 data and its scales, or for an
+        fp32 block its arena rows."""
+        if self.data_k is None:
+            return self.n_tokens * self.store.pool.bytes_per_token
+        return _nbytes(self.data_k, self.data_v, self.scale_k, self.scale_v)
+
     def _fp32(self, data, scale, arena) -> torch.Tensor:
         if scale is not None:
             return _dequant(data, scale, self.store)

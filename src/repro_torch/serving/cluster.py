@@ -152,6 +152,23 @@ class ClusterReport:
     def mean_hit_rate(self) -> float:
         return float(np.mean(list(self.hit_rate.values())))
 
+    def summary(self) -> dict:
+        """The run in the reference's summary keys: policy, requests, mean
+        hit rate, TTFT p50 / p90 / mean, and the cross-shard transfers
+        summed over workers (blocks, MB, billed seconds)."""
+        ttft = self.ttft()
+        return {
+            "policy": self.policy,
+            "requests": len(self.completions),
+            "mean_hit_rate": round(self.mean_hit_rate(), 4),
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p90_s": float(np.percentile(ttft, 90)),
+            "ttft_mean_s": float(ttft.mean()),
+            "transfer_blocks": sum(w.transfer_blocks for w in self.workers),
+            "transfer_mbytes": round(sum(w.transfer_bytes for w in self.workers) / 1e6, 3),
+            "transfer_seconds": round(sum(w.transfer_seconds for w in self.workers), 6),
+        }
+
 
 def dequantized_item_rows(system):
     """The system's cached rows with, appended, the int8 round trip

@@ -39,6 +39,16 @@ class PoolStats:
     n_requests: int
     tokens_resident: int
 
+    @property
+    def utilization(self) -> float:
+        return self.pages_in_use / max(self.n_pages, 1)
+
+    @property
+    def internal_fragmentation(self) -> float:
+        """Fraction of allocated slots holding no token."""
+        cap = self.pages_in_use * self.page_size
+        return 1.0 - self.tokens_resident / max(cap, 1)
+
 
 @dataclass(frozen=True)
 class KVExport:
@@ -106,6 +116,18 @@ class PagedKVPool:
         return self.arena_k.device
 
     # ------------------------------ allocator ------------------------------
+    @property
+    def bytes_per_token(self) -> int:
+        """K + V bytes one token row occupies across all layers: the unit
+        the spill tier's capacity and transfer modelling price in."""
+        return 2 * self.arena_k.element_size() * self.arena_k[0, 0].numel()
+
+    def can_admit(self, n_tokens: int) -> bool:
+        return self.free_pages >= self.pages_for(n_tokens)
+
+    def seq_len(self, rid: int) -> int:
+        return self.seq_lens[rid]
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-max(n_tokens, 1) // self.page_size)
 

@@ -218,7 +218,8 @@ class AsyncSessionServer:
     async def start(self) -> "AsyncSessionServer":
         if self._task is not None:
             raise RuntimeError("server already started")
-        if self.backend.engine.model.device.type == "cuda":
+        engine = self.backend.engine
+        if engine.attn_kernels or engine.paged:
             from repro_torch.kernels import _build
 
             _build.build(SERVING_KERNELS)

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.assembly import FROM_ITEM, AssemblyPlan
+from repro_torch.serving.batch_engine import BatchRequest
 from repro_torch.serving.batching import PendingRequest
 from repro_torch.serving.block_store import BlockRef, RequestReuse, content_key
 
@@ -36,6 +37,17 @@ def rcllm_workload(
                                    n_tokens=plan.n, decode_steps=decode_steps,
                                    tokens=plan.tokens))
     return pend, plans
+
+
+def rcllm_batch_requests(system, trace: Sequence, n_reserve: int = 0) -> List[BatchRequest]:
+    """Direct `BatchEngine.prefill(mode="rcllm")` inputs for a trace, the
+    no-batcher variant: each request's plan and its block table into the
+    system's device pool of cached rows, `n_reserve` decode slots
+    reserved, in request order."""
+    _, plans = rcllm_workload(system, trace)
+    return [BatchRequest(rid=rid, tokens=plan.tokens, plan=plan, block_table=table,
+                         positions=positions, have=have, n_reserve=n_reserve)
+            for rid, (plan, table, positions, have) in sorted(plans.items())]
 
 
 # ------------------------- cross-request reuse -------------------------

@@ -150,14 +150,17 @@ def test_cacheblend_rotates_to_original_positions(systems, monkeypatch):
     rotated gather of layers 1..L-1 per selective pass."""
     _, tsys, _, reqs_t = systems
     calls = []
-    call = BO.PoolGather.__call__
+    # on the CPU the engine binds the block gather's plain version
+    # (`PlainGather`, the plain attention backend), which every binding's
+    # CPU call goes through
+    call = BO.PlainGather.__call__
 
     def tap(self, table, positions=None, layers=0, **kw):
         if kw.get("rotate", True):
             calls.append((layers, positions.clone()))
         return call(self, table, positions, layers, **kw)
 
-    monkeypatch.setattr(BO.PoolGather, "__call__", tap)
+    monkeypatch.setattr(BO.PlainGather, "__call__", tap)
     rt = reqs_t[0]
     tsys.rank(rt, "cacheblend", SelectiveConfig(**SEL))
     plan = tsys.plan_for(rt, tsys.best_instance(rt))

@@ -191,7 +191,7 @@ def test_plan_assembly_on_the_pool_equals_reference_gather(pools):
             np.testing.assert_array_equal(positions, np.arange(pt.n))
             assert (table[~have] == ZERO_ROW).all()
             tbl, pos = torch.from_numpy(table), torch.from_numpy(positions)
-            gather = TENG.cache_gather(rows, 1e4)
+            gather = TENG.cache_gather(rows, 1e4, None, kernels=True)
             for layer in range(L_):
                 k, v = gather(tbl, pos, layer, rotate=False)
                 np.testing.assert_array_equal(k.numpy(), kj[:, layer])
@@ -275,7 +275,7 @@ def test_all_layer_gather_of_a_plan_equals_the_reference_assembly(pools):
     layer's cached keys to the request positions)."""
     (jc, jt, jsem, jstore, embed), (tc, tt, tsem, tstore, _), rows = pools
     instr = JSY.make_instruction(207, jc.vocab_size)
-    g = TENG.cache_gather(rows, 1e4)
+    g = TENG.cache_gather(rows, 1e4, None, kernels=True)
     for a, b in list(zip(jt, tt))[:4]:
         pj = JA.build_plan(*a.prompt_segments(jc, instr), a.history_marker_mask, jstore, jsem,
                            embed, instance=1)

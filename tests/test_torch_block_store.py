@@ -385,13 +385,16 @@ def test_kv_reuse_on_off_tokens_bitwise(systems, zipf, sched, monkeypatch, admit
     _, tsys, _, _ = systems
     _, twork = zipf
     calls = {"pool2": 0}
-    call = BO.PoolGather.__call__
+    # on the CPU the engine binds the block gather's plain version
+    # (`PlainGather`, the plain attention backend), which every binding's
+    # CPU call goes through
+    call = BO.PlainGather.__call__
 
     def spy(self, table, positions=None, layers=0, **kw):
         calls["pool2"] += self.two and not isinstance(layers, int)
         return call(self, table, positions, layers, **kw)
 
-    monkeypatch.setattr(BO.PoolGather, "__call__", spy)
+    monkeypatch.setattr(BO.PlainGather, "__call__", spy)
     _, off = _run_port(tsys, twork, sched, kv_reuse=False)
     assert calls["pool2"] == 0
     engine, on = _run_port(tsys, twork, sched)

@@ -893,7 +893,7 @@ def test_block_gather_rotates_to_original_positions_bitwise(cuda):
     assert (original != np.arange(plan.n))[have].any()
     tbl, pos = (torch.from_numpy(a).to(cuda) for a in (table, original))
     theta = sys_.cfg.rope_theta
-    gather = ENG.cache_gather(sys_.rows, theta)
+    gather = ENG.cache_gather(sys_.rows, theta, None, kernels=True)
     for layer in range(sys_.cfg.n_layers):
         before = PoolGather.launches
         k, v, kraw = gather(tbl, pos, layer, rotate=True, keep_raw=True)
@@ -955,6 +955,60 @@ def test_tiny_rank_card_equals_cpu(cuda):
         model = copy.deepcopy(sys_.model).to("cpu")
     for got, want in zip(scores["cuda"], scores["cpu"]):
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _launch_counts():
+    """Every serving kernel's launch counter (what `chip_smoke.py` reads)."""
+    return {"flash": mha_flash.launches, "selective": selective_mha.launches,
+            "paged_decode": paged_decode_mha.launches, "block_gather": PoolGather.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sched", ["wave", "chunked"])
+def test_tiny_attn_backends_decode_equal_tokens(cuda, sched):
+    """The attention-backend seam on the card at the tiny config: "cuda",
+    "plain", "plain" with the decode pinned to the paged kernel, and
+    "cuda" with the per-request rcllm prefill decode the same greedy
+    tokens (fp32, TF32 off); "plain" launches no kernel and the decode pin
+    only the paged-decode kernel, "cuda" the three of the serving path
+    (the flash kernel runs in the offline build, before serving)."""
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.serving import api as API
+
+    sys_, reqs, plans, _ = SERVE.rcllm_setup(None, cuda, 4, 1e6, 4)
+    runs = {"cuda": dict(attn_backend="cuda"), "plain": dict(attn_backend="plain"),
+            "plain+paged": dict(attn_backend="plain", decode_kernel="paged")}
+    tokens, launched = {}, {}
+    for label, kw in runs.items():
+        config = API.ServeConfig(decode_steps=4, sched=sched, chunk_tokens=64, **kw)
+        before = _launch_counts()
+        _, backend, _, done = SERVE.serve(sys_.model, sys_.cfg, config, reqs, plans,
+                                          sys_.rows)
+        torch.cuda.synchronize()
+        launched[label] = {k: v - before[k] for k, v in _launch_counts().items()}
+        assert len(done) == 4 and backend.attn_backend == label.split("+")[0]
+        tokens[label] = {r: backend.generated[r] for r in sorted(backend.generated)}
+    assert tokens["plain"] == tokens["cuda"] == tokens["plain+paged"]
+    # serving runs no offline build, so no flash launch
+    assert launched["cuda"]["flash"] == 0, launched
+    assert all(n > 0 for k, n in launched["cuda"].items() if k != "flash"), launched
+    assert not any(launched["plain"].values()), launched
+    assert launched["plain+paged"]["paged_decode"] > 0
+    assert not any(v for k, v in launched["plain+paged"].items() if k != "paged_decode")
+    if sched == "wave":
+        # the per-request rcllm prefill, straight through the engine
+        from repro_torch.serving.workload import rcllm_batch_requests
+        from repro_torch.data import synth as SY
+        sys2, pool_rv, prof = SERVE.rcllm_system(None, cuda, model=sys_.model)
+        trace = SY.make_trace(sys2.catalog, pool_rv, prof, 4, qps=1e6, n_users=3,
+                              n_candidates=8, reviews_per_user=1, seed=2)
+        brs = rcllm_batch_requests(sys2, trace, n_reserve=2)
+        logits = {}
+        for batched in (True, False):
+            eng = API.build_engine(sys2.model, sys2.cfg, API.ServeConfig(), cache=sys2.rows,
+                                   batched_selective=batched)
+            logits[batched] = eng.prefill(brs, mode="rcllm")
+        _close(torch.from_numpy(logits[False]), torch.from_numpy(logits[True]), 1e-4)
 
 
 # ------------------------------------------------ LM serving steps (plain torch)

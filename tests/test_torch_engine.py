@@ -64,7 +64,7 @@ def _assembled(tsys, table, layers=None):
     """The port's device pool of cached rows gathered by a block table
     through the block-gather wrapper, unrotated: (n, L, Hkv, Dh) k and v."""
     t = torch.from_numpy(np.asarray(table, np.int32))
-    gather = TENG.cache_gather(tsys.rows, 1e4)
+    gather = TENG.cache_gather(tsys.rows, 1e4, None, kernels=True)
     planes = [gather(t, t, l, rotate=False)
               for l in (range(tsys.cfg.n_layers) if layers is None else layers)]
     return (torch.stack([k for k, _ in planes], dim=1).numpy(),

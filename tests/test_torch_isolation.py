@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports JAX or the JAX package (`repro`) — not even its
-pure-numpy modules, since `repro.core.engine` pulls Pallas in at import."""
+"""The port stands alone: no module of `repro_torch`, not
+`chip_smoke.py` and not the port's examples (`examples/torch_*.py`)
+imports JAX or the JAX package (`repro`) — not even its pure-numpy
+modules, since `repro.core.engine` pulls Pallas in at import."""
 import pkgutil
 import re
 import subprocess
@@ -16,6 +17,7 @@ TRAINING_MODULES = ("repro_torch.training.optimizer", "repro_torch.training.trai
                     "repro_torch.core.ranker_training", "repro_torch.gnn.schnet",
                     "repro_torch.gnn.sampler", "repro_torch.gnn.convert",
                     "repro_torch.launch.train", "repro_torch.configs.schnet")
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
 
 
@@ -45,8 +47,28 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_examples_import_with_jax_and_repro_blocked():
+    assert [f.name for f in EXAMPLES] == ["torch_quickstart.py", "torch_serve_cluster.py",
+                                          "torch_train_ranker.py"]
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path[:0] = [{str(REPO / 'src')!r}]\n"
+        f"for i, f in enumerate({[str(f) for f in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'example{i}', f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() if v}\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_sources_name_no_jax_or_reference_import():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + EXAMPLES
+    assert len(EXAMPLES) == 3
     assert len(files) > 25
     for m in TRAINING_MODULES:
         assert PORT.parent / (m.replace(".", "/") + ".py") in files

@@ -101,7 +101,7 @@ def test_forward_logits_match_jax(jax_tiny, seq):
                               tiny_config(2, 32), device="cpu")
     toks = np.random.default_rng(seq).integers(1, 4096, size=(2, seq)).astype(np.int32)
     want, _ = JT.forward(params, jnp.asarray(toks), jcfg)
-    got = TT.forward(model, _t(toks).long())
+    got = TT.forward(model, _t(toks).long(), kernels=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_ATOL, rtol=FWD_ATOL)
 
 

@@ -38,11 +38,17 @@ def _t(a):
 
 
 # ------------------------------------------------------------ configs
+# the serving execution knobs name each package's own routes (the port's
+# auto | plain | cuda against the reference's jnp | pallas): compared by
+# name only
+EXEC_KNOBS = ("attn_backend", "decode_kernel")
+
+
 def _shared(port, ref):
     names = [f.name for f in dataclasses.fields(port)]
     assert set(names) <= {f.name for f in dataclasses.fields(ref)}
-    return ({n: getattr(port, n) for n in names if n != "moe"},
-            {n: getattr(ref, n) for n in names if n != "moe"})
+    keep = [n for n in names if n != "moe" and n not in EXEC_KNOBS]
+    return ({n: getattr(port, n) for n in keep}, {n: getattr(ref, n) for n in keep})
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

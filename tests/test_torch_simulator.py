@@ -40,7 +40,8 @@ def setups():
 def test_config_fields_equal_reference():
     jcfg = JREG.ARCHS["rcllm-qwen3-8b"]
     for f in dataclasses.fields(QWEN3_8B):
-        if hasattr(jcfg, f.name):
+        # the serving execution knobs name each package's own routes
+        if hasattr(jcfg, f.name) and f.name not in ("attn_backend", "decode_kernel"):
             assert getattr(QWEN3_8B, f.name) == getattr(jcfg, f.name), f.name
     assert QWEN3_8B.param_count() == jcfg.active_param_count()
 
