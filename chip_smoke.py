@@ -110,7 +110,10 @@ else (no network, no JAX).  Phases:
    five archs' recorded calls and the ranker's, a second call bitwise
    equal, and timed at each of them (each of its kernels apart) beside its
    bound and SDPA's backward, at the ranker's call in turns with its SIMT
-   route; K7 at Wide&Deep's call beside one `index_add_`;
+   route; K7 at Wide&Deep's call beside one `index_add_`, each of its
+   device events apart, and on the same call's 8 fields of each
+   vocabulary size (1 M, 100 K, 10 K, 1 K rows) and in field-major order
+   (its field-group probe);
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies, at its largest all-layer call of
@@ -131,12 +134,16 @@ else (no network, no JAX).  Phases:
    paged-decode kernel also against its split-K plain version at the
    split it chose, and it must run at least two blocks per SM.  The
    embedding bag on its serve_p99 and serve_bulk inputs, also with a bf16 and a d = 32
-   table; and each recsys model at full width scores and retrieves the
-   same on the card as a CPU copy of it;
+   table, a second call bitwise equal, and timed in turns with its first
+   design (built from `scripts/bag_designs.cu` and held to the same plain
+   version: port, first, first, port; warm and with the L2 flushed); and each
+   recsys model at full width scores and retrieves the same on the card
+   as a CPU copy of it;
 4. kernel times (CUDA events, median of 20 after warm-up; and the
    device time alone under torch.profiler, every device event counted,
-   with the number a call saw beside it; for the paged-decode kernel
-   also with the L2 flushed before each call) beside the plain version, one
+   with the number a call saw beside it; for the paged-decode kernel and
+   the embedding bag also with the L2 flushed before each call) beside
+   the plain version, one
    library call computing the same function where there is one, and the
    card's bound for the work.
 
@@ -155,12 +162,15 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "scripts"))
 
+import bag_designs as BD  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -596,6 +606,25 @@ def time_ms(fn, reps=20, warmup=3):
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(statistics.median(times))
+
+
+def queued_ms(fn, reps=10, cycles=200_000):
+    """CUDA-event ms of one call enqueued while the card still runs a spin
+    kernel (`torch.cuda._sleep`), so the events time the launch and the
+    kernel but not the wrapper's host work; median of `reps`."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         s.record()
         fn()
         e.record()
@@ -1260,14 +1289,65 @@ def recsys_phase(dev, repeats=5):
     return cells, models, bag.calls
 
 
+def bag_turns(table, ids, flush, first):
+    """B5 (`bag_sum`) and its first design (`first`, a `BD.Designs`; held
+    to the plain version within BAG_TOL first) at one call, in turns port,
+    first, first, port: CUDA-event ms (host work included), the same with
+    the host work hidden behind a spin kernel (`queued_ms`), and device ms
+    warm and with the L2 flushed before each call (`flush`; None where the
+    profiler saw another number of device events than one a call).  ->
+    {"turns", "first_max_abs_err", and per design the medians "ms",
+    "queued_ms", "device_ms", "device_cold_ms"; "verdict": the port's
+    design "no slower" or "slower" when both pairs of turns agree on the
+    host-hidden time and on every device time both turns of a pair have,
+    else "unresolved"}."""
+    def one_event(dev):
+        return dev["ms"] if dev["events_per_call"] == 1 else None
+
+    want = embedding_bag_ref(table, ids)
+    got = first.bag("first", table, ids)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if err > BAG_TOL[table.dtype] * max(1.0, float(want.float().abs().max())):
+        raise RuntimeError(f"embedding_bag's first design: max|kernel-plain| {err}")
+    del got, want
+    calls = {"port": lambda: EO.bag_sum(table, ids),
+             "first": lambda: first.bag("first", table, ids)}
+    turns = []
+    for design in ("port", "first", "first", "port"):
+        fn = calls[design]
+        turns.append({"design": design, "ms": time_ms(fn), "queued_ms": queued_ms(fn),
+                      "device_ms": one_event(device_ms(fn)),
+                      "device_cold_ms": one_event(device_ms(fn, flush=flush))})
+    out = {"turns": turns, "first_max_abs_err": err}
+    keys = ("ms", "queued_ms", "device_ms", "device_cold_ms")
+    for design in calls:
+        got = {k: [t[k] for t in turns if t["design"] == design and t[k] is not None]
+               for k in keys}
+        out[design] = {k: statistics.median(v) if v else None for k, v in got.items()}
+    wins = [turns[i][k] <= turns[j][k] for i, j in ((0, 1), (3, 2))
+            for k in ("queued_ms", "device_ms", "device_cold_ms")
+            if turns[i][k] is not None and turns[j][k] is not None]
+    out["verdict"] = ("no slower" if wins and all(wins) else
+                      "slower" if wins and not any(wins) else "unresolved")
+    log("  embedding_bag vs its first design in turns: " + "; ".join(
+        f"{t['design']} {t['ms']:.4f} ms (host hidden {t['queued_ms']:.4f}, device "
+        f"{t['device_ms']}, L2 flushed {t['device_cold_ms']})" for t in turns)
+        + f"; the port's {out['verdict']}")
+    return out
+
+
 def bag_records(calls, spec, launches, models):
     """The embedding bag against its plain version on the inputs of
     Wide&Deep's serve_bulk and serve_p99 calls: the wide table in fp32 and
-    in bf16, and the same ids into the (rows, 32) deep table.  Each within
-    BAG_TOL of max(1, max|plain|)."""
-    fn = spec["fn"]
+    in bf16, and the same ids into the (rows, 32) deep table, each within
+    BAG_TOL of max(1, max|plain|), a second call bitwise equal; then timed
+    (`timed_record`, also with the L2 flushed) and in turns with its first
+    design (`bag_turns`)."""
     records = []
     deep_table = models["wide-deep"].table
+    first = BD.Designs(deep_table.device)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=deep_table.device)
     for shape in ("serve_bulk", "serve_p99"):
         b = RREG.RECSYS_SHAPES[shape].dims["batch"]
         if b not in calls:
@@ -1276,31 +1356,45 @@ def bag_records(calls, spec, launches, models):
         errs = {}
         for label, t in (("fp32 d=1", table), ("bf16 d=1", table.to(torch.bfloat16)),
                          ("fp32 d=32", deep_table)):
-            got, want = fn(t, ids), embedding_bag_ref(t, ids)
+            want = embedding_bag_ref(t, ids)
+            tol = BAG_TOL[t.dtype] * max(1.0, float(want.float().abs().max()))
+            got, again = spec["fn"](t, ids), spec["fn"](t, ids)
             torch.cuda.synchronize()
-            scale = max(1.0, float(want.float().abs().max()))
             err = float((got.float() - want.float()).abs().max())
-            tol = BAG_TOL[t.dtype] * scale
             if got.dtype != t.dtype or not torch.isfinite(got).all() or err > tol:
-                raise RuntimeError(f"embedding_bag {shape} {label}: max|kernel-plain| "
-                                   f"{err} > {tol}")
+                raise RuntimeError(f"embedding_bag {shape} {label}: max|kernel-plain| {err} "
+                                   f"> {tol}")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"embedding_bag {shape} {label}: two calls differ")
             errs[label] = err
-            del got, want
+            del got, want, again
         log(f"check embedding_bag {shape}: ids {tuple(ids.shape)} into {tuple(table.shape)}; "
             "max|kernel-plain| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f" (tol {BAG_TOL} x max(1, max|plain|))")
+            + f" (tol {BAG_TOL} x max(1, max|plain|)); a second call bitwise equal")
         a = (table, ids)
-        out = fn(*a)
+        out = spec["fn"](*a)
+        elt = table.element_size()
+        g = EO.staged_geometry(*ids.shape, table.shape[1], elt, table.shape[1] % (16 // elt) == 0,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
         # rows narrower than a 32-byte sector cost the card a whole sector
         row = table.shape[1] * table.element_size()
         sector_bytes = nbytes(ids) + ids.numel() * max(32, -(-row // 32) * 32) + nbytes(out)
+        cold = device_ms(lambda: spec["fn"](*a), flush=flush)
         extra = {"tol": BAG_TOL[torch.float32], "bf16_max_abs_err": errs["bf16 d=1"],
                  "d32_max_abs_err": errs["fp32 d=32"],
-                 "sector_bound_ms": sector_bytes / HBM_BYTES_S * 1e3}
-        records.append(timed_record("embedding_bag", spec, launches, a, {}, out,
-                                    errs["fp32 d=1"], torch.float32, extra,
-                                    label="embedding_bag" if shape == "serve_bulk"
-                                    else f"embedding_bag:{shape}"))
+                 "bitwise_repeat": True, "geometry": g._asdict(),
+                 "device_cold_ms": cold["ms"], "device_cold_note": cold.get("note"),
+                 "flush_mb": 256, "sector_bound_ms": sector_bytes / HBM_BYTES_S * 1e3,
+                 "vs_first_design": bag_turns(table, ids, flush, first)}
+        rec = timed_record("embedding_bag", spec, launches, a, {}, out,
+                           errs["fp32 d=1"], torch.float32, extra,
+                           label="embedding_bag" if shape == "serve_bulk"
+                           else f"embedding_bag:{shape}")
+        log(f"  embedding_bag {shape}: device time with the L2 flushed "
+            f"{cold['ms'] if cold['ms'] is not None else 'n/a: ' + cold['note']}; "
+            f"tiles of {g.TB} bags, {g.FC} fields a chunk")
+        records.append(rec)
+    del flush
     return records
 
 
@@ -3357,10 +3451,38 @@ def flash_bwd_records(calls, launches):
     return records
 
 
+def bag_field_probe(ids, d_out, rows):
+    """K7 (`bag_backward`, zero fill + kernel) on one recorded call's ids
+    cut to the first 8 fields of each of Wide&Deep's vocabulary sizes (the
+    same B x 8 updates each: into a region of 8 x 1 M, 100 K, 10 K or 1 K
+    rows), and on all its fields in field-major order (ids transposed,
+    d_out repeated: the same gradient, its atomics issued field by field).
+    -> {label: {"device_ms", "by_kernel", "updates", "rows_spanned"}}."""
+    vocabs = RREG.get_config("wide-deep").field_vocabs
+    if ids.shape[1] != len(vocabs):
+        return {}
+    out = {}
+    for v in dict.fromkeys(vocabs):
+        cols = [f for f, n in enumerate(vocabs) if n == v][:8]
+        sub = ids[:, cols].contiguous()
+        dev = device_ms(lambda: EO.bag_backward(sub, d_out, rows))
+        out[f"fields_{v}_rows"] = {"device_ms": dev["ms"], "by_kernel": dev["by_kernel"],
+                                   "updates": sub.numel(), "rows_spanned": 8 * v}
+    fm_ids = ids.t().contiguous().reshape(-1, 1)
+    fm_out = d_out.repeat(ids.shape[1], 1)
+    dev = device_ms(lambda: EO.bag_backward(fm_ids, fm_out, rows))
+    out["all_fields_field_major"] = {"device_ms": dev["ms"], "by_kernel": dev["by_kernel"],
+                                     "updates": fm_ids.numel(), "rows_spanned": rows}
+    log("  bag_backward field-group probe (device ms, fill + kernel): " + "; ".join(
+        f"{k} {v['device_ms']}" for k, v in out.items()))
+    return out
+
+
 def bag_backward_record(call, launches):
     """K7 against its plain version at Wide&Deep's train_batch call (the
     wide table's gradient, fp32, and the same call in bf16): max |kernel
-    - plain| within BAG_TOL of max(1, max|plain|); then timed."""
+    - plain| within BAG_TOL of max(1, max|plain|); then timed, each device
+    event apart, and probed by field group (`bag_field_probe`)."""
     ids, d_out, rows = call
     fn = EO.bag_backward
     spec = KERNELS["bag_backward"]
@@ -3390,6 +3512,7 @@ def bag_backward_record(call, launches):
     grad_bytes = rows * d_out.shape[1] * 4
     b = nbytes(ids, d_out) + grad_bytes
     sector = nbytes(ids, d_out) + grad_bytes + 2 * ids.numel() * 32
+    probe = bag_field_probe(ids, d_out, rows)
     rec = {"name": "bag_backward", "route": "cuda", "source": spec["source"],
            "replaces": spec["replaces"], "launches": launches, "max_abs_err": errs[torch.float32],
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b / HBM_BYTES_S * 1e3, "bound_by": "bytes",
@@ -3401,7 +3524,8 @@ def bag_backward_record(call, launches):
            "sector_bound_ms": sector / HBM_BYTES_S * 1e3,
            "shapes": [f"{tuple(ids.shape)}:int32", f"{tuple(d_out.shape)}:float32",
                       f"rows {rows}"],
-           "library_call": "zeros + index_add_ of the flattened ids (after repeat_interleave)"}
+           "library_call": "zeros + index_add_ of the flattened ids (after repeat_interleave)",
+           "field_groups": probe}
     dev_s = ("n/a: " + dev["note"] if dev_ms is None else
              f"{dev_ms:.4f} ms over {dev['events_per_call']:g} device events a call: "
              + ", ".join(f"{k} {v:.4f}" for k, v in dev["by_kernel"].items()))
@@ -3805,7 +3929,11 @@ def main(argv=None):
     dev = torch.device("cuda")
 
     # ---- phase 1: build every kernel from this checkout's sources ----
+    designs = threading.Thread(target=BD.build)    # B5's first design, for its turns
+    designs.start()
     build_s = PHASE_S["1 build"] = _build.build()
+    designs.join()
+    BD.library_path().stat()                       # raises where that build failed
     log(f"kernel build: {build_s:.1f} s (parallel nvcc, sm_90a)")
     log(f"device_ms marker kernel: {_marker_name()}")   # read while the profiler loses nothing
     for name in _build.SOURCES:

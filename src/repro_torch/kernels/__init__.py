@@ -6,11 +6,12 @@ raises) — there is no fallback from one to the other."""
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SMS: Dict[int, int] = {}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -64,3 +65,11 @@ def on_device(t: torch.Tensor):
     if t.device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(t.device)
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (read once)."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n

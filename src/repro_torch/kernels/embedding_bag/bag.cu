@@ -10,90 +10,181 @@
 //
 // Design.  The TPU kernel scalar-prefetches the ids and walks a (B, F)
 // grid whose f axis runs in order, pulling one (1, d) row per step into
-// VMEM and accumulating in an fp32 scratch.  Hopper has no sequential
-// grid, so here one thread owns (b, one vector of V columns of row b) and
-// loops over f in registers: the sum is taken in fp32 in the order
-// f = 0..F-1 and rounded once, to bf16 for bf16 tables.  The (b, column)
-// pairs are flattened over the threads, so neighbouring threads read
-// neighbouring columns of one row, and for d = 1 a thread owns a whole bag
-// and no lane idles (a warp per row would idle 31 of 32).  Each thread
-// loads its own ids (no scalar prefetch); threads of one bag read the same
-// id, which the load broadcasts.  V = 16 bytes / element size (16-byte
-// loads and stores) where d and the pointers allow, else 1, which serves
-// any d, odd ones included.  Ids must lie in [0, rows): the wrapper's
-// callers build them from per-field offsets; nothing checks them here.
+// VMEM and accumulating in an fp32 scratch.  Here a block takes a tile of
+// TB bags (at most 32; fewer in a small batch, so that every SM gets two
+// tiles) and, for each chunk of FC fields, works in two phases:
+// - gather: the block's 256 threads walk the tile's (bag, field) pairs in
+//   memory order, so a warp reads 128 contiguous bytes of ids (streamed:
+//   not kept in L1, first out of L2, each id is read once); each thread
+//   keeps 8 row loads in flight (4 of 16-byte vectors) and parks the rows
+//   in shared memory at (bag * S + field), S odd;
+// - sum: thread j adds bag j's rows in field order f = 0..F-1 in fp32
+//   (rounded once, to bf16 for bf16 tables), reading S apart: 32 banks.
+// A row of d elements is split into V-element vectors (16 bytes where d
+// and the pointers allow, else V = 1, which serves any d), and a bag's
+// cols = d / V vectors over P lanes (P the power of two >= cols, at most
+// 256; blockIdx.y takes the next 256 vectors of wider rows).  The wrapper
+// (`ops.py:staged_geometry`) chooses TB, FC, S and P.  Ids must lie in
+// [0, rows): the wrapper's callers build them from per-field offsets;
+// nothing checks them here.
 //
-// Bound on the card: bytes.  The function reads 4*B*F bytes of ids and
-// B*F*d*elt bytes of rows and writes B*d*elt bytes, one add per row
-// element, over 3.35 TB/s.  A row narrower than a 32-byte sector still
-// costs a whole sector, so for d*elt < 32 the card moves B*F*32 row bytes
-// (8x the useful bytes for d = 1 fp32).  A table that fits in the 50 MB L2
-// (Wide&Deep's wide table is 35.7 MB) serves warm calls from L2.
+// Bound on the card: the row lookups.  The function reads 4*B*F bytes of
+// ids and B*F*d*elt bytes of rows and writes B*d*elt bytes, one add per row
+// element, over 3.35 TB/s.  But each lookup of a row narrower than 32
+// bytes moves a whole 32-byte sector from L2 (Wide&Deep's 35.7 MB wide
+// table stays in the 50 MB L2; an L2-flushed call is ~0.006 ms slower),
+// and random sector reads run at ~95-127 G/s from L2 and ~330 G/s from L1
+// on the card.  At serve_bulk (262,144 x 40 lookups) the 16 fields of
+// 100 K to 1 M rows alone take ~0.044 ms, the 24 small ones ~0.037.  The
+// first design (a thread per bag loading its own ids, now only in
+// `scripts/bag_designs.cu`) read each warp's ids from 32 sectors a load
+// (32 bags' ids 160 bytes apart): 0.116 ms against 0.081.  Field-major
+// threads, small fields' rows staged in shared memory, and the table read
+// past L1 or under L2 evict_last measured slower or equal; cp.async
+// gathers were ~3% faster for 4- and 16-byte rows only, not worth a
+// second kernel (PERF.md §6; `scripts/bag_designs.py`).
 #include "../attn_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// shared memory of a block's tile of gathered rows (no attribute needed)
+constexpr int kStageBytes = 48 * 1024;
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
   T e[V];
 };
 
+// An int read once: not allocated in L1, first out of L2.
+__device__ __forceinline__ int ld_once(const int* p, uint64_t policy) {
+  int v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.b32 %0, [%1], %2;"
+      : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+}
+
+// A staged call's geometry (`ops.py:staged_geometry`).
+struct Staged {
+  int lgP;  // log2 of the lanes of a bag
+  int TB;   // bags of a tile
+  int FC;   // fields of a chunk
+  int S;    // odd field stride of the tile in shared memory, S >= FC
+};
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-bag_kernel(const T* __restrict__ table, const int* __restrict__ ids,
-           T* __restrict__ out, int B, int F, int d) {
-  const int cols = d / V;
-  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (g >= (long long)B * cols) return;
-  const long long b = g / cols;
-  const int c = (int)(g - b * cols);
-  const int* bag = ids + b * F;
+bag_staged_kernel(const T* __restrict__ table, const int* __restrict__ ids,
+                  T* __restrict__ out, int B, int F, int cols, Staged g) {
+  using PK = Pack<T, V>;
+  constexpr int kBatch = sizeof(PK) == 16 ? 4 : 8;  // row loads in flight a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PK* vals = reinterpret_cast<PK*>(smem_raw);
+  const int t = threadIdx.x;
+  const int P = 1 << g.lgP;
+  const int c = t & (P - 1);
+  const int col = (int)blockIdx.y * P + c;
+  const bool live = col < cols;
+  const long long b0 = (long long)blockIdx.x * g.TB;
+  const int nb = (int)min((long long)g.TB, (long long)B - b0);
+  const int j = t >> g.lgP;  // the bag this thread sums
+  const int rps = kThreads >> g.lgP;
+  const int* tile = ids + b0 * F;
+  const PK* rows = reinterpret_cast<const PK*>(table);
+  uint64_t stream;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(stream));
   float acc[V];
 #pragma unroll
-  for (int j = 0; j < V; ++j) acc[j] = 0.f;
-#pragma unroll 8
-  for (int f = 0; f < F; ++f) {
-    const size_t row = (size_t)__ldg(bag + f);
-    const Pack<T, V> x = reinterpret_cast<const Pack<T, V>*>(table + row * d)[c];
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int f0 = 0; f0 < F; f0 += g.FC) {
+    const int fc = min(g.FC, F - f0);
+    const int units = nb * fc;  // (bag jj, field ff) pairs, ff fastest
+    const int dj = rps / fc, df = rps - dj * fc;
+    int u = t >> g.lgP;
+    int jj = u / fc, ff = u - jj * fc;
+    for (; u < units; u += kBatch * rps) {
+      int id[kBatch], at[kBatch];
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] += rt::to_f(x.e[j]);
+      for (int k = 0; k < kBatch; ++k) {
+        at[k] = -1;
+        id[k] = 0;
+        if (u + k * rps < units) {
+          at[k] = (jj * g.S + ff) * P + c;
+          id[k] = ld_once(tile + (long long)jj * F + f0 + ff, stream);
+        }
+        jj += dj;
+        ff += df;
+        if (ff >= fc) {
+          ff -= fc;
+          ++jj;
+        }
+      }
+      if (live) {
+        PK x[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          if (at[k] >= 0) x[k] = rows[(size_t)id[k] * cols + col];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          if (at[k] >= 0) vals[at[k]] = x[k];
+      }
+    }
+    __syncthreads();
+    if (j < nb && live) {
+      const PK* mine = vals + (size_t)j * g.S * P + c;
+      for (int f = 0; f < fc; ++f) {
+        const PK x = mine[f * P];
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] += rt::to_f(x.e[v]);
+      }
+    }
+    __syncthreads();
   }
-  Pack<T, V> y;
+  if (j < nb && live) {
+    PK y;
 #pragma unroll
-  for (int j = 0; j < V; ++j) y.e[j] = rt::from_f<T>(acc[j]);
-  reinterpret_cast<Pack<T, V>*>(out + b * d)[c] = y;
+    for (int v = 0; v < V; ++v) y.e[v] = rt::from_f<T>(acc[v]);
+    reinterpret_cast<PK*>(out)[(b0 + j) * cols + col] = y;
+  }
 }
 
 template <typename T, int V>
-cudaError_t launch(const void* table, const void* ids, void* out, int B, int F,
-                   int d, cudaStream_t st) {
-  const long long threads = (long long)B * (d / V);
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  bag_kernel<T, V><<<(unsigned)blocks, kThreads, 0, st>>>(
-      static_cast<const T*>(table), static_cast<const int*>(ids),
-      static_cast<T*>(out), B, F, d);
+cudaError_t launch_staged(const void* table, const void* ids, void* out, int B, int F,
+                          int d, Staged g, cudaStream_t st) {
+  const int cols = d / V;
+  if (g.lgP < 0 || g.lgP > 8) return cudaErrorInvalidValue;
+  const int P = 1 << g.lgP;
+  const long long smem = (long long)g.TB * g.S * P * sizeof(Pack<T, V>);
+  if ((P < cols && P != kThreads) || (P > 1 && P / 2 >= cols) || g.TB < 1 ||
+      g.TB * P > kThreads || g.FC < 1 || g.S < g.FC || g.S % 2 == 0 || smem > kStageBytes)
+    return cudaErrorInvalidValue;
+  const long long tiles = ((long long)B + g.TB - 1) / g.TB;
+  const int cblocks = (cols + P - 1) / P;
+  if (tiles > 0x7fffffffLL || cblocks > 65535) return cudaErrorInvalidValue;
+  bag_staged_kernel<T, V><<<dim3((unsigned)tiles, cblocks), kThreads, (size_t)smem, st>>>(
+      static_cast<const T*>(table), static_cast<const int*>(ids), static_cast<T*>(out),
+      B, F, cols, g);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // table: (rows, d); ids: (B, F) int32; out: (B, d), all contiguous, table
-// and out of one dtype.  `vec` = 1 selects 16-byte loads (the wrapper
-// checks that d is a multiple of the vector and the pointers' alignment).
+// and out of one dtype.  `vec` = 1 selects 16-byte vectors (the wrapper
+// checks that d is a multiple of the vector and the pointers' alignment);
+// (lgP, TB, FC, S) the staged kernel's geometry (`ops.py:staged_geometry`).
 extern "C" int rt_embedding_bag(const void* table, const void* ids, void* out,
                                 int B, int F, int d, int dtype, int vec,
-                                void* stream) {
+                                int lgP, int TB, int FC, int S, void* stream) {
   if (B < 1 || F < 0 || d < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Staged g{lgP, TB, FC, S};
   return rt::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
     constexpr int V = 16 / sizeof(T);
-    if (!vec) return launch<T, 1>(table, ids, out, B, F, d, st);
-    if (d % V != 0) return cudaErrorInvalidValue;
-    return launch<T, V>(table, ids, out, B, F, d, st);
+    if (vec && d % V != 0) return cudaErrorInvalidValue;
+    return vec ? launch_staged<T, V>(table, ids, out, B, F, d, g, st)
+               : launch_staged<T, 1>(table, ids, out, B, F, d, g, st);
   });
 }
 
@@ -111,10 +202,18 @@ extern "C" int rt_embedding_bag(const void* table, const void* ids, void* out,
 // table's gradient is then rounded once into the bf16 output by a second
 // kernel.  Ids must lie in [0, rows), as for the forward.
 //
-// Bound on the card: bytes.  Wide&Deep's train_batch call (ids 65,536 x
-// 40 into the 8,933,376 x 1 fp32 wide table): 10.5 MB of ids, the 35.7 MB
-// zero fill, and 2.6 M read-modify-writes of 4 bytes, each a whole 32-byte
-// sector: ~0.014 ms of useful bytes, ~0.064 ms counting sectors.
+// Bound on the card: the atomics' throughput in L2.  Wide&Deep's
+// train_batch call (ids 65,536 x 40 into the 8,933,376 x 1 fp32 wide
+// table) needs 10.5 MB of ids, the 35.7 MB zero fill and 2.6 M
+// read-modify-writes of 4 bytes: ~0.014 ms of useful bytes.  Measured on
+// the card: 524 K atomics take ~0.008 ms into rows they seldom share (~69
+// G/s) and ~0.015 ms into the 8 K rows of eight 1 K-row fields (~65 adds
+// a row); the call's kernel ~0.040-0.043 ms, the fill 0.010 (its bound).
+// Summing fields in shared memory first (float atomics there are
+// compare-and-swap loops), overlapping the fill with the small fields'
+// atomics, field-major thread order and a grid-stride loop all measured
+// slower, so this is still the first design (PERF.md §6;
+// `scripts/bag_designs.py`).
 namespace {
 
 template <typename T>

@@ -5,10 +5,13 @@ K7).
 
 A CPU tensor runs the plain version (`ref.py`); a CUDA tensor launches
 the hand-written kernel (`bag.cu`) or raises.  `bag_sum.launches` and
-`bag_backward.launches` count kernel launches and nothing else."""
+`bag_backward.launches` count kernel launches and nothing else.  The
+bag sum's kernel gathers tiles of bags through shared memory at the
+geometry `staged_geometry` chooses."""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,8 +20,49 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag.ref import bag_backward_ref, embedding_bag_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"rt_embedding_bag": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+_SIGNATURES = {"rt_embedding_bag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                "rt_bag_backward": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P]}
+
+
+BAG_THREADS = 256           # bag.cu kThreads
+TILE_BAGS = 32              # bags of a tile at most (the fastest at serve_bulk, PERF.md §6)
+STAGE_BYTES = 48 * 1024     # bag.cu kStageBytes: a tile's gathered rows
+
+
+class Geometry(NamedTuple):
+    lgP: int     # a bag's vectors over P = 2^lgP lanes
+    TB: int      # bags of a tile
+    FC: int      # fields of a chunk
+    S: int       # odd field stride of the tile in shared memory
+
+
+def staged_geometry(B: int, F: int, d: int, elt: int, vec: bool, sms: int) -> Geometry:
+    """The staged kernel's launch for B bags of F fields, rows of d
+    elements of `elt` bytes read as 16-byte vectors (`vec`) or one element
+    at a time, on a card of `sms` SMs.  A bag's cols = d / V vectors take P
+    lanes (the power of two >= cols, at most BAG_THREADS); a tile holds at
+    most TILE_BAGS bags and BAG_THREADS / P, and in a small batch no more
+    than make two tiles an SM; a chunk holds as many fields as fit
+    STAGE_BYTES, at an odd stride S (the sum phase's reads then fall in
+    distinct banks).  `bag.cu:launch_staged` checks the same limits."""
+    if min(B, d, elt, sms) < 1 or F < 0:
+        raise ValueError(f"B={B} F={F} d={d} elt={elt} sms={sms}")
+    V = 16 // elt if vec else 1
+    if d % V:
+        raise ValueError(f"d={d} is not a multiple of the {V}-element vector")
+    cols = d // V
+    lgP = 0
+    while (1 << lgP) < min(cols, BAG_THREADS):
+        lgP += 1
+    P = 1 << lgP
+    TB = max(1, min(BAG_THREADS // P, TILE_BAGS, -(-B // (2 * sms))))
+    room = STAGE_BYTES // (TB * P * V * elt)
+    FC = max(1, min(F, room))
+    S = FC | 1
+    if S > room:
+        FC -= 1
+        S = FC | 1
+    return Geometry(lgP, TB, FC, S)
 
 
 def bag_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -38,12 +82,13 @@ def bag_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, d), dtype=table.dtype, device=table.device)
     if B == 0 or d == 0:
         return out
-    n = 16 // table.element_size()
-    vec = int(d % n == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    elt = table.element_size()
+    vec = d % (16 // elt) == 0 and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    g = staged_geometry(B, F, d, elt, vec, K.sm_count(table.device))
     lib = _build.library("embedding_bag", _SIGNATURES)
     with K.on_device(table):
         err = lib.rt_embedding_bag(K.ptr(table), K.ptr(ids), K.ptr(out), B, F, d,
-                                   K.dtype_code("table", table), vec,
+                                   K.dtype_code("table", table), int(vec), *g,
                                    K.stream_of(table))
     _build.check(lib, err, "embedding_bag")
     bag_sum.launches += 1

@@ -29,7 +29,6 @@ BLOCKS_PER_SM = 4        # the kernel's occupancy at the served call (128 regist
 MAX_SPLITS = 32          # the kernel's merge of the splits gives each split one lane
 MAX_SPLIT_SLOTS = 4096   # a block stages its split's slot positions in shared memory
 
-_SMS: Dict[int, int] = {}
 _WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -51,13 +50,6 @@ def split_pages(n: int, hkv: int, pmax: int, page: int,
         raise ValueError(f"Pmax={pmax} pages of {page} slots: more than "
                          f"{MAX_SPLITS * MAX_SPLIT_SLOTS} slots per row")
     return pps, splits
-
-
-def _sms(device: torch.device) -> int:
-    n = _SMS.get(device.index)
-    if n is None:
-        n = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return n
 
 
 def _workspace(n_floats: int, n_tickets: int, device: torch.device,
@@ -112,7 +104,7 @@ def paged_decode_mha(q: torch.Tensor, arena_k: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    pps, splits = split_pages(N, Hkv, pmax, page, _sms(q.device))
+    pps, splits = split_pages(N, Hkv, pmax, page, K.sm_count(q.device))
     stream = K.stream_of(q)
     ws_acc = ws_ml = tickets = None
     if splits > 1:

@@ -528,6 +528,56 @@ def test_embedding_bag_kernel_matches_plain(cuda, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 32])
+def test_embedding_bag_staged_tiles_match_plain(cuda, d, dtype):
+    """B5's staged tiles against the plain version: batches that are not
+    a multiple of the tile (4,097 bags in tiles of 16, 10,001 in tiles of
+    32), B = 1 and the small-batch tiles (512 bags: two a tile on 132
+    SMs); F = 0, 1, 40 and 130 (more fields than one chunk of the tile
+    when d = 32); ids at 0 and at rows - 1, and bags that repeat one row;
+    two calls bitwise equal (the sums run in one order); each call one
+    launch."""
+    rng = np.random.default_rng(d)
+    rows = 3000
+    table = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(cuda, dtype)
+    for F in (0, 1, 40, 130):
+        for B in (1, 33, 512, 4097, 10_001):
+            ids = torch.from_numpy(rng.integers(0, rows, (B, F)).astype(np.int32)).to(cuda)
+            if F:
+                ids[0] = 0
+                ids[-1] = rows - 1
+                ids[B // 2] = int(rng.integers(rows))
+            before = bag_sum.launches
+            got, again = bag_sum(table, ids), bag_sum(table, ids)
+            assert bag_sum.launches == before + 2
+            want = embedding_bag_ref(table, ids)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (B, d) and torch.isfinite(got).all()
+            assert torch.equal(got, again)
+            scale = max(1.0, float(want.float().abs().max()))
+            tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+            torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_embedding_bag_wide_deep_batches_match_plain(cuda):
+    """`bag_sum` at Wide&Deep's serve_p99 and a serve_bulk-sized batch (40
+    fields into a 9 M-row d = 1 table): the plain version within 1e-5 of
+    max(1, max|out|), a second call bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    rows = 8_933_376
+    table = torch.randn(rows, 1, device=cuda, generator=g) * 0.05
+    for B in (512, 262_144):
+        ids = torch.randint(0, rows, (B, 40), device=cuda, generator=g, dtype=torch.int32)
+        got = bag_sum(table, ids)
+        want = embedding_bag_ref(table, ids)
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        assert torch.equal(got, bag_sum(table, ids))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 8, 33])
 def test_embedding_bag_kernel_accumulates_bf16_in_fp32(cuda, d):
     """100 rows of 1 + 2^-7 in bf16 sum to exactly 101.0 when summed in
@@ -1387,6 +1437,31 @@ def test_bag_backward_kernel_matches_plain(cuda, dtype, d):
     want = bag_backward_ref(ids, d_out, rows)
     tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * max(1.0, float(want.float().abs().max()))
     _close(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 32])
+def test_bag_backward_kernel_edges(cuda, dtype, d):
+    """K7 against `bag_backward_ref` at F = 0, 1, 40 and 130, B = 1 and
+    4,097, ids at 0 and rows - 1 and a bag that repeats one row (40 or
+    130 adds into it), within BAG_TOL of max(1, max|grad|)."""
+    from repro_torch.kernels.embedding_bag.ops import bag_backward
+    from repro_torch.kernels.embedding_bag.ref import bag_backward_ref
+
+    g = torch.Generator(device=cuda).manual_seed(10 + d)
+    rows = 2000
+    for F in (0, 1, 40, 130):
+        for B in (1, 4097):
+            ids = torch.randint(0, rows, (B, F), device=cuda, generator=g, dtype=torch.int32)
+            if F:
+                ids[0, 0], ids[-1, -1] = 0, rows - 1
+                ids[B // 2] = 7
+            d_out = torch.randn(B, d, device=cuda, generator=g).to(dtype)
+            got = bag_backward(ids, d_out, rows)
+            want = bag_backward_ref(ids, d_out, rows)
+            scale = max(1.0, float(want.float().abs().max()))
+            _close(got, want, (1e-5 if dtype == torch.float32 else 2 ** -7) * scale)
 
 
 @pytest.mark.cuda

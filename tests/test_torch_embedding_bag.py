@@ -7,7 +7,9 @@ Pallas kernel in interpret mode, over the sweep of
 sweep of `tests/test_kernel_properties.py:_check_embedding_bag`, and the
 d = 1 table of Wide&Deep's wide part.  The CUDA kernel is held to the
 same plain version on the card by `tests/test_torch_cuda.py` and
-`chip_smoke.py`."""
+`chip_smoke.py`; here its launch geometry (`ops.staged_geometry`) and
+index walk (emulated in numpy) are held to their invariants, their
+refusals and the Pallas kernel."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 
 from repro.kernels.embedding_bag.ops import bag_sum as jax_bag_sum
 from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_embedding_bag_ref
+from repro_torch.kernels.embedding_bag import ops as EO
 from repro_torch.kernels.embedding_bag.ops import bag_sum
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
@@ -116,3 +119,156 @@ def test_cpu_wrapper_counts_nothing_and_mixed_devices_raise():
         bag_sum(table.to("meta"), ids)
     with pytest.raises(ValueError, match="unsupported device"):
         bag_sum(table.to("meta"), ids.to("meta"))
+
+
+# --------------------------------------------------------------------------
+# the staged kernel's geometry and index walk (`ops.staged_geometry`, the
+# loops of `bag.cu:bag_staged_kernel`), emulated here on the CPU
+
+GEOMETRY_CASES = [  # (B, F, d, element bytes, 16-byte vectors)
+    (262_144, 40, 1, 4, False), (512, 40, 1, 4, False), (262_144, 40, 1, 2, False),
+    (262_144, 40, 32, 4, True), (1, 40, 32, 4, True), (4097, 130, 3, 4, False),
+    (10_001, 130, 32, 2, True), (5, 7, 33, 2, False), (3, 2, 4096, 4, True),
+    (70, 0, 1, 4, False), (1, 1, 1, 4, False), (9000, 500, 8, 4, True)]
+
+
+@pytest.mark.parametrize("B,F,d,elt,vec", GEOMETRY_CASES)
+def test_staged_geometry_invariants(B, F, d, elt, vec):
+    """The launch `staged_geometry` picks: a bag's vectors over the fewest
+    power-of-two lanes (at most 256), tiles of at most 32 bags that cover
+    the batch and make at least one tile an SM where the batch has the
+    bags, a chunk of fields that fits 48 KB at an odd stride (what
+    `bag.cu:launch_staged` accepts)."""
+    sms = 132
+    g = EO.staged_geometry(B, F, d, elt, vec, sms)
+    V = 16 // elt if vec else 1
+    cols, P = d // V, 1 << g.lgP
+    tiles = -(-B // g.TB)
+    assert P <= EO.BAG_THREADS and (P >= cols or P == EO.BAG_THREADS)
+    assert P == 1 or P // 2 < cols
+    assert 1 <= g.TB <= min(EO.TILE_BAGS, EO.BAG_THREADS // P)
+    assert tiles >= min(B, sms) and -(-cols // P) <= 65535
+    assert g.S % 2 == 1 and g.S >= g.FC >= 1 and (F == 0 or g.FC <= F)
+    assert g.TB * g.S * P * V * elt <= EO.STAGE_BYTES
+
+
+def _staged_walk(table, ids, vec):
+    """`bag_staged_kernel` step by step in numpy: each block's gather walk
+    (every thread's (bag, field) counters, 8 or 4 units at a time) into a
+    shared tile at (bag * S + field) * P + lane, then each bag's fp32 sum in
+    field order, rounded once.  Asserts that the walk writes each unit of
+    a chunk once, inside the tile, and (4-byte rows) that a warp's reads in
+    the sum fall in 32 banks.  -> (B, d) in the table's dtype."""
+    (B, F), (_, d) = ids.shape, table.shape
+    elt = table.element_size()
+    g = EO.staged_geometry(B, F, d, elt, vec, sms=132)
+    V = 16 // elt if vec else 1
+    cols, P = d // V, 1 << g.lgP
+    batch = 4 if V * elt == 16 else 8
+    rps = EO.BAG_THREADS // P
+    rows = table.float().numpy().reshape(-1, cols, V)
+    ids_np = ids.numpy()
+    out = np.zeros((B, cols, V), np.float32)
+    for tile in range(-(-B // g.TB)):
+        b0 = tile * g.TB
+        nb = min(g.TB, B - b0)
+        for cb in range(-(-cols // P)):
+            acc = np.zeros((g.TB * P, V), np.float32)
+            for f0 in range(0, F, g.FC):
+                fc = min(g.FC, F - f0)
+                units, dj, df = nb * fc, rps // fc, rps % fc
+                smem = np.full((g.TB * g.S * P, V), np.nan, np.float32)
+                written = np.zeros(g.TB * g.S * P, np.int64)
+                for t in range(EO.BAG_THREADS):
+                    c = t % P
+                    col = cb * P + c
+                    u = t // P
+                    jj, ff = divmod(u, fc)
+                    while u < units:
+                        for k in range(batch):
+                            if u + k * rps < units and col < cols:
+                                at = (jj * g.S + ff) * P + c
+                                smem[at] = rows[ids_np[b0 + jj, f0 + ff], col]
+                                written[at] += 1
+                            jj, ff = jj + dj, ff + df
+                            if ff >= fc:
+                                ff, jj = ff - fc, jj + 1
+                        u += batch * rps
+                live = [(jj * g.S + ff) * P + c for jj in range(nb) for ff in range(fc)
+                        for c in range(P) if cb * P + c < cols]
+                assert sorted(np.flatnonzero(written)) == sorted(live)
+                assert written.max() <= 1
+                for t in range(nb * P):
+                    j, c = divmod(t, P)
+                    for f in range(fc):
+                        acc[t] += smem[(j * g.S + f) * P + c]
+                if P == 1 and V * elt == 4:
+                    for w0 in range(0, nb, 32):
+                        lanes = np.arange(w0, min(w0 + 32, nb))
+                        for f in range(fc):
+                            banks = (lanes * g.S + f) % 32
+                            assert len(set(banks)) == len(lanes)
+            for t in range(nb * P):
+                j, c = divmod(t, P)
+                if cb * P + c < cols:
+                    out[b0 + j, cb * P + c] = acc[t]
+    return torch.from_numpy(out.reshape(B, d)).to(table.dtype)
+
+
+@pytest.mark.parametrize("B,F,d,vec", [(1, 40, 1, False), (40, 13, 1, False), (9, 130, 1, False),
+                                       (5, 40, 3, False), (3, 20, 32, True), (2, 9, 33, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_walk_matches_pallas_bitwise(B, F, d, vec, dtype):
+    """The staged kernel's index walk, emulated, sums each bag's rows in
+    the Pallas kernel's order (f = 0..F-1 in fp32, rounded once): bitwise
+    the JAX package's kernel in interpret mode; repeated rows and ids at 0
+    and rows - 1 included."""
+    rng = np.random.default_rng(B * 1000 + F * 10 + d)
+    rows = 300
+    table_np = rng.normal(size=(rows, d)).astype(np.float32)
+    ids_np = rng.integers(0, rows, (B, F)).astype(np.int32)
+    ids_np[0, 0], ids_np[-1, -1] = 0, rows - 1
+    ids_np[B // 2] = 5
+    table = torch.from_numpy(table_np).to(dtype)
+    got = _staged_walk(table, torch.from_numpy(ids_np), vec)
+    pallas = jax_bag_sum(jnp.asarray(table_np, DTYPES[dtype]), jnp.asarray(ids_np),
+                         interpret=True)
+    assert np.array_equal(_np32(got), _np32(pallas))
+    torch.testing.assert_close(got.float(), embedding_bag_ref(table, torch.from_numpy(ids_np))
+                               .float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("args,match", [
+    ((0, 40, 1, 4, False, 132), "B=0"), ((8, -1, 1, 4, False, 132), "F=-1"),
+    ((8, 40, 1, 4, False, 0), "sms=0"), ((8, 40, 3, 4, True, 132), "of the 4-element vector")])
+def test_staged_geometry_refuses_what_the_kernel_does_not_take(args, match):
+    """No batch, a negative field count, no SM and a row that 16-byte
+    vectors do not divide raise before any launch, on the CPU as on the
+    card (`bag_sum` computes the geometry only for CUDA tensors)."""
+    with pytest.raises(ValueError, match=match):
+        EO.staged_geometry(*args)
+
+
+@pytest.mark.parametrize("B,TB", [(262_144, 32), (65_536, 32), (8_448, 32), (512, 2), (1, 1)])
+def test_staged_geometry_at_wide_deep_batches(B, TB):
+    """Wide&Deep's wide sum on 132 SMs (40 fields, 4-byte rows): full
+    tiles of 32 bags from serve_bulk down to 8,448 bags (two tiles an SM),
+    tiles of 2 at serve_p99's 512 (256 tiles), one bag alone; all 40
+    fields in one chunk at the stride 41."""
+    assert EO.staged_geometry(B, 40, 1, 4, False, 132) == EO.Geometry(0, TB, 40, 41)
+
+
+@pytest.mark.parametrize("F,B,d", [(1, 33, 1), (40, 65, 1), (130, 7, 1), (40, 33, 32),
+                                   (130, 3, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_matches_jax_edges(F, B, d, dtype):
+    """The shapes the staged route's card tests cover: batches that are
+    not a multiple of a tile, 130 fields, ids at 0 and rows - 1, a bag
+    that repeats one row."""
+    rng = np.random.default_rng(F + B + d)
+    rows = 500
+    table = rng.normal(size=(rows, d)).astype(np.float32)
+    ids = rng.integers(0, rows, (B, F)).astype(np.int32)
+    ids[0, 0], ids[-1, -1] = 0, rows - 1
+    ids[B // 2] = 11
+    _check(table, ids, dtype)
