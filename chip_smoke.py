@@ -114,6 +114,25 @@ else (no network, no JAX).  Phases:
    device events apart, and on the same call's 8 fields of each
    vocabulary size (1 M, 100 K, 10 K, 1 K rows) and in field-major order
    (its field-group probe);
+2l. tensor parallelism on one card (after every other phase; the
+   parent holds no model): `launch/serve.py`'s mesh path at tp = 2,
+   two ranks sharing the card over gloo, each building its shard of the
+   phase-2 system from the seed (16 query / 4 kv heads, half the MLP and
+   vocabulary, drawn one whole parameter at a time; the kernels loaded
+   from phase 1's build) and serving phase 2's trace wave with reuse
+   off, chunked with reuse off and chunked with reuse on, with the
+   ranks' digest check of every step's plan and recompute mask on.  It
+   fails unless each rank launched B1 and B2 on their tensor-core
+   routes, B3 and B4, held 4 kv heads in its arena, logged the same
+   digests as the other rank, and decoded tokens that pass the token
+   gate against phases 2 and 2c (the all-reduces reorder bf16 sums).
+   After each run's counts are read, each rank holds B1 (offline build),
+   B2, B3 and B4 (each kind of gather) at the largest call it made, on
+   the shard's 16 query / 4 kv heads, against their plain versions with
+   phase 3's tolerances (those launches are not counted).  Per rank:
+   wall time, TTFT p50, TBT p50, peak GB, launches by kernel, the
+   collective backend, the checks' max|kernel - plain| and the largest
+   call's shapes per kernel;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies, at its largest all-layer call of
@@ -196,6 +215,7 @@ from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
 from repro_torch.kernels.selective_attention import ops as SO  # noqa: E402
 from repro_torch.kernels.selective_attention.ref import selective_mha_ref  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
+from repro_torch.launch.mesh import collective_backend  # noqa: E402
 from repro_torch.launch import steps as STEPS  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -204,7 +224,7 @@ from repro_torch.serving import api as API  # noqa: E402
 from repro_torch.serving import batch_engine as BE  # noqa: E402
 from repro_torch.serving import block_store as BS  # noqa: E402
 from repro_torch.serving import workload as WL  # noqa: E402
-from repro_torch.serving.api import ServeConfig, StoreConfig  # noqa: E402
+from repro_torch.serving.api import MeshConfig, ServeConfig, StoreConfig  # noqa: E402
 from repro_torch.serving.batching import TorchEngineBackend  # noqa: E402
 from repro_torch.serving.cluster import ClusterEngine  # noqa: E402
 from repro_torch.serving.kv_pool import PagedKVPool  # noqa: E402
@@ -987,6 +1007,28 @@ def in_turns(fn, lib, rounds=2):
     return {"pairs": pairs, "verdict": verdict}
 
 
+def gather_err(call, label):
+    """A recorded block-gather call against its plain version: copies
+    (values, unrotated and raw keys) bitwise, rotated keys within
+    GATHER_TOL of max(1, max|plain|) in the pools' dtype.  -> max|kernel -
+    plain| of the rotated keys (0.0 for a copy)."""
+    rotate, dt = call[4], call[0].pool_k.dtype
+    got, want = run_gather(call), call[0].plain(*call[1:4], rotate=rotate, keep_raw=call[5])
+    torch.cuda.synchronize()
+    exact = [torch.equal(x, w) for x, w in zip(got, want)]
+    err = 0.0
+    if rotate:
+        exact = exact[1:]                    # values and raw keys
+        scale = max(1.0, float(want[0].float().abs().max()))
+        err = float((got[0].float() - want[0].float()).abs().max())
+        if not torch.isfinite(got[0]).all() or err > GATHER_TOL[dt] * scale:
+            raise RuntimeError(f"{label}: rotated keys max|kernel-plain| {err} > "
+                               f"{GATHER_TOL[dt]} x {scale}")
+    if not all(exact):
+        raise RuntimeError(f"{label}: copies not bitwise {exact}")
+    return err
+
+
 def gather_records(calls, spec, launches, modes):
     """The block gather against its plain version on the inputs of its
     largest call of each mode (`GatherRecorder`): "layers" (a selective
@@ -1006,25 +1048,8 @@ def gather_records(calls, spec, launches, modes):
             raise RuntimeError(f"block_gather: no {mode} call was recorded")
         _, call = calls[mode]
         rotate = call[4]
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
-            c = retyped(call, dt)
-            got, want = run_gather(c), c[0].plain(*c[1:4], rotate=rotate, keep_raw=c[5])
-            torch.cuda.synchronize()
-            exact = [torch.equal(x, w) for x, w in zip(got, want)]
-            if rotate:
-                exact = exact[1:]                    # values and raw keys
-                scale = max(1.0, float(want[0].float().abs().max()))
-                err = float((got[0].float() - want[0].float()).abs().max())
-                if not torch.isfinite(got[0]).all() or err > GATHER_TOL[dt] * scale:
-                    raise RuntimeError(f"block_gather {mode} {dt}: rotated keys "
-                                       f"max|kernel-plain| {err} > {GATHER_TOL[dt]} x {scale}")
-            else:
-                err = 0.0
-            if not all(exact):
-                raise RuntimeError(f"block_gather {mode} {dt}: copies not bitwise {exact}")
-            errs[dt] = err
-            del got, want, c
+        errs = {dt: gather_err(retyped(call, dt), f"block_gather {mode} {dt}")
+                for dt in (torch.float32, torch.bfloat16)}
         g, table, positions, layers, _, keep_raw = call
         desc = [f"{tuple(table.shape)}:int32", f"layers {layers}",
                 f"pools {tuple(g.pool_k.shape)}:{str(g.pool_k.dtype)[6:]}"]
@@ -1141,19 +1166,28 @@ def paged_split_record(a, kw):
             "split_ref_max_abs_err": err, "device_cold_ms": cold, "flush_mb": 256}
 
 
-def checked_record(name, spec, launches, a, kw, extra, fp32_too=False, label=None):
-    """The kernel against its plain version on these inputs (within
-    TOL of their working dtype; with `fp32_too` also the same call cast to
-    fp32, which takes the SIMT route at D > 32, held to the plain version
-    and timed), then its timed record."""
-    fn = spec["fn"]
+def plain_err(fn, name, a, kw, label):
+    """The kernel wrapper `fn` at a recorded call against its plain version
+    on the same inputs, within TOL of their working dtype.  -> (kernel
+    output, max|kernel - plain|)."""
     out = fn(*a, **kw)
     plain = plain_call(name, a, kw)
     torch.cuda.synchronize()
     wdt = a[0].dtype
     err = float((out.float() - plain.float()).abs().max())
     if not torch.isfinite(out).all() or err > TOL[wdt]:
-        raise RuntimeError(f"{label or name}: max|kernel-plain| {err} > {TOL[wdt]} ({wdt})")
+        raise RuntimeError(f"{label}: max|kernel-plain| {err} > {TOL[wdt]} ({wdt})")
+    return out, err
+
+
+def checked_record(name, spec, launches, a, kw, extra, fp32_too=False, label=None):
+    """The kernel against its plain version on these inputs (within
+    TOL of their working dtype; with `fp32_too` also the same call cast to
+    fp32, which takes the SIMT route at D > 32, held to the plain version
+    and timed), then its timed record."""
+    fn = spec["fn"]
+    out, err = plain_err(fn, name, a, kw, label or name)
+    wdt = a[0].dtype
     extra = dict(extra, tol=TOL[wdt])
     msg = ""
     if fp32_too:
@@ -3901,7 +3935,212 @@ def serving_phases(args, dev):
               "recompute_fraction": rfrac, "prompt_tokens": plan.n, "breakdown": breakdown,
               "recsys_cells": recsys_cells, "recsys_card_vs_cpu": recsys_checks,
               "kernels": records}
-    return report, records
+    return report, records, closed
+
+
+# ------------------------------------------------------------------ phase 2l
+# phase 2l: tensor parallelism over kv heads, TP_RANKS ranks on the one card
+TP_RANKS = 2
+TP_RUNS = (("wave", False), ("chunked", False), ("chunked", True))
+
+
+def all_reduce_ms(rows, reps=20):
+    """Host ms of one model-axis all-reduce of a (rows, d_model) bf16
+    activation on the card (the layer's wo / w_down sums), mean of
+    `reps` after one untimed call; the collectives block the host, so the
+    host clock with the card synchronised times them."""
+    from repro_torch.sharding import ctx as CTX
+
+    x = torch.zeros((rows, QWEN3_8B.d_model), dtype=torch.bfloat16, device="cuda")
+    CTX.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        CTX.all_reduce(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+TP_KERNELS = ("flash_attention", "selective_attention", "paged_decode_attention")
+
+
+def rank_kernel_checks(rec, label):
+    """Inside a phase-2l rank: each kernel at the largest call the rank's
+    run made (its shard's shapes, `install_recorders`) against its plain
+    version on those inputs, as phase 3 holds them: B1 and B2 on their
+    tensor-core routes and B3 within TOL, B4's copies bitwise and its
+    rotated keys within GATHER_TOL, once per call kind.  -> ({kernel:
+    max|kernel - plain|}, {kernel: (query heads, kv heads)})."""
+    errs, heads = {}, {}
+    for name in TP_KERNELS:
+        r = rec[name]
+        if r.args is None:
+            continue
+        a, kw = device_inputs(name, r.args, r.kwargs, r.args[0].device)
+        if name in OTHER_ROUTE:
+            check_route(name, a, kw, "tc")
+        errs[name] = plain_err(KERNELS[name]["fn"], name, a, kw,
+                               f"phase 2l ({label}) {name}")[1]
+        heads[name] = (a[0].shape[-2], a[2 if name == "selective_attention" else 1].shape[-2])
+    for mode, (_, call) in sorted(rec["block_gather"].calls.items()):
+        errs[f"block_gather:{mode}"] = gather_err(call, f"phase 2l ({label}) block_gather {mode}")
+        heads[f"block_gather:{mode}"] = (None, call[0].pool_k.shape[-2])
+    return errs, heads
+
+
+class TPProbe(SERVE.Probe):
+    """Phase 2l's hooks inside each rank (`launch.serve.run_rank`): the
+    kernels must be phase 1's build (a rank only loads them); per run
+    the wrappers' launch counts, the inputs of each kernel's largest call
+    (`install_recorders`), held against the plain versions after the
+    counts are read (`rank_kernel_checks`: those launches are not
+    counted), the arena's shape and each request's logit rows
+    (`LogitTap`); after the offline build, the all-reduce's host time at
+    a decode step's 8 rows and a selective pass's 1,600 (`all_reduce_ms`)."""
+
+    def begin(self, label):
+        missing = [n for n in _build.SOURCES if not _build.library_path(n).exists()]
+        if missing:
+            raise RuntimeError(f"rank found no library for {missing}: phase 1 builds every "
+                               "kernel before the ranks start")
+        reset_counts()
+        self.rec, self.saved = install_recorders()
+        self.logits = LogitTap().__enter__()
+
+    def end(self, label, mesh, engine=None, backend=None):
+        self.logits.__exit__()
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        torch.cuda.synchronize()
+        calls = self.rec["block_gather"].calls
+        out = {"launches": counts(), "rows": self.logits.rows,
+               "shapes": {n: shapes(self.rec[n].args, self.rec[n].kwargs)
+                          for n in TP_KERNELS if self.rec[n].args is not None},
+               "gather_pools": sorted({tuple(c[0].pool_k.shape) for _, c in calls.values()}),
+               "arena": None if engine is None else tuple(engine.pool.arena_k.shape)}
+        out["max_abs_err"], out["heads"] = rank_kernel_checks(self.rec, label)
+        self.rec = None
+        if label == "offline build":
+            out["all_reduce_ms"] = {rows: all_reduce_ms(rows) for rows in (8, 1600)}
+        return out
+
+
+def tp_phase(args, closed, smi):
+    """Phase 2l (the module docstring).  -> its report."""
+    cfg = dataclasses.replace(QWEN3_8B, n_layers=args.n_layers)
+    mesh = MeshConfig(tp=TP_RANKS)
+    configs = [ServeConfig(decode_steps=args.decode_steps, sched=sched, kv_reuse=reuse,
+                           mesh=mesh) for sched, reuse in TP_RUNS]
+    rank_args = argparse.Namespace(
+        model=QWEN3_8B.name, n_layers=args.n_layers, requests=args.requests, qps=args.qps,
+        zipf_users=None, long_prompt_frac=0.0, prompt_tokens=160, device="cuda")
+    log(f"tensor parallelism (phase 2l): launch.serve's mesh path, tp = {TP_RANKS} ranks on "
+        f"one card over {collective_backend(TP_RANKS, 'cuda')}; {cfg.name} width, depth "
+        f"{cfg.n_layers}, {cfg.n_heads // TP_RANKS}/{cfg.n_kv_heads // TP_RANKS} heads, d_ff "
+        f"{cfg.d_ff // TP_RANKS} and vocab {cfg.vocab_size // TP_RANKS} a rank; phase 2's "
+        f"trace ({args.requests} requests): "
+        + ", ".join(f"{s} reuse {'on' if r else 'off'}" for s, r in TP_RUNS))
+    t0 = time.perf_counter()
+    ranks = SERVE.run_mesh(configs, rank_args, probe=TPProbe(), check=True)
+    wall = time.perf_counter() - t0
+    want_heads = cfg.n_kv_heads // TP_RANKS
+    want = {n: (cfg.n_heads // TP_RANKS, want_heads) for n in TP_KERNELS}
+
+    def held(label, rank, probe, need):
+        """The rank's kernel checks of this run: every kernel in `need`
+        checked against its plain version, on the shard's heads."""
+        errs, heads = probe["max_abs_err"], probe["heads"]
+        if [n for n in need if n not in errs]:
+            raise RuntimeError(f"phase 2l ({label}) rank {rank}: no checked call of "
+                               f"{[n for n in need if n not in errs]}")
+        wrong = {n: h for n, h in heads.items() if h[1] != want_heads
+                 or (n in want and h != want[n])}
+        if wrong:
+            raise RuntimeError(f"phase 2l ({label}) rank {rank}: heads {wrong}, want "
+                               f"{cfg.n_heads // TP_RANKS} query / {want_heads} kv heads")
+        log(f"  check {label}, rank {rank}: max|kernel-plain| "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (tol {TOL[torch.bfloat16]} bf16 / {TOL[torch.float32]} fp32; B4 copies "
+            f"bitwise, rotated keys {GATHER_TOL[torch.float32]} x max(1, max|k|)); heads "
+            f"{heads}")
+        return errs
+
+    out = {"tp": TP_RANKS, "wall_s": wall, "nvidia_smi": smi, "runs": [],
+           "build": [{"rank": r["rank"], "build_s": r["build_s"],
+                      "launches": r["build_probe"]["launches"],
+                      "b1_shapes": r["build_probe"]["shapes"]["flash_attention"],
+                      "max_abs_err": held("offline build", r["rank"], r["build_probe"],
+                                          ["flash_attention"]),
+                      "all_reduce_ms": r["build_probe"]["all_reduce_ms"]}
+                     for r in ranks]}
+    for out_rank in ranks:
+        b = out_rank["build_probe"]["launches"]
+        log(f"  rank {out_rank['rank']} ({out_rank['device']}): offline build "
+            f"{out_rank['build_s']:.1f} s, launches {b}; largest B1 call "
+            f"{out_rank['build_probe']['shapes']['flash_attention']}; one bf16 all-reduce "
+            f"of (rows, {cfg.d_model}) over {collective_backend(TP_RANKS, 'cuda')}, host ms: "
+            f"{out_rank['build_probe']['all_reduce_ms']} ({smi})")
+        if b["flash_attention"] == 0 or b["flash_attention:fp32"] or b["flash_attention:small"]:
+            raise RuntimeError(f"phase 2l rank {out_rank['rank']}: the offline build launched "
+                               f"B1 {b}: want its tensor-core route only")
+    for i, (sched, reuse) in enumerate(TP_RUNS):
+        label = f"{sched}, reuse {'on' if reuse else 'off'}"
+        runs = [r["runs"][i] for r in ranks]
+        rep0 = runs[0]["report"]
+        if rep0["mesh"]["backend"] != "gloo" or rep0["mesh"]["tp"] != TP_RANKS:
+            raise RuntimeError(f"phase 2l ({label}): mesh {rep0['mesh']}")
+        per_rank = []
+        for rank, run in zip(ranks, runs):
+            p, rep = run["probe"], run["report"]
+            la = p["launches"]
+            need = {"selective_attention": la["selective_attention"],
+                    "paged_decode_attention": la["paged_decode_attention"],
+                    "block_gather": la["block_gather"]}
+            if min(need.values()) == 0 or la["selective_attention:fp32"] \
+                    or la["selective_attention:small"]:
+                raise RuntimeError(f"phase 2l ({label}) rank {rank['rank']} launched {la}: "
+                                   "want B2 (tensor-core route only), B3 and B4")
+            if p["arena"][3] != want_heads:
+                raise RuntimeError(f"phase 2l ({label}) rank {rank['rank']}: arena "
+                                   f"{p['arena']}, want {want_heads} kv heads")
+            if run["log"] != runs[0]["log"] or not run["log"]:
+                raise RuntimeError(f"phase 2l ({label}): rank {rank['rank']}'s digest log "
+                                   "differs from rank 0's")
+            if run["generated"] != runs[0]["generated"]:
+                raise RuntimeError(f"phase 2l ({label}): the ranks decoded other tokens")
+            need = ["selective_attention", "paged_decode_attention", "block_gather:layers",
+                    "block_gather:copy"] + (["block_gather:prefix"]
+                                            if la["block_gather:prefix"] else [])
+            errs = held(label, rank["rank"], p, need)
+            per_rank.append({"rank": rank["rank"], "device": rank["device"],
+                             "backend": rep["mesh"]["backend"], "wall_s": run["wall_s"],
+                             "ttft_p50_s": rep["ttft_p50_s"], "tbt_p50_s": rep["tbt_p50_s"],
+                             "peak_gb": run["peak_gb"], "launches": la, "max_abs_err": errs,
+                             "shapes": p["shapes"], "gather_pools": p["gather_pools"],
+                             "arena": p["arena"]})
+            log(f"  {label}, rank {rank['rank']} ({smi}): wall {run['wall_s']:.2f} s, TTFT "
+                f"p50 {rep['ttft_p50_s'] * 1e3:.1f} ms, TBT p50 {rep['tbt_p50_s'] * 1e3:.1f} "
+                f"ms, peak {run['peak_gb']:.2f} GB, backend {rep['mesh']['backend']}; "
+                f"launches {la}")
+        tags = [t for t, _ in runs[0]["log"]]
+        log(f"  {label}: the ranks' digests agree ({tags.count('step plan')} step plans, "
+            f"{tags.count('recompute mask')} recompute masks); largest calls "
+            f"{per_rank[0]['shapes']}; B4 pools {per_rank[0]['gather_pools']}; arena "
+            f"{per_rank[0]['arena']}")
+        ref = closed["wave" if sched == "wave" else "chunked"]
+        gate = token_gate({int(k): v for k, v in runs[0]["generated"].items()}, ref[0],
+                          runs[0]["probe"]["rows"], ref[1],
+                          label=f"phase 2l ({label}) vs phase {'2' if sched == 'wave' else '2c'}")
+        same = sum(runs[0]["generated"][r] == ref[0][r] for r in ref[0])
+        log(f"  {label}: {same}/{len(ref[0])} requests decode phase "
+            f"{'2' if sched == 'wave' else '2c'}'s tokens; token gate {gate['diverged'] or 'clean'}"
+            f", max top-1 logit difference before a divergence "
+            f"{gate['max_top1_logit_diff_before_divergence']:.4g}")
+        out["runs"].append({"label": label, "per_rank": per_rank, "token_gate": gate,
+                            "digests": len(runs[0]["log"]), "same_tokens": same,
+                            "mesh": rep0["mesh"]})
+    log(f"  phase 2l {wall:.1f} s (ranks' start, shard build and the three runs)")
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -3942,7 +4181,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    report, records = serving_phases(args, dev)
+    report, records, closed = serving_phases(args, dev)
 
     # ---- phase 2i: the LM architectures' prefill and decode steps ----
     gc.collect()
@@ -3971,6 +4210,13 @@ def main(argv=None):
     records = records + train_records
     report["kernels"] = records
     PHASE_S["2j"] = time.perf_counter() - t0
+
+    # ---- phase 2l: tensor parallelism, two ranks on the card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["tp"] = tp_phase(args, closed, smi)
+    PHASE_S["2l"] = time.perf_counter() - t0
     report.update({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start})

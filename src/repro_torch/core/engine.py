@@ -34,6 +34,15 @@ prefix tier carries them in the same block table: its entries from
 `cache.n_rows` on address the serving arena's layer planes (`shared`,
 `kv_pool.PagedKVPool.planes`), which the block-gather kernel reads as its
 second pool.
+
+Under tensor parallelism (a model split over the ranks of a mesh's model
+axis, `models.transformer`) every function here runs on the rank's heads
+unchanged, the kernels included, at the shard's shapes.  Eq. 3 is a
+reduction over heads: layer 0's attention mass is averaged and its K/V
+divergence summed over every rank's heads (`sharding.ctx`) before
+`select_recompute`, so every rank selects from the same values and the
+recompute mask is the same on every rank (`ctx.check` compares it when
+the mesh checks).
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ from repro_torch.kernels.selective_attention.ref import selective_mha_ref
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Block, Transformer
 from repro_torch.models.transformer import forward as model_forward
+from repro_torch.sharding import ctx as CTX
 
 # Tile sizes of the selective kernel's block-liveness map: the engine's
 # shape buckets are multiples of 64, as in the JAX package.
@@ -186,10 +196,11 @@ def full_attn(q, k, v, q_pos, k_pos, k_valid=None):
 
 
 def _layer_step(x, lp: Block, cfg: LMConfig, o):
-    """Residual updates after attention output `o` (.., H, Dh)."""
-    x = x + torch.einsum("...he,hed->...d", o, lp.wo)
-    return x + L.mlp_apply(L.rms_norm(x, lp.mlp_norm, cfg.norm_eps), lp.mlp,
-                           cfg.mlp_type)
+    """Residual updates after attention output `o` (.., H, Dh); a shard's
+    partial products are summed over the model axis."""
+    x = x + CTX.all_reduce(torch.einsum("...he,hed->...d", o, lp.wo))
+    return x + CTX.all_reduce(L.mlp_apply(L.rms_norm(x, lp.mlp_norm, cfg.norm_eps),
+                                          lp.mlp, cfg.mlp_type))
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +277,7 @@ def batched_prefill(model: Transformer, toks: np.ndarray, last_idx: np.ndarray,
     x, k_all, v_all = batched_forward(model, t, valid, kernels)
     x_last = x[torch.arange(t.shape[0], device=dev), last]
     xf = L.rms_norm(x_last, model.final_norm, model.cfg.norm_eps)
-    return _host(xf @ model.head()), k_all, v_all
+    return _host(model.logits(xf)), k_all, v_all
 
 
 def full_prefill_logits(model: Transformer, cfg: LMConfig, tokens: np.ndarray,
@@ -338,12 +349,14 @@ def layer0(model: Transformer, toks: np.ndarray, valid: np.ndarray, ck0, cv0):
     k_raw, v = layer0_kv(model, toks_t)
     k = L.apply_rope(k_raw[None], pos, cfg.rope_theta)[0]
     o, probs = full_attn(q, k, v, pos, pos, k_valid=valid_t)
-    # A_i: attention mass received by key i from *valid* queries
-    attn_mass = (probs * valid_t[None, None, :, None]).mean(dim=(0, 1)).sum(dim=0)
+    # A_i: attention mass received by key i from *valid* queries, over
+    # every head of every rank
+    attn_mass = CTX.mean_over_tp(
+        (probs * valid_t[None, None, :, None]).mean(dim=(0, 1)).sum(dim=0))
     dk = (k_raw.float() - torch.as_tensor(ck0, device=dev)).abs().sum(dim=(1, 2))
     dv = (v.float() - torch.as_tensor(cv0, device=dev)).abs().sum(dim=(1, 2))
     x = _layer_step(x, lp, cfg, o)
-    return x, attn_mass, dk + dv, k_raw, v
+    return x, attn_mass, CTX.all_reduce(dk + dv), k_raw, v
 
 
 def select_recompute(plan: AssemblyPlan, have: np.ndarray,
@@ -457,7 +470,7 @@ def selective_layers(model: Transformer, x: torch.Tensor, r_idx: np.ndarray,
     fs = torch.from_numpy(np.asarray(final_slot, np.int64)).to(dev)
     xf = L.rms_norm(xr[torch.arange(B, device=dev), fs], model.final_norm,
                     cfg.norm_eps)
-    logits = xf @ model.head()                                  # (B, V)
+    logits = model.logits(xf)                                   # (B, V)
     deep = lambda t: t.view(cfg.n_layers - 1, B, n, *t.shape[2:]).movedim(0, 2)
     return logits, deep(k_raw), deep(v_all)
 
@@ -591,6 +604,7 @@ def selective_prefill_batch(
                                                     cache, bucket, gather=gather)
         rec, stats = select_recompute(plan, have, _host(attn_mass),
                                       _host(div_raw), sel)
+        CTX.check("recompute mask", rec)
         k0_of.append(k0)
         v0_of.append(v0)
         stats_of.append(stats)
@@ -767,10 +781,12 @@ class ChunkedPrefill:
         return np.arange(lo, hi), k0[:hi - lo], v0[:hi - lo]
 
     def _select(self) -> None:
-        attn_mass = torch.cat(self._ms).sum(dim=0)     # one device reduction
-        div = torch.cat(self._divs)
+        # one device reduction, then over every rank's heads
+        attn_mass = CTX.mean_over_tp(torch.cat(self._ms).sum(dim=0))
+        div = CTX.all_reduce(torch.cat(self._divs))
         self.recompute, self.stats = select_recompute(
             self.plan, self.have, _host(attn_mass), _host(div), self.sel)
+        CTX.check("recompute mask", self.recompute)
         # the mass rows are O(n_pad^2) floats per request: free them once
         # the scan-wide reduction has consumed them
         self._ms = []

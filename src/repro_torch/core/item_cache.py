@@ -9,13 +9,16 @@ per-replica footprint.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.cache_rows import CacheRows
 from repro_torch.core.placement import Placement
+from repro_torch.sharding import ctx as CTX
 
 
 @dataclass
@@ -78,16 +81,38 @@ class ItemKVStore:
         return None
 
 
+def measured_copy_s(tensors: Sequence[torch.Tensor], device) -> float:
+    """Seconds a device copy of `tensors` onto `device` takes, measured:
+    CUDA events around the copies on the current stream where either side
+    is a CUDA device, the host clock around them on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" or any(t.is_cuda for t in tensors):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for t in tensors:
+            t.to(device, copy=True)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    for t in tensors:
+        t.to(device, copy=True)
+    return time.perf_counter() - t0
+
+
 @dataclass(frozen=True)
 class TransferRecord:
     """One explicit cross-shard block movement, the unit the cluster's
-    transfer step is billed in (`cost_model.fetch_time_s`).  On one card
-    the bytes are already resident, so a record is a ledger entry: no
-    copy is made (the reference's measured mesh copy is not ported)."""
+    transfer step is billed in.  ``measured_s`` is the measured time of
+    the device copy when the client runs with per-instance home devices
+    (`ShardClient(devices=)`), 0.0 on the ledger-only path (the cluster
+    then bills the modelled `cost_model.fetch_time_s`)."""
     item_id: int
     src_instance: int
     n_tokens: int
     n_bytes: int
+    measured_s: float = 0.0
 
 
 class ShardClient:
@@ -98,14 +123,54 @@ class ShardClient:
     shard only, and every non-resident access goes through `pull()`,
     which finds the block on its holder and records a `TransferRecord`.
     Blocks no shard holds stay misses (the engine recomputes them).
+
+    ``devices`` (a home device per instance, indexed by instance id
+    modulo its length) makes the ledger physical: a pull stages the
+    block's bytes on its holder's device (once per item, cached) and then
+    copies them onto this instance's device, recording the measured
+    seconds (`measured_copy_s`; rank 0's on every rank of a mesh,
+    `sharding.ctx.decide`) in the `TransferRecord` and in the pending sum
+    the cluster bills (`take_measured_s`).  The bytes are unchanged, so
+    routing never changes what a request decodes.
     """
 
-    def __init__(self, store: ItemKVStore, instance: int):
+    def __init__(self, store: ItemKVStore, instance: int, devices=None):
         self.store = store
         self.instance = instance
+        self.devices = list(devices) if devices else None
         self.transfers: List[TransferRecord] = []
         self.n_local_blocks = 0
         self.n_miss_blocks = 0
+        # item -> (k, v) staged on its holder's device
+        self._dev_blocks: Dict[int, tuple] = {}
+        self._measured_pending = 0.0
+
+    @property
+    def measures(self) -> bool:
+        """Does this client measure real device copies?"""
+        return self.devices is not None
+
+    def home_device(self, instance: int):
+        return self.devices[instance % len(self.devices)]
+
+    def _measured_copy(self, blk: ItemBlock, src_instance: int) -> float:
+        staged = self._dev_blocks.get(blk.item_id)
+        if staged is None:
+            src = self.home_device(src_instance)
+            staged = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(src)
+                           for a in (blk.k, blk.v))
+            self._dev_blocks[blk.item_id] = staged
+        return measured_copy_s(staged, self.home_device(self.instance))
+
+    def take_measured_s(self) -> float:
+        """Measured seconds since the last take (the cluster drains this
+        right after each `stage`, to bill the dispatch)."""
+        s, self._measured_pending = self._measured_pending, 0.0
+        return s
+
+    def measured_seconds(self) -> float:
+        """Every pull's measured seconds."""
+        return sum(t.measured_s for t in self.transfers)
 
     def resident(self, item: int) -> bool:
         return int(item) in self.store.shards[self.instance].blocks
@@ -121,9 +186,14 @@ class ShardClient:
                 continue
             blk = self.store.shards[h].blocks.get(it)
             if blk is not None:
+                measured = 0.0
+                if self.devices is not None:
+                    # rank 0's measurement on every rank of a mesh
+                    measured = CTX.decide(self._measured_copy(blk, h))
+                    self._measured_pending += measured
                 self.transfers.append(TransferRecord(
                     item_id=it, src_instance=h, n_tokens=len(blk.tokens),
-                    n_bytes=blk.nbytes()))
+                    n_bytes=blk.nbytes(), measured_s=measured))
                 return blk
         return None
 

@@ -3,9 +3,16 @@ placement), the per-request plan / cached-KV lookup the serving path
 needs, and online ranking (full / rcllm / cacheblend / epic).  The port
 of `repro/core/rcllm.py`.  The offline caches' rows are also packed into
 one pool on the model's device (`core.cache_rows`), and a request's
-cached KV is its plan's block table into that pool."""
+cached KV is its plan's block table into that pool.
+
+Under tensor parallelism each rank builds its own system from the same
+seed (`make_system(mesh=)`): the same catalog, placement and plans on
+every rank, the model and the cached rows holding the rank's kv heads.
+The semantic cache matches tokens on the whole embedding, which every
+rank keeps on the host."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -44,16 +51,21 @@ class RcLLMSystem:
               review_corpus: List[np.ndarray], history_requests,
               k_instances: int = 4, n_instruction: int = 207,
               item_coverage: float = 1.0, lsh_bits: int = 12,
-              seed: int = 0) -> "RcLLMSystem":
+              seed: int = 0, token_embed: Optional[np.ndarray] = None) -> "RcLLMSystem":
+        """`token_embed`: the whole embedding (fp32 numpy), which a model
+        split over ranks does not hold; default: the model's."""
         instruction = SY.make_instruction(n_instruction, catalog.vocab_size)
-        token_embed = model.embed.detach().float().cpu().numpy()
+        if token_embed is None:
+            model.whole("the semantic cache's token embedding")
+            token_embed = model.embed.detach().float().cpu().numpy()
 
         # placement from the historical request log (Algorithm 1)
         req_items = [r.candidate_items for r in history_requests]
         placement = PL.place(catalog.n_items, req_items, k_instances)
 
         # batched, length-bucketed offline KV materialization
-        rows = CacheRows(cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim)
+        # the model's own kv heads: a shard's rows hold its heads only
+        rows = CacheRows(cfg.n_layers, model.layers[0].wk.shape[1], cfg.resolved_head_dim)
         corpus_kv = ENG.precompute_kv_batch(model, cfg, review_corpus)
         semantic = SC.build_semantic_cache(
             review_corpus, token_embed, n_bits=lsh_bits, seed=seed)
@@ -156,18 +168,35 @@ def make_system(cfg: LMConfig, device="cuda", profile_name: str = "amazon",
                 n_items: int = 300, k_instances: int = 4,
                 n_requests_hist: int = 200, seed: int = 0,
                 item_coverage: float = 1.0,
-                model: Optional[Transformer] = None):
+                model: Optional[Transformer] = None, mesh=None):
     """An RcLLM system around `cfg` on `device`: random weights from a
-    seeded `torch.Generator` on that device (or the given `model`), then
-    the offline build.  -> (system, review pool, profile, history)."""
+    seeded `torch.Generator` on that device (or the given whole `model`),
+    then the offline build.  With a `mesh` whose model axis has more than
+    one rank, this rank's system: the weights cut to its shard
+    (`sharding.specs`: drawn one whole parameter at a time, or cut out of
+    `model`), and the offline build run on its heads, inside
+    ``sharding.ctx.axes(mesh)``.  -> (system, review pool, profile,
+    history)."""
+    from repro_torch.sharding import ctx as CTX
+    from repro_torch.sharding import specs as SPECS
+
     prof, catalog, pool, hist, corpus = synthetic_world(
         profile_name, n_items, n_requests_hist, seed)
+    token_embed = None
+    split = mesh is not None and mesh.shape["model"] > 1
     if model is None:
         gen = torch.Generator(device=device).manual_seed(seed)
-        model = init_params(cfg, gen, device=device)
-    system = RcLLMSystem.build(model, cfg, catalog, corpus, hist,
-                               k_instances=k_instances,
-                               item_coverage=item_coverage, seed=seed)
+        if split:
+            model, token_embed = SPECS.init_sharded_params(cfg, mesh, gen, device)
+        else:
+            model = init_params(cfg, gen, device=device)
+    elif split:
+        token_embed = model.embed.detach().float().cpu().numpy()
+        model = SPECS.shard_lm_params(model, cfg, mesh, device=device)
+    with CTX.axes(mesh) if mesh is not None else contextlib.nullcontext():
+        system = RcLLMSystem.build(model, cfg, catalog, corpus, hist,
+                                   k_instances=k_instances, item_coverage=item_coverage,
+                                   seed=seed, token_embed=token_embed)
     return system, pool, prof, hist
 
 
@@ -186,7 +215,7 @@ def make_tiny_system(profile_name: str = "amazon", n_items: int = 300,
                      seed: int = 0, n_layers: int = 4, d_model: int = 64,
                      item_coverage: float = 1.0, n_heads: int = 4,
                      n_kv_heads: int = 2, device="cuda",
-                     model: Optional[Transformer] = None):
+                     model: Optional[Transformer] = None, mesh=None):
     """A small end-to-end RcLLM instance (the JAX package's
     `make_tiny_system` shapes).  Pass `model` to serve given weights —
     the parity tests pass the JAX init converted by
@@ -195,4 +224,4 @@ def make_tiny_system(profile_name: str = "amazon", n_items: int = 300,
     return make_system(cfg, device=device, profile_name=profile_name,
                        n_items=n_items, k_instances=k_instances,
                        n_requests_hist=n_requests_hist, seed=seed,
-                       item_coverage=item_coverage, model=model)
+                       item_coverage=item_coverage, model=model, mesh=mesh)

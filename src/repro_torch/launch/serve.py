@@ -41,6 +41,15 @@ device (``--k``, `serving.cluster`).
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --server \
         --sched chunked --requests 6 --speed 1
 
+    # tensor parallelism over kv heads: two ranks (gloo processes on the
+    # CPU, or ranks sharing one card), each serving its shard
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6 \
+        --config mesh.tp=2,sched=chunked,kv_reuse=on
+
+    # the same ranks started by torchrun instead of the launcher
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu --config mesh.tp=2
+
     # the analytic cluster simulator (no model runs; H100 SXM rates)
     PYTHONPATH=src python -m repro_torch.launch.serve --engine sim --k 8 \
         --model rcllm-qwen3-8b --requests 400 --qps 20 --mode prefix
@@ -57,13 +66,29 @@ billed from the cost model, since the workers share one card.  With
 ``--server`` the engine report gains the JAX launcher's ``server``,
 ``speed``, ``finish_reasons`` and ``online`` (`run_jax_server`); with
 ``--engine sim`` the JSON is the simulator's summary (`run_sim`).
+
+With ``--config mesh.tp=...`` (and ``mesh.dp``, ``mesh.mesh_shape``) the
+run is tensor-parallel: the launcher starts one rank per device of the
+mesh (`launch.mesh.spawn_ranks`, on a free local port), or joins the
+ranks ``torchrun`` started.  Rank ``r`` runs on ``cuda:(r % device
+count)``, or on the CPU with ``--device cpu``; the collectives run over
+NCCL when every rank has a card of its own and over gloo when ranks share
+a card or run on the CPU.  Each rank builds its shard of the system from
+the seed and serves the whole trace on its heads (`run_rank`); a dp > 1
+mesh repeats that on each replica.  Rank 0 prints the JSON, whose
+``mesh`` says the layout, the backend and every rank's device, time and
+peak memory (`_mesh_info`), and the cluster's ``"transfer_billing":
+"measured"`` with ``"transfer_copies": "same device"``: a rank's workers
+share its device, so the billed copies cross no link.  The session
+server does not run under tp > 1 yet (ROADMAP A.2).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-from typing import Optional
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,6 +96,7 @@ import torch
 from repro_torch.configs.base import LMConfig
 from repro_torch.configs.rcllm_qwen3_8b import CONFIG as QWEN3_8B
 from repro_torch.core import engine as ENG
+from repro_torch.launch import mesh as MESH
 from repro_torch.serving import api as API
 from repro_torch.serving.api import ServeConfig
 from repro_torch.serving.batching import PendingRequest
@@ -91,16 +117,16 @@ def model_config(name: str, n_layers: Optional[int] = None) -> Optional[LMConfig
 
 
 def rcllm_system(cfg: Optional[LMConfig], device, seed: int = 0, model=None,
-                 k_instances: int = 1):
+                 k_instances: int = 1, mesh=None):
     """The rcllm serving run's system (the tiny model when `cfg` is None;
     weights from a seeded generator unless `model` is given), built as the
     JAX launcher builds its system, its placement over `k_instances`
-    shards.  -> (system, review pool, profile): what traces over its
-    catalog are drawn from."""
+    shards; with a `mesh`, this rank's shard of it.  -> (system, review
+    pool, profile): what traces over its catalog are drawn from."""
     from repro_torch.core.rcllm import make_system, make_tiny_system
 
     kw = dict(n_items=80, n_requests_hist=40, k_instances=k_instances, seed=seed,
-              device=device, model=model)
+              device=device, model=model, mesh=mesh)
     if cfg is None:
         system, pool_rv, prof, _ = make_tiny_system(n_layers=2, d_model=32, **kw)
     else:
@@ -231,9 +257,11 @@ def _device_info(model, cfg: LMConfig) -> dict:
 
 
 def report(config: ServeConfig, engine, backend, workers, done,
-           warmup: bool) -> dict:
+           warmup: bool, mesh_info: Optional[dict] = None) -> dict:
     """The JAX launcher's engine-report keys for one run of `workers`
-    (the batcher's `WorkerState`s)."""
+    (the batcher's `WorkerState`s); `mesh_info`: the mesh of a
+    tensor-parallel run (`launch.mesh.Mesh.info`, every rank's record
+    added by `_mesh_info`)."""
     stats = engine.pool.stats()
     out = {
         "engine": "torch",
@@ -244,7 +272,7 @@ def report(config: ServeConfig, engine, backend, workers, done,
         "requests": len(done),
         "kv_reuse": "on" if config.kv_reuse else "off",
         "store": (dataclasses.asdict(config.store) if config.store.enabled else None),
-        "mesh": None,
+        "mesh": mesh_info,
         "decode_steps": config.decode_steps,
         "includes_jit_compile": not warmup,
         **_latency_split(done),
@@ -266,13 +294,14 @@ def report(config: ServeConfig, engine, backend, workers, done,
     return out
 
 
-def cluster_report(config: ServeConfig, cluster, rep, warmup: bool) -> dict:
-    """The JAX launcher's cluster-report keys for one run (`run_jax_cluster`,
-    without ``mesh``)."""
+def cluster_report(config: ServeConfig, cluster, rep, warmup: bool,
+                   mesh_info: Optional[dict] = None) -> dict:
+    """The JAX launcher's cluster-report keys for one run (`run_jax_cluster`;
+    ``mesh`` only for a tensor-parallel run, `mesh_info`)."""
     done = sorted(rep.completions, key=lambda c: c.rid)
     workers = cluster.batcher.workers
     ticks = [t for w in workers for t in w.ticks]
-    return {
+    out = {
         "engine": "torch-cluster",
         "k": config.k,
         "mode": config.mode,
@@ -286,7 +315,7 @@ def cluster_report(config: ServeConfig, cluster, rep, warmup: bool) -> dict:
         "requests": len(done),
         "decode_steps": config.decode_steps,
         "includes_jit_compile": not warmup,
-        "transfer_billing": "modeled",
+        "transfer_billing": "measured" if cluster.worker_devices else "modeled",
         "per_request_ttft_s": [round(float(x), 4) for x in rep.ttft()],
         **_latency_split(done),
         **_throughput(done, rep.generated),
@@ -324,6 +353,12 @@ def cluster_report(config: ServeConfig, cluster, rep, warmup: bool) -> dict:
             for w in rep.workers],
         **_device_info(cluster.system.model, cluster.system.cfg),
     }
+    if mesh_info is not None:
+        out["mesh"] = mesh_info
+    if cluster.transfer_copies is not None:
+        # measured copies within one device are not network transfers
+        out["transfer_copies"] = cluster.transfer_copies
+    return out
 
 
 def run_cluster(config: ServeConfig, args, device) -> dict:
@@ -340,6 +375,169 @@ def run_cluster(config: ServeConfig, args, device) -> dict:
     cluster = ClusterEngine(system, config)
     rep = cluster.run(trace, decode_steps=config.decode_steps)
     return cluster_report(config, cluster, rep, args.warmup)
+
+
+def _mesh_info(ranks: Sequence[dict], i: int) -> dict:
+    """The mesh run `i` of the ranks' `run_rank` records used, for its
+    JSON: tp, dp, shape, axis names, the collective backend, and each
+    rank's device, wall seconds and peak device GB."""
+    return {**ranks[0]["runs"][i]["report"]["mesh"],
+            "ranks": [{"rank": r["rank"], "device": r["device"],
+                       "wall_s": r["runs"][i]["wall_s"], "peak_gb": r["runs"][i]["peak_gb"]}
+                      for r in ranks]}
+
+
+class Probe:
+    """Hooks a caller of `run_rank` can pass into the ranks (it travels
+    by pickle): `begin` before the offline build and before each run,
+    `end` after it, whose value lands in the rank's record.  The default
+    records nothing."""
+
+    def begin(self, label: str) -> None:
+        pass
+
+    def end(self, label: str, mesh, **run) -> Optional[dict]:
+        return None
+
+
+def _peak_gb(device) -> Optional[float]:
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def run_rank(rank: int, world: int, backend: str, device, configs: Sequence[ServeConfig],
+             args, probe: Optional[Probe] = None, check: bool = False) -> dict:
+    """One rank of a tensor-parallel run: this rank's mesh, its shard of
+    the system and of the launcher trace, then each of `configs` (one
+    mesh, one `k`) served over them inside ``sharding.ctx.axes(mesh)``.
+    `check` turns on the ranks' digest comparison of every step's plan
+    and every recompute mask (`sharding.ctx.check`).  -> this rank's
+    record: rank, device, the offline build's seconds, and per run its
+    report, tokens, wall seconds, peak device GB, the mesh's digest log
+    and what `probe` recorded."""
+    from repro_torch.serving.cluster import ClusterEngine
+    from repro_torch.sharding import ctx as CTX
+
+    probe = probe or Probe()
+    mesh = configs[0].mesh.build()
+    mesh.device, mesh.check = device, check
+    k = configs[0].k
+    out = {"rank": rank, "device": str(device), "runs": []}
+    with CTX.axes(mesh):
+        probe.begin("offline build")
+        t0 = time.perf_counter()
+        cfg = model_config(args.model, args.n_layers)
+        if configs[0].mode == "rcllm" or k > 1:
+            system, pool_rv, prof = rcllm_system(cfg, device, k_instances=k, mesh=mesh)
+            trace = launcher_trace(system, pool_rv, prof, args.requests, args.qps,
+                                   args.zipf_users, args.long_prompt_frac)
+        else:
+            model, reqs = full_setup(device, args.requests, args.qps,
+                                     configs[0].decode_steps, args.prompt_tokens)
+        _sync(device)
+        out["build_s"] = time.perf_counter() - t0
+        out["build_probe"] = probe.end("offline build", mesh)
+        for config in configs:
+            if config.mesh != configs[0].mesh or config.k != k:
+                raise ValueError("one rank run serves configs of one mesh and one k")
+            label = config.render()
+            mesh.log = []
+            probe.begin(label)
+            _reset_peak(device)
+            t0 = time.perf_counter()
+            if k > 1:
+                cluster = ClusterEngine(system, config)
+                rep = cluster.run(trace, decode_steps=config.decode_steps)
+                engine, backend, generated = None, cluster.backends, rep.generated
+            else:
+                if config.mode == "rcllm":
+                    reqs, plans, reuse = rcllm_requests(system, trace, config.decode_steps)
+                    model, cache = system.model, system.rows
+                else:
+                    plans = cache = reuse = None
+                engine, backend, batcher, done = serve(model, model.cfg, config, reqs,
+                                                       plans, cache, reuse)
+                generated = backend.generated
+            _sync(device)
+            run = {"wall_s": time.perf_counter() - t0, "peak_gb": _peak_gb(device),
+                   "generated": {int(r): [int(t) for t in ts] for r, ts in generated.items()},
+                   "log": list(mesh.log),
+                   "probe": probe.end(label, mesh, engine=engine, backend=backend)}
+            run["report"] = (cluster_report(config, cluster, rep, False, mesh.info())
+                             if k > 1 else report(config, engine, backend, batcher.workers,
+                                                  done, False, mesh.info()))
+            out["runs"].append(run)
+    return out
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_mesh(configs: Sequence[ServeConfig], args, probe: Optional[Probe] = None,
+             check: bool = False) -> list:
+    """Start the ranks of `configs`' mesh here (`launch.mesh.spawn_ranks`)
+    on `args.device`'s kind and serve `configs` on them (`run_rank`).  ->
+    the ranks' records, in rank order; each run's report carries every
+    rank's device, time and peak memory under ``mesh``."""
+    device_type = torch.device(args.device).type
+    world = configs[0].mesh.n_devices
+    ranks = MESH.spawn_ranks(run_rank, world, device_type,
+                             args=(list(configs), args, probe, check))
+    _gather_ranks(ranks)
+    return ranks
+
+
+def _gather_ranks(ranks: Sequence[dict]) -> None:
+    """Every rank's device, time and peak memory into each run's
+    ``mesh`` of rank 0's record (each rank saw only its own)."""
+    for i, run in enumerate(ranks[0]["runs"]):
+        run["report"]["mesh"] = _mesh_info(ranks, i)
+
+
+def _check_mesh(config: ServeConfig, args) -> None:
+    """The divisibility and session-server errors before any rank starts."""
+    from repro_torch.core.rcllm import tiny_config
+    from repro_torch.sharding import specs as SPECS
+
+    if args.server:
+        raise SystemExit(f"--server under mesh.tp={config.mesh.tp} is not ported yet "
+                         "(ROADMAP A.2); serve the trace closed-loop")
+    if config.mode == "rcllm" or config.k > 1:
+        cfg = model_config(args.model, args.n_layers) or tiny_config(2, 32)
+    else:
+        cfg = SERVE_TINY
+    try:
+        SPECS.check_serving_divisibility(cfg, config.mesh)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def main_rank_under_torchrun(config: ServeConfig, args) -> None:
+    """This process is one rank ``torchrun`` started: join the group, serve,
+    and let rank 0 print the JSON with every rank's record."""
+    import os
+
+    import torch.distributed as dist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    backend, device = MESH.init_rank(rank, world, torch.device(args.device).type)
+    try:
+        mine = run_rank(rank, world, backend, device, [config], args)
+        ranks = [None] * world
+        dist.all_gather_object(ranks, mine)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        _gather_ranks(ranks)
+        print(json.dumps(ranks[0]["runs"][0]["report"], indent=1))
 
 
 def run_sim(config: ServeConfig, args) -> dict:
@@ -499,6 +697,14 @@ def main(argv=None):
         if args.server:
             raise SystemExit("--server drives the port's engine: engine=torch")
         print(json.dumps(run_sim(config, args), indent=1))
+        return
+    if config.mesh.enabled:
+        _check_mesh(config, args)
+        if MESH.under_torchrun():
+            main_rank_under_torchrun(config, args)
+            return
+        ranks = run_mesh([config], args)
+        print(json.dumps(ranks[0]["runs"][0]["report"], indent=1))
         return
     device = torch.device(args.device)
     if args.server and config.k != 1:

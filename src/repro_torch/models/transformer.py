@@ -19,10 +19,23 @@ the reference's is jnp.
 `layers.flash_attention` (kernel K6 in the backward on the card), each
 layer recomputed in the backward under `cfg.remat`.  The parameters take
 gradients only where a caller turns them on
-(`training.train_loop.trainable`)."""
+(`training.train_loop.trainable`).
+
+A model built with ``tp > 1`` is one rank's shard of a dense model under
+the serve layout (`sharding.specs.shard_lm_params`): ``n_heads / tp``
+query heads, ``n_kv_heads / tp`` kv heads, ``d_ff / tp`` MLP columns and
+``vocab_size / tp`` rows of the embedding and columns of the head.  Its
+RcLLM serving forward sums the attention output projection's and the
+MLP's partial products over the ranks (`sharding.ctx.all_reduce`), looks
+tokens up in its vocabulary rows and sums the ranks' lookups (exact: one
+rank holds each token), and gathers the ranks' logit slices into the
+whole vocabulary (`logits`).  It runs inside ``sharding.ctx.axes(mesh)``
+of a mesh whose model axis has ``tp`` ranks.  With ``tp == 1`` nothing is
+reduced.  The LM archs' `prefill`, `decode_step` and training path take
+whole models only."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,6 +45,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.kernels.flash_attention.ref import mha_flash_ref
 from repro_torch.models import layers as L
+from repro_torch.sharding import ctx as CTX
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -43,22 +57,22 @@ class Block(nn.Module):
     `cfg.moe` is set, experts (`moe`: router (D, E) fp32 whatever the
     model's dtype, w_gate / w_up (E, D, F), w_down (E, F, D))."""
 
-    def __init__(self, cfg: LMConfig, device=None):
+    def __init__(self, cfg: LMConfig, device=None, tp: int = 1):
         super().__init__()
         D, dh, dt = cfg.d_model, cfg.resolved_head_dim, cfg.torch_dtype
         kw = dict(dtype=dt, device=device)
+        H, Hkv, F = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.d_ff // tp
         self.attn_norm = _frozen(torch.zeros(D, **kw))
         self.mlp_norm = _frozen(torch.zeros(D, **kw))
-        self.wq = _frozen(torch.empty(D, cfg.n_heads, dh, **kw))
-        self.wk = _frozen(torch.empty(D, cfg.n_kv_heads, dh, **kw))
-        self.wv = _frozen(torch.empty(D, cfg.n_kv_heads, dh, **kw))
-        self.wo = _frozen(torch.empty(cfg.n_heads, dh, D, **kw))
+        self.wq = _frozen(torch.empty(D, H, dh, **kw))
+        self.wk = _frozen(torch.empty(D, Hkv, dh, **kw))
+        self.wv = _frozen(torch.empty(D, Hkv, dh, **kw))
+        self.wo = _frozen(torch.empty(H, dh, D, **kw))
         names = ["w_up", "w_down"]
         if cfg.mlp_type in ("swiglu", "geglu"):
             names.append("w_gate")
         if cfg.moe is None:
-            shapes = {"w_up": (D, cfg.d_ff), "w_gate": (D, cfg.d_ff),
-                      "w_down": (cfg.d_ff, D)}
+            shapes = {"w_up": (D, F), "w_gate": (D, F), "w_down": (F, D)}
             self.mlp = nn.ParameterDict(
                 {n: _frozen(torch.empty(shapes[n], **kw)) for n in names})
         else:
@@ -71,15 +85,21 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: LMConfig, device=None):
+    """The whole model, or with ``tp > 1`` rank ``tp_rank``'s shard of it
+    (the module docstring)."""
+
+    def __init__(self, cfg: LMConfig, device=None, tp: int = 1, tp_rank: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.tp, self.tp_rank = int(tp), int(tp_rank)
+        V = cfg.vocab_size // self.tp
         kw = dict(dtype=cfg.torch_dtype, device=device)
-        self.embed = _frozen(torch.empty(cfg.vocab_size, cfg.d_model, **kw))
-        self.layers = nn.ModuleList([Block(cfg, device) for _ in range(cfg.n_layers)])
+        self.embed = _frozen(torch.empty(V, cfg.d_model, **kw))
+        self.layers = nn.ModuleList([Block(cfg, device, self.tp)
+                                     for _ in range(cfg.n_layers)])
         self.final_norm = _frozen(torch.zeros(cfg.d_model, **kw))
         self.lm_head = (None if cfg.tie_embeddings else
-                        _frozen(torch.empty(cfg.d_model, cfg.vocab_size, **kw)))
+                        _frozen(torch.empty(cfg.d_model, V, **kw)))
 
     @property
     def device(self) -> torch.device:
@@ -89,44 +109,88 @@ class Transformer(nn.Module):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens].to(self.cfg.torch_dtype)
+        if CTX.tp_size() != self.tp:
+            raise ValueError(f"a model split over {self.tp} ranks runs inside a mesh whose "
+                             f"model axis has {self.tp} ranks, not {CTX.tp_size()} "
+                             "(sharding.ctx.axes)")
+        if self.tp == 1:
+            x = self.embed[tokens].to(self.cfg.torch_dtype)
+        else:
+            # this rank's vocabulary rows; the ranks' lookups summed
+            V = self.embed.shape[0]
+            local = tokens - self.tp_rank * V
+            own = (local >= 0) & (local < V)
+            x = self.embed[local.clamp(0, V - 1)].to(self.cfg.torch_dtype)
+            x = CTX.all_reduce(torch.where(own[..., None], x, torch.zeros_like(x)))
         if self.cfg.tie_embeddings:
             x = x * (self.cfg.d_model ** 0.5)
         return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The head over normalised rows x (..., D) -> (..., vocab_size):
+        a shard's vocabulary slices gathered from every rank (fp32)."""
+        out = x @ self.head()
+        return out if self.tp == 1 else CTX.gather_vocab(out, self.cfg.vocab_size)
+
+    def whole(self, what: str) -> None:
+        """Raise unless this is the whole model: `what` has no sharded form."""
+        if self.tp != 1:
+            raise ValueError(f"{what} runs on a whole model; tensor parallelism of the LM "
+                             "archs' steps and of training waits for a later slice "
+                             "(ROADMAP A.2)")
 
     def forward(self, tokens: torch.Tensor, kernels: bool) -> torch.Tensor:
         return forward(self, tokens, kernels)
 
 
 def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
-                device="cuda") -> Transformer:
+                device="cuda", tp: int = 1, tp_rank: int = 0,
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                ) -> Transformer:
     """Random weights with the reference's init scales, drawn from an
     explicit `torch.Generator` (which must live on `device`).  torch does
     not reproduce JAX's PRNG: parity tests build weights in JAX and
-    convert them (`models.convert.params_from_numpy`)."""
-    model = Transformer(cfg, device=device)
+    convert them (`models.convert.params_from_numpy`).
+
+    With `keep`, the model is rank `tp_rank`'s shard of `tp`: each
+    parameter is drawn whole, with the same draws as the whole model's,
+    and ``keep(name, full)`` returns the rank's block of it
+    (`sharding.specs.init_sharded_params`), so the rank holds one whole
+    parameter at a time."""
+    if tp != 1 and keep is None:
+        raise ValueError("a shard's parameters are cut from whole draws: pass keep")
+    if tp != 1 and cfg.moe is not None:
+        raise ValueError("MoE blocks have no sharded init (ROADMAP A.2)")
+    model = Transformer(cfg, device=device, tp=tp, tp_rank=tp_rank)
+    whole = model if keep is None else Transformer(cfg, device="meta")
     D, dh = cfg.d_model, cfg.resolved_head_dim
     std = D ** -0.5
 
-    def normal_(p: torch.Tensor, s: float) -> None:
-        p.normal_(generator=generator).mul_(s)
+    def normal_(name: str, s: float) -> None:
+        p = model.get_parameter(name)
+        full = p if keep is None else torch.empty(
+            whole.get_parameter(name).shape, dtype=p.dtype, device=device)
+        full.normal_(generator=generator).mul_(s)
+        if keep is not None:
+            p.copy_(keep(name, full))
 
     with torch.no_grad():
-        normal_(model.embed, 1.0)
-        for blk in model.layers:
-            normal_(blk.wq, std)
-            normal_(blk.wk, std)
-            normal_(blk.wv, std)
-            normal_(blk.wo, (cfg.n_heads * dh) ** -0.5)
+        normal_("embed", 1.0)
+        for i, blk in enumerate(model.layers):
+            normal_(f"layers.{i}.wq", std)
+            normal_(f"layers.{i}.wk", std)
+            normal_(f"layers.{i}.wv", std)
+            normal_(f"layers.{i}.wo", (cfg.n_heads * dh) ** -0.5)
             if cfg.moe is None:
-                for name, p in blk.mlp.items():
-                    normal_(p, cfg.d_ff ** -0.5 if name == "w_down" else std)
+                for name in blk.mlp:
+                    normal_(f"layers.{i}.mlp.{name}",
+                            cfg.d_ff ** -0.5 if name == "w_down" else std)
             else:
                 for name, t in L.moe_init(generator, D, cfg.moe, cfg.mlp_type,
                                           cfg.torch_dtype, device).items():
                     blk.moe[name].copy_(t)
         if model.lm_head is not None:
-            normal_(model.lm_head, std)
+            normal_("lm_head", std)
     return model
 
 
@@ -148,7 +212,7 @@ def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
     False runs the flash kernel's plain version on any device."""
     q, k, v = qkv(x, lp, cfg, torch.arange(x.shape[1], device=x.device))
     o = (mha_flash if kernels else mha_flash_ref)(q, k, v.contiguous(), causal=True)
-    return torch.einsum("bshe,hed->bsd", o, lp.wo)
+    return CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
 
 
 @torch.no_grad()
@@ -158,10 +222,10 @@ def forward(model: Transformer, tokens: torch.Tensor, kernels: bool) -> torch.Te
     x = model.embed_tokens(tokens)
     for lp in model.layers:
         x = x + attention_block(x, lp, cfg, kernels)
-        x = x + L.mlp_apply(L.rms_norm(x, lp.mlp_norm, cfg.norm_eps), lp.mlp,
-                            cfg.mlp_type)
+        x = x + CTX.all_reduce(L.mlp_apply(L.rms_norm(x, lp.mlp_norm, cfg.norm_eps),
+                                           lp.mlp, cfg.mlp_type))
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x @ model.head()
+    return model.logits(x)
 
 
 # ------------------------------------------------------- LM serving steps
@@ -205,6 +269,7 @@ def prefill(model: Transformer, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cac
     16.8 GB in bf16 at S = 32768 and V = 256000); normalisation is per
     row, so the two agree."""
     cfg = model.cfg
+    model.whole("prefill")
     B, S = tokens.shape
     x = model.embed_tokens(tokens)
     positions = torch.arange(S, device=x.device)
@@ -230,6 +295,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
     cache tensors, and the same dict is returned: the reference's
     functional update would hold two caches at once."""
     cfg = model.cfg
+    model.whole("decode_step")
     B = tokens.shape[0]
     x = model.embed_tokens(tokens[:, 0])[:, None]                  # (B, 1, D)
     pos = positions.to(x.device, torch.long)
@@ -267,6 +333,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
     positions' logits, (B, V): the head is per row, so they equal the
     rows of the full logits."""
     cfg = model.cfg
+    model.whole("forward_train")
     x = model.embed_tokens(tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,5 +1,5 @@
-"""Typed serving API of the port — the JAX package's `serving/api.py`
-without the mesh: `ServeConfig` with the attention-backend seam
+"""Typed serving API of the port — the JAX package's `serving/api.py`:
+`ServeConfig` with the tensor-parallel mesh (`MeshConfig`), the attention-backend seam
 (`attn_backend`, `decode_kernel`, sliced onto the model's `LMConfig` by
 `apply_to`), the block store's knobs
 (`kv_reuse`, `StoreConfig`), the cluster's (`k`, `policy`),
@@ -24,6 +24,107 @@ ENGINES = ("sim", "torch")
 MODES = ("rcllm", "prefix", "full")
 SCHEDS = ("wave", "chunked")
 FINISH_REASONS = ("length", "stop", "cancelled", "rejected")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The typed sharding surface: how the serving stack maps onto a
+    device mesh of `torch.distributed` ranks (`launch.mesh`).
+
+    ``tp`` splits attention heads, the MLP's hidden width, the vocabulary
+    and the KV arena's kv-head axis over the mesh's ``model`` axis
+    (Megatron-style tensor parallelism: each rank runs its shard and the
+    partial products are all-reduced, `sharding.ctx`); ``dp`` sizes the
+    ``data`` axis (replica sets: every replica serves the whole trace).
+    ``mesh_shape=None`` derives the shape from ``tp``/``dp``; an explicit
+    shape (``--config mesh.mesh_shape=2x4``) must agree with any
+    explicitly-set ``tp``/``dp`` and fills them in otherwise.  The default
+    ``MeshConfig()`` is *disabled*: the stack runs exactly as before, on
+    one device, with no mesh anywhere.  ``tp=1`` with ``mesh_shape=(1,
+    1)`` is the enabled-but-single-device mesh, bitwise the unsharded
+    path."""
+
+    tp: int = 1
+    dp: int = 1
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    def __post_init__(self):
+        def bad(msg: str):
+            raise ValueError(f"invalid MeshConfig: {msg}")
+
+        if self.mesh_shape is not None:
+            object.__setattr__(self, "mesh_shape", tuple(self.mesh_shape))
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        if self.tp < 1 or self.dp < 1:
+            bad(f"tp={self.tp}/dp={self.dp} must be >= 1")
+        names = self.axis_names
+        if (not names or len(set(names)) != len(names)
+                or not all(isinstance(a, str) and a for a in names)):
+            bad(f"axis_names={names!r} must be distinct non-empty strings")
+        if "model" not in names:
+            bad(f"axis_names={names!r} must include 'model' "
+                "(the tensor-parallel axis every partition spec names)")
+        if self.mesh_shape is None:
+            if names != ("data", "model"):
+                bad(f"axis_names={names!r} needs an explicit mesh_shape (only the "
+                    "default ('data', 'model') layout can be derived from tp/dp)")
+            return
+        shape = self.mesh_shape
+        if len(shape) != len(names):
+            bad(f"mesh_shape={shape} has {len(shape)} dims but axis_names={names!r} "
+                f"has {len(names)}")
+        if any(int(s) < 1 for s in shape):
+            bad(f"mesh_shape={shape} dims must be >= 1")
+        shape = tuple(int(s) for s in shape)
+        object.__setattr__(self, "mesh_shape", shape)
+        derived_tp = shape[names.index("model")]
+        derived_dp = 1
+        for name, size in zip(names, shape):
+            if name != "model":
+                derived_dp *= size
+        if self.tp not in (1, derived_tp):
+            bad(f"mesh_shape={shape} puts {derived_tp} devices on the model axis but "
+                f"tp={self.tp}: drop one of the two knobs or make them agree")
+        if self.dp not in (1, derived_dp):
+            bad(f"mesh_shape={shape} puts {derived_dp} devices on the data axes but "
+                f"dp={self.dp}: drop one of the two knobs or make them agree")
+        object.__setattr__(self, "tp", derived_tp)
+        object.__setattr__(self, "dp", derived_dp)
+
+    @property
+    def enabled(self) -> bool:
+        """Does this config ask for a mesh at all?"""
+        return self.mesh_shape is not None or self.tp > 1 or self.dp > 1
+
+    @property
+    def resolved_shape(self) -> Tuple[int, ...]:
+        if self.mesh_shape is not None:
+            return self.mesh_shape
+        return (self.dp, self.tp)
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.resolved_shape:
+            n *= s
+        return n
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as a built mesh's ``shape``."""
+        return dict(zip(self.axis_names, self.resolved_shape))
+
+    def build(self):
+        """This rank's `launch.mesh.Mesh`, or None when disabled.  Raises
+        the explicit-shape error when the process group has fewer ranks
+        than the shape needs (outside a launched run the world is this
+        one process: only a one-device shape builds)."""
+        if not self.enabled:
+            return None
+        from repro_torch.launch.mesh import make_production_mesh
+
+        return make_production_mesh(shape=self.resolved_shape, axis_names=self.axis_names)
 
 
 @dataclass(frozen=True)
@@ -126,7 +227,16 @@ class ServeConfig:
     (`resolved_step_tokens`), the chunked scheduler's default budget.
     ``attn_backend`` (auto | plain | cuda) and ``decode_kernel`` (auto |
     gather | paged) pick the engine's kernels or their plain versions
-    (`core.engine.attn_uses_kernels`, `decode_uses_paged`)."""
+    (`core.engine.attn_uses_kernels`, `decode_uses_paged`).  ``mesh``
+    runs the engine as one rank of a tensor-parallel mesh.
+
+    Under ``mesh.tp > 1`` the port keeps its kernels: ``attn_backend=
+    'cuda'`` and ``decode_kernel='paged'`` stay valid and ``'auto'``
+    resolves as without a mesh.  The reference rejects its Pallas
+    kernels there because they are single-device programs under one
+    controller; each rank of the port is a single-device program on its
+    own heads, so the kernels run unchanged at the shard's shapes and
+    compute the same function."""
 
     engine: str = "torch"
     k: int = 1
@@ -145,6 +255,7 @@ class ServeConfig:
     decode_steps: int = 4
     r_item: float = 0.3
     r_rev: float = 0.3
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     disagg: DisaggConfig = field(default_factory=DisaggConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
 
@@ -197,6 +308,11 @@ class ServeConfig:
             bad(f"decode_steps={self.decode_steps} must be >= 1")
         if not (0.0 <= self.r_item <= 1.0 and 0.0 <= self.r_rev <= 1.0):
             bad(f"r_item={self.r_item}/r_rev={self.r_rev} must be in [0, 1]")
+        if not isinstance(self.mesh, MeshConfig):
+            bad(f"mesh must be a MeshConfig, got {type(self.mesh).__name__}")
+        if self.mesh.enabled and self.engine != "torch":
+            bad(f"mesh.tp={self.mesh.tp}/mesh.dp={self.mesh.dp} needs engine='torch' "
+                f"(engine={self.engine!r} runs no devices)")
         if not isinstance(self.disagg, DisaggConfig):
             bad(f"disagg must be a DisaggConfig, got {type(self.disagg).__name__}")
         if self.disagg.enabled and self.engine != "torch":
@@ -243,7 +359,7 @@ class ServeConfig:
         "page_size": "page_size", "pages": "n_pages", "decode_steps": "decode_steps",
         "r_item": "r_item", "r_rev": "r_rev",
     }
-    SUBS = {"disagg": DisaggConfig, "store": StoreConfig}
+    SUBS = {"mesh": MeshConfig, "disagg": DisaggConfig, "store": StoreConfig}
 
     @classmethod
     def from_args(cls, args, base: Optional["ServeConfig"] = None) -> "ServeConfig":
@@ -266,7 +382,9 @@ class ServeConfig:
         """A config from a ``key=value,key=value`` string (the launcher's
         ``--config``).  Values are coerced by the field's declared type;
         booleans accept on/off/true/false; sub-config fields nest with a
-        dot (``disagg.prefill_workers=1``, ``store.spill_mb=64``).  The
+        dot (``mesh.tp=2``, ``mesh.mesh_shape=2x4``,
+        ``mesh.axis_names=data+model``, ``disagg.prefill_workers=1``,
+        ``store.spill_mb=64``).  The
         grammar is total: `render` emits a string that parses back to an
         equal config."""
         base = base if base is not None else cls()
@@ -320,16 +438,32 @@ class ServeConfig:
 
 def render_value(v) -> str:
     """One value in the ``--config`` grammar (`_coerce`'s inverse):
-    booleans as on/off, None as none."""
+    booleans as on/off, None as none, int tuples ``x``-joined (mesh
+    shapes, ``2x4``), string tuples ``+``-joined (axis names,
+    ``data+model``)."""
     if isinstance(v, bool):
         return "on" if v else "off"
     if v is None:
         return "none"
+    if isinstance(v, tuple):
+        if all(isinstance(x, int) for x in v):
+            return "x".join(str(x) for x in v)
+        return "+".join(str(x) for x in v)
     return str(v)
 
 
 def _coerce(fld: dataclasses.Field, val: str):
     t = fld.type        # a string: this module postpones annotations
+    if "Tuple" in t:
+        if val.lower() == "none" and "Optional" in t:
+            return None
+        if "int" in t:
+            try:
+                return tuple(int(x) for x in val.split("x"))
+            except ValueError:
+                raise ValueError(f"--config {fld.name}={val!r}: expected an "
+                                 "'x'-separated int tuple like 2x4") from None
+        return tuple(x for x in val.split("+") if x)
     if "bool" in t:
         low = val.lower()
         if low in ("on", "true", "1", "yes"):
@@ -466,19 +600,34 @@ class Completion:
 # ------------------------------------------------------- sliced builders
 def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
                  cache=None, batched_selective: bool = True):
-    """`BatchEngine` on the model's device from the config's pool, reuse
-    and execution slices (`ServeConfig.apply_to`); `cache` is the device
-    pool of cached rows (`RcLLMSystem.rows`) that rcllm requests' block
-    tables index."""
+    """`BatchEngine` on the model's device from the config's pool, reuse,
+    execution and mesh slices (`ServeConfig.apply_to`); `cache` is the
+    device pool of cached rows (`RcLLMSystem.rows`) that rcllm requests'
+    block tables index.
+
+    With ``config.mesh`` enabled this is one rank's engine: the mesh is
+    built over the process group (`MeshConfig.build`), its model axis
+    must divide both head counts, a whole `model` is cut to the rank's
+    shard (`sharding.specs.shard_lm_params`; an rcllm `cache` must
+    already hold the rank's kv heads: `core.rcllm.make_system(mesh=)`),
+    and the pool holds the rank's kv heads.  The engine runs inside
+    ``sharding.ctx.axes(mesh)``."""
     from repro_torch.core import engine as ENG
     from repro_torch.serving.batch_engine import BatchEngine
     from repro_torch.serving.block_store import SharedBlockStore
     from repro_torch.serving.kv_pool import pool_for
+    from repro_torch.sharding import specs as SPECS
 
     lm_cfg = config.apply_to(lm_cfg)
+    if config.mesh.enabled:
+        SPECS.check_serving_divisibility(lm_cfg, config.mesh)
+    mesh = config.mesh.build()
+    if mesh is not None:
+        if model.tp == 1 and mesh.shape["model"] > 1:
+            model = SPECS.shard_lm_params(model, lm_cfg, mesh)
     if pool is None:
         pool = pool_for(lm_cfg, page_size=config.page_size,
-                        n_pages=config.n_pages, device=model.device)
+                        n_pages=config.n_pages, device=model.device, mesh=mesh)
     if sel is None:
         sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev)
     store = None
@@ -489,7 +638,7 @@ def build_engine(model, lm_cfg, config: ServeConfig, pool=None, sel=None,
             prefetch_pages_per_tick=config.store.prefetch_pages_per_tick)
     return BatchEngine(model, lm_cfg, pool=pool, sel=sel, cache=cache,
                        chunk_tokens=config.chunk_tokens, store=store,
-                       batched_selective=batched_selective)
+                       batched_selective=batched_selective, mesh=mesh)
 
 
 def build_backend(engine, config: ServeConfig, plans=None, reuse=None):

@@ -40,6 +40,12 @@ JAX package's `serving/batch_engine.py`, with the shared block store
   (`kv_pool.page_views`): keys are rotated to their positions inside the
   kernel and nothing is gathered.
 
+* **tensor parallelism** — with a `mesh` the engine is one rank of the
+  mesh's model axis: its model, cached rows and arena hold the rank's
+  heads, and every kernel above runs on them at the shard's shapes
+  (`core.engine`).  Page and slot tables are host numpy, alike on every
+  rank, so every rank allocates, maps and writes the same slots.
+
 The config's `attn_backend` picks the kernels of prefill (flash, block
 gather, selective) or their plain PyTorch versions
 (`core.engine.attn_uses_kernels`), and `decode_kernel` the paged-decode
@@ -197,7 +203,7 @@ def decode_step(model: Transformer, toks: np.ndarray, seq_lens: np.ndarray,
                    rope_theta=cfg.rope_theta)
         x = ENG._layer_step(x, lp, cfg, o)
     xf = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return (xf @ model.head()).float().cpu().numpy()
+    return model.logits(xf).float().cpu().numpy()
 
 
 class BatchEngine:
@@ -210,7 +216,9 @@ class BatchEngine:
     `cfg.decode_kernel` are resolved here against the model's device
     (`attn_kernels`, `paged`; an invalid pair raises).
     `batched_selective=False` runs the rcllm prefill one request at a
-    time (the reference's per-request loop; the same function)."""
+    time (the reference's per-request loop; the same function).  `mesh`:
+    the `launch.mesh.Mesh` this engine is a rank of (None: one device);
+    the model, `cache` and pool must then hold the rank's kv heads."""
 
     def __init__(self, model: Transformer, cfg: LMConfig,
                  pool: Optional[PagedKVPool] = None,
@@ -218,13 +226,26 @@ class BatchEngine:
                  bucket: int = 64, cache: Optional[CacheRows] = None,
                  chunk_tokens: int = 128,
                  store: Optional[BS.SharedBlockStore] = None,
-                 batched_selective: bool = True):
+                 batched_selective: bool = True, mesh=None):
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
         self.attn_kernels = ENG.attn_uses_kernels(cfg, model.device)
         self.paged = ENG.decode_uses_paged(cfg, model.device)
         self.batched_selective = batched_selective
-        self.pool = pool if pool is not None else pool_for(cfg, device=model.device)
+        self.pool = pool if pool is not None else pool_for(cfg, device=model.device,
+                                                           mesh=mesh)
+        tp = 1 if mesh is None else mesh.shape["model"]
+        if model.tp != tp:
+            raise ValueError(f"the model is split over {model.tp} ranks, the mesh's model "
+                             f"axis has {tp}")
+        heads = model.layers[0].wk.shape[1]
+        for name, got in (("pool", self.pool.arena_k.shape[3]),
+                          ("cache", None if cache is None else cache.row_shape[1])):
+            if got is not None and got != heads:
+                raise ValueError(f"the {name} holds {got} kv heads, the model {heads}: "
+                                 "a rank's pool and cached rows hold its own heads "
+                                 "(kv_pool.pool_for(mesh=), core.rcllm.make_system(mesh=))")
         self.sel = sel or ENG.SelectiveConfig()
         self.bucket = bucket
         self.cache = cache

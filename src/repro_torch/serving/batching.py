@@ -19,6 +19,17 @@ clock that also jumps to the next arrival when idle, so TTFT and
 time-between-tokens are measured on the wall clock of the steps.  Each
 worker's clock adds only its own steps: K workers stepped in turn on one
 host and one card model K instances running side by side.
+
+Under tensor parallelism every rank of the mesh's model axis runs this
+loop over its own engine, and every rank must issue the same device
+calls in the same order.  The loop's decisions are a pure function of
+its state and its clock, and the clock's only input that differs
+between processes, a step's measured seconds, is rank 0's, broadcast at
+the step boundary (`sharding.ctx.decide`): rank 0 decides each step's
+plan for all.  With the mesh's check on, each step's plan (worker,
+clock, kind and request ids) is compared by digest across the ranks
+before it runs (`sharding.ctx.check`), and the first difference fails
+the run.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import numpy as np
 
 from repro_torch.serving.api import GREEDY, SamplingParams, match_stop, sample_token
 from repro_torch.serving.kv_pool import PoolExhausted
+from repro_torch.sharding import ctx as CTX
 
 
 @dataclass(order=True)
@@ -508,11 +520,16 @@ class WorkerState:
         else:
             self._decode()
 
+    def _plan(self, kind: str, *rids) -> None:
+        """The step about to run, compared across the ranks of a mesh."""
+        CTX.check("step plan", (self.wid, self.clock, kind, *rids))
+
     def _prefill(self, batch: List[PendingRequest], tok: int) -> None:
         admitted = self.clock
         picked = {r.rid for r in batch}
         self.waiting = [r for r in self.waiting if r.rid not in picked]
-        dt = self.backend.prefill(batch)
+        self._plan("prefill", [r.rid for r in batch])
+        dt = CTX.decide(self.backend.prefill(batch))
         self.clock += dt
         self.busy_seconds += dt
         self._prefill_s_per_tok = self._ewma(self._prefill_s_per_tok, dt / max(tok, 1))
@@ -543,8 +560,9 @@ class WorkerState:
     def _decode(self) -> None:
         while True:
             db = list(self.decoding.values())[: self.max_decode_batch]
+            self._plan("decode", [e.req.rid for e in db])
             try:
-                dt = self.backend.decode([e.req for e in db])
+                dt = CTX.decide(self.backend.decode([e.req for e in db]))
                 break
             except PoolExhausted:
                 # no KV slot for every running request: preempt the
@@ -590,9 +608,11 @@ class WorkerState:
             return  # only future inbound migrations
         while True:
             db = list(self.decoding.values())[: self.max_decode_batch]
+            self._plan("tick", [e.req.rid for e in db], [r.rid for r in self.prefilling])
             try:
                 rep, dt = self.backend.step(self.step_tokens, [e.req for e in db],
                                             self.prefilling)
+                dt = CTX.decide(dt)
                 break
             except PoolExhausted:
                 # the wave loop's retry contract, per tick: evict the

@@ -13,8 +13,8 @@ routed to a worker whose shard lacks one of its item blocks pulls the
 block from its holder, which records a `TransferRecord`, and the worker's
 clock is billed the modelled network time (`cost_model.fetch_time_s`
 over the configured `Hardware`, the paper's 100 Gbps interconnect).  All
-workers share one card and one pool of cached rows, so a pull copies
-nothing: the billing is modelled, never measured.  Routing changes
+workers share one card and one pool of cached rows, so without a mesh a
+pull copies nothing: the billing is modelled, never measured.  Routing changes
 *where* a request runs and what it is billed, never *what* it decodes.
 
 With ``config.disagg`` the workers are typed prefill or decode: a prefill
@@ -27,6 +27,24 @@ Every worker serves the same `Transformer` object and reads the same
 cached rows; the workers step in turn on the default stream, and each
 worker's clock adds only its own step seconds, so the cluster models K
 instances running side by side.
+
+With ``config.mesh`` each rank of the mesh runs this cluster over its
+shard of the system (`core.rcllm.make_system(mesh=)`): every worker is a
+tensor-parallel engine on the rank's heads, and the workers get home devices
+(`worker_devices`: the rank's device, which they share).  A cross-shard
+pull then stages the block on its holder's home device and copies it to
+the worker's, and a migration copies what travels between the two home
+devices: both are billed at their MEASURED seconds
+(`core.item_cache.measured_copy_s`) instead of the modelled network time,
+as the reference bills them.  A rank's workers share its one device, so
+these copies stay within one device's memory and cross no link: their
+microseconds are not the paper's 100 Gbps transfers, and a TTFT billed
+so is not comparable with the modelled one.  The report says where the
+copies ran (`transfer_copies`).
+Dispatch runs on the host, and every host value that could differ
+between the ranks (a measured step or copy) is rank 0's
+(`sharding.ctx.decide`), so every rank dispatches, batches and migrates
+alike.
 """
 from __future__ import annotations
 
@@ -50,6 +68,7 @@ from repro_torch.serving.batching import (ClusterBatcher, Completion, DecodeEntr
                                           PendingRequest, TorchEngineBackend, WorkerState)
 from repro_torch.serving.block_store import dequantize_rows, quantize_rows
 from repro_torch.serving.kv_pool import PoolExhausted
+from repro_torch.sharding import ctx as CTX
 
 
 class ClusterWorkerBackend(TorchEngineBackend):
@@ -223,11 +242,18 @@ class ClusterEngine:
         self.cache, self._dequant_row = system.rows, {}
         if config.kv_reuse and config.store.kv_store_dtype == "int8":
             self.cache, self._dequant_row = dequantized_item_rows(system)
+        # under a mesh each worker has a home device (the rank's: its
+        # workers share it): pulls and migrations are measured copies
+        self.worker_devices = ([system.model.device] * k if config.mesh.enabled
+                               else None)
+        self.transfer_copies = (None if self.worker_devices is None else
+                                "same device" if len(set(self.worker_devices)) == 1
+                                else "across devices")
         self.backends: List[ClusterWorkerBackend] = []
         for w in range(k):
             engine = API.build_engine(system.model, system.cfg, config, sel=sel,
                                       cache=self.cache)
-            shard = (IC.ShardClient(system.item_store, w)
+            shard = (IC.ShardClient(system.item_store, w, devices=self.worker_devices)
                      if system.item_store is not None else None)
             self.backends.append(ClusterWorkerBackend(engine, shard, mode=mode, hw=hw))
         self.scheduler = SCH.ClusterScheduler(system.placement, policy=config.policy,
@@ -261,6 +287,7 @@ class ClusterEngine:
         else:
             wid = self.scheduler.dispatch(rq.candidate_items,
                                           [w.backlog_seconds(t) for w in workers])
+        CTX.check("dispatch", (req.rid, t, wid))
         self._bind(req, rq, wid)
         return wid
 
@@ -323,11 +350,18 @@ class ClusterEngine:
         for i in sorted(range(len(inds)), key=lambda i: (-score[i], inds[i])):
             wid = inds[i]
             dst = self.backends[wid]
+            # what would travel, snapshotted BEFORE the import inserts the
+            # missed payloads into the destination store
+            store_d = dst.engine.store
+            moved = [rec.export.page_k, rec.export.page_v]
+            for key, payload in rec.payloads.items():
+                if store_d is None or not store_d.resident(key):
+                    moved += [payload.k, payload.v]
             try:
                 counters = dst.import_request_kv(rec)
             except PoolExhausted:
                 continue
-            mig_s = self._migration_seconds(counters)
+            mig_s = self._migration_seconds(moved, wid, counters)
             dst.migrations_in += 1
             dst.migrated_pages += counters["pages"]
             dst.migration_bytes += counters["bytes"]
@@ -339,11 +373,17 @@ class ClusterEngine:
             return True
         return False
 
-    def _migration_seconds(self, counters: Dict) -> float:
-        """The modelled network time of the bytes one migration moved
-        (digest-hit payloads never travel)."""
+    def _migration_seconds(self, moved: List[torch.Tensor], dst_wid: int,
+                           counters: Dict) -> float:
+        """One migration's billed seconds: under a mesh, the measured copy
+        of what travels (`moved`) onto the destination worker's home
+        device (rank 0's measurement); otherwise the modelled network time
+        of the bytes it moved.  Digest-hit payloads never travel."""
         if counters["bytes"] == 0:
             return 0.0
+        if self.worker_devices is not None:
+            return CTX.decide(IC.measured_copy_s([t for t in moved if t.numel()],
+                                                 self.worker_devices[dst_wid]))
         cfg = self.system.cfg
         row_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim * 4
         moved_tokens = int(np.ceil(counters["bytes"] / row_bytes))
@@ -415,8 +455,12 @@ class ClusterEngine:
                 len(system.instruction) + len(rq.history_tokens),
                 item_keys=self._item_keys, instr_len=len(system.instruction))
         if moved_tokens:
-            backend.pending_transfer_s[req.rid] = CM.fetch_time_s(
-                system.cfg, self.hw, 0, moved_tokens)
+            if backend.shard.measures:
+                # real copies: bill what they measured
+                backend.pending_transfer_s[req.rid] = backend.shard.take_measured_s()
+            else:
+                backend.pending_transfer_s[req.rid] = CM.fetch_time_s(
+                    system.cfg, self.hw, 0, moved_tokens)
 
     # -------------------------------- run ---------------------------------
     def run(self, trace: Sequence, decode_steps: int = 4) -> ClusterReport:

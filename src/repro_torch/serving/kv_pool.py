@@ -526,7 +526,12 @@ def page_views(tables: np.ndarray, lens: np.ndarray,
 
 
 def pool_for(cfg: LMConfig, page_size: int = 16, n_pages: int = 512,
-             device="cuda") -> PagedKVPool:
-    """Pool sized from a model config (serving launcher convenience)."""
-    return PagedKVPool(cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim,
+             device="cuda", mesh=None) -> PagedKVPool:
+    """Pool sized from a model config (serving launcher convenience).
+    With a `mesh`, one rank's arena: its ``n_kv_heads / tp`` kv heads
+    (`sharding.specs.serving_arena_spec`), every page and slot of the
+    whole pool, so the host page and slot tables are the same on every
+    rank and one logical page id addresses every rank's slice."""
+    tp = 1 if mesh is None else mesh.shape["model"]
+    return PagedKVPool(cfg.n_layers, cfg.n_kv_heads // tp, cfg.resolved_head_dim,
                        page_size=page_size, n_pages=n_pages, device=device)

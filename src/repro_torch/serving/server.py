@@ -154,6 +154,10 @@ class AsyncSessionServer:
     Construction takes a `TorchEngineBackend` and the `api.ServeConfig`
     that built it; `start` spawns the scheduler task and `submit` returns
     a `Session`.  Use as an async context manager to guarantee shutdown.
+
+    Not under tensor parallelism: the server's batches form on measured
+    step times and wall-clock arrivals inside each process, which the
+    ranks of a mesh would have to decide together first (ROADMAP A.2).
     """
 
     def __init__(self, backend, config: ServeConfig):
@@ -161,6 +165,11 @@ class AsyncSessionServer:
             raise ValueError(
                 f"AsyncSessionServer drives one worker (config.k={config.k}); "
                 "multi-worker serving is the closed-loop ClusterEngine")
+        if config.mesh.tp > 1:
+            raise ValueError(
+                f"the session server under mesh.tp={config.mesh.tp} is not ported yet "
+                "(ROADMAP A.2: its ranks would have to agree on wall-clock arrivals and "
+                "measured step times); serve the trace closed-loop without --server")
         self.config = config
         self.worker = WorkerState(
             backend, wid=0, max_batch_tokens=config.max_batch_tokens,

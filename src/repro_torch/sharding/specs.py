@@ -1,0 +1,395 @@
+"""Per-family sharding rules of the port: params, optimizer state, inputs,
+KV caches — the counterpart of the JAX package's `sharding/specs.py`.
+
+The rules are spec data, as in the reference: each tensor gets a `P`, a
+tuple naming per dimension the mesh axis (or axes) it is split over, in
+the reference's parameter pytrees (an LM's layer parameters stacked on a
+leading layer axis), so every tree here equals the reference's.  The
+meshes need only ``.shape`` (axis -> size) and ``.axis_names``.
+
+Only the serve layout is APPLIED in the port: `shard_lm_params` cuts one
+rank's parameters out of a whole model (or the reference's numpy tree) by
+`lm_param_specs(mode="serve")`, and `init_sharded_params` draws a rank's
+parameters from a seeded generator one whole parameter at a time.  Query
+heads are split contiguously, so each GQA group of ``n_heads //
+n_kv_heads`` query heads stays with its kv head on one rank.  The
+optimizer-state rules wait for distributed training (ROADMAP A.2).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.launch.mesh import axis_size, data_axes
+
+
+class P(tuple):
+    """A partition spec: per dimension None (replicated), a mesh axis
+    name, or a tuple of axis names.  A one-name tuple is that name, as
+    `jax.sharding.PartitionSpec` normalises it."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, tuple(
+            d[0] if isinstance(d, tuple) and len(d) == 1 else d for d in dims))
+
+    def __repr__(self) -> str:
+        return "P" + super().__repr__()
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the leaves of nested dicts / lists / tuples (a `P` is a
+    leaf), with parallel trees `rest` of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+def lm_param_specs(cfg: LMConfig, mesh, *, mode: str = "train") -> Dict[str, Any]:
+    """Spec tree matching the reference's `transformer.init_params`
+    structure.  `mode='serve'` additionally shards an MoE model's
+    attention / embedding weights over the data axis (ZeRO-3-style
+    gather-on-use)."""
+    m = "model"
+    msz = mesh.shape[m]
+    dax = data_axes(mesh)
+    kv_heads_div = cfg.n_kv_heads % msz == 0
+
+    din = dax if (mode == "serve" and cfg.is_moe) else None
+
+    layer = {
+        "attn_norm": P(None, None),
+        "mlp_norm": P(None, None),
+        "wq": P(None, din, m, None),
+        "wk": P(None, din, m, None) if kv_heads_div else P(None, din, None, m),
+        "wv": P(None, din, m, None) if kv_heads_div else P(None, din, None, m),
+        "wo": P(None, m, None, din),
+    }
+    if cfg.moe is not None:
+        # experts over model (EP) + expert-ff over data
+        moe = {
+            "router": P(None, None, None),
+            "w_up": P(None, m, None, dax),
+            "w_down": P(None, m, dax, None),
+        }
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            moe["w_gate"] = P(None, m, None, dax)
+        layer["moe"] = moe
+    else:
+        mlp = {"w_up": P(None, None, m), "w_down": P(None, m, None)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            mlp["w_gate"] = P(None, None, m)
+        layer["mlp"] = mlp
+
+    specs: Dict[str, Any] = {
+        "embed": P(m, None),
+        "layers": layer,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, m)
+    return specs
+
+
+def serving_arena_spec() -> P:
+    """Paged KV arena (n_pages, page_size, L, Hkv, Dh): kv heads over the
+    model axis, the same head split as wk / wv, so the decode and the
+    arena writes stay on each rank's heads.  Pages and slots replicate:
+    the slot tables are host numpy and alike on every rank, so one
+    logical page id addresses every rank's slice of that page."""
+    return P(None, None, None, "model", None)
+
+
+def check_serving_divisibility(cfg: LMConfig, mesh) -> None:
+    """Serving tensor parallelism splits whole heads: both head counts
+    must divide by the model-axis size (no padded shard — a config error
+    here names the two knobs instead of degrading)."""
+    msz = mesh.shape["model"]
+    if cfg.n_heads % msz or cfg.n_kv_heads % msz:
+        raise ValueError(
+            f"mesh model axis of {msz} devices (mesh.tp={msz}) must divide "
+            f"n_heads={cfg.n_heads} and n_kv_heads={cfg.n_kv_heads}: pick a "
+            f"tp dividing both, or a model with more kv heads")
+
+
+def _check_shardable(cfg: LMConfig, mesh) -> None:
+    """What the port's rank-local forward also needs: a dense model whose
+    MLP width and vocabulary split evenly."""
+    check_serving_divisibility(cfg, mesh)
+    msz = mesh.shape["model"]
+    if cfg.moe is not None and msz > 1:
+        raise ValueError(f"{cfg.name}: the MoE archs' tensor and expert parallelism wait "
+                         "for a later slice (ROADMAP A.2); mesh.tp must be 1")
+    for name, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % msz:
+            raise ValueError(f"mesh.tp={msz} must divide {name}={n} (the rank-local "
+                             "MLP and vocabulary shards are whole)")
+
+
+def _cut(x: torch.Tensor, spec: Tuple, mesh, coords: Mapping[str, int]) -> torch.Tensor:
+    """This rank's block of `x` under `spec`: each dimension split over
+    ``model`` keeps the rank's contiguous slice."""
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        if ax != "model":
+            raise ValueError(f"spec {spec}: the port applies only the model axis")
+        n = mesh.shape["model"]
+        step = x.shape[dim] // n
+        x = x.narrow(dim, coords["model"] * step, step)
+    return x
+
+
+def _layer_specs(cfg: LMConfig, mesh) -> Dict[str, Tuple]:
+    """Spec per parameter name of one port `Block` (the stacked layer
+    axis dropped) and of the model's own parameters."""
+    specs = lm_param_specs(cfg, mesh, mode="serve")
+    layer = specs["layers"]
+    out = {name: tuple(layer[name])[1:] for name in
+           ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo")}
+    out.update({f"mlp.{n}": tuple(s)[1:] for n, s in layer["mlp"].items()})
+    out.update(embed=tuple(specs["embed"]), final_norm=tuple(specs["final_norm"]))
+    if "lm_head" in specs:
+        out["lm_head"] = tuple(specs["lm_head"])
+    return out
+
+
+def _param_spec(specs: Dict[str, Tuple], name: str) -> Tuple:
+    """A `Transformer.named_parameters` name -> its spec."""
+    if name.startswith("layers."):
+        name = name.split(".", 2)[2]
+    return specs[name]
+
+
+@torch.no_grad()
+def shard_lm_params(source, cfg: LMConfig, mesh, coords: Optional[Mapping[str, int]] = None,
+                    device=None):
+    """One rank's `Transformer` (its heads, MLP columns and vocabulary
+    rows) cut out of `source` by `lm_param_specs(mode="serve")`.  `source`
+    is a whole port `Transformer` or the reference's parameter tree as
+    numpy (layers stacked, the tree `models.convert.params_from_numpy`
+    takes); `coords` is the rank's mesh coordinate (default: the mesh's
+    own rank), `device` where the shard lives (default: the source
+    model's, else the CPU)."""
+    from repro_torch.models.convert import _tensor
+    from repro_torch.models.transformer import Transformer
+
+    _check_shardable(cfg, mesh)
+    coords = mesh.coords if coords is None else coords
+    specs = _layer_specs(cfg, mesh)
+    if device is None:
+        device = source.device if isinstance(source, torch.nn.Module) else "cpu"
+    model = Transformer(cfg, device=device, tp=mesh.shape["model"], tp_rank=coords["model"])
+    for name, p in model.named_parameters():
+        if isinstance(source, torch.nn.Module):
+            full = source.get_parameter(name)
+        elif name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            leaf = source["layers"]
+            for part in rest.split("."):
+                leaf = leaf[part]
+            full = _tensor(np.asarray(leaf)[int(i)], p.dtype, device)
+        else:
+            full = _tensor(source[name], p.dtype, device)
+        p.copy_(_cut(full, _param_spec(specs, name), mesh, coords))
+    return model
+
+
+def init_sharded_params(cfg: LMConfig, mesh, generator: torch.Generator, device,
+                        coords: Optional[Mapping[str, int]] = None):
+    """One rank's parameters: `transformer.init_params` drawing the whole
+    model's weights from `generator`, each parameter cut to the rank's
+    block as soon as it is drawn, so the rank never holds the whole
+    model.  -> (the rank's `Transformer`, the whole embedding as fp32
+    numpy, which the semantic cache's token matching reads)."""
+    from repro_torch.models.transformer import init_params
+
+    _check_shardable(cfg, mesh)
+    coords = mesh.coords if coords is None else coords
+    specs = _layer_specs(cfg, mesh)
+    token_embed = []
+
+    def keep(name: str, full: torch.Tensor) -> torch.Tensor:
+        if name == "embed":
+            token_embed.append(full.float().cpu().numpy())
+        return _cut(full, _param_spec(specs, name), mesh, coords)
+
+    model = init_params(cfg, generator, device, tp=mesh.shape["model"],
+                        tp_rank=coords["model"], keep=keep)
+    return model, token_embed[0]
+
+
+def zero_shard(spec_tree, shape_tree, mesh):
+    """ZeRO-style sharding for optimizer moments: take each tensor's spec
+    and shard the first still-replicated, divisible dim over the data
+    axis.  `shape_tree` leaves have ``.shape``."""
+    dax = data_axes(mesh)
+    dsz = axis_size(mesh, dax)
+
+    def one(spec: P, sds) -> P:
+        dims = list(spec) + [None] * (len(sds.shape) - len(spec))
+        used = set()
+        for d in dims:
+            for a in (d if isinstance(d, tuple) else (d,)):
+                used.add(a)
+        if any(a in used for a in dax):  # already data-sharded somewhere
+            return P(*dims)
+        for i, (ax, size) in enumerate(zip(dims, sds.shape)):
+            if ax is None and size % dsz == 0 and size >= dsz:
+                dims[i] = dax
+                return P(*dims)
+        return P(*dims)
+
+    return tree_map(one, spec_tree, shape_tree)
+
+
+def lm_input_specs(cfg: LMConfig, mesh, step: str, dims: Dict[str, int]):
+    dax = data_axes(mesh)
+    dsz = axis_size(mesh, dax)
+    b = dims["batch"]
+    if step == "train":
+        return {"tokens": P(dax, None), "labels": P(dax, None)}
+    if step == "prefill":
+        return {"tokens": P(dax, None)}
+    if step == "decode":
+        return {
+            "tokens": P(dax, None) if b % dsz == 0 else P(None, None),
+            "cache": lm_cache_spec(cfg, mesh, b, dims["seq"]),
+            "positions": P(dax) if b % dsz == 0 else P(None),
+        }
+    raise ValueError(step)
+
+
+def lm_cache_spec(cfg: LMConfig, mesh, batch: int, seq: int):
+    """KV cache (L, B, S, Hkv, Dh) sharding.  batch -> data when
+    divisible; kv heads -> model when divisible, else sequence -> model
+    (flash-decoding split-K, combined by an all-reduce)."""
+    m = "model"
+    msz = mesh.shape[m]
+    dax = data_axes(mesh)
+    dsz = axis_size(mesh, dax)
+    if batch % dsz == 0:
+        if cfg.n_kv_heads % msz == 0:
+            spec = P(None, dax, None, m, None)
+        else:
+            spec = P(None, dax, m, None, None)  # shard sequence on model
+    else:
+        # tiny batch (long_500k): shard the sequence across everything
+        all_ax = tuple(dax) + (m,)
+        spec = P(None, None, all_ax, None, None)
+    return {"k": spec, "v": spec}
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+def _param_tree(module) -> Any:
+    """A `recsys.models.ParamTree` as nested dicts / lists of tensors (the
+    reference's parameter pytree)."""
+    children = dict(module.named_children())
+    if isinstance(module, torch.nn.ModuleList):
+        return [_param_tree(c) for c in module]
+    out = {name: p for name, p in module.named_parameters(recurse=False)}
+    out.update({name: _param_tree(c) for name, c in children.items()})
+    return out
+
+
+def recsys_param_specs(cfg: RecsysConfig, mesh) -> Dict[str, Any]:
+    """Embedding tables of 4,096 rows or more split by rows over every
+    axis; everything else replicated.  Shapes from the port's model built
+    on the meta device."""
+    from repro_torch.recsys import models as RM
+
+    dax = data_axes(mesh)
+    rows = tuple(dax) + ("model",)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+        name = "/".join(path)
+        if "table" in name and tree.ndim == 2 and tree.shape[0] >= 4096:
+            return P(rows, None)
+        return P(*([None] * tree.ndim))
+
+    return walk(_param_tree(RM.init_params(cfg, device="meta")), ())
+
+
+def _input_ndims(cfg: RecsysConfig, shape_name: str) -> Dict[str, int]:
+    """Rank of each model input of one recsys cell (a two-row batch of
+    the cell: only the ranks are read)."""
+    from repro_torch.configs.registry import make_batch
+
+    gen = torch.Generator().manual_seed(0)
+    return {k: v.ndim for k, v in make_batch(cfg, shape_name, gen, device="cpu",
+                                             batch=2).items()}
+
+
+def recsys_input_specs(cfg: RecsysConfig, mesh, step: str, dims: Dict[str, int]):
+    dax = data_axes(mesh)
+    dsz = axis_size(mesh, dax)
+    b = dims["batch"]
+    bspec = dax if b % dsz == 0 else None
+    out = {}
+    for k, ndim in _input_ndims(cfg, _shape_name_of(cfg, step, dims)).items():
+        if k in ("candidate_ids", "neg_samples"):
+            # the id vectors replicate; the gather runs sharded via the
+            # row-sharded table
+            out[k] = P(None)
+        else:
+            out[k] = P(bspec, *([None] * (ndim - 1)))
+    return out
+
+
+def _shape_name_of(cfg, step, dims):
+    from repro_torch.configs.registry import SHAPES
+
+    for name, s in SHAPES["recsys"].items():
+        if s.step == step and s.dims.get("batch") == dims.get("batch"):
+            return name
+    raise KeyError((step, dims))
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+def gnn_param_specs(params_abstract, mesh):
+    """Every GNN parameter replicated.  Leaves have ``.shape``."""
+    return tree_map(lambda leaf: P(*([None] * len(leaf.shape))), params_abstract)
+
+
+def gnn_input_specs(mesh, shape_name: str, spec_shapes: Dict[str, Any]):
+    dax = data_axes(mesh)
+    edge_ax = tuple(dax) + ("model",)
+    esz = axis_size(mesh, edge_ax)
+    out = {}
+    for k, v in spec_shapes.items():
+        if k.startswith("edge_"):
+            if len(v.shape) == 1:
+                # shard flat edge arrays only when divisible
+                out[k] = P(edge_ax) if v.shape[0] % esz == 0 else P(None)
+            else:  # molecule regime: (B, E)
+                out[k] = P(dax, None)
+        elif k in ("atom_types", "positions", "targets") and shape_name == "molecule":
+            out[k] = P(*([dax] + [None] * (len(v.shape) - 1)))
+        elif (
+            k == "node_feat"
+            and v.shape[0] * v.shape[1] > 2**27
+            and v.shape[0] % axis_size(mesh, dax) == 0
+        ):
+            out[k] = P(dax, None)  # huge node features, if divisible
+        else:
+            out[k] = P(*([None] * len(v.shape)))
+    return out

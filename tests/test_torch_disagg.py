@@ -465,7 +465,7 @@ def test_serve_config_cross_checks():
     with pytest.raises(ValueError, match="not a DisaggConfig field"):
         API.ServeConfig.parse("disagg.nope=1")
     with pytest.raises(ValueError, match="not a ServeConfig field"):
-        API.ServeConfig.parse("mesh.tp=2")
+        API.ServeConfig.parse("tp=2")
     with pytest.raises(ValueError, match="expected on/off"):
         API.ServeConfig.parse("kv_reuse=maybe")
 
