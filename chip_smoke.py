@@ -129,10 +129,33 @@ else (no network, no JAX).  Phases:
    After each run's counts are read, each rank holds B1 (offline build),
    B2, B3 and B4 (each kind of gather) at the largest call it made, on
    the shard's 16 query / 4 kv heads, against their plain versions with
-   phase 3's tolerances (those launches are not counted).  Per rank:
-   wall time, TTFT p50, TBT p50, peak GB, launches by kernel, the
-   collective backend, the checks' max|kernel - plain| and the largest
-   call's shapes per kernel;
+   phase 3's tolerances (those launches are not counted).  A fourth run
+   serves the same trace through the session server (`--server --speed
+   0`, chunked, reuse off): the server on rank 0, rank 1 following its
+   ticks (`serving.server.follow`), under the same gates against phase
+   2c.  Per rank: wall time, TTFT p50, TBT p50, peak GB, launches by
+   kernel, the collective backend, the checks' max|kernel - plain| and
+   the largest call's shapes per kernel;
+2m. the LM archs on a mesh (after phase 2l): two ranks sharing the card
+   over gloo.  At tp = 2, first every assigned LM arch at reduced() size
+   in fp32 (and starcoder2 with an 8-token window): prefill, 2 greedy
+   decode steps and 3 train steps on the card, held against this
+   process's tp = 1 run on the CPU (logits within 1e-4, greedy tokens
+   equal, losses and gradient norms within 1e-4); then phase 2j's five
+   archs at published width, depth 2: a prefill of 1 x 4,096 tokens, 4
+   decode steps, 3 train steps of its optimizer on the rank's heads, MLP
+   columns, experts and vocabulary rows (K6 on the rank's heads, every
+   call on its tensor-core route), and kimi-k2 at reduced() size (K6's
+   small-head route, Adafactor).  Then dp = 2 on gemma-7b (the arch with
+   the fewest parameters at 2 layers): 3 AdamW steps on 2 x 4,096 tokens,
+   a row a rank, the moments ZeRO-cut over the data axis and the
+   gradients averaged.  After its counts are read each rank holds K6 at
+   its largest recorded call of each arch against the plain version (TOL
+   of max|plain|, a second call bitwise equal).  Per rank: step times,
+   peak GB, K6 launches, and the host ms of one gloo all-reduce of a
+   step's (4,096, d_model) bf16 activation.  Two ranks share one card's
+   SMs and HBM and their collectives go through the host: none of these
+   is a multi-card speed;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies, at its largest all-layer call of
@@ -216,6 +239,7 @@ from repro_torch.kernels.selective_attention import ops as SO  # noqa: E402
 from repro_torch.kernels.selective_attention.ref import selective_mha_ref  # noqa: E402
 from repro_torch.launch import serve as SERVE  # noqa: E402
 from repro_torch.launch.mesh import collective_backend  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks as MESH_SPAWN  # noqa: E402
 from repro_torch.launch import steps as STEPS  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -3941,7 +3965,9 @@ def serving_phases(args, dev):
 # ------------------------------------------------------------------ phase 2l
 # phase 2l: tensor parallelism over kv heads, TP_RANKS ranks on the one card
 TP_RANKS = 2
-TP_RUNS = (("wave", False), ("chunked", False), ("chunked", True))
+# (sched, kv_reuse, through the session server)
+TP_RUNS = (("wave", False, False), ("chunked", False, False), ("chunked", True, False),
+           ("chunked", False, True))
 
 
 def all_reduce_ms(rows, reps=20):
@@ -4030,18 +4056,20 @@ def tp_phase(args, closed, smi):
     cfg = dataclasses.replace(QWEN3_8B, n_layers=args.n_layers)
     mesh = MeshConfig(tp=TP_RANKS)
     configs = [ServeConfig(decode_steps=args.decode_steps, sched=sched, kv_reuse=reuse,
-                           mesh=mesh) for sched, reuse in TP_RUNS]
+                           mesh=mesh) for sched, reuse, _ in TP_RUNS]
     rank_args = argparse.Namespace(
         model=QWEN3_8B.name, n_layers=args.n_layers, requests=args.requests, qps=args.qps,
-        zipf_users=None, long_prompt_frac=0.0, prompt_tokens=160, device="cuda")
+        zipf_users=None, long_prompt_frac=0.0, prompt_tokens=160, device="cuda", speed=0.0)
     log(f"tensor parallelism (phase 2l): launch.serve's mesh path, tp = {TP_RANKS} ranks on "
         f"one card over {collective_backend(TP_RANKS, 'cuda')}; {cfg.name} width, depth "
         f"{cfg.n_layers}, {cfg.n_heads // TP_RANKS}/{cfg.n_kv_heads // TP_RANKS} heads, d_ff "
         f"{cfg.d_ff // TP_RANKS} and vocab {cfg.vocab_size // TP_RANKS} a rank; phase 2's "
         f"trace ({args.requests} requests): "
-        + ", ".join(f"{s} reuse {'on' if r else 'off'}" for s, r in TP_RUNS))
+        + ", ".join(f"{'server ' if v else ''}{s} reuse {'on' if r else 'off'}"
+                    for s, r, v in TP_RUNS))
     t0 = time.perf_counter()
-    ranks = SERVE.run_mesh(configs, rank_args, probe=TPProbe(), check=True)
+    ranks = SERVE.run_mesh(configs, rank_args, probe=TPProbe(), check=True,
+                           servers=[v for *_, v in TP_RUNS])
     wall = time.perf_counter() - t0
     want_heads = cfg.n_kv_heads // TP_RANKS
     want = {n: (cfg.n_heads // TP_RANKS, want_heads) for n in TP_KERNELS}
@@ -4083,12 +4111,16 @@ def tp_phase(args, closed, smi):
         if b["flash_attention"] == 0 or b["flash_attention:fp32"] or b["flash_attention:small"]:
             raise RuntimeError(f"phase 2l rank {out_rank['rank']}: the offline build launched "
                                f"B1 {b}: want its tensor-core route only")
-    for i, (sched, reuse) in enumerate(TP_RUNS):
-        label = f"{sched}, reuse {'on' if reuse else 'off'}"
+    for i, (sched, reuse, server) in enumerate(TP_RUNS):
+        label = f"{'server (speed 0), ' if server else ''}{sched}, reuse {'on' if reuse else 'off'}"
         runs = [r["runs"][i] for r in ranks]
         rep0 = runs[0]["report"]
         if rep0["mesh"]["backend"] != "gloo" or rep0["mesh"]["tp"] != TP_RANKS:
             raise RuntimeError(f"phase 2l ({label}): mesh {rep0['mesh']}")
+        if server and (not rep0.get("server") or rep0["finish_reasons"] != {
+                "length": args.requests} or not rep0.get("ticks")):
+            raise RuntimeError(f"phase 2l ({label}): the server's report {rep0.get('server')}, "
+                               f"{rep0.get('finish_reasons')}, ticks {rep0.get('ticks')}")
         per_rank = []
         for rank, run in zip(ranks, runs):
             p, rep = run["probe"], run["report"]
@@ -4138,9 +4170,339 @@ def tp_phase(args, closed, smi):
             f"{gate['max_top1_logit_diff_before_divergence']:.4g}")
         out["runs"].append({"label": label, "per_rank": per_rank, "token_gate": gate,
                             "digests": len(runs[0]["log"]), "same_tokens": same,
-                            "mesh": rep0["mesh"]})
-    log(f"  phase 2l {wall:.1f} s (ranks' start, shard build and the three runs)")
+                            "mesh": rep0["mesh"], "server": server,
+                            "ticks": rep0.get("ticks"), "online": rep0.get("online")})
+    log(f"  phase 2l {wall:.1f} s (ranks' start, shard build and the four runs)")
     return out
+
+
+# ------------------------------------------------------------------ phase 2m
+# phase 2m: the LM archs' steps on a mesh, two ranks sharing the card
+TP_LM_LAYOUT, DP_LM_LAYOUT, DP_LM_ARCH = (1, 2), (2, 1), "gemma-7b"
+TP_LM_PREFILL, TP_LM_DECODE = 4096, 4
+# the reduced() cases of the card == CPU gate (phase 2i's, with its window)
+TP_LM_REDUCED = tuple(a for a in RREG.ARCHS if RREG.family_of(a) == "lm") + (
+    "starcoder2-15b:window8",)
+
+
+def _reduced_case(label):
+    """A phase-2m reduced() case: the config, the whole model on the CPU
+    (seed 0), two 40-token prompts and one 2 x 64 training batch (numpy
+    draws, the same in every process)."""
+    arch, _, window = label.partition(":window")
+    cfg = RREG.get_config(arch, smoke=True)
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=int(window))
+    model = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int64))
+    t = rng.integers(1, cfg.vocab_size, (2, 65)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(t[:, :-1]), "labels": torch.from_numpy(t[:, 1:])}
+    return cfg, model, toks, batch
+
+
+def _sync_dev(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _lm_steps(model, mesh, toks, batch, decode_steps, train_steps, dev):
+    """Prefill `toks`, `decode_steps` greedy steps in a cache 8 slots
+    longer, then `train_steps` steps of the arch's optimizer on `batch`
+    (a fresh "train" shard when `model` is a whole model's `source`),
+    each timed on the host clock with the card synchronised.  -> results
+    (numpy logits and tokens, losses, norms, times)."""
+    cfg = model.cfg
+    serve = STEPS.rank_model(cfg, mesh, "prefill", dev, source=model)
+    inputs = STEPS.rank_inputs(cfg, mesh, "prefill", {"tokens": toks.to(dev)})
+    fn, _ = STEPS.mesh_fn(serve, mesh, "prefill", toks.shape[0])
+    t0 = time.perf_counter()
+    logits, cache = fn(inputs)
+    _sync_dev(dev)
+    out = {"prefill_s": time.perf_counter() - t0, "prefill": logits.float().cpu().numpy()}
+    cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (8,) + v.shape[3:])], dim=2)
+             for k, v in cache.items()}
+    del logits
+    dec, _ = STEPS.mesh_fn(serve, mesh, "decode", toks.shape[0])
+    pos = torch.full((inputs["tokens"].shape[0],), toks.shape[1], device=dev)
+    nxt = torch.from_numpy(out["prefill"]).argmax(-1)[:, None].to(dev)
+    steps, times = [], []
+    for _ in range(decode_steps):
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        lg, cache = dec({"tokens": nxt, "cache": cache, "positions": pos})
+        _sync_dev(dev)
+        times.append(time.perf_counter() - t0)
+        nxt, pos = lg.argmax(-1)[:, None], pos + 1
+        steps.append((lg.float().cpu().numpy(), nxt[:, 0].cpu().numpy()))
+    out.update(decode=steps, decode_ms=[t * 1e3 for t in times])
+    del serve, cache, dec
+    gc.collect()
+    train = STEPS.rank_model(cfg, mesh, "train", dev, source=model)
+    rows = STEPS.rank_inputs(cfg, mesh, "train", {k: v.to(dev) for k, v in batch.items()})
+    step, _ = STEPS.mesh_fn(train, mesh, "train", batch["tokens"].shape[0])
+    losses, norms, times = [], [], []
+    for _ in range(train_steps):
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        m = step(rows)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["gnorm"]))
+        _sync_dev(dev)
+        times.append(time.perf_counter() - t0)
+    out.update(loss=losses, gnorm=norms, step_ms=[t * 1e3 for t in times])
+    return out
+
+
+def _k6_rank_checks(calls):
+    """Inside a phase-2m rank, after its counts are read: K6 at each
+    recorded call against its plain version (TOL of max|plain|), a second
+    call bitwise equal.  -> {label: {route, shapes, rel_err}}."""
+    out = {}
+    for label, (a, kw) in calls.items():
+        got, want = FO.mha_flash_bwd(*a, **kw), FREF.flash_bwd_ref(*a, **kw)
+        again = FO.mha_flash_bwd(*a, **kw)
+        torch.cuda.synchronize()
+        wdt = a[0].dtype
+        errs = []
+        for g, w in zip(got, want):
+            scale = float(w.float().abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            if not torch.isfinite(g).all() or err > TOL[wdt] * max(scale, 1e-30):
+                raise RuntimeError(f"phase 2m K6 {label}: max|kernel-plain| {err} > {TOL[wdt]} "
+                                   f"x max|plain| {scale}")
+            errs.append(err / max(scale, 1e-30))
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise RuntimeError(f"phase 2m K6 {label}: two calls on the same inputs differ")
+        out[label] = {"route": FO._bwd_route(*a[:3]), "shapes": shapes(a, {}),
+                      "window": kw.get("window"), "rel_err": errs, "tol": TOL[wdt]}
+        del got, want, again
+    return out
+
+
+def lm_mesh_rank(rank, world, backend, device, layout):
+    """One rank of phase 2m (the module docstring) on a (dp, tp) `layout`.
+    -> its record: the reduced() cases' results (tp = 2 only), each
+    cell's times, peak GB and K6 launches, the K6 checks, and the host ms
+    of one all-reduce of a step's activation."""
+    from repro_torch.sharding import ctx as CTX
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshConfig(dp=layout[0], tp=layout[1]).build()
+    mesh.device = device
+    rec = BwdRecorder(TL.mha_flash_bwd)
+    TL.mha_flash_bwd = rec
+    out = {"rank": rank, "device": str(device), "backend": backend,
+           "coords": dict(mesh.coords), "reduced": {}, "cells": {}}
+    try:
+        with CTX.axes(mesh):
+            archs = TRAIN_LM_ARCHS if layout == TP_LM_LAYOUT else (DP_LM_ARCH,)
+            if layout == TP_LM_LAYOUT:
+                for label in TP_LM_REDUCED:
+                    cfg, whole, toks, batch = _reduced_case(label)
+                    out["reduced"][label] = _lm_steps(whole, mesh, toks, batch, 2, 3, device)
+            for arch in archs:
+                cfg = dataclasses.replace(RREG.get_config(arch), n_layers=TRAIN_LAYERS)
+                gen = torch.Generator(device=device).manual_seed(0)
+                rows = layout[0]
+                torch.cuda.reset_peak_memory_stats(device)
+                before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches)
+                model = STEPS.rank_model(cfg, mesh, "train", device, generator=gen)
+                batch = RREG.make_batch(cfg, "train_4k", gen, device, batch=rows,
+                                        seq=TP_LM_PREFILL)
+                cell = {}
+                if layout == TP_LM_LAYOUT:
+                    serve_fn, _ = STEPS.mesh_fn(model, mesh, "prefill", rows)
+                    toks = STEPS.rank_inputs(cfg, mesh, "prefill",
+                                             {"tokens": batch["tokens"]})
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, cache = serve_fn(toks)
+                    torch.cuda.synchronize()
+                    cell["prefill_s"] = time.perf_counter() - t0
+                    if not torch.isfinite(logits).all():
+                        raise RuntimeError(f"phase 2m {arch}: prefill logits not finite")
+                    cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (8,) + v.shape[3:])], 2)
+                             for k, v in cache.items()}
+                    cell["cache_shape"] = list(cache["k"].shape)
+                    dec, _ = STEPS.mesh_fn(model, mesh, "decode", rows)
+                    pos = torch.full((rows,), TP_LM_PREFILL, device=device)
+                    nxt, times = logits.argmax(-1)[:, None], []
+                    for _ in range(TP_LM_DECODE):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        lg, cache = dec({"tokens": nxt, "cache": cache, "positions": pos})
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        nxt, pos = lg.argmax(-1)[:, None], pos + 1
+                    cell["decode_ms"] = [t * 1e3 for t in times]
+                    del logits, cache, lg
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                step, _ = STEPS.mesh_fn(model, mesh, "train", rows)
+                inputs = STEPS.rank_inputs(cfg, mesh, "train", batch)
+                rec.arm(arch)
+                losses, norms, times = [], [], []
+                for _ in range(TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = step(inputs)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["gnorm"]))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                rec.arm(None)
+                if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+                    raise RuntimeError(f"phase 2m {arch} {layout}: losses {losses}, "
+                                       f"norms {norms}")
+                cell.update(loss=losses, gnorm=norms, step_ms=[t * 1e3 for t in times],
+                            peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                            k6_launches=FO.mha_flash_bwd.launches - before[0],
+                            k6_tc_launches=FO.mha_flash_bwd.tc_launches - before[1],
+                            heads=[model.layers[0].wq.shape[1], model.layers[0].wk.shape[1],
+                                   cfg.resolved_head_dim],
+                            param_gb=sum(p.numel() * p.element_size()
+                                         for p in model.parameters()) / 1e9)
+                if cell["k6_launches"] == 0 or cell["k6_tc_launches"] != cell["k6_launches"]:
+                    raise RuntimeError(f"phase 2m {arch}: K6 launched {cell['k6_launches']} "
+                                       f"times, {cell['k6_tc_launches']} on its tensor-core "
+                                       "route: every call must take it")
+                out["cells"][arch] = cell
+                del model, batch, step, inputs
+                gc.collect()
+                torch.cuda.empty_cache()
+            if layout == TP_LM_LAYOUT:
+                cfg = RREG.get_config("kimi-k2-1t-a32b", smoke=True)
+                gen = torch.Generator(device=device).manual_seed(0)
+                model = STEPS.rank_model(cfg, mesh, "train", device, generator=gen)
+                batch = RREG.make_batch(cfg, "train_4k", gen, device, batch=2, seq=256)
+                before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.small_launches)
+                step, opt = STEPS.mesh_fn(model, mesh, "train", 2)
+                inputs = STEPS.rank_inputs(cfg, mesh, "train", batch)
+                rec.arm("kimi-k2-1t-a32b:reduced")
+                losses = [float(step(inputs)["loss"]) for _ in range(TRAIN_STEPS)]
+                rec.arm(None)
+                k6 = (FO.mha_flash_bwd.launches - before[0],
+                      FO.mha_flash_bwd.small_launches - before[1])
+                if type(opt).__name__ != "Adafactor" or k6[0] == 0 or k6[1] != k6[0] \
+                        or not all(np.isfinite(losses)):
+                    raise RuntimeError(f"phase 2m kimi-k2 reduced: {type(opt).__name__}, K6 "
+                                       f"{k6}, losses {losses}")
+                out["cells"]["kimi-k2-1t-a32b:reduced"] = {
+                    "loss": losses, "k6_launches": k6[0], "k6_small_launches": k6[1]}
+                del model, batch, step, inputs, opt
+            x = torch.zeros((TP_LM_PREFILL, QWEN3_8B.d_model), dtype=torch.bfloat16,
+                            device=device)
+            axis = "model" if layout == TP_LM_LAYOUT else "data"
+            CTX.reduce_(x, axis)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                CTX.reduce_(x, axis)
+            torch.cuda.synchronize()
+            out["all_reduce_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+            out["all_reduce_axis"] = axis
+        out["k6"] = _k6_rank_checks(rec.calls)
+    finally:
+        TL.mha_flash_bwd = rec.fn
+    return out
+
+
+def lm_mesh_phase(smi):
+    """Phase 2m (the module docstring).  -> its report."""
+    t0 = time.perf_counter()
+    log(f"LM steps on a mesh (phase 2m): {TP_LM_LAYOUT[1]} ranks at tp = 2, then "
+        f"{DP_LM_LAYOUT[0]} at dp = 2, sharing one card over "
+        f"{collective_backend(2, 'cuda')} ({smi}); times and all-reduces are gloo's host "
+        "staging on one card, not a multi-card speed")
+    ranks = MESH_SPAWN(lm_mesh_rank, 2, "cuda", args=(TP_LM_LAYOUT,))
+    wall_tp = time.perf_counter() - t0
+    # gate 1: the reduced() cases on the card at tp = 2 against the CPU at tp = 1
+    from repro_torch.serving.api import MeshConfig as _MC
+    errs = {}
+    one = _MC(mesh_shape=(1, 1)).build()
+    for label in TP_LM_REDUCED:
+        cfg, whole, toks, batch = _reduced_case(label)
+        want = _lm_steps_cpu(whole, one, toks, batch)
+        e = {}
+        for r in ranks:
+            got = r["reduced"][label]
+            e["prefill"] = max(e.get("prefill", 0.0), _np_close(
+                f"phase 2m {label} prefill", got["prefill"], want["prefill"]))
+            for i, ((gl, gt), (wl, wt)) in enumerate(zip(got["decode"], want["decode"])):
+                e[f"decode{i}"] = max(e.get(f"decode{i}", 0.0), _np_close(
+                    f"phase 2m {label} decode {i}", gl, wl))
+                if not np.array_equal(gt, wt):
+                    raise RuntimeError(f"phase 2m {label} decode {i}: greedy tokens {gt} vs "
+                                       f"the CPU's {wt}")
+            for k in ("loss", "gnorm"):
+                d = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got[k], want[k]))
+                if d > TRAIN_TOL:
+                    raise RuntimeError(f"phase 2m {label}: {k} {got[k]} vs the CPU's {want[k]}")
+                e[k] = max(e.get(k, 0.0), d)
+        errs[label] = e
+    logit_err = max(v[k] for v in errs.values() for k in v if k.startswith(("prefill", "decode")))
+    log(f"  check: {len(errs)} reduced() cases (fp32) at tp = 2 on the card == tp = 1 on the "
+        f"CPU: logits within rtol=atol={LM_TOL} (max {logit_err:.2e}), "
+        f"greedy tokens equal, losses and gradient norms within {TRAIN_TOL} (max "
+        f"{max(max(v['loss'], v['gnorm']) for v in errs.values()):.2e})")
+    t1 = time.perf_counter()
+    dp_ranks = MESH_SPAWN(lm_mesh_rank, 2, "cuda", args=(DP_LM_LAYOUT,))
+    wall_dp = time.perf_counter() - t1
+    report = {"nvidia_smi": smi, "wall_s": {"tp": wall_tp, "dp": wall_dp},
+              "reduced_vs_cpu": errs, "tp": [], "dp": []}
+    for key, rs, layout in (("tp", ranks, TP_LM_LAYOUT), ("dp", dp_ranks, DP_LM_LAYOUT)):
+        losses = [{a: c["loss"] for a, c in r["cells"].items()} for r in rs]
+        if any(l != losses[0] for l in losses):
+            raise RuntimeError(f"phase 2m {key}: the ranks report other losses {losses}")
+        for r in rs:
+            for label, k6 in r["k6"].items():
+                want = "small" if label.endswith(":reduced") else "tc"
+                if k6["route"] != want:
+                    raise RuntimeError(f"phase 2m {key} rank {r['rank']} K6 {label}: the "
+                                       f"{k6['route']} route, want {want}")
+            missing = sorted(set(r["cells"]) - set(r["k6"]))
+            if missing:
+                raise RuntimeError(f"phase 2m {key} rank {r['rank']}: no K6 call recorded "
+                                   f"for {missing}")
+            for arch, c in r["cells"].items():
+                k6 = r["k6"][arch]
+                log(f"  {key} {layout} rank {r['rank']} {arch}: "
+                    + (f"prefill 1 x {TP_LM_PREFILL} {c['prefill_s']:.3f} s, decode ms "
+                       + ", ".join(f"{t:.1f}" for t in c["decode_ms"]) + "; "
+                       if "prefill_s" in c else "")
+                    + "train losses " + ", ".join(f"{x:.4f}" for x in c["loss"])
+                    + (f", step ms " + ", ".join(f"{t:.1f}" for t in c["step_ms"])
+                       + f", peak {c['peak_gb']:.2f} GB ({c['param_gb']:.2f} GB of weights, "
+                       f"heads {c['heads']})" if "step_ms" in c else "")
+                    + f"; K6 launches {c['k6_launches']}, checked at q, k {k6['shapes'][:2]}, "
+                    f"max|kernel-plain| / max|plain| dq {k6['rel_err'][0]:.2e} dk "
+                    f"{k6['rel_err'][1]:.2e} dv {k6['rel_err'][2]:.2e} (tol {k6['tol']}; "
+                    f"{k6['route']} route, a second call bitwise equal)")
+            log(f"  {key} rank {r['rank']} ({r['device']}, {r['backend']}): one bf16 "
+                f"all-reduce of ({TP_LM_PREFILL}, {QWEN3_8B.d_model}) over the "
+                f"{r['all_reduce_axis']} axis, host {r['all_reduce_ms']:.2f} ms ({smi})")
+            report[key].append({k: v for k, v in r.items() if k != "reduced"})
+    log(f"  phase 2m {time.perf_counter() - t0:.1f} s (tp {wall_tp:.1f} s, dp {wall_dp:.1f} s, "
+        "each with its ranks' start)")
+    return report
+
+
+def _np_close(label, got, want):
+    err = float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+    if not np.allclose(got, want, rtol=LM_TOL, atol=LM_TOL):
+        raise RuntimeError(f"{label}: card vs CPU max abs diff {err} beyond rtol=atol={LM_TOL}")
+    return err
+
+
+def _lm_steps_cpu(whole, mesh, toks, batch):
+    """`_lm_steps` of a reduced() case on the CPU at tp = 1 (the gate's
+    reference; plain versions, no card)."""
+    from repro_torch.sharding import ctx as CTX
+
+    with CTX.axes(mesh):
+        return _lm_steps(whole, mesh, toks, batch, 2, 3, torch.device("cpu"))
 
 
 # ------------------------------------------------------------------ main
@@ -4217,6 +4579,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     report["tp"] = tp_phase(args, closed, smi)
     PHASE_S["2l"] = time.perf_counter() - t0
+
+    # ---- phase 2m: the LM archs' steps at tp = 2 and dp = 2, two ranks on the card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["tp_lm"] = lm_mesh_phase(smi)
+    PHASE_S["2m"] = time.perf_counter() - t0
     report.update({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start})

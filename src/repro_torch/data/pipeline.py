@@ -7,13 +7,16 @@ Each data-parallel host feeds only its slice of the global batch
 batches ready.  Batches are numpy dicts; the train step moves them to the
 model's device.  When the queue is full the worker waits with its batch
 (the reference drops it and draws a new one), so the sequence of batches
-depends on the seed alone, never on timing.
+depends on the seed alone, never on timing.  The ranks of a data axis on
+one host (`dp`) draw the same stream and each takes its rows of every
+batch through the same slicing, so together they see the one-process
+run's batches.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -21,11 +24,12 @@ import numpy as np
 class BatchPipeline:
     def __init__(self, make_batch: Callable[[np.random.Generator], Dict],
                  seed: int = 0, prefetch: int = 2,
-                 host_index: int = 0, n_hosts: int = 1):
+                 host_index: int = 0, n_hosts: int = 1, dp: Tuple[int, int] = (0, 1)):
         self.make_batch = make_batch
         self.rng = np.random.default_rng(seed + host_index * 9973)
         self.host_index = host_index
         self.n_hosts = n_hosts
+        self.dp = dp
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -36,6 +40,8 @@ class BatchPipeline:
             batch = self.make_batch(self.rng)
             if self.n_hosts > 1:
                 batch = {k: self._host_slice(v) for k, v in batch.items()}
+            if self.dp[1] > 1:
+                batch = {k: rows_of(v, *self.dp) for k, v in batch.items()}
             while not self._stop.is_set():
                 try:
                     self._q.put(batch, timeout=0.5)
@@ -44,9 +50,7 @@ class BatchPipeline:
                     continue
 
     def _host_slice(self, arr: np.ndarray) -> np.ndarray:
-        per = arr.shape[0] // self.n_hosts
-        lo = self.host_index * per
-        return arr[lo:lo + per]
+        return rows_of(arr, self.host_index, self.n_hosts)
 
     def __iter__(self) -> Iterator[Dict]:
         return self
@@ -62,6 +66,12 @@ class BatchPipeline:
         except queue.Empty:
             pass
         self._thread.join(timeout=2)
+
+
+def rows_of(arr: np.ndarray, index: int, n: int) -> np.ndarray:
+    """Share `index` of `n` equal contiguous shares of `arr`'s rows."""
+    per = arr.shape[0] // n
+    return arr[index * per:(index + 1) * per]
 
 
 def lm_synthetic_batches(vocab_size: int, batch: int, seq: int):

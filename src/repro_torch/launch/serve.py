@@ -46,6 +46,10 @@ device (``--k``, `serving.cluster`).
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6 \
         --config mesh.tp=2,sched=chunked,kv_reuse=on
 
+    # the session server at tp = 2: rank 0 serves the sessions, rank 1 follows
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --server \
+        --requests 6 --config mesh.tp=2,sched=chunked
+
     # the same ranks started by torchrun instead of the launcher
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --device cpu --config mesh.tp=2
@@ -79,8 +83,10 @@ mesh repeats that on each replica.  Rank 0 prints the JSON, whose
 ``mesh`` says the layout, the backend and every rank's device, time and
 peak memory (`_mesh_info`), and the cluster's ``"transfer_billing":
 "measured"`` with ``"transfer_copies": "same device"``: a rank's workers
-share its device, so the billed copies cross no link.  The session
-server does not run under tp > 1 yet (ROADMAP A.2).
+share its device, so the billed copies cross no link.  With ``--server``
+the model axis's first rank runs the asyncio session server and the other
+ranks follow its ticks (`serving.server.follow`); rank 0's JSON carries
+the server's keys beside ``mesh``.
 """
 from __future__ import annotations
 
@@ -412,19 +418,24 @@ def _reset_peak(device) -> None:
 
 
 def run_rank(rank: int, world: int, backend: str, device, configs: Sequence[ServeConfig],
-             args, probe: Optional[Probe] = None, check: bool = False) -> dict:
+             args, probe: Optional[Probe] = None, check: bool = False,
+             servers: Optional[Sequence[bool]] = None) -> dict:
     """One rank of a tensor-parallel run: this rank's mesh, its shard of
     the system and of the launcher trace, then each of `configs` (one
-    mesh, one `k`) served over them inside ``sharding.ctx.axes(mesh)``.
-    `check` turns on the ranks' digest comparison of every step's plan
-    and every recompute mask (`sharding.ctx.check`).  -> this rank's
-    record: rank, device, the offline build's seconds, and per run its
-    report, tokens, wall seconds, peak device GB, the mesh's digest log
-    and what `probe` recorded."""
+    mesh, one `k`) served over them inside ``sharding.ctx.axes(mesh)``,
+    closed loop or, where `servers` says (default: ``args.server`` for
+    every run), through the session server (`rank_sessions`).  `check`
+    turns on the ranks' digest comparison of every step's plan and every
+    recompute mask (`sharding.ctx.check`).  -> this rank's record: rank,
+    device, the offline build's seconds, and per run its report, tokens,
+    wall seconds, peak device GB, the mesh's digest log and what `probe`
+    recorded."""
     from repro_torch.serving.cluster import ClusterEngine
     from repro_torch.sharding import ctx as CTX
 
     probe = probe or Probe()
+    if servers is None:
+        servers = [bool(getattr(args, "server", False))] * len(configs)
     mesh = configs[0].mesh.build()
     mesh.device, mesh.check = device, check
     k = configs[0].k
@@ -443,7 +454,7 @@ def run_rank(rank: int, world: int, backend: str, device, configs: Sequence[Serv
         _sync(device)
         out["build_s"] = time.perf_counter() - t0
         out["build_probe"] = probe.end("offline build", mesh)
-        for config in configs:
+        for config, server in zip(configs, servers):
             if config.mesh != configs[0].mesh or config.k != k:
                 raise ValueError("one rank run serves configs of one mesh and one k")
             label = config.render()
@@ -461,8 +472,14 @@ def run_rank(rank: int, world: int, backend: str, device, configs: Sequence[Serv
                     model, cache = system.model, system.rows
                 else:
                     plans = cache = reuse = None
-                engine, backend, batcher, done = serve(model, model.cfg, config, reqs,
-                                                       plans, cache, reuse)
+                if server:
+                    engine, backend, workers, done, extra = rank_sessions(
+                        config, model, model.cfg, reqs, plans, cache, reuse,
+                        getattr(args, "speed", 0.0))
+                else:
+                    engine, backend, batcher, done = serve(model, model.cfg, config, reqs,
+                                                           plans, cache, reuse)
+                    workers, extra = batcher.workers, {}
                 generated = backend.generated
             _sync(device)
             run = {"wall_s": time.perf_counter() - t0, "peak_gb": _peak_gb(device),
@@ -470,8 +487,8 @@ def run_rank(rank: int, world: int, backend: str, device, configs: Sequence[Serv
                    "log": list(mesh.log),
                    "probe": probe.end(label, mesh, engine=engine, backend=backend)}
             run["report"] = (cluster_report(config, cluster, rep, False, mesh.info())
-                             if k > 1 else report(config, engine, backend, batcher.workers,
-                                                  done, False, mesh.info()))
+                             if k > 1 else {**report(config, engine, backend, workers, done,
+                                                     False, mesh.info()), **extra})
             out["runs"].append(run)
     return out
 
@@ -482,15 +499,16 @@ def _sync(device) -> None:
 
 
 def run_mesh(configs: Sequence[ServeConfig], args, probe: Optional[Probe] = None,
-             check: bool = False) -> list:
+             check: bool = False, servers: Optional[Sequence[bool]] = None) -> list:
     """Start the ranks of `configs`' mesh here (`launch.mesh.spawn_ranks`)
-    on `args.device`'s kind and serve `configs` on them (`run_rank`).  ->
-    the ranks' records, in rank order; each run's report carries every
-    rank's device, time and peak memory under ``mesh``."""
+    on `args.device`'s kind and serve `configs` on them (`run_rank`;
+    `servers`: which runs go through the session server).  -> the ranks'
+    records, in rank order; each run's report carries every rank's
+    device, time and peak memory under ``mesh``."""
     device_type = torch.device(args.device).type
     world = configs[0].mesh.n_devices
     ranks = MESH.spawn_ranks(run_rank, world, device_type,
-                             args=(list(configs), args, probe, check))
+                             args=(list(configs), args, probe, check, servers))
     _gather_ranks(ranks)
     return ranks
 
@@ -507,9 +525,9 @@ def _check_mesh(config: ServeConfig, args) -> None:
     from repro_torch.core.rcllm import tiny_config
     from repro_torch.sharding import specs as SPECS
 
-    if args.server:
-        raise SystemExit(f"--server under mesh.tp={config.mesh.tp} is not ported yet "
-                         "(ROADMAP A.2); serve the trace closed-loop")
+    if args.server and config.k != 1:
+        raise SystemExit("--server runs a single-worker session server (k=1); "
+                         "multi-worker serving is the closed-loop cluster path")
     if config.mode == "rcllm" or config.k > 1:
         cfg = model_config(args.model, args.n_layers) or tiny_config(2, 32)
     else:
@@ -583,6 +601,43 @@ def serve_sessions(model, cfg: LMConfig, config: ServeConfig, submits, cache=Non
     return (engine, backend, *serve_trace(backend, config, submits, speed=speed))
 
 
+def server_keys(completions, server, speed: float) -> dict:
+    """The JAX launcher's ``server``, ``speed``, ``finish_reasons`` and
+    ``online`` keys of a session-server run."""
+    return {"server": True, "speed": speed,
+            "finish_reasons": {
+                reason: sum(1 for c in completions.values() if c.reason == reason)
+                for reason in sorted({c.reason for c in completions.values()})},
+            "online": server.metrics_snapshot()}
+
+
+def rank_sessions(config: ServeConfig, model, cfg: LMConfig, reqs, plans=None, cache=None,
+                  reuse=None, speed: float = 0.0):
+    """One rank's session-server run under tensor parallelism (inside
+    ``sharding.ctx.axes``): the model axis's first rank serves the trace's
+    sessions (`serve_sessions`), every other rank follows its ticks
+    (`serving.server.follow`) over an engine built alike.  -> (engine,
+    backend, [worker], its completions by rid, the server's report keys:
+    ``server`` and ``speed``, and on the serving rank ``finish_reasons``,
+    ``online`` and the ticks sent)."""
+    from repro_torch.serving.server import follow
+    from repro_torch.sharding import ctx as CTX
+
+    if CTX.current().coords["model"] == 0:
+        submits = submits_of(reqs, plans, reuse if config.kv_reuse else None)
+        engine, backend, completions, server = serve_sessions(model, cfg, config, submits,
+                                                              cache, speed)
+        done = sorted(server.worker.done, key=lambda c: c.rid)
+        return (engine, backend, [server.worker], done,
+                {**server_keys(completions, server, speed), "ticks": server.ticks})
+    sel = ENG.SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev, window=16)
+    engine = API.build_engine(model, cfg, config, sel=sel, cache=cache)
+    backend = API.build_backend(engine, config)
+    worker = follow(backend, config)
+    return (engine, backend, [worker], sorted(worker.done, key=lambda c: c.rid),
+            {"server": True, "speed": speed})
+
+
 def run_server(config: ServeConfig, model, cfg: LMConfig, reqs, plans=None, cache=None,
                reuse=None, speed: float = 0.0, warmup: bool = False) -> dict:
     """The single-instance trace served through the session server:
@@ -598,12 +653,7 @@ def run_server(config: ServeConfig, model, cfg: LMConfig, reqs, plans=None, cach
                                                           cache, speed)
     done = sorted(server.worker.done, key=lambda c: c.rid)
     out = report(config, engine, backend, [server.worker], done, warmup)
-    out["server"] = True
-    out["speed"] = speed
-    out["finish_reasons"] = {
-        reason: sum(1 for c in completions.values() if c.reason == reason)
-        for reason in sorted({c.reason for c in completions.values()})}
-    out["online"] = server.metrics_snapshot()
+    out.update(server_keys(completions, server, speed))
     return out
 
 

@@ -29,6 +29,17 @@ molecule; ogb_products needs more than one card and is refused.
     PYTHONPATH=src python -m repro_torch.launch.steps --device cpu --smoke \
         --arch schnet --shape molecule
 
+`build(arch, shape, mesh, ...)` is the counterpart of the reference's
+`build` for an LM cell on a mesh: this rank's shard of the model
+(`lm_param_specs`, mode "train" for the train step, "serve" otherwise),
+its block of a global batch (`lm_input_specs`, `lm_cache_spec`) and the
+step, which runs inside ``sharding.ctx.axes(mesh)``; the train step's
+optimizer state lies as `lm_opt_state_specs` says (`train_layout`).  The
+reference lowers that bundle; the port runs it on the ranks of a
+`torch.distributed` group (`launch.train`, the distributed-training
+example, `chip_smoke.py` phase 2m).  The recsys and GNN bundles under a
+mesh wait (ROADMAP A.2).
+
 It prints one JSON line: arch, shape, the dims run and every cut, device,
 the median time per call (host clock around a synchronised call, after
 one warm-up call; a train cell runs `--steps` steps and reports each
@@ -51,11 +62,14 @@ import torch
 
 from repro_torch.configs import registry as R
 from repro_torch.configs.base import GNNConfig, LMConfig
+from repro_torch.launch.mesh import data_axes
 from repro_torch.gnn import schnet as G
 from repro_torch.kernels.embedding_bag.ops import bag_backward, bag_sum
 from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
 from repro_torch.models import transformer as TT
 from repro_torch.recsys import models as RM
+from repro_torch.sharding import ctx as CTX
+from repro_torch.sharding import specs as SPECS
 from repro_torch.training import optimizer as OPT
 from repro_torch.training.train_loop import TrainConfig, make_train_step, trainable
 
@@ -248,6 +262,133 @@ def run(arch: str, shape: str, device="cuda", smoke: bool = False,
         rep.update(seq=int(s), tokens_per_s=tokens / statistics.median(times))
     return rep
 
+
+
+# ------------------------------------------------------- LM steps on a mesh
+def cut_input(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of an input `x` under `spec`: a dimension over the
+    data axis keeps the rank's share of its rows, one over ``model`` its
+    share of the heads (contiguous shares, in coordinate order)."""
+    dax = data_axes(mesh)
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        n, c = 1, 0
+        for a in names:
+            n, c = n * mesh.shape[a], c * mesh.shape[a] + mesh.coords[a]
+        if "model" in names and any(a in dax for a in names):
+            raise ValueError(f"input spec {spec}: a sequence split over every rank "
+                             "(flash-decoding) waits (ROADMAP A.2)")
+        step = x.shape[dim] // n
+        x = x.narrow(dim, c * step, step)
+    return x
+
+
+def rank_inputs(cfg: LMConfig, mesh, step: str, batch: Dict) -> Dict:
+    """This rank's block of a global LM batch (`lm_input_specs`): prefill and
+    train rows over the data axis; a decode batch's rows where the data
+    axis divides them (else every data rank holds them all), its cache's
+    kv heads over the model axis."""
+    dims = {"batch": int(batch["tokens"].shape[0])}
+    if step == "decode":
+        dims["seq"] = int(batch["cache"]["k"].shape[2])
+    specs = SPECS.lm_input_specs(cfg, mesh, step, dims)
+    out = {}
+    for k, v in batch.items():
+        if k == "cache":
+            out[k] = {n: cut_input(v[n], specs["cache"][n], mesh).contiguous() for n in v}
+        else:
+            out[k] = cut_input(v, specs[k], mesh)
+    return out
+
+
+def data_sharded(cfg: LMConfig, mesh, step: str, batch: int) -> bool:
+    """Whether a step's rows are cut over the data axis (`rank_inputs`)."""
+    spec = SPECS.lm_input_specs(cfg, mesh, step, {"batch": batch, "seq": 1})["tokens"]
+    return spec[0] is not None
+
+
+@dataclasses.dataclass
+class MeshBundle:
+    """One LM cell on a mesh: the rank's `model` shard, its `inputs` block
+    and `fn(inputs)`, the step run inside the mesh (a train step keeps its
+    optimizer state across calls)."""
+
+    mesh: object
+    step: str
+    model: TT.Transformer
+    inputs: Dict
+    fn: Callable[[Dict], object]
+    optimizer: Optional[OPT.ClippedOptimizer] = None
+
+
+def rank_model(cfg: LMConfig, mesh, step: str, device, source=None,
+               generator: Optional[torch.Generator] = None) -> TT.Transformer:
+    """This rank's shard: cut from `source` (a whole model or the
+    reference's numpy tree) or drawn from `generator` one whole parameter
+    at a time, under mode "train" for the train step and "serve" else."""
+    mode = "train" if step == "train" else "serve"
+    if source is not None:
+        return SPECS.shard_lm_params(source, cfg, mesh, device=device, mode=mode)
+    return SPECS.init_sharded_params(cfg, mesh, generator, device, mode=mode,
+                                     token_embed=False)[0]
+
+
+def mesh_fn(model: TT.Transformer, mesh, step: str, batch_rows: int,
+            train_cfg: Optional[TrainConfig] = None):
+    """-> (the step as fn(rank inputs), the train step's optimizer or None)."""
+    dp_batch = data_sharded(model.cfg, mesh, step, batch_rows)
+    if step == "prefill":
+        def fn(inputs):
+            with CTX.axes(mesh):
+                return TT.prefill(model, inputs["tokens"], dp_batch)
+        return fn, None
+    if step == "decode":
+        def fn(inputs):
+            with CTX.axes(mesh):
+                return TT.decode_step(model, inputs["tokens"], inputs["cache"],
+                                      inputs["positions"], dp_batch)
+        return fn, None
+    cfg = model.cfg
+    # no train_cfg: the cell's optimizer at its default hyperparameters
+    # (`make_train_cell`'s, the reference bundle's)
+    kw = {} if train_cfg is None else {"lr": train_cfg.lr}
+    train_cfg = train_cfg or TrainConfig(optimizer=cfg.optimizer)
+    with CTX.axes(mesh):
+        opt = OPT.get(train_cfg.optimizer, list(model.named_parameters()), **kw,
+                      layout=SPECS.train_layout(cfg, mesh, train_cfg.optimizer))
+    err = ([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in model.parameters()] if train_cfg.grad_compression == "topk" else None)
+    step_fn = make_train_step(lm_loss, train_cfg, model, opt, err)
+
+    def fn(inputs):
+        with CTX.axes(mesh), trainable(model):
+            return step_fn(inputs)
+    return fn, opt
+
+
+def build(arch: str, shape: str, mesh, device="cuda", smoke: bool = False, source=None,
+          generator: Optional[torch.Generator] = None, batch: Optional[Dict] = None,
+          batch_size: Optional[int] = None, seq: Optional[int] = None,
+          layers: Optional[int] = None, train_cfg: Optional[TrainConfig] = None) -> MeshBundle:
+    """The LM cell `shape` of `arch` on `mesh` (the module docstring): the
+    model from `source` or `generator` (seeded 0 on `device` by default),
+    the global batch `batch` or `registry.make_batch`'s (`batch_size` /
+    `seq` replacing the cell's dims), cut to this rank."""
+    if R.family_of(arch) != "lm":
+        raise ValueError(f"{arch}: the recsys and GNN bundles under a mesh wait "
+                         "(ROADMAP A.2)")
+    spec = R.LM_SHAPES[shape]
+    cfg = cut_config(R.get_config(arch, smoke), layers)
+    dev = torch.device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    model = rank_model(cfg, mesh, spec.step, dev, source, gen)
+    if batch is None:
+        batch = R.make_batch(cfg, shape, gen, dev, batch_size, seq)
+    inputs = rank_inputs(cfg, mesh, spec.step, batch)
+    fn, opt = mesh_fn(model, mesh, spec.step, int(batch["tokens"].shape[0]), train_cfg)
+    return MeshBundle(mesh, spec.step, model, inputs, fn, opt)
 
 
 def main(argv=None) -> Dict:

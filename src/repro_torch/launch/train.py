@@ -9,6 +9,11 @@
     # stated cuts (an LM: --layers 2, --batch 1 at 4,096 tokens)
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b
 
+    # an LM on a mesh of ranks: tensor, expert and data parallelism (gloo
+    # ranks on the CPU here; on the card, ranks share it or each has one)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b \
+        --smoke --device cpu --steps 4 --config mesh.tp=2,mesh.dp=2
+
 `--smoke` runs `training.train_loop.train` on the reduced config
 (`--steps` steps, checkpoints under `--ckpt`, gradient compression),
 with the reference's synthetic data: an LM reads `lm_synthetic_batches`
@@ -18,21 +23,37 @@ Without `--smoke` the reference lowers the full cell through its XLA
 dry run; the port runs the family's train cell (`train_4k`,
 `train_batch`, `full_graph_sm`) through `launch.steps` and prints its
 JSON line.  It runs on the card unless `--device cpu`.
+
+With ``--config mesh.tp=...,mesh.dp=...`` an LM trains on a mesh: the
+launcher starts one rank per device of the mesh (`launch.mesh.spawn_ranks`,
+or joins the ranks ``torchrun`` started), each holding its shard of the
+model drawn from the same seed (`sharding.specs.init_sharded_params`),
+its rows of each batch and its block of the optimizer state
+(`train_layout`).  `--smoke` runs the loop (checkpoints gathered to rank
+0, written whole), otherwise the train cell (`launch.steps.build`).
+Rank 0 prints one JSON line with the loss and gradient-norm history and
+a ``mesh`` record: tp, dp, the backend and every rank's device, wall
+seconds and peak device GB.
 """
 from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, Iterator
+import time
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
 
 from repro_torch.configs import registry as R
 from repro_torch.data.pipeline import BatchPipeline, lm_synthetic_batches
+from repro_torch.launch import mesh as MESH
 from repro_torch.launch import steps as STEPS
 from repro_torch.models import transformer as TT
 from repro_torch.recsys import models as RM
+from repro_torch.serving.api import MeshConfig, ServeConfig
+from repro_torch.sharding import ctx as CTX
+from repro_torch.sharding import specs as SPECS
 from repro_torch.training.train_loop import TrainConfig, train
 
 TRAIN_CELL = {"lm": "train_4k", "recsys": "train_batch", "gnn": "full_graph_sm"}
@@ -66,6 +87,106 @@ def recsys_batches(cfg, batch: int, seed: int = 0) -> Iterator[Dict[str, np.ndar
                    "neg_samples": np.arange(16, dtype=np.int32)}
 
 
+def mesh_config(spec: str) -> MeshConfig:
+    """The mesh of a ``--config`` string, which may name ``mesh.*`` keys
+    only."""
+    try:
+        config = ServeConfig.parse(spec)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if config.replace(mesh=MeshConfig()) != ServeConfig():
+        raise SystemExit(f"--config {spec!r}: training takes mesh.* keys only")
+    return config.mesh
+
+
+def _peak_gb(device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
+
+
+def train_rank(rank: int, world: int, backend: str, device, args, mesh_cfg: MeshConfig) -> Dict:
+    """One rank of an LM trained on a mesh (the module docstring).  -> its
+    record: rank, device, wall seconds, peak GB and the step history."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_cfg.build()
+    mesh.device = device
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    with CTX.axes(mesh):
+        if args.smoke:
+            cfg = R.get_config(args.arch, smoke=True)
+            model = STEPS.rank_model(cfg, mesh, "train", device, generator=gen)
+            pipe = BatchPipeline(lm_synthetic_batches(cfg.vocab_size, args.batch or 8,
+                                                      args.seq or 64),
+                                 dp=(mesh.coords["data"], mesh.shape["data"]))
+            try:
+                _, _, hist = train(model, STEPS.lm_loss, iter(pipe), TrainConfig(
+                    steps=args.steps, ckpt_dir=args.ckpt, optimizer=cfg.optimizer, lr=1e-3,
+                    grad_compression=args.compression),
+                    layout=SPECS.train_layout(cfg, mesh, cfg.optimizer))
+            finally:
+                pipe.close()
+        else:
+            bundle = STEPS.build(args.arch, "train_4k", mesh, device, generator=gen,
+                                 batch_size=args.batch or 1, seq=args.seq, layers=args.layers,
+                                 train_cfg=TrainConfig(optimizer=R.ARCHS[args.arch].optimizer,
+                                                       grad_compression=args.compression))
+            hist = []
+            for _ in range(min(args.steps, 3)):
+                m = bundle.fn(bundle.inputs)
+                hist.append({k: float(v) for k, v in m.items()})
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"rank": rank, "device": str(device), "backend": backend,
+            "wall_s": time.perf_counter() - t0, "peak_gb": _peak_gb(device), "history": hist,
+            "mesh": mesh.info()}
+
+
+def mesh_report(args, ranks: List[Dict]) -> Dict:
+    """Rank 0's JSON of a mesh run: its history and every rank's record."""
+    hist = ranks[0]["history"]
+    return {"arch": args.arch, "smoke": args.smoke, "steps": len(hist),
+            "loss": [h["loss"] for h in hist], "gnorm": [h["gnorm"] for h in hist],
+            "compression": args.compression,
+            "mesh": {**ranks[0]["mesh"],
+                     "ranks": [{k: r[k] for k in ("rank", "device", "wall_s", "peak_gb")}
+                               for r in ranks]}}
+
+
+def run_mesh(args, mesh_cfg: MeshConfig) -> Dict:
+    """Train on `mesh_cfg`'s ranks (spawned here, or the ranks ``torchrun``
+    started); rank 0 prints the JSON and returns it."""
+    if R.family_of(args.arch) != "lm":
+        raise SystemExit(f"{args.arch}: training on a mesh covers the LM archs; the recsys "
+                         "and GNN bundles under a mesh wait (ROADMAP A.2)")
+    try:
+        SPECS._check_shardable(R.get_config(args.arch, smoke=args.smoke), mesh_cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    device_type = torch.device(args.device).type
+    if MESH.under_torchrun():
+        import os
+
+        import torch.distributed as dist
+
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        backend, device = MESH.init_rank(rank, world, device_type)
+        try:
+            mine = train_rank(rank, world, backend, device, args, mesh_cfg)
+            ranks = [None] * world
+            dist.all_gather_object(ranks, mine)
+        finally:
+            dist.destroy_process_group()
+        if rank != 0:
+            return None
+    else:
+        ranks = MESH.spawn_ranks(train_rank, mesh_cfg.n_devices, device_type,
+                                 args=(args, mesh_cfg))
+    rep = mesh_report(args, ranks)
+    print(json.dumps(rep))
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, choices=sorted(R.ARCHS))
@@ -79,10 +200,22 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=2, help="depth of a full LM cell")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--compression", default=None, choices=["int8", "topk"])
+    ap.add_argument("--config", default=None,
+                    help="mesh.tp=N,mesh.dp=M: train an LM on a mesh of ranks")
     args = ap.parse_args(argv)
+    return run(args)
+
+
+def run(args):
+    """`main` on parsed arguments (the distributed-training example calls
+    it with its own flags)."""
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
     fam = R.family_of(args.arch)
+    if args.config:
+        mesh_cfg = mesh_config(args.config)
+        if mesh_cfg.enabled:
+            return run_mesh(args, mesh_cfg)
 
     if not args.smoke:
         lm = fam == "lm"

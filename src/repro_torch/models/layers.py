@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
+from repro_torch.sharding import ctx as CTX
 
 NEG_INF = -1e30
 
@@ -297,7 +298,7 @@ def mlp_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
 
 # ---------------------------------------------------------------- MoE
 def moe_route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float) -> Dict[str, torch.Tensor]:
+              capacity_factor: float, dp_batch: bool = True) -> Dict[str, torch.Tensor]:
     """The reference's sort-based routing of x (T, D) (`moe_apply`,
     `repro/models/layers.py:503`).  Router logits and softmax in fp32;
     the top k by (probability descending, expert id ascending), as
@@ -308,73 +309,100 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int, top_k: i
     is the later one in that order).  -> gate_vals, expert_idx (T, K);
     keep_tk, dest_tk (T, K): each route's kept flag and flat slot e*C+c;
     slot_tok, slot_valid (E, C): each slot's token and whether a route
-    fills it; aux, the Switch load-balancing term; C."""
+    fills it; aux, the Switch load-balancing term; C; base (E,), the
+    routes the earlier data ranks send to each expert (zeros without data
+    parallelism): a local slot c of expert e is the batch's slot base + c.
+
+    Under data parallelism (`dp_batch`: x is this rank's contiguous share
+    of a batch cut over the data axis) the function is the reference's on
+    the whole batch: C counts every rank's tokens, a route's place in its
+    expert is offset by the routes the earlier data ranks send there (an
+    exclusive prefix sum of the per-expert counts), and the aux term's
+    density and mean probability are means over every token.  The slots
+    (E, C) are then this rank's routes at their places within the rank's
+    share, so an expert's kept slots across the ranks are the
+    reference's."""
     T = x.shape[0]
     E, K = n_experts, top_k
     dev = x.device
+    dp = CTX.dp_size() if dp_batch else 1
     probs = torch.softmax(x.float() @ router.float(), dim=-1)          # (T, E)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = top[:, :K], idx[:, :K]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     experts = torch.arange(E, device=dev)
     density = (expert_idx[:, :1] == experts).float().mean(0)           # no host sync
-    aux = E * torch.sum(density * probs.mean(0))
+    mean_prob = probs.mean(0)
+    if dp > 1:
+        density = CTX.mean_over_dp(density)
+        mean_prob = CTX.mean_over_dp(mean_prob)
+    aux = E * torch.sum(density * mean_prob)
 
-    C = max(1, int(capacity_factor * T * K / E))
+    C = max(1, int(capacity_factor * T * dp * K / E))
     n = T * K
     sorted_e, order = torch.sort(expert_idx.reshape(n), stable=True)
     seg_start = torch.searchsorted(sorted_e, experts)
     pos = torch.arange(n, device=dev) - seg_start[sorted_e]
-    keep = pos < C
+    base = torch.zeros(E, dtype=torch.long, device=dev)
+    if dp > 1:
+        counts = torch.searchsorted(sorted_e, experts, right=True) - seg_start
+        base = CTX.exclusive_cumsum_dp(counts)
+    keep = pos + base[sorted_e] < C
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(n, device=dev)
-    slot_idx = seg_start[:, None] + torch.arange(C, device=dev)[None, :]   # (E, C)
+    slots = torch.arange(C, device=dev)[None, :]
+    slot_idx = seg_start[:, None] + slots                                  # (E, C)
     clipped = slot_idx.clamp(max=n - 1)
     slot_valid = (slot_idx < n) & (sorted_e[clipped] == experts[:, None])
+    if dp > 1:
+        slot_valid &= base[:, None] + slots < C
     dest = sorted_e * C + pos.clamp(0, C - 1)
     return {"gate_vals": gate_vals, "expert_idx": expert_idx, "aux": aux, "C": C,
-            "keep_tk": keep[inv_order].reshape(T, K),
+            "base": base, "keep_tk": keep[inv_order].reshape(T, K),
             "dest_tk": dest[inv_order].reshape(T, K),
             "slot_tok": order[clipped] // K, "slot_valid": slot_valid}
 
 
 def moe_apply(x: torch.Tensor, params: Mapping[str, torch.Tensor], *, n_experts: int,
-              top_k: int, capacity_factor: float,
-              mlp_type: str) -> Tuple[torch.Tensor, torch.Tensor]:
+              top_k: int, capacity_factor: float, mlp_type: str,
+              dp_batch: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (T, D) -> (T, D) and the aux term, by the reference's gather-only
     dispatch: `moe_route`, the (E, C, D) expert inputs gathered by slot,
     the experts as batched products, and the K routes combined by
     gate-weighted gathers from the (E*C, D) outputs (a dropped route adds
-    0).  No (T, E, C) one-hot is built."""
+    0).  No (T, E, C) one-hot is built.
+
+    Expert parallelism: a rank holding E / tp of the experts (the model
+    axis cuts w_gate / w_up / w_down's leading dim) routes its tokens with
+    the whole router, runs only its experts' slots, combines the routes
+    that went to them, and the ranks' outputs are summed over the model
+    axis; x and the gates enter that region through `copy_to_tp`, so the
+    router's gradient is the whole model's."""
     T, D = x.shape
     r = moe_route(x, params["router"], n_experts=n_experts, top_k=top_k,
-                  capacity_factor=capacity_factor)
-    expert_in = torch.where(r["slot_valid"][..., None], x[r["slot_tok"].clamp(0, T - 1)], 0)
+                  capacity_factor=capacity_factor, dp_batch=dp_batch)
+    E_loc = params["w_up"].shape[0]
+    e0 = 0 if E_loc == n_experts else E_loc * CTX.current().coords["model"]
+    x = CTX.copy_to_tp(x)
+    gates = CTX.copy_to_tp(r["gate_vals"])
+    C = r["C"]
+    slot_tok, slot_valid = r["slot_tok"][e0:e0 + E_loc], r["slot_valid"][e0:e0 + E_loc]
+    expert_in = torch.where(slot_valid[..., None], x[slot_tok.clamp(0, T - 1)], 0)
     if mlp_type in ("swiglu", "geglu"):
         h = activation(torch.bmm(expert_in, params["w_gate"]), mlp_type) * \
             torch.bmm(expert_in, params["w_up"])
     else:
         h = activation(torch.bmm(expert_in, params["w_up"]), mlp_type)
-    flat_out = torch.bmm(h, params["w_down"]).reshape(-1, D)            # (E*C, D)
+    flat_out = torch.bmm(h, params["w_down"]).reshape(-1, D)            # (E_loc*C, D)
     del expert_in, h
     y = None
     for j in range(top_k):
-        yj = torch.where(r["keep_tk"][:, j, None],
-                         flat_out[r["dest_tk"][:, j].clamp(0, flat_out.shape[0] - 1)], 0)
-        yj = yj * r["gate_vals"][:, j, None].to(yj.dtype)
+        keep = r["keep_tk"][:, j]
+        dest = r["dest_tk"][:, j] - e0 * C
+        if E_loc != n_experts:
+            e = r["expert_idx"][:, j]
+            keep = keep & (e >= e0) & (e < e0 + E_loc)
+        yj = torch.where(keep[:, None], flat_out[dest.clamp(0, flat_out.shape[0] - 1)], 0)
+        yj = yj * gates[:, j, None].to(yj.dtype)
         y = yj if y is None else y + yj
-    return y.to(x.dtype), r["aux"]
-
-
-def moe_init(generator: Optional[torch.Generator], d_model: int, cfg_moe, mlp_type: str,
-             dtype, device=None) -> dict:
-    """The reference's `moe_init` scales: router (D, E) fp32 and w_up /
-    w_gate (E, D, F) at D^-1/2, w_down (E, F, D) at F^-1/2."""
-    E, Fe = cfg_moe.n_experts, cfg_moe.d_ff
-    std_in, std_out = d_model ** -0.5, Fe ** -0.5
-    p = {"router": _normal((d_model, E), std_in, torch.float32, device, generator),
-         "w_up": _normal((E, d_model, Fe), std_in, dtype, device, generator),
-         "w_down": _normal((E, Fe, d_model), std_out, dtype, device, generator)}
-    if mlp_type in ("swiglu", "geglu"):
-        p["w_gate"] = _normal((E, d_model, Fe), std_in, dtype, device, generator)
-    return p
+    return CTX.all_reduce(y.to(x.dtype)), r["aux"]

@@ -21,18 +21,26 @@ layer recomputed in the backward under `cfg.remat`.  The parameters take
 gradients only where a caller turns them on
 (`training.train_loop.trainable`).
 
-A model built with ``tp > 1`` is one rank's shard of a dense model under
-the serve layout (`sharding.specs.shard_lm_params`): ``n_heads / tp``
-query heads, ``n_kv_heads / tp`` kv heads, ``d_ff / tp`` MLP columns and
-``vocab_size / tp`` rows of the embedding and columns of the head.  Its
-RcLLM serving forward sums the attention output projection's and the
-MLP's partial products over the ranks (`sharding.ctx.all_reduce`), looks
-tokens up in its vocabulary rows and sums the ranks' lookups (exact: one
-rank holds each token), and gathers the ranks' logit slices into the
-whole vocabulary (`logits`).  It runs inside ``sharding.ctx.axes(mesh)``
-of a mesh whose model axis has ``tp`` ranks.  With ``tp == 1`` nothing is
-reduced.  The LM archs' `prefill`, `decode_step` and training path take
-whole models only."""
+A model built with ``tp > 1`` is one rank's shard of the model
+(`sharding.specs.shard_lm_params`): ``n_heads / tp`` query heads,
+``n_kv_heads / tp`` kv heads, ``d_ff / tp`` MLP columns (an MoE: ``E /
+tp`` experts and the whole router) and ``vocab_size / tp`` rows of the
+embedding and columns of the head.  Every path sums the attention output
+projection's and the MLP's (or the rank's experts') partial products
+over the ranks (`sharding.ctx.all_reduce`), enters those blocks through
+`sharding.ctx.copy_to_tp` (whose backward sums the input's gradient),
+looks tokens up in its vocabulary rows and sums the ranks' lookups
+(exact: one rank holds each token).  The serving paths gather the ranks'
+logit slices into the whole vocabulary (`logits`); the training path
+keeps them and `loss_fn` takes a vocabulary-parallel log-sum-exp.  It
+runs inside ``sharding.ctx.axes(mesh)`` of a mesh whose model axis has
+``tp`` ranks.  With ``tp == 1`` nothing is reduced.
+
+Under data parallelism the steps take the rank's rows of a batch cut over
+the data axis (``dp_batch=True``, the default; False where every data
+rank holds the whole batch, as a decode batch the data axis does not
+divide): the MoE's capacity, slots and aux term are then the whole
+batch's (`layers.moe_route`), and `loss_fn` returns the rank's share."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
@@ -76,9 +84,9 @@ class Block(nn.Module):
             self.mlp = nn.ParameterDict(
                 {n: _frozen(torch.empty(shapes[n], **kw)) for n in names})
         else:
-            E, Fe = cfg.moe.n_experts, cfg.moe.d_ff
+            E, Fe = cfg.moe.n_experts // tp, cfg.moe.d_ff
             shapes = {"w_up": (E, D, Fe), "w_gate": (E, D, Fe), "w_down": (E, Fe, D)}
-            router = torch.empty(D, E, dtype=torch.float32, device=device)
+            router = torch.empty(D, cfg.moe.n_experts, dtype=torch.float32, device=device)
             self.moe = nn.ParameterDict(
                 {"router": _frozen(router),
                  **{n: _frozen(torch.empty(shapes[n], **kw)) for n in names}})
@@ -133,11 +141,12 @@ class Transformer(nn.Module):
         return out if self.tp == 1 else CTX.gather_vocab(out, self.cfg.vocab_size)
 
     def whole(self, what: str) -> None:
-        """Raise unless this is the whole model: `what` has no sharded form."""
+        """Raise unless this is the whole model: `what` reads every vocabulary
+        row or head, which a shard does not hold."""
         if self.tp != 1:
-            raise ValueError(f"{what} runs on a whole model; tensor parallelism of the LM "
-                             "archs' steps and of training waits for a later slice "
-                             "(ROADMAP A.2)")
+            raise ValueError(f"{what} needs the whole model, and this is rank "
+                             f"{self.tp_rank}'s shard of {self.tp}: pass what it reads "
+                             "from the whole model instead")
 
     def forward(self, tokens: torch.Tensor, kernels: bool) -> torch.Tensor:
         return forward(self, tokens, kernels)
@@ -159,8 +168,6 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
     parameter at a time."""
     if tp != 1 and keep is None:
         raise ValueError("a shard's parameters are cut from whole draws: pass keep")
-    if tp != 1 and cfg.moe is not None:
-        raise ValueError("MoE blocks have no sharded init (ROADMAP A.2)")
     model = Transformer(cfg, device=device, tp=tp, tp_rank=tp_rank)
     whole = model if keep is None else Transformer(cfg, device="meta")
     D, dh = cfg.d_model, cfg.resolved_head_dim
@@ -186,9 +193,13 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
                     normal_(f"layers.{i}.mlp.{name}",
                             cfg.d_ff ** -0.5 if name == "w_down" else std)
             else:
-                for name, t in L.moe_init(generator, D, cfg.moe, cfg.mlp_type,
-                                          cfg.torch_dtype, device).items():
-                    blk.moe[name].copy_(t)
+                # the reference's `moe_init` draws: router (D, E) fp32, then
+                # w_up, w_down, w_gate, at D^-1/2 but w_down's F^-1/2
+                names = ["router", "w_up", "w_down"] + (["w_gate"] if "w_gate" in blk.moe
+                                                        else [])
+                for name in names:
+                    normal_(f"layers.{i}.moe.{name}",
+                            cfg.moe.d_ff ** -0.5 if name == "w_down" else std)
         if model.lm_head is not None:
             normal_("lm_head", std)
     return model
@@ -198,7 +209,7 @@ def qkv(x: torch.Tensor, lp: Block, cfg: LMConfig,
         positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) at `positions` (broadcastable to (B, S)) -> q, k (both
     rotated), v: (B, S, H, Dh)."""
-    h = L.rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    h = CTX.copy_to_tp(L.rms_norm(x, lp.attn_norm, cfg.norm_eps))
     q = torch.einsum("bsd,dhe->bshe", h, lp.wq)
     k = torch.einsum("bsd,dhe->bshe", h, lp.wk)
     v = torch.einsum("bsd,dhe->bshe", h, lp.wv)
@@ -240,10 +251,10 @@ def prefill_attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
     o = L.chunked_attention(q, k, v, causal=True, q_positions=positions,
                             kv_positions=positions, sliding_window=cfg.sliding_window,
                             q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-    return torch.einsum("bshe,hed->bsd", o, lp.wo), (k, v)
+    return CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo)), (k, v)
 
 
-def ffn_block(x: torch.Tensor, lp: Block, cfg: LMConfig):
+def ffn_block(x: torch.Tensor, lp: Block, cfg: LMConfig, dp_batch: bool = True):
     """The reference's `_ffn_block`: pre-norm dense MLP, or the MoE over
     the B*S tokens.  -> (output (B, S, D), aux (0 for a dense MLP))."""
     h = L.rms_norm(x, lp.mlp_norm, cfg.norm_eps)
@@ -251,42 +262,48 @@ def ffn_block(x: torch.Tensor, lp: Block, cfg: LMConfig):
         B, S, D = h.shape
         y, aux = L.moe_apply(h.reshape(B * S, D), lp.moe, n_experts=cfg.moe.n_experts,
                              top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
-                             mlp_type=cfg.mlp_type)
+                             mlp_type=cfg.mlp_type, dp_batch=dp_batch)
         return y.reshape(B, S, D), aux
-    return L.mlp_apply(h, lp.mlp, cfg.mlp_type), 0.0
+    return CTX.all_reduce(L.mlp_apply(CTX.copy_to_tp(h), lp.mlp, cfg.mlp_type)), 0.0
 
 
 def _last_logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    return L.rms_norm(x, model.final_norm, model.cfg.norm_eps) @ model.head()
+    return model.logits(L.rms_norm(x, model.final_norm, model.cfg.norm_eps))
+
+
+def kv_heads(model: Transformer) -> int:
+    """The kv heads the model holds (a shard: its own)."""
+    return model.layers[0].wk.shape[1]
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+def prefill(model: Transformer, tokens: torch.Tensor,
+            dp_batch: bool = True) -> Tuple[torch.Tensor, Cache]:
     """Prompt prefill (the reference's `transformer.prefill`): tokens
     (B, S) -> the last position's logits (B, V) and the cache {k, v}:
-    (L, B, S, Hkv, Dh), post-RoPE, in the model's dtype.  The head runs on
+    (L, B, S, Hkv, Dh), post-RoPE, in the model's dtype (a shard: its
+    Hkv / tp heads, and the whole vocabulary's logits).  The head runs on
     the last row only (the reference slices it from (B, S, V) logits,
     16.8 GB in bf16 at S = 32768 and V = 256000); normalisation is per
     row, so the two agree."""
     cfg = model.cfg
-    model.whole("prefill")
     B, S = tokens.shape
     x = model.embed_tokens(tokens)
     positions = torch.arange(S, device=x.device)
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (cfg.n_layers, B, S, kv_heads(model), cfg.resolved_head_dim)
     cache = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
     for i, lp in enumerate(model.layers):
         a, (k, v) = prefill_attention_block(x, lp, cfg, positions)
         cache["k"][i], cache["v"][i] = k, v
         x = x + a
         del a, k, v
-        x = x + ffn_block(x, lp, cfg)[0]
+        x = x + ffn_block(x, lp, cfg, dp_batch)[0]
     return _last_logits(model, x[:, -1]), cache
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+                positions: torch.Tensor, dp_batch: bool = True) -> Tuple[torch.Tensor, Cache]:
     """One decode step (the reference's `transformer.decode_step`): tokens
     (B, 1) at `positions` (B,), the rows' current lengths, against
     cache {k, v}: (L, B, S, Hkv, Dh).  -> (logits (B, V), cache).
@@ -295,7 +312,6 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
     cache tensors, and the same dict is returned: the reference's
     functional update would hold two caches at once."""
     cfg = model.cfg
-    model.whole("decode_step")
     B = tokens.shape[0]
     x = model.embed_tokens(tokens[:, 0])[:, None]                  # (B, 1, D)
     pos = positions.to(x.device, torch.long)
@@ -307,55 +323,85 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
         v_cache[rows, pos] = v[:, 0]
         o = L.decode_attention(q, k_cache, v_cache, pos + 1,
                                sliding_window=cfg.sliding_window)
-        x = x + torch.einsum("bshe,hed->bsd", o, lp.wo)
-        x = x + ffn_block(x, lp, cfg)[0]
+        x = x + CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
+        x = x + ffn_block(x, lp, cfg, dp_batch)[0]
     return _last_logits(model, x[:, 0]), cache
 
 
 # ------------------------------------------------------- training path
-def _train_layer(x: torch.Tensor, lp: Block, cfg: LMConfig,
-                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _train_layer(x: torch.Tensor, lp: Block, cfg: LMConfig, positions: torch.Tensor,
+                 dp_batch: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of the reference's scan body: causal (and windowed)
     attention through `flash_attention`, then the FFN.  -> (x, aux)."""
     q, k, v = qkv(x, lp, cfg, positions)
     o = L.flash_attention(q, k, v, causal=True, q_positions=positions,
                           kv_positions=positions, sliding_window=cfg.sliding_window,
                           q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-    x = x + torch.einsum("bshe,hed->bsd", o, lp.wo)
-    y, aux = ffn_block(x, lp, cfg)
+    x = x + CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
+    y, aux = ffn_block(x, lp, cfg, dp_batch)
     return x + y, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
+def _remat_layer(mesh, *args) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_train_layer` inside `mesh`: the backward recomputes a remat layer
+    on autograd's device thread, which does not see the caller's mesh
+    context, and the layer's collectives must run there too."""
+    if mesh is None:
+        return _train_layer(*args)
+    with CTX.axes(mesh):
+        return _train_layer(*args)
+
+
 def forward_train(model: Transformer, tokens: torch.Tensor,
-                  rows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  rows: Optional[torch.Tensor] = None,
+                  dp_batch: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's `forward`: tokens (B, S) -> (logits (B, S, V), the
     summed MoE aux term), differentiable.  With `rows` (B,) only those
     positions' logits, (B, V): the head is per row, so they equal the
-    rows of the full logits."""
+    rows of the full logits.  A shard returns its vocabulary slice of the
+    logits, (..., V / tp), for `loss_fn`'s vocabulary-parallel loss."""
     cfg = model.cfg
-    model.whole("forward_train")
     x = model.embed_tokens(tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
         if cfg.remat and torch.is_grad_enabled():
-            x, a = checkpoint(_train_layer, x, lp, cfg, positions, use_reentrant=False)
+            x, a = checkpoint(_remat_layer, CTX.current(), x, lp, cfg, positions, dp_batch,
+                              use_reentrant=False)
         else:
-            x, a = _train_layer(x, lp, cfg, positions)
+            x, a = _train_layer(x, lp, cfg, positions, dp_batch)
         aux = aux + a
     if rows is not None:
         x = x[torch.arange(x.shape[0], device=x.device), rows]
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = CTX.copy_to_tp(L.rms_norm(x, model.final_norm, cfg.norm_eps))
     return x @ model.head(), aux
 
 
-def loss_fn(model: Transformer, tokens: torch.Tensor,
-            labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            dp_batch: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's `loss_fn`: next-token cross entropy on fp32 logits
-    plus 0.01 x the MoE aux term.  -> (loss, nll)."""
-    logits, aux = forward_train(model, tokens)
+    plus 0.01 x the MoE aux term.  -> (loss, nll).
+
+    A shard computes it vocabulary-parallel: the max over its logit slice
+    reduced by MAX over the model axis, the sum of exponentials and the
+    gold logit (from the rank that owns the label) summed over it; the
+    (B, S, V) logits are never gathered.  fp32 throughout, so it differs
+    from the whole vocabulary's `logsumexp` only in the order of sums.
+    Under data parallelism both are the means over the rank's rows (the
+    aux term is already the whole batch's); their mean over the data axis
+    is the batch's."""
+    logits, aux = forward_train(model, tokens, dp_batch=dp_batch)
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if model.tp == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        V = logits.shape[-1]
+        m = CTX.max_over_tp(logits.detach().amax(-1))
+        logz = m + torch.log(CTX.all_reduce((logits - m[..., None]).exp().sum(-1)))
+        local = labels.long() - model.tp_rank * V
+        own = (local >= 0) & (local < V)
+        gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+        gold = CTX.all_reduce(torch.where(own, gold, torch.zeros_like(gold)))
     nll = (logz - gold).mean()
     return nll + 0.01 * aux, nll

@@ -29,6 +29,21 @@ requests and on the worker's clock, which adds measured step seconds.
 `replay(..., speed=0)` stages a whole trace with its arrival stamps and
 decodes the closed-loop `ContinuousBatcher.run`'s tokens; with
 ``speed > 0`` the trace becomes open-loop wall-clock traffic.
+
+Under tensor parallelism (the server built inside ``sharding.ctx.axes
+(mesh)`` of a mesh whose model axis has more than one rank) the model
+axis's first rank runs this asyncio server and every other rank runs
+`follow`, a plain loop over its own `WorkerState` on the same shard of
+the system.  At each tick boundary the server decides the tick: the
+arrivals it admitted (their `SubmitRequest`s and stamped arrival times),
+the sessions whose cancels it applied, in that order, and whether it
+stops.  The tick is broadcast (`sharding.ctx.decide`) inside the same
+pool-thread call that runs the step, so each rank issues all its
+collectives from one thread in one order; a follower applies the tick to
+its worker and steps as the server did.  The step's measured seconds are
+the server's (`WorkerState.step` decides them), so every rank schedules
+alike.  While idle the server sends an empty tick every `HEARTBEAT_S`,
+inside the collectives' time limit; shutdown is a tick that stops.
 """
 from __future__ import annotations
 
@@ -42,9 +57,66 @@ import numpy as np
 
 from repro_torch.serving.api import Completion, ServeConfig, StreamEvent, SubmitRequest
 from repro_torch.serving.batching import PendingRequest, WorkerState
+from repro_torch.sharding import ctx as CTX
 
 # the kernels the engine's steps launch (`kernels._build.SOURCES` names)
 SERVING_KERNELS = ("flash", "selective", "paged_decode", "block_gather")
+# an idle server's empty tick, well inside the collectives' time limit
+# (`launch.mesh.COLLECTIVE_TIMEOUT_S`)
+HEARTBEAT_S = 60.0
+
+
+def make_worker(backend, config: ServeConfig) -> WorkerState:
+    """The one worker a server (or a follower rank) drives."""
+    return WorkerState(
+        backend, wid=0, max_batch_tokens=config.max_batch_tokens,
+        max_decode_batch=config.max_decode_batch, sched=config.sched,
+        chunk_tokens=config.chunk_tokens, step_tokens=config.step_tokens)
+
+
+def admit(worker: WorkerState, arrival_s: float, req: SubmitRequest) -> None:
+    """One request into the worker's queue, with its rcllm context, reuse
+    metadata and sampling, kept in arrival order (wall-clock submissions
+    are monotone, replayed stamps need not be)."""
+    backend = worker.backend
+    if req.context is not None:
+        backend.plans[req.rid] = req.context
+    if req.reuse is not None:
+        backend.reuse[req.rid] = req.reuse
+    backend.set_session(req.rid, req.sampling, req.stop)
+    bisect.insort(worker.waiting, PendingRequest(
+        arrival_s=arrival_s, rid=req.rid, n_tokens=len(req.tokens),
+        decode_steps=req.max_tokens, tokens=req.tokens))
+
+
+def step_or_reject(worker: WorkerState) -> bool:
+    """One step; a queue head that can never be admitted (the pool is too
+    small even empty) is dropped instead.  -> whether it was."""
+    try:
+        worker.step()
+    except RuntimeError as e:
+        if "never be admitted" not in str(e):
+            raise
+        return True
+    return False
+
+
+def follow(backend, config: ServeConfig) -> WorkerState:
+    """A non-serving rank's loop under tensor parallelism (the module
+    docstring): receive each tick from the server's rank, apply its
+    arrivals and cancels to this rank's worker and step as the server
+    did, until a tick stops.  -> the worker (its `done` is the run's)."""
+    worker = make_worker(backend, config)
+    while True:
+        tick = CTX.decide(None)
+        for arrival_s, req in tick["arrivals"]:
+            admit(worker, arrival_s, req)
+        for rid in tick["cancels"]:
+            worker.cancel(rid)
+        if tick["stop"]:
+            return worker
+        if worker.has_work() and step_or_reject(worker):
+            worker.waiting.pop(0)
 
 
 class Session:
@@ -155,9 +227,9 @@ class AsyncSessionServer:
     that built it; `start` spawns the scheduler task and `submit` returns
     a `Session`.  Use as an async context manager to guarantee shutdown.
 
-    Not under tensor parallelism: the server's batches form on measured
-    step times and wall-clock arrivals inside each process, which the
-    ranks of a mesh would have to decide together first (ROADMAP A.2).
+    Under ``config.mesh.tp > 1`` it is built inside ``sharding.ctx.axes
+    (mesh)`` on the model axis's first rank, the other ranks running
+    `follow` (the module docstring).
     """
 
     def __init__(self, backend, config: ServeConfig):
@@ -165,16 +237,16 @@ class AsyncSessionServer:
             raise ValueError(
                 f"AsyncSessionServer drives one worker (config.k={config.k}); "
                 "multi-worker serving is the closed-loop ClusterEngine")
-        if config.mesh.tp > 1:
-            raise ValueError(
-                f"the session server under mesh.tp={config.mesh.tp} is not ported yet "
-                "(ROADMAP A.2: its ranks would have to agree on wall-clock arrivals and "
-                "measured step times); serve the trace closed-loop without --server")
+        self.split = CTX.tp_size() > 1
+        if self.split != (config.mesh.tp > 1):
+            raise ValueError(f"a server of mesh.tp={config.mesh.tp} runs inside a mesh whose "
+                             f"model axis has {config.mesh.tp} ranks, not {CTX.tp_size()} "
+                             "(sharding.ctx.axes)")
+        if self.split and CTX.current().coords["model"] != 0:
+            raise ValueError("the server runs on the model axis's first rank; the others "
+                             "run serving.server.follow")
         self.config = config
-        self.worker = WorkerState(
-            backend, wid=0, max_batch_tokens=config.max_batch_tokens,
-            max_decode_batch=config.max_decode_batch, sched=config.sched,
-            chunk_tokens=config.chunk_tokens, step_tokens=config.step_tokens)
+        self.worker = make_worker(backend, config)
         self.backend = backend
         self.metrics = OnlineMetrics()
         self.metrics_log: deque = deque(maxlen=4096)
@@ -188,6 +260,9 @@ class AsyncSessionServer:
         self._emitted: Dict[int, int] = {}  # rid -> tokens streamed
         self._last_emit: Dict[int, float] = {}
         self._n_done_seen = 0
+        # the tick being decided: what this boundary applied to the worker
+        self._tick = {"arrivals": [], "cancels": [], "stop": False}
+        self.ticks = 0
 
     def now(self) -> float:
         """Server wall clock (seconds since construction)."""
@@ -263,25 +338,47 @@ class AsyncSessionServer:
         while self._running:
             self._admit_arrivals()
             self._apply_cancels()
+            tick = self._take_tick()
             if not worker.has_work():
-                # idle: park until a submit or cancel kicks the loop
+                if self.split and (tick["arrivals"] or tick["cancels"]):
+                    await asyncio.to_thread(self._run_tick, tick, False)
+                # idle: park until a submit or cancel kicks the loop (a
+                # split server sends an empty tick every HEARTBEAT_S)
                 self._kick.clear()
                 if not self._arrivals and not self._cancels and self._running:
-                    await self._kick.wait()
+                    if not self.split:
+                        await self._kick.wait()
+                        continue
+                    try:
+                        await asyncio.wait_for(self._kick.wait(), HEARTBEAT_S)
+                    except asyncio.TimeoutError:
+                        await asyncio.to_thread(self._run_tick, self._take_tick(), False)
                 continue
-            try:
-                await asyncio.to_thread(worker.step)
-            except RuntimeError as e:
-                if "never be admitted" not in str(e):
-                    raise
+            if await asyncio.to_thread(self._run_tick, tick, True):
                 # the head of the queue can never be admitted (the pool is
                 # too small even empty): reject that session, keep serving
                 self._reject_head()
             self._publish()
             self.metrics_log.append(self.metrics.snapshot(self))
+        if self.split:
+            tick = self._take_tick()
+            tick["stop"] = True
+            await asyncio.to_thread(self._run_tick, tick, False)
+
+    def _take_tick(self) -> dict:
+        tick, self._tick = self._tick, {"arrivals": [], "cancels": [], "stop": False}
+        return tick
+
+    def _run_tick(self, tick: dict, step: bool) -> bool:
+        """In the pool thread: broadcast the tick to the follower ranks
+        (split server), then step.  -> whether the queue head was
+        rejected."""
+        if self.split:
+            CTX.decide(tick)
+            self.ticks += 1
+        return step and step_or_reject(self.worker)
 
     def _admit_arrivals(self) -> None:
-        backend = self.backend
         while self._arrivals:
             sess = self._arrivals.popleft()
             req = sess.request
@@ -290,17 +387,9 @@ class AsyncSessionServer:
                 self._finish_session(sess, "cancelled")
                 self.metrics.cancelled += 1
                 continue
-            if req.context is not None:
-                backend.plans[req.rid] = req.context
-            if req.reuse is not None:
-                backend.reuse[req.rid] = req.reuse
-            backend.set_session(req.rid, req.sampling, req.stop)
+            admit(self.worker, sess.submitted_s, req)
+            self._tick["arrivals"].append((sess.submitted_s, req))
             sess.state = "running"
-            # keep the queue in arrival order: wall-clock submissions are
-            # monotone, replayed stamps need not be
-            bisect.insort(self.worker.waiting, PendingRequest(
-                arrival_s=sess.submitted_s, rid=req.rid, n_tokens=len(req.tokens),
-                decode_steps=req.max_tokens, tokens=req.tokens))
 
     def _apply_cancels(self) -> None:
         for rid in sorted(self._cancels):
@@ -308,6 +397,7 @@ class AsyncSessionServer:
             sess = self._sessions.get(rid)
             if sess is None or sess.state == "done":
                 continue
+            self._tick["cancels"].append(rid)
             if self.worker.cancel(rid) is None and sess.state != "queued":
                 continue  # finished in the same tick: the completion wins
             self._finish_session(sess, "cancelled")

@@ -7,16 +7,26 @@ the reference's parameter pytrees (an LM's layer parameters stacked on a
 leading layer axis), so every tree here equals the reference's.  The
 meshes need only ``.shape`` (axis -> size) and ``.axis_names``.
 
-Only the serve layout is APPLIED in the port: `shard_lm_params` cuts one
-rank's parameters out of a whole model (or the reference's numpy tree) by
-`lm_param_specs(mode="serve")`, and `init_sharded_params` draws a rank's
-parameters from a seeded generator one whole parameter at a time.  Query
-heads are split contiguously, so each GQA group of ``n_heads //
-n_kv_heads`` query heads stays with its kv head on one rank.  The
-optimizer-state rules wait for distributed training (ROADMAP A.2).
+The LM rules are APPLIED in the port: `shard_lm_params` cuts one rank's
+parameters out of a whole model (or the reference's numpy tree) by
+`lm_param_specs` (mode "serve" for the serving steps, "train" for the
+train step), and `init_sharded_params` draws a rank's parameters from a
+seeded generator one whole parameter at a time.  Query heads are split
+contiguously, so each GQA group of ``n_heads // n_kv_heads`` query heads
+stays with its kv head on one rank; an MoE's experts are split over the
+model axis (EP) and its router stays whole.  `train_layout` turns
+`lm_opt_state_specs` into where each rank's optimizer state lives.
+
+Entries over the DATA axis in a parameter's spec (an MoE's expert-ff
+dimension, serve mode's ``din`` of an MoE model) are not cut: every data
+rank keeps those parameters whole.  That computes the same function at
+more memory per rank; gathering them on use waits (ROADMAP A.2).  The
+optimizer state does take its data-axis cuts (ZeRO's moments).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -122,41 +132,51 @@ def check_serving_divisibility(cfg: LMConfig, mesh) -> None:
 
 
 def _check_shardable(cfg: LMConfig, mesh) -> None:
-    """What the port's rank-local forward also needs: a dense model whose
-    MLP width and vocabulary split evenly."""
-    check_serving_divisibility(cfg, mesh)
+    """What the port's rank-local model also needs: whole kv heads, and
+    MLP columns, experts and vocabulary rows that split evenly."""
     msz = mesh.shape["model"]
-    if cfg.moe is not None and msz > 1:
-        raise ValueError(f"{cfg.name}: the MoE archs' tensor and expert parallelism wait "
-                         "for a later slice (ROADMAP A.2); mesh.tp must be 1")
-    for name, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+    if cfg.n_kv_heads % msz and cfg.n_heads % msz == 0:
+        raise ValueError(
+            f"mesh.tp={msz} does not divide n_kv_heads={cfg.n_kv_heads}: the reference "
+            "then cuts each kv head's Dh over the model axis (P(None, din, None, 'model')); "
+            "the port keeps whole kv heads, and that layout waits (ROADMAP A.2: "
+            "non-divisible kv-head layouts)")
+    check_serving_divisibility(cfg, mesh)
+    sizes = [("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)]
+    if cfg.moe is not None:
+        sizes.append(("moe.n_experts", cfg.moe.n_experts))
+    for name, n in sizes:
         if n % msz:
             raise ValueError(f"mesh.tp={msz} must divide {name}={n} (the rank-local "
-                             "MLP and vocabulary shards are whole)")
+                             "MLP, expert and vocabulary shards are whole)")
 
 
 def _cut(x: torch.Tensor, spec: Tuple, mesh, coords: Mapping[str, int]) -> torch.Tensor:
     """This rank's block of `x` under `spec`: each dimension split over
-    ``model`` keeps the rank's contiguous slice."""
+    ``model`` keeps the rank's contiguous slice; one split over the data
+    axis stays whole (the module docstring)."""
+    dax = data_axes(mesh)
     for dim, ax in enumerate(spec):
-        if ax is None:
+        if ax is None or (ax != "model" and all(a in dax for a in
+                                                 (ax if isinstance(ax, tuple) else (ax,)))):
             continue
         if ax != "model":
-            raise ValueError(f"spec {spec}: the port applies only the model axis")
+            raise ValueError(f"spec {spec}: a parameter dimension over {ax}")
         n = mesh.shape["model"]
         step = x.shape[dim] // n
         x = x.narrow(dim, coords["model"] * step, step)
     return x
 
 
-def _layer_specs(cfg: LMConfig, mesh) -> Dict[str, Tuple]:
+def _layer_specs(cfg: LMConfig, mesh, mode: str = "serve") -> Dict[str, Tuple]:
     """Spec per parameter name of one port `Block` (the stacked layer
     axis dropped) and of the model's own parameters."""
-    specs = lm_param_specs(cfg, mesh, mode="serve")
+    specs = lm_param_specs(cfg, mesh, mode=mode)
     layer = specs["layers"]
     out = {name: tuple(layer[name])[1:] for name in
            ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo")}
-    out.update({f"mlp.{n}": tuple(s)[1:] for n, s in layer["mlp"].items()})
+    ffn = "moe" if cfg.moe is not None else "mlp"
+    out.update({f"{ffn}.{n}": tuple(s)[1:] for n, s in layer[ffn].items()})
     out.update(embed=tuple(specs["embed"]), final_norm=tuple(specs["final_norm"]))
     if "lm_head" in specs:
         out["lm_head"] = tuple(specs["lm_head"])
@@ -172,9 +192,9 @@ def _param_spec(specs: Dict[str, Tuple], name: str) -> Tuple:
 
 @torch.no_grad()
 def shard_lm_params(source, cfg: LMConfig, mesh, coords: Optional[Mapping[str, int]] = None,
-                    device=None):
-    """One rank's `Transformer` (its heads, MLP columns and vocabulary
-    rows) cut out of `source` by `lm_param_specs(mode="serve")`.  `source`
+                    device=None, mode: str = "serve"):
+    """One rank's `Transformer` (its heads, MLP columns, experts and
+    vocabulary rows) cut out of `source` by `lm_param_specs(mode=mode)`.  `source`
     is a whole port `Transformer` or the reference's parameter tree as
     numpy (layers stacked, the tree `models.convert.params_from_numpy`
     takes); `coords` is the rank's mesh coordinate (default: the mesh's
@@ -185,7 +205,7 @@ def shard_lm_params(source, cfg: LMConfig, mesh, coords: Optional[Mapping[str, i
 
     _check_shardable(cfg, mesh)
     coords = mesh.coords if coords is None else coords
-    specs = _layer_specs(cfg, mesh)
+    specs = _layer_specs(cfg, mesh, mode)
     if device is None:
         device = source.device if isinstance(source, torch.nn.Module) else "cpu"
     model = Transformer(cfg, device=device, tp=mesh.shape["model"], tp_rank=coords["model"])
@@ -205,27 +225,29 @@ def shard_lm_params(source, cfg: LMConfig, mesh, coords: Optional[Mapping[str, i
 
 
 def init_sharded_params(cfg: LMConfig, mesh, generator: torch.Generator, device,
-                        coords: Optional[Mapping[str, int]] = None):
+                        coords: Optional[Mapping[str, int]] = None, mode: str = "serve",
+                        token_embed: bool = True):
     """One rank's parameters: `transformer.init_params` drawing the whole
     model's weights from `generator`, each parameter cut to the rank's
     block as soon as it is drawn, so the rank never holds the whole
     model.  -> (the rank's `Transformer`, the whole embedding as fp32
-    numpy, which the semantic cache's token matching reads)."""
+    numpy, which the semantic cache's token matching reads; None without
+    `token_embed`)."""
     from repro_torch.models.transformer import init_params
 
     _check_shardable(cfg, mesh)
     coords = mesh.coords if coords is None else coords
-    specs = _layer_specs(cfg, mesh)
-    token_embed = []
+    specs = _layer_specs(cfg, mesh, mode)
+    embeds = []
 
     def keep(name: str, full: torch.Tensor) -> torch.Tensor:
-        if name == "embed":
-            token_embed.append(full.float().cpu().numpy())
+        if name == "embed" and token_embed:
+            embeds.append(full.float().cpu().numpy())
         return _cut(full, _param_spec(specs, name), mesh, coords)
 
     model = init_params(cfg, generator, device, tp=mesh.shape["model"],
                         tp_rank=coords["model"], keep=keep)
-    return model, token_embed[0]
+    return model, embeds[0] if embeds else None
 
 
 def zero_shard(spec_tree, shape_tree, mesh):
@@ -250,6 +272,127 @@ def zero_shard(spec_tree, shape_tree, mesh):
         return P(*dims)
 
     return tree_map(one, spec_tree, shape_tree)
+
+
+def lm_opt_state_specs(opt_abstract, param_specs, params_abstract, mesh):
+    """Specs of an optimizer state in the reference's layout
+    (`optimizer.abstract_opt_state`): AdamW's moments ``{"m", "v"}`` take
+    the parameters' specs ZeRO-sharded over the data axis (`zero_shard`);
+    Adafactor's per-parameter ``v`` takes the parameter's spec, ``vr`` its
+    dims but the last and ``vc`` its dims but the second-to-last.  SGD
+    keeps no state, so its inner specs are ``()`` (the reference's rule
+    raises on that empty state)."""
+    from repro_torch.training.optimizer import OptState
+
+    inner = opt_abstract.inner
+    if isinstance(inner, tuple) and not inner:
+        return OptState(step=P(), inner=())
+    if isinstance(inner, dict) and inner and set(inner) <= {"m", "v"}:
+        zspecs = zero_shard(param_specs, params_abstract, mesh)
+        return OptState(step=P(), inner={k: zspecs for k in inner})
+
+    def one(spec: P, sds, st):
+        dims = list(spec) + [None] * (len(sds.shape) - len(spec))
+        out = {}
+        for key in st:
+            if key == "v":
+                out["v"] = P(*dims)
+            elif key == "vr":
+                out["vr"] = P(*dims[:-1])
+            elif key == "vc":
+                out["vc"] = P(*(dims[:-2] + dims[-1:]))
+        return out
+
+    return OptState(step=P(), inner=tree_map(one, param_specs, params_abstract, inner))
+
+
+def lm_abstract_params(cfg: LMConfig) -> Dict[str, Any]:
+    """The reference's parameter tree of `cfg` (layers stacked on a leading
+    axis) with ``.shape`` leaves, from the port's model on the meta
+    device."""
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer(cfg, device="meta")
+    tree: Dict[str, Any] = {"layers": {}}
+    for name, p in model.named_parameters():
+        if not name.startswith("layers.0."):
+            if not name.startswith("layers."):
+                tree[name] = SimpleNamespace(shape=tuple(p.shape))
+            continue
+        node = tree["layers"]
+        parts = name.split(".")[2:]
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = SimpleNamespace(shape=(cfg.n_layers,) + tuple(p.shape))
+    return tree
+
+
+@dataclass(frozen=True)
+class ParamLayout:
+    """Where one rank parameter's pieces live.  ``model_dims``: dims of the
+    rank's tensor that are cut over the model axis (its sums and means
+    along them are reduced over that axis).  Its optimizer moments are
+    this rank's block over the data axis: the slice of ``data_dim``, or,
+    where the reference's ZeRO cut falls on the stacked layer axis, the
+    whole layer's moments on data rank ``data_owner`` and none elsewhere;
+    both None: whole on every data rank."""
+
+    model_dims: Tuple[int, ...] = ()
+    data_dim: Optional[int] = None
+    data_owner: Optional[int] = None
+
+    @property
+    def data_split(self) -> bool:
+        return self.data_dim is not None or self.data_owner is not None
+
+
+def _has(entry, axes) -> bool:
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return any(a in names for a in axes)
+
+
+def train_layout(cfg: LMConfig, mesh, optimizer: str) -> Dict[str, ParamLayout]:
+    """Per `Transformer.named_parameters` name, its `ParamLayout` under
+    `lm_param_specs(mode="train")` and `lm_opt_state_specs` for
+    `optimizer`'s state (adamw | adafactor | sgd)."""
+    from repro_torch.training.optimizer import abstract_opt_state
+
+    _check_shardable(cfg, mesh)
+    dax = data_axes(mesh)
+    dsz = axis_size(mesh, dax)
+    pspecs = lm_param_specs(cfg, mesh, mode="train")
+    abstract = lm_abstract_params(cfg)
+    ospecs = lm_opt_state_specs(abstract_opt_state(optimizer, abstract), pspecs, abstract,
+                                mesh).inner
+    moment = ospecs["m"] if isinstance(ospecs, dict) and "m" in ospecs else None
+
+    def layout(pspec, mspec, stacked: bool, layer: int) -> ParamLayout:
+        off = 1 if stacked else 0
+        pdims = tuple(pspec)[off:]
+        model_dims = tuple(i for i, d in enumerate(pdims) if d == "model")
+        if mspec is None:
+            return ParamLayout(model_dims)
+        for i, d in enumerate(tuple(mspec)):
+            if d is not None and _has(d, dax):
+                if stacked and i == 0:
+                    return ParamLayout(model_dims, data_owner=layer // (cfg.n_layers // dsz))
+                return ParamLayout(model_dims, data_dim=i - off)
+        return ParamLayout(model_dims)
+
+    out = {}
+    from repro_torch.models.transformer import Transformer
+    for name, _ in Transformer(cfg, device="meta").named_parameters():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            ps, ms = pspecs["layers"], None if moment is None else moment["layers"]
+            for part in rest.split("."):
+                ps = ps[part]
+                ms = None if ms is None else ms[part]
+            out[name] = layout(ps, ms, True, int(i))
+        else:
+            out[name] = layout(pspecs[name], None if moment is None else moment[name],
+                               False, 0)
+    return out
 
 
 def lm_input_specs(cfg: LMConfig, mesh, step: str, dims: Dict[str, int]):

@@ -15,12 +15,30 @@ inner)`, with `inner` keyed by parameter name.
 AdamW and SGD are elementwise, so a parameter above `CHUNK` elements is
 updated in row blocks: the fp32 temporaries of a 256,000 x 6,144
 embedding would otherwise take 6.3 GB each.
+
+On a mesh (built and stepped inside ``sharding.ctx.axes(mesh)``, with a
+`layout` per parameter from `sharding.specs.train_layout`) each rank
+holds its shard of every parameter, and the gradients are already the
+data axis's mean.  The global norm counts each element of the whole
+model once: the squares of model-cut parameters are summed over the
+model axis, replicated ones (norms, the router) counted once, and the
+squares of the data-axis blocks the moments live on summed over the data
+axis.  AdamW keeps its moments on the rank's ZeRO block
+(`ParamLayout`), updates that block of the parameter and all-gathers
+the parameter over the data axis.  Adafactor keeps ``vr`` / ``vc`` on
+the parameter's own layout; its factored means along a model-cut
+dimension, and the update's RMS clip and the parameter's RMS over the
+whole tensor, are reduced over the model axis.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Tuple, Union
+import dataclasses
+from types import SimpleNamespace
+from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.sharding import ctx as CTX
 
 CHUNK = 1 << 26
 
@@ -63,13 +81,80 @@ def _rows(t: torch.Tensor) -> Iterator[torch.Tensor]:
 Params = Union[Iterable[torch.Tensor], Iterable[Tuple[str, torch.Tensor]]]
 
 
+def data_block(t: torch.Tensor, layout) -> torch.Tensor:
+    """This rank's block of `t` over the data axis under `layout` (a
+    `specs.ParamLayout`, or None: whole): the slice of its ``data_dim``,
+    the whole tensor on the ``data_owner`` rank and an empty view on the
+    others, or `t` itself."""
+    n = CTX.dp_size()
+    if layout is None or n == 1 or not layout.data_split:
+        return t
+    c = CTX.dp_rank()
+    if layout.data_dim is not None:
+        step = t.shape[layout.data_dim] // n
+        return t.narrow(layout.data_dim, c * step, step)
+    return t if c == layout.data_owner else t.narrow(0, 0, 0)
+
+
+def gather_data_block(t: torch.Tensor, layout) -> None:
+    """Every data rank's updated block of `t` written back into `t` (the
+    inverse of `data_block`, over the data axis)."""
+    if layout is None or CTX.dp_size() == 1 or not layout.data_split:
+        return
+    if layout.data_dim is not None:
+        t.copy_(CTX.all_gather(data_block(t, layout).contiguous(), "data", layout.data_dim))
+    else:
+        CTX.broadcast_(t, "data", layout.data_owner)
+
+
+def state_layout(layout, key: str, nd: int):
+    """The layout of a parameter's state entry `key` (the parameter's
+    `layout`, `nd` dims): Adafactor's ``vr`` drops the last dim and
+    ``vc`` the second-to-last, so a model cut along a dim a factor drops
+    leaves that factor whole (its mean was reduced over the axis)."""
+    if layout is None or key not in ("vr", "vc"):
+        return layout
+    if key == "vr":
+        dims = tuple(d for d in layout.model_dims if d < nd - 1)
+    else:
+        dims = tuple(d if d < nd - 2 else nd - 2 for d in layout.model_dims if d != nd - 2)
+    return dataclasses.replace(layout, model_dims=dims, data_dim=None, data_owner=None)
+
+
+def _sq(t: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(t, dtype=torch.float32).square()
+
+
+def sharded_norm(grads: List[torch.Tensor], layouts) -> torch.Tensor:
+    """The global norm of gradients held as shards (the module docstring):
+    each element of the whole model counted once."""
+    dev = grads[0].device
+    # (model-cut, replicated) x (data block, whole over the data axis)
+    sums = torch.zeros(4, dtype=torch.float32, device=dev)
+    for g, lay in zip(grads, layouts):
+        split = lay.data_split and CTX.dp_size() > 1
+        sums[(0 if lay.model_dims and CTX.tp_size() > 1 else 1) + (0 if split else 2)] += \
+            _sq(data_block(g, lay))
+    cut = torch.stack([sums[0], sums[2]])
+    CTX.reduce_(cut, "model")
+    blocks = cut[0] + sums[1]
+    CTX.reduce_(blocks, "data")
+    return torch.sqrt(blocks + cut[1] + sums[3])
+
+
 class ClippedOptimizer(torch.optim.Optimizer):
     """The rules' common part: named parameters, the global-norm clip and
-    the step count.  A subclass implements `_init_state(p)` and
-    `_update(p, g, state, t, scale)` (g is the raw gradient, `scale` the
-    clip factor, a 0-d fp32 tensor)."""
+    the step count.  A subclass implements `_init_state(p, layout)` and
+    `_update(p, g, state, t, scale, layout)` (g is the raw gradient,
+    `scale` the clip factor, a 0-d fp32 tensor, `layout` the parameter's
+    `specs.ParamLayout` on a mesh, else None).  A rule whose state lives
+    on the data block (``zero = True``) gets that block in
+    `_init_state`."""
 
-    def __init__(self, params: Params, defaults: Dict, grad_clip: float):
+    zero = False
+
+    def __init__(self, params: Params, defaults: Dict, grad_clip: float,
+                 layout: Optional[Dict[str, object]] = None):
         items = list(params)
         if items and isinstance(items[0], tuple):
             self.names = [n for n, _ in items]
@@ -78,10 +163,12 @@ class ClippedOptimizer(torch.optim.Optimizer):
             self.names = [str(i) for i in range(len(items))]
             tensors = items
         super().__init__(tensors, dict(defaults, grad_clip=grad_clip))
+        self.layouts = None if layout is None else [layout[n] for n in self.names]
         self.t = 0
         self.last_gnorm = None
-        for p in tensors:
-            self.state[p] = self._init_state(p)
+        for i, p in enumerate(tensors):
+            lay = None if self.layouts is None else self.layouts[i]
+            self.state[p] = self._init_state(data_block(p, lay) if self.zero else p, lay)
 
     def _params(self) -> List[torch.Tensor]:
         return [p for group in self.param_groups for p in group["params"]]
@@ -93,11 +180,13 @@ class ClippedOptimizer(torch.optim.Optimizer):
                 closure()
         params = self._params()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        gnorm = global_norm(grads)
+        layouts = self.layouts or [None] * len(params)
+        split = self.layouts is not None and (CTX.tp_size() > 1 or CTX.dp_size() > 1)
+        gnorm = sharded_norm(grads, layouts) if split else global_norm(grads)
         scale = clip_scale(gnorm, self.defaults["grad_clip"])
         self.t += 1
-        for p, g in zip(params, grads):
-            self._update(p, g, self.state[p], self.t, scale)
+        for p, g, lay in zip(params, grads, layouts):
+            self._update(p, g, self.state[p], self.t, scale, lay)
         self.last_gnorm = gnorm
         return gnorm
 
@@ -118,21 +207,26 @@ class AdamW(ClippedOptimizer):
     (sqrt(v_hat) + eps) + wd p), with the bias corrections 1 - b^t in
     fp32 and the moments in fp32."""
 
-    def __init__(self, params: Params, lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 0.01, grad_clip: float = 1.0):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
-                                      weight_decay=weight_decay), grad_clip)
+    zero = True
 
-    def _init_state(self, p):
+    def __init__(self, params: Params, lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
+                 eps: float = 1e-8, weight_decay: float = 0.01, grad_clip: float = 1.0,
+                 layout: Optional[Dict[str, object]] = None):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay), grad_clip, layout)
+
+    def _init_state(self, p, layout=None):
         return {"m": torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                 "v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
 
-    def _update(self, p, g, state, t, scale):
+    def _update(self, p, g, state, t, scale, layout=None):
         d = self.defaults
         b1, b2 = d["b1"], d["b2"]
         tt = torch.tensor(float(t), dtype=torch.float32, device=p.device)
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=p.device) ** tt
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=p.device) ** tt
+        whole = p
+        p, g = data_block(p, layout), data_block(g, layout)
         for pc, gc, m, v in zip(_rows(p), _rows(g), _rows(state["m"]), _rows(state["v"])):
             gf = gc.float() * scale
             m.mul_(b1).add_(gf, alpha=1 - b1)
@@ -142,10 +236,20 @@ class AdamW(ClippedOptimizer):
             pf = pc.float()
             upd.add_(pf, alpha=d["weight_decay"])
             pc.copy_(pf.sub_(upd, alpha=d["lr"]))
+        gather_data_block(whole, layout)
 
 
 def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def whole_shape(p: torch.Tensor, layout) -> Tuple[int, ...]:
+    """The whole parameter's shape of which `p` is a rank's shard."""
+    shape = list(p.shape)
+    if layout is not None:
+        for d in layout.model_dims:
+            shape[d] *= CTX.tp_size()
+    return tuple(shape)
 
 
 class Adafactor(ClippedOptimizer):
@@ -157,28 +261,47 @@ class Adafactor(ClippedOptimizer):
 
     def __init__(self, params: Params, lr: float = 1e-3, decay: float = 0.8,
                  eps1: float = 1e-30, eps2: float = 1e-3, clip_threshold: float = 1.0,
-                 grad_clip: float = 1.0):
+                 grad_clip: float = 1.0, layout: Optional[Dict[str, object]] = None):
         super().__init__(params, dict(lr=lr, decay=decay, eps1=eps1, eps2=eps2,
-                                      clip_threshold=clip_threshold), grad_clip)
+                                      clip_threshold=clip_threshold), grad_clip, layout)
 
-    def _init_state(self, p):
+    def _init_state(self, p, layout=None):
+        # factored or not as the whole parameter is (a shard of 2 kv heads
+        # holds 1)
         kw = dict(dtype=torch.float32, device=p.device)
-        if _factored(p.shape):
+        if _factored(whole_shape(p, layout)):
             return {"vr": torch.zeros(p.shape[:-1], **kw),
                     "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **kw)}
         return {"v": torch.zeros(p.shape, **kw)}
 
-    def _update(self, p, g, state, t, scale):
+    def _update(self, p, g, state, t, scale, layout=None):
         d = self.defaults
         eps1 = d["eps1"]
         beta = 1.0 - (torch.tensor(float(t), dtype=torch.float32, device=p.device) + 1.0) \
             ** -d["decay"]
+        cut = set() if layout is None or CTX.tp_size() == 1 else \
+            {i % p.dim() for i in layout.model_dims}
+        nd = p.dim()
+
+        def mean(x, dim, along, keepdim=False):
+            # x's mean along `dim`, the whole dimension's where `along` (a
+            # dim of p) is cut over the model axis
+            if along not in cut:
+                return x.mean(dim=dim, keepdim=keepdim)
+            return CTX.reduce_(x.sum(dim=dim, keepdim=keepdim), "model") / \
+                (x.shape[dim] * CTX.tp_size())
+
+        def mean_all(x):
+            if not cut:
+                return torch.mean(x)
+            return CTX.reduce_(x.sum(), "model") / (x.numel() * CTX.tp_size())
+
         g = g.float() * scale
         g2 = g * g + eps1
-        if _factored(p.shape):
-            vr = beta * state["vr"] + (1 - beta) * g2.mean(dim=-1)
-            vc = beta * state["vc"] + (1 - beta) * g2.mean(dim=-2)
-            denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps1)
+        if "vr" in state:
+            vr = beta * state["vr"] + (1 - beta) * mean(g2, -1, nd - 1)
+            vc = beta * state["vc"] + (1 - beta) * mean(g2, -2, nd - 2)
+            denom = torch.clamp(mean(vr, -1, nd - 2, keepdim=True), min=eps1)
             u = g * torch.rsqrt(vr[..., None] / denom[..., None]) * torch.rsqrt(vc[..., None, :])
             state["vr"].copy_(vr)
             state["vc"].copy_(vc)
@@ -186,23 +309,24 @@ class Adafactor(ClippedOptimizer):
             v = beta * state["v"] + (1 - beta) * g2
             u = g * torch.rsqrt(v)
             state["v"].copy_(v)
-        rms_u = torch.sqrt(torch.mean(u * u) + eps1)
+        rms_u = torch.sqrt(mean_all(u * u) + eps1)
         u = u / torch.clamp(rms_u / d["clip_threshold"], min=1.0)
         pf = p.float()
-        pscale = torch.clamp(torch.sqrt(torch.mean(pf * pf)), min=d["eps2"])
+        pscale = torch.clamp(torch.sqrt(mean_all(pf * pf)), min=d["eps2"])
         p.copy_(pf - d["lr"] * pscale * u)
 
 
 class SGD(ClippedOptimizer):
     """p <- p - lr g (clipped), in fp32."""
 
-    def __init__(self, params: Params, lr: float = 1e-2, grad_clip: float = 1.0):
-        super().__init__(params, dict(lr=lr), grad_clip)
+    def __init__(self, params: Params, lr: float = 1e-2, grad_clip: float = 1.0,
+                 layout: Optional[Dict[str, object]] = None):
+        super().__init__(params, dict(lr=lr), grad_clip, layout)
 
-    def _init_state(self, p):
+    def _init_state(self, p, layout=None):
         return {}
 
-    def _update(self, p, g, state, t, scale):
+    def _update(self, p, g, state, t, scale, layout=None):
         for pc, gc in zip(_rows(p), _rows(g)):
             pc.copy_(pc.float() - self.defaults["lr"] * (gc.float() * scale))
 
@@ -213,3 +337,32 @@ RULES = {"adamw": AdamW, "adafactor": Adafactor, "sgd": SGD}
 def get(name: str, params: Params, **kw) -> ClippedOptimizer:
     """The rule `name` (adamw | adafactor | sgd) over `params`."""
     return RULES[name](params, **kw)
+
+
+def _shape_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _shape_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def abstract_opt_state(name: str, params_abstract) -> OptState:
+    """The state of rule `name` for a parameter tree with ``.shape``
+    leaves, in the reference's layout (`optimizer.abstract_opt_state` of
+    its ``init``): AdamW ``{"m": tree, "v": tree}``, Adafactor a
+    ``{"vr", "vc"}`` or ``{"v"}`` dict per leaf, SGD ``()``; leaves are
+    shapes only."""
+    shape = lambda *s: SimpleNamespace(shape=tuple(s))
+    if name == "sgd":
+        inner = ()
+    elif name == "adamw":
+        same = lambda p: shape(*p.shape)
+        inner = {"m": _shape_map(same, params_abstract), "v": _shape_map(same, params_abstract)}
+    elif name == "adafactor":
+        def one(p):
+            if _factored(p.shape):
+                return {"vr": shape(*p.shape[:-1]), "vc": shape(*(p.shape[:-2] + p.shape[-1:]))}
+            return {"v": shape(*p.shape)}
+        inner = _shape_map(one, params_abstract)
+    else:
+        raise KeyError(name)
+    return OptState(step=shape(), inner=inner)

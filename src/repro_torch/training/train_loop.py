@@ -14,6 +14,18 @@ A model is an `nn.Module` updated in place; a loss function takes
 (model, batch) and returns a scalar tensor.  Its parameters take
 gradients only inside `trainable`, so the serving paths' frozen
 parameters stay frozen.
+
+On a mesh (the loop run inside ``sharding.ctx.axes(mesh)`` on every
+rank, each with its shard of the model, its rows of each batch and a
+`layout` per parameter from `sharding.specs.train_layout`), the
+gradients are averaged over the data axis before compression, as the
+reference compresses the already-reduced gradient; int8's scale is the
+max over every shard of a tensor and top-k's threshold the k-th largest
+magnitude of the whole tensor (its error feedback stays with the shard);
+the loss reported is the data axis's mean.  A checkpoint holds the whole
+model and optimizer state, gathered from the ranks and written by rank
+0 in the single-device layout; a restore cuts every rank's block out of
+it, so a checkpoint written at one mesh restores at another.
 """
 from __future__ import annotations
 
@@ -23,9 +35,11 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.checkpoint import checkpoint as CKPT
+from repro_torch.sharding import ctx as CTX
 from repro_torch.training import optimizer as OPT
 
 
@@ -81,20 +95,52 @@ def compress_topk(g: torch.Tensor, frac: float,
     return sent.reshape(g.shape), (flat - sent).reshape(g.shape)
 
 
+def _model_cut(layout) -> bool:
+    return layout is not None and bool(layout.model_dims) and CTX.tp_size() > 1
+
+
+def compress_int8_sharded(g: torch.Tensor, layout) -> torch.Tensor:
+    """`compress_int8` of a shard, with the whole tensor's scale (the max
+    over the model axis where `layout` cuts it)."""
+    if not _model_cut(layout):
+        return compress_int8(g)
+    amax = CTX.reduce_(g.abs().max(), "model", dist.ReduceOp.MAX)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q.to(g.dtype) * scale
+
+
+def compress_topk_sharded(g: torch.Tensor, frac: float, err: torch.Tensor,
+                          layout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`compress_topk` of a shard: k and the threshold from the whole
+    tensor's magnitudes (gathered over the model axis where `layout` cuts
+    it), the error feedback this shard's."""
+    if not _model_cut(layout):
+        return compress_topk(g, frac, err)
+    flat = (g + err).reshape(-1)
+    mags = CTX.all_gather(flat.abs(), "model", 0)
+    k = max(1, int(frac * mags.shape[0]))
+    thresh = torch.topk(mags, k).values[-1]
+    sent = torch.where(flat.abs() >= thresh, flat, torch.zeros_like(flat))
+    return sent.reshape(g.shape), (flat - sent).reshape(g.shape)
+
+
 def apply_compression(params: List[torch.Tensor], cfg: TrainConfig,
-                      err_state: Optional[List[torch.Tensor]]) -> None:
+                      err_state: Optional[List[torch.Tensor]], layouts=None) -> None:
     """Compress every parameter's `.grad` in place (top-k also advances
-    `err_state`, one fp32 tensor per parameter)."""
+    `err_state`, one fp32 tensor per parameter); `layouts`: the
+    parameters' `specs.ParamLayout`s on a mesh."""
     if cfg.grad_compression is None:
         return
     if cfg.grad_compression not in ("int8", "topk"):
         raise ValueError(cfg.grad_compression)
-    for i, p in enumerate(params):
+    layouts = layouts or [None] * len(params)
+    for i, (p, lay) in enumerate(zip(params, layouts)):
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         if cfg.grad_compression == "int8":
-            p.grad = compress_int8(g)
+            p.grad = compress_int8_sharded(g, lay)
         else:
-            sent, err_state[i] = compress_topk(g, cfg.topk_frac, err_state[i])
+            sent, err_state[i] = compress_topk_sharded(g, cfg.topk_frac, err_state[i], lay)
             p.grad = sent.to(g.dtype)
 
 
@@ -149,7 +195,13 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig, model: nn.Module,
             loss = loss_fn(model, batch)
             loss.backward()
             loss = loss.detach()
-        apply_compression(params, cfg, err_state)
+        if CTX.dp_size() > 1:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            CTX.grad_mean_dp([p.grad for p in params])
+            loss = CTX.mean_over_dp(loss)
+        apply_compression(params, cfg, err_state, optimizer.layouts)
         gnorm = optimizer.step()
         return {"loss": loss, "gnorm": gnorm}
 
@@ -160,34 +212,113 @@ def _state(model: nn.Module, optimizer: OPT.ClippedOptimizer) -> Dict:
     return {"params": dict(model.named_parameters()), "opt": optimizer.opt_state()}
 
 
+def _sharded(optimizer: OPT.ClippedOptimizer) -> bool:
+    return optimizer.layouts is not None and (CTX.tp_size() > 1 or CTX.dp_size() > 1)
+
+
+def _whole(t: torch.Tensor, layout, moment: Optional[torch.Size] = None) -> torch.Tensor:
+    """The whole tensor of which `t` is this rank's block: a moment's
+    (`moment`: the rank's parameter's shape) data block gathered over the
+    data axis first, then the model cut."""
+    if moment is not None and layout.data_split and CTX.dp_size() > 1:
+        if layout.data_dim is not None:
+            t = CTX.all_gather(t.contiguous(), "data", layout.data_dim)
+        else:
+            mine = CTX.dp_rank() == layout.data_owner
+            full = t.clone() if mine else torch.zeros(moment, dtype=t.dtype, device=t.device)
+            t = CTX.broadcast_(full, "data", layout.data_owner)
+    for d in (layout.model_dims if CTX.tp_size() > 1 else ()):
+        t = CTX.all_gather(t.contiguous(), "model", d)
+    return t
+
+
+def _block(whole: torch.Tensor, layout, moment: bool) -> torch.Tensor:
+    """This rank's block of a whole tensor (the inverse of `_whole`)."""
+    t = whole
+    for d in (layout.model_dims if CTX.tp_size() > 1 else ()):
+        step = t.shape[d] // CTX.tp_size()
+        t = t.narrow(d, CTX.current().coords["model"] * step, step)
+    return OPT.data_block(t, layout) if moment else t
+
+
+def whole_state(model: nn.Module, optimizer: OPT.ClippedOptimizer) -> Dict:
+    """The checkpointed state of the whole model: its parameters and the
+    optimizer's, gathered from the ranks on a mesh (a collective: every
+    rank calls it)."""
+    if not _sharded(optimizer):
+        return _state(model, optimizer)
+    lays = dict(zip(optimizer.names, optimizer.layouts))
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    st = optimizer.opt_state()
+    return {"params": {n: _whole(p.detach(), lays[n]) for n, p in model.named_parameters()},
+            "opt": OPT.OptState(step=st.step, inner={
+                n: {k: _whole(v, OPT.state_layout(lays[n], k, len(shapes[n])),
+                              shapes[n] if optimizer.zero else None)
+                    for k, v in moments.items()}
+                for n, moments in st.inner.items()})}
+
+
 @torch.no_grad()
 def _load(model: nn.Module, optimizer: OPT.ClippedOptimizer, state: Dict) -> None:
+    if _sharded(optimizer):
+        lays = dict(zip(optimizer.names, optimizer.layouts))
+        nd = {n: t.dim() for n, t in state["params"].items()}
+        state = {"params": {n: _block(t, lays[n], False) for n, t in state["params"].items()},
+                 "opt": OPT.OptState(step=state["opt"].step, inner={
+                     n: {k: _block(v, OPT.state_layout(lays[n], k, nd[n]), optimizer.zero)
+                         for k, v in m.items()}
+                     for n, m in state["opt"].inner.items()})}
     for name, p in model.named_parameters():
         p.copy_(state["params"][name])
     optimizer.load_opt_state(state["opt"])
 
 
 def _restore(model, optimizer, ckpt_dir: str, step: int) -> None:
-    _load(model, optimizer, CKPT.restore(ckpt_dir, step, _state(model, optimizer)))
+    like = _state(model, optimizer)
+    _load(model, optimizer, CKPT.restore(ckpt_dir, step, like))
+
+
+def _writer() -> bool:
+    """Whether this process writes the checkpoints: rank 0 of a launched
+    run, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _published(ckpt) -> None:
+    """Every pending write finished (rank 0), and every rank past that
+    point, so each reads the same latest step."""
+    if ckpt is not None:
+        ckpt.wait()
+    if dist.is_initialized() and CTX.current() is not None:
+        dist.barrier()
+
+
+def _save(ckpt, step: int, model, optimizer) -> None:
+    state = whole_state(model, optimizer)      # every rank: a collective
+    if ckpt is not None:
+        ckpt.save_async(step, state)
 
 
 def train(model: nn.Module, loss_fn: Callable, data_iter: Iterator, cfg: TrainConfig,
-          fail_injector: Optional[Callable[[int], None]] = None
+          fail_injector: Optional[Callable[[int], None]] = None, layout=None
           ) -> Tuple[nn.Module, OPT.ClippedOptimizer, List[Dict[str, float]]]:
     """Run the loop to `cfg.steps`; auto-resume from the latest checkpoint
     in `cfg.ckpt_dir`; a step that raises RuntimeError (or whose
     `fail_injector(step)` does) is retried, and after `max_retries`
     failures the latest checkpoint is restored and the loop goes on from
-    it.  -> (model, optimizer, one {"loss", "gnorm"} per step run)."""
+    it.  `layout`: the parameters' `specs.ParamLayout`s when `model` is a
+    rank's shard on the current mesh (the module docstring).  -> (model,
+    optimizer, one {"loss", "gnorm"} per step run)."""
     with trainable(model) as named:
-        optimizer = OPT.get(cfg.optimizer, named, lr=cfg.lr)
+        optimizer = OPT.get(cfg.optimizer, named, lr=cfg.lr, layout=layout)
         params = [p for _, p in named]
         err_state = ([torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                       for p in params] if cfg.grad_compression == "topk" else None)
         ckpt = None
         step = 0
         if cfg.ckpt_dir:
-            ckpt = CKPT.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep_ckpts)
+            if _writer():
+                ckpt = CKPT.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep_ckpts)
             last = CKPT.latest_step(cfg.ckpt_dir)
             if last is not None:
                 _restore(model, optimizer, cfg.ckpt_dir, last)
@@ -209,9 +340,9 @@ def train(model: nn.Module, loss_fn: Callable, data_iter: Iterator, cfg: TrainCo
                         if retries <= cfg.max_retries:
                             continue
                         # unrecoverable on this "node": resume from checkpoint
-                        if ckpt is None:
+                        if not cfg.ckpt_dir:
                             raise
-                        ckpt.wait()
+                        _published(ckpt)
                         last = CKPT.latest_step(cfg.ckpt_dir)
                         if last is None:
                             raise
@@ -220,10 +351,10 @@ def train(model: nn.Module, loss_fn: Callable, data_iter: Iterator, cfg: TrainCo
                         retries = 0
                 history.append({k: float(v) for k, v in metrics.items()})
                 step += 1
-                if ckpt is not None and step % cfg.ckpt_every == 0:
-                    ckpt.save_async(step, _state(model, optimizer))
-            if ckpt is not None:
-                ckpt.save_async(cfg.steps, _state(model, optimizer))
+                if cfg.ckpt_dir and step % cfg.ckpt_every == 0:
+                    _save(ckpt, step, model, optimizer)
+            if cfg.ckpt_dir:
+                _save(ckpt, cfg.steps, model, optimizer)
         finally:
             if ckpt is not None:
                 ckpt.close()

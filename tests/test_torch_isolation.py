@@ -49,6 +49,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
 
 def test_examples_import_with_jax_and_repro_blocked():
     assert [f.name for f in EXAMPLES] == ["torch_quickstart.py", "torch_serve_cluster.py",
+                                          "torch_train_lm_distributed.py",
                                           "torch_train_ranker.py"]
     code = (
         "import importlib.util, sys\n"
@@ -68,7 +69,7 @@ def test_examples_import_with_jax_and_repro_blocked():
 
 def test_sources_name_no_jax_or_reference_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + EXAMPLES
-    assert len(EXAMPLES) == 3
+    assert len(EXAMPLES) == 4
     assert len(files) > 25
     for m in TRAINING_MODULES:
         assert PORT.parent / (m.replace(".", "/") + ".py") in files

@@ -320,13 +320,22 @@ def test_sharded_init_draws_init_params_blocks(tp):
 
 
 def test_a_shard_refuses_to_run_outside_its_mesh():
+    """A shard's steps run only inside a mesh of its tp (each looks its
+    tokens up through `embed_tokens`); what reads the whole model (the
+    semantic cache's token embedding) refuses a shard."""
+    from repro_torch.models import transformer as TT
+
     cfg = tiny_config(2, 32)
     whole = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     shard = TS.shard_lm_params(whole, cfg, _stub((1, 2)), coords={"model": 0})
     with pytest.raises(ValueError, match="split over 2 ranks"):
         shard.embed_tokens(torch.tensor([1, 2]))
-    with pytest.raises(ValueError, match="ROADMAP A.2"):
-        shard.whole("decode_step")
+    with pytest.raises(ValueError, match="split over 2 ranks"):
+        TT.prefill(shard, torch.tensor([[1, 2]]))
+    with pytest.raises(ValueError, match="split over 2 ranks"):
+        TT.loss_fn(shard, torch.tensor([[1, 2]]), torch.tensor([[2, 3]]))
+    with pytest.raises(ValueError, match="needs the whole model"):
+        shard.whole("the semantic cache's token embedding")
 
 
 # --------------------------------------------------- measured transfers
@@ -394,10 +403,17 @@ def test_cluster_bills_measured_transfer_time(tiny_port):
 
 # ------------------------------------------------ what waits (ROADMAP A.2)
 def test_session_server_under_tp_names_the_roadmap_item():
+    """The server runs under tp > 1 now (`test_torch_tp_server.py`), inside
+    a mesh of that tp only; what waits, a kv-head count tp does not
+    divide, names its ROADMAP item."""
     from repro_torch.serving.server import AsyncSessionServer
 
-    with pytest.raises(ValueError, match="ROADMAP A.2"):
+    with pytest.raises(ValueError, match="runs inside a mesh whose model axis has 2 ranks"):
         AsyncSessionServer(None, ServeConfig(mesh=MeshConfig(tp=2)))
+    cfg = TR.get_config("rcllm-qwen3-8b", smoke=True)      # 4 query / 2 kv heads
+    with pytest.raises(ValueError, match="ROADMAP A.2: non-divisible kv-head layouts"):
+        TS.shard_lm_params(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+                           cfg, _stub((1, 4)), coords={"model": 0})
 
 
 def test_tp_must_divide_kv_heads(tiny_port):
@@ -412,5 +428,5 @@ def test_launcher_refuses_before_starting_ranks(capsys):
 
     with pytest.raises(SystemExit, match="n_kv_heads"):
         PS.main(["--device", "cpu", "--config", "mesh.tp=4"])     # tiny: 2 kv heads
-    with pytest.raises(SystemExit, match="ROADMAP A.2"):
-        PS.main(["--device", "cpu", "--server", "--config", "mesh.tp=2"])
+    with pytest.raises(SystemExit, match="single-worker session server"):
+        PS.main(["--device", "cpu", "--server", "--config", "mesh.tp=2,k=2"])

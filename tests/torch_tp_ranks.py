@@ -1,0 +1,256 @@
+"""The rank side of `test_torch_tp_lm.py` (and the session server's in
+`test_torch_tp_server.py`): what each gloo rank runs.  It imports no JAX,
+so a rank starts in the time torch and the port take to import."""
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry as TR
+from repro_torch.data.pipeline import rows_of
+from repro_torch.launch import steps as ST
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving.api import MeshConfig
+from repro_torch.sharding import ctx as CTX
+from repro_torch.sharding import specs as SPECS
+from repro_torch.training import train_loop as TTL
+
+RUNS = {a: (a, {}) for a in TR.ARCHS if TR.family_of(a) == "lm"}
+RUNS["starcoder2-15b:w16"] = ("starcoder2-15b", {"sliding_window": 16})
+COMPRESSED = "rcllm-qwen3-8b"
+B, S_PROMPT, S_TRAIN, EXTRA, POSITIONS = 4, 40, 24, 8, (40, 37, 40, 37)
+DROP = dict(T=64, capacity_factor=0.5)
+
+
+def port_config(run):
+    arch, replace = RUNS[run]
+    return dataclasses.replace(TR.get_config(arch, smoke=True), **replace)
+
+
+def run_data(run):
+    """The prompts and the two training batches of a run (numpy)."""
+    cfg = port_config(run)
+    rng = np.random.default_rng(sorted(RUNS).index(run))
+    toks = rng.integers(0, cfg.vocab_size, (B, S_PROMPT)).astype(np.int32)
+    batches = []
+    for _ in range(2):
+        t = rng.integers(1, cfg.vocab_size, (B, S_TRAIN + 1)).astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return toks, batches
+
+
+def pad(cache):
+    return np.pad(np.asarray(cache), ((0, 0), (0, 0), (0, EXTRA), (0, 0), (0, 0)))
+
+
+def train_cfgs(run, cfg):
+    out = {None: TTL.TrainConfig(steps=2, optimizer=cfg.optimizer, lr=1e-3)}
+    if run == COMPRESSED:
+        for c in ("int8", "topk"):
+            out[c] = dataclasses.replace(out[None], grad_compression=c, topk_frac=0.3)
+    return out
+
+
+def moe_drop_inputs(tree, cfg):
+    x = np.random.default_rng(9).standard_normal((DROP["T"], cfg.d_model)).astype(np.float32)
+    moe = {k: np.asarray(v)[0] for k, v in tree["layers"]["moe"].items()}
+    return x, moe
+
+
+def rank_run(run, tree, mesh):
+    """One run's steps on this rank (inside the mesh): prefill and two
+    greedy decode steps of the rank's rows on its kv heads, the loss of
+    the first training batch, and two training steps per compression."""
+    cfg = port_config(run)
+    toks, batches = run_data(run)
+    whole = params_from_numpy(tree, cfg, device="cpu")
+    d, n = mesh.coords["data"], mesh.shape["data"]
+    out = {}
+    serve = SPECS.shard_lm_params(whole, cfg, mesh)
+    inputs = ST.rank_inputs(cfg, mesh, "prefill", {"tokens": torch.from_numpy(toks)})
+    logits, cache = TT.prefill(serve, inputs["tokens"])
+    out["prefill"] = (logits.numpy(), cache["k"].numpy(), cache["v"].numpy())
+    cache = {k: torch.from_numpy(pad(v)) for k, v in cache.items()}
+    pos = torch.tensor(rows_of(np.asarray(POSITIONS), d, n))
+    nxt = logits.argmax(-1)[:, None]
+    steps = []
+    for _ in range(2):
+        logits, cache = TT.decode_step(serve, nxt, cache, pos)
+        nxt, pos = logits.argmax(-1)[:, None], pos + 1
+        steps.append((logits.numpy(), nxt[:, 0].numpy()))
+    out["decode"] = steps
+    rows = {k: torch.from_numpy(rows_of(v, d, n)) for k, v in batches[0].items()}
+    loss, nll = TT.loss_fn(serve, rows["tokens"], rows["labels"])
+    out["loss"] = (float(CTX.mean_over_dp(loss.detach())), float(CTX.mean_over_dp(nll)))
+    out["train"] = {}
+    for comp, tcfg in train_cfgs(run, cfg).items():
+        model = SPECS.shard_lm_params(whole, cfg, mesh, mode="train")
+        data = iter([{k: rows_of(v, d, n) for k, v in b.items()} for b in batches])
+        model, opt, hist = TTL.train(model, ST.lm_loss, data, tcfg,
+                                     layout=SPECS.train_layout(cfg, mesh, tcfg.optimizer))
+        params = TTL.whole_state(model, opt)["params"]
+        out["train"][comp] = {"hist": hist, "params": {k: v.numpy() for k, v in params.items()}}
+    return out
+
+
+def lm_rank_job(rank, world, backend, device, trees, layout):
+    """Every run on this rank of a (dp, tp) `layout`; at (2, 2) also the
+    dropping MoE batch through `moe_route` / `moe_apply`."""
+    torch.set_num_threads(1)
+    dp, tp = layout
+    mesh = MeshConfig(dp=dp, tp=tp).build()
+    out = {"rank": rank, "backend": backend, "coords": dict(mesh.coords), "runs": {}}
+    with CTX.axes(mesh):
+        for run in RUNS:
+            out["runs"][run] = rank_run(run, trees[RUNS[run][0]], mesh)
+        if layout == (2, 2):
+            cfg = port_config("moonshot-v1-16b-a3b")
+            x, moe = moe_drop_inputs(trees["moonshot-v1-16b-a3b"], cfg)
+            E = cfg.moe.n_experts
+            e0 = E // tp * mesh.coords["model"]
+            params = {k: torch.from_numpy(v[e0:e0 + E // tp] if k != "router" else v)
+                      for k, v in moe.items()}
+            xr = torch.from_numpy(rows_of(x, mesh.coords["data"], dp))
+            kw = dict(n_experts=E, top_k=cfg.moe.top_k, capacity_factor=DROP["capacity_factor"])
+            r = TL.moe_route(xr, params["router"], **kw)
+            y, aux = TL.moe_apply(xr, params, mlp_type=cfg.mlp_type, **kw)
+            out["drop"] = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                           for k, v in r.items()}
+            out["drop"].update(y=y.numpy(), aux_apply=float(aux))
+    return out
+
+
+# ------------------------------------------------- the session server, tp = 2
+N_REQ, WAVE1, DECODE_STEPS = 6, 3, 3
+SERVER_RUNS = (("wave", False), ("chunked", True))
+
+
+def server_config(sched, kv_reuse, tp=2):
+    from repro_torch.serving import api as API
+    return API.ServeConfig(sched=sched, kv_reuse=kv_reuse, n_pages=256, chunk_tokens=64,
+                           mesh=MeshConfig(tp=tp))
+
+
+def server_workload(wl, system, pool_rv, prof):
+    """`test_torch_server.py`'s heavy-tail trace (repeat users, long
+    prompts), restamped into two arrival waves (t = 0 and 1000 s)."""
+    trace = wl.heavy_tail_trace(system.catalog, pool_rv, prof, N_REQ, qps=8.0, n_users=3,
+                                long_prompt_frac=0.4, long_prompt_reviews=6, seed=5)
+    pend, plans = wl.rcllm_workload(system, trace, decode_steps=DECODE_STEPS)
+    pend = [type(p)(0.0 if p.rid < WAVE1 else 1e3, p.rid, p.n_tokens, p.decode_steps,
+                    p.tokens) for p in pend]
+    return pend, plans, wl.rcllm_reuse_info(system, trace, plans)
+
+
+def submits(api, pend, plans, reuse=None, max_tokens=None):
+    return [(p.arrival_s, api.SubmitRequest(
+        rid=p.rid, tokens=p.tokens, max_tokens=(max_tokens or {}).get(p.rid, p.decode_steps),
+        context=plans.get(p.rid), reuse=(reuse or {}).get(p.rid))) for p in pend]
+
+
+def pool_clean(engine) -> dict:
+    """What a cancel or a finished run must leave on a rank's pool."""
+    from repro_torch.serving.block_store import check_partition
+    check_partition(engine.pool, engine.store)
+    return {"pages_in_use": engine.pool.stats().pages_in_use,
+            "prefill_states": len(engine.prefill_states), "store_refs": len(engine.store_refs),
+            "arena": tuple(engine.pool.arena_k.shape)}
+
+
+def _cancel_run(system, pend, plans, reuse, mesh):
+    """The chunked, store-backed trace with two sessions cancelled from a
+    hook at the server's tick boundary: the longest prompt once its
+    prefill has started, the first request once it has two tokens.  The
+    other ranks follow the server's ticks.  -> (this rank's pool record,
+    the completions' reasons and the cancelled stages on the server's
+    rank)."""
+    import asyncio
+
+    from repro_torch.serving import api as API
+    from repro_torch.serving.server import AsyncSessionServer, follow, replay
+
+    from repro_torch.core.engine import SelectiveConfig
+
+    config = server_config("chunked", True)
+    engine = API.build_engine(system.model, system.cfg, config, cache=system.rows,
+                              sel=SelectiveConfig(r_item=config.r_item, r_rev=config.r_rev,
+                                                  window=16))
+    backend = API.build_backend(engine, config)
+    victims = {"prefilling": max(pend, key=lambda p: p.n_tokens).rid,
+               "decoding": min(p.rid for p in pend)}
+    out = {}
+    if mesh.coords["model"] != 0:
+        follow(backend, config)
+        return pool_clean(engine), out
+    server = AsyncSessionServer(backend, config)
+    stages, worker_cancel, apply_cancels = {}, server.worker.cancel, server._apply_cancels
+
+    def recorded_cancel(rid):
+        stages[rid] = worker_cancel(rid)
+        return stages[rid]
+
+    def at_boundary():
+        st = engine.prefill_states.get(victims["prefilling"])
+        if st is not None and st.started:
+            server.cancel(victims["prefilling"])
+        if victims["decoding"] in server.worker.decoding \
+                and len(backend.generated.get(victims["decoding"], ())) >= 2:
+            server.cancel(victims["decoding"])
+        apply_cancels()
+
+    server.worker.cancel, server._apply_cancels = recorded_cancel, at_boundary
+    done = asyncio.run(replay(server, submits(API, pend, plans, reuse,
+                                              {victims["decoding"]: 8}), speed=0.0))
+    out = {"reasons": {rid: c.reason for rid, c in done.items()},
+           "stages": {stage: stages.get(rid) for stage, rid in victims.items()},
+           "victims": victims, "ticks": server.ticks}
+    return pool_clean(engine), out
+
+
+def server_rank_job(rank, world, backend, device, tree):
+    """One rank at tp = 2 on the reference's tiny weights: per run of
+    SERVER_RUNS the launcher's closed-loop tokens (`launch.serve.serve`)
+    and its session server's (`rank_sessions`, a speed-0 replay: the
+    server on rank 0, `follow` on rank 1), both with the launcher's
+    selective config, each run's digest logs and pool records; then the
+    cancel run."""
+    from repro_torch.core.rcllm import make_tiny_system, tiny_config
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.serving import api as API
+    from repro_torch.serving import workload as WL
+
+    torch.set_num_threads(1)
+    mesh = MeshConfig(tp=2).build()
+    mesh.check = True
+    model = params_from_numpy(tree, tiny_config(2, 32), device="cpu")
+    out = {"rank": rank, "backend": backend, "runs": {}}
+    with CTX.axes(mesh):
+        system, pool_rv, prof, _ = make_tiny_system(
+            n_items=80, n_requests_hist=40, k_instances=1, n_layers=2, d_model=32,
+            device="cpu", model=model, mesh=mesh)
+        pend, plans, reuse = server_workload(WL, system, pool_rv, prof)
+        for sched, kv_reuse in SERVER_RUNS:
+            config = server_config(sched, kv_reuse)
+            run = {}
+            mesh.log = []
+            engine, backend_, _, _ = SERVE.serve(system.model, system.cfg, config, pend, plans,
+                                                 system.rows, reuse if kv_reuse else None)
+            run["closed"] = {r: list(map(int, t)) for r, t in backend_.generated.items()}
+            run["closed_pool"] = pool_clean(engine)
+            run["closed_log"] = list(mesh.log)
+            mesh.log = []
+            engine, backend_, _, done, extra = SERVE.rank_sessions(
+                config, system.model, system.cfg, pend, plans, system.rows,
+                reuse if kv_reuse else None)
+            run["served"] = {r: list(map(int, t)) for r, t in backend_.generated.items()}
+            run["done"] = sorted(c.rid for c in done)
+            run["log"] = list(mesh.log)
+            run["pool"] = pool_clean(engine)
+            run["extra"] = {k: v for k, v in extra.items() if k != "online"}
+            out["runs"][sched, kv_reuse] = run
+        mesh.log = []
+        out["cancel_pool"], out["cancel"] = _cancel_run(system, pend, plans, reuse, mesh)
+        out["cancel_log"] = list(mesh.log)
+    return out
