@@ -156,6 +156,42 @@ else (no network, no JAX).  Phases:
    step's (4,096, d_model) bf16 activation.  Two ranks share one card's
    SMs and HBM and their collectives go through the host: none of these
    is a multi-card speed;
+2n. the recsys and SchNet steps on a mesh and the LM layouts whose kv
+   heads tp does not divide (after phase 2m; the parent holds no model
+   while ranks run).  First one unsharded run of each case on the card
+   (seed 0), to the host and freed.  (a) Two ranks at dp = 2, each
+   holding its half of the rows of every table of 4,096 rows or more:
+   Wide&Deep, AutoInt, DIEN and BERT4Rec at published width score a
+   serve_p99 batch (a rank its 256 rows) and one retrieval_cand query
+   (1 x 1,000,000 candidates, the same on both ranks), and Wide&Deep takes
+   3 AdamW steps of train_batch (32,768 rows a rank): scores and losses
+   within 1e-5 of max|x| of the unsharded run (gradient norms, sums of
+   65,536 rows' terms regrouped by rank, within 1e-4); each rank must
+   launch B5 and K7 on its window and, after its counts are read, holds
+   them at its largest windowed call against their plain versions
+   (1e-5 of max(1, max|plain|); B5's second call bitwise equal).  (b)
+   SchNet at dp = 2 (full_graph_sm and minibatch_lg's padded subgraph
+   with their edges split over the ranks, molecule's molecules), 3 AdamW
+   steps each: losses within 1e-5.  Then long_500k: starcoder2 at
+   published width, depth 2, one row of 524,288 cached positions split
+   over the two ranks, 4 greedy decode steps (flash-decoding merged by
+   log-sum-exp) against the unsharded decode: logits within 2e-2 of the
+   row max (bf16), tokens equal unless a near-tie.  (c) Four ranks: every
+   assigned LM arch at reduced() size in fp32 (and starcoder2 with an
+   8-token window) at (dp, tp) = (1, 4), each kv head's Dh cut over the
+   model axis and the cache's sequence over it: prefill, 2 greedy decode
+   steps, 3 train steps; and at (2, 2) a batch-1 prefill and decode whose
+   cache splits over every axis (2 decode steps from the mesh's prefill
+   and 2 from the whole model's cache): against this process's tp = 1 run on the CPU (logits
+   within 1e-4, greedy tokens equal, losses and norms within 1e-4).  (d)
+   Eight ranks: starcoder2-15b (4 kv heads) at tp = 8, depth 2: prefill
+   1 x 4,096, 4 decode steps, 3 AdamW steps; the prefill's and decode
+   steps' logits and greedy tokens against one unsharded run of the same
+   seed on the card (long_500k's gate); K6 on each rank's (1, 4096,
+   6, 128) query and (1, 4096, 1, 128) kv heads on its tensor-core route,
+   held to its plain version after the counts are read.  Per rank: step
+   times, peak GB, launches by kernel and the largest call's shapes.  As
+   in 2l and 2m, ranks share one card over gloo: no multi-card speed;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies, at its largest all-layer call of
@@ -496,17 +532,22 @@ def patch_gather(before):
 
 
 class BagRecorder:
-    """Keeps the inputs of the latest embedding-bag call per batch size
-    (serve_p99, serve_bulk, retrieval).  The table is a model parameter
-    and the ids are made anew for each call, so references suffice."""
+    """Keeps the inputs (table, ids, row0) of the latest embedding-bag call
+    per batch size (serve_p99, serve_bulk, retrieval; on a row window, the
+    ids gathered over the data axis).  The table is a model parameter and
+    the ids are made anew for each call, so references suffice."""
 
     def __init__(self, fn):
         self.fn = fn
         self.calls = {}
 
-    def __call__(self, table, ids):
-        self.calls[ids.shape[0]] = (table, ids)
-        return self.fn(table, ids)
+    def __call__(self, table, ids, row0=0):
+        self.calls[ids.shape[0]] = (table, ids, row0)
+        return self.fn(table, ids, row0=row0)
+
+    def largest(self):
+        """The recorded call with the most ids, or None."""
+        return max(self.calls.values(), key=lambda c: c[1].numel(), default=None)
 
 
 def install_recorders():
@@ -1410,7 +1451,7 @@ def bag_records(calls, spec, launches, models):
         b = RREG.RECSYS_SHAPES[shape].dims["batch"]
         if b not in calls:
             raise RuntimeError(f"embedding_bag: no call of batch {b} ({shape}) was recorded")
-        table, ids = calls[b]
+        table, ids, _ = calls[b]
         errs = {}
         for label, t in (("fp32 d=1", table), ("bf16 d=1", table.to(torch.bfloat16)),
                          ("fp32 d=32", deep_table)):
@@ -2906,16 +2947,18 @@ class BwdRecorder:
 
 
 class BagBwdRecorder:
-    """Keeps the (ids, d_out, rows) of the latest CUDA bag-gradient call
-    while armed (the recsys cells' run)."""
+    """Keeps the (ids, d_out, rows, row0) of the largest CUDA bag-gradient
+    call (by ids; of equal ones the latest) while armed (the recsys cells'
+    run)."""
 
     def __init__(self, fn):
         self.fn, self.call, self.armed = fn, None, False
 
-    def __call__(self, ids, d_out, rows):
-        if self.armed and d_out.is_cuda:
-            self.call = (ids, d_out.detach().clone(), rows)
-        return self.fn(ids, d_out, rows)
+    def __call__(self, ids, d_out, rows, row0=0):
+        if (self.armed and d_out.is_cuda
+                and (self.call is None or ids.numel() >= self.call[0].numel())):
+            self.call = (ids, d_out.detach().clone(), rows, row0)
+        return self.fn(ids, d_out, rows, row0=row0)
 
 
 def _graph_builder():
@@ -3539,9 +3582,10 @@ def bag_field_probe(ids, d_out, rows):
 def bag_backward_record(call, launches):
     """K7 against its plain version at Wide&Deep's train_batch call (the
     wide table's gradient, fp32, and the same call in bf16): max |kernel
-    - plain| within BAG_TOL of max(1, max|plain|); then timed, each device
-    event apart, and probed by field group (`bag_field_probe`)."""
-    ids, d_out, rows = call
+    - plain| within BAG_TOL of max|plain| (no floor of 1: the rows of a
+    mean loss's gradient are ~1e-5); then timed, each device event apart,
+    and probed by field group (`bag_field_probe`)."""
+    ids, d_out, rows, _ = call
     fn = EO.bag_backward
     spec = KERNELS["bag_backward"]
     errs = {}
@@ -3549,7 +3593,7 @@ def bag_backward_record(call, launches):
         g = d_out.to(dt)
         got, want = fn(ids, g, rows), EREF.bag_backward_ref(ids, g, rows)
         torch.cuda.synchronize()
-        scale = max(1.0, float(want.float().abs().max()))
+        scale = float(want.float().abs().max())
         err = float((got.float() - want.float()).abs().max())
         if got.dtype != dt or not torch.isfinite(got).all() or err > BAG_TOL[dt] * scale:
             raise RuntimeError(f"bag_backward {dt}: max|kernel-plain| {err} > {BAG_TOL[dt]} x "
@@ -3558,7 +3602,7 @@ def bag_backward_record(call, launches):
         del got, want
     log(f"check bag_backward: ids {tuple(ids.shape)} into {rows} rows x {d_out.shape[1]}; "
         f"max|kernel-plain| fp32 {errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g} "
-        f"(tol {BAG_TOL} x max(1, max|plain|))")
+        f"(tol {BAG_TOL} x max|plain| {scale:.3g})")
     ms = time_ms(lambda: fn(ids, d_out, rows))
     # two device events a call: the gradient's zero fill and the kernel
     dev_ms, dev = counted_device_ms(lambda: fn(ids, d_out, rows), 2, reps=20)
@@ -4220,8 +4264,7 @@ def _lm_steps(model, mesh, toks, batch, decode_steps, train_steps, dev):
     logits, cache = fn(inputs)
     _sync_dev(dev)
     out = {"prefill_s": time.perf_counter() - t0, "prefill": logits.float().cpu().numpy()}
-    cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (8,) + v.shape[3:])], dim=2)
-             for k, v in cache.items()}
+    cache = STEPS.grow_cache(cache, serve, 8)
     del logits
     dec, _ = STEPS.mesh_fn(serve, mesh, "decode", toks.shape[0])
     pos = torch.full((inputs["tokens"].shape[0],), toks.shape[1], device=dev)
@@ -4505,6 +4548,676 @@ def _lm_steps_cpu(whole, mesh, toks, batch):
         return _lm_steps(whole, mesh, toks, batch, 2, 3, torch.device("cpu"))
 
 
+# ---------------------------------------------------------------- phase 2n
+# the recsys and SchNet steps on a mesh, and the LM layouts whose kv heads
+# tp does not divide (the module docstring's 2n)
+MESH_RECSYS = ("wide-deep", "autoint", "dien", "bert4rec")
+MESH_GNN = ("full_graph_sm", "molecule", "minibatch_lg")
+MESH_TOL = 1e-5                       # of max|x| (scores, losses): order of sums only
+LONG_ARCH, LONG_STEPS, LONG_TOL = "starcoder2-15b", 4, 2e-2
+KV_LAYOUTS = ((1, 4), (2, 2))         # one 4-rank world: the Dh cut; batch 1 over every axis
+WIDE_TP = 8                           # starcoder2-15b's 4 kv heads at tp = 8
+
+
+def _window_checks(b5, k7):
+    """Inside a phase-2n rank, after its counts are read: B5 and K7 at the
+    largest windowed call (`BagRecorder.largest`, `BagBwdRecorder.call`)
+    against their plain versions, B5 within MESH_TOL of max(1, max|plain|)
+    and K7 within MESH_TOL of max|plain| (no floor: its rows are ~1e-5, so
+    a floor of 1 would pass dropped atomics); B5's second call bitwise
+    equal (K7's atomics add a row's terms in a varying order).  ->
+    {kernel: record}."""
+    out = {}
+    table, ids, r0 = b5.largest()
+    got, again = EO.bag_sum(table, ids, row0=r0), EO.bag_sum(table, ids, row0=r0)
+    want = EREF.embedding_bag_ref(table, ids, r0)
+    ids_k, d_out, rows, r0k = k7.call
+    grad = EO.bag_backward(ids_k, d_out, rows, row0=r0k)
+    gwant = EREF.bag_backward_ref(ids_k, d_out, rows, r0k)
+    torch.cuda.synchronize()
+    for name, g, w, call, floor in (("bag_sum", got, want, (table, ids, r0), 1.0),
+                                    ("bag_backward", grad, gwant, (ids_k, d_out, rows, r0k),
+                                     0.0)):
+        scale = max(floor, float(w.float().abs().max()))
+        err = float((g.float() - w.float()).abs().max())
+        if not torch.isfinite(g).all() or err > MESH_TOL * scale:
+            raise RuntimeError(f"phase 2n {name} on a row window: max|kernel-plain| {err} > "
+                               f"{MESH_TOL} x {scale}")
+        out[name] = {"max_abs_err": err, "scale": scale, "row0": int(call[-1]),
+                     "shapes": [list(t.shape) if isinstance(t, torch.Tensor) else t
+                                for t in call[:-1]]}
+    if not torch.equal(got, again):
+        raise RuntimeError("phase 2n bag_sum on a row window: two calls differ")
+    out["bag_sum"]["second_call_bitwise"] = True
+    # timed: CUDA events, the device events alone (B5 one kernel; K7 the
+    # gradient's zero fill and its kernel) and the plain versions; the bound
+    # counts what this call's ids need (the window's lookups, each row read)
+    live = int(((ids.long() - r0 >= 0) & (ids.long() - r0 < table.shape[0])).sum())
+    runs = {"bag_sum": (lambda: EO.bag_sum(table, ids, row0=r0),
+                        lambda: EREF.embedding_bag_ref(table, ids, r0), 1,
+                        nbytes(ids, got) + live * table.shape[1] * table.element_size()),
+            "bag_backward": (lambda: EO.bag_backward(ids_k, d_out, rows, row0=r0k),
+                             lambda: EREF.bag_backward_ref(ids_k, d_out, rows, r0k), 2,
+                             nbytes(ids_k, d_out) + rows * d_out.shape[1] * 4)}
+    for name, (fn, plain, events, nb) in runs.items():
+        dev_ms, dev = counted_device_ms(fn, events)
+        out[name].update(ms=time_ms(fn), device_ms=dev_ms, device_note=dev.get("note"),
+                         plain_ms=time_ms(plain, reps=5, warmup=1), bytes=nb,
+                         bound_ms=nb / HBM_BYTES_S * 1e3, live_lookups=live)
+    return out
+
+
+def _scale_err(label, got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.isfinite(got).all() or err > tol * max(scale, 1e-30):
+        raise RuntimeError(f"phase 2n {label}: max|mesh - unsharded| {err} > {tol} x max|x| "
+                           f"{scale} (shapes {got.shape} / {want.shape})")
+    return err / max(scale, 1e-30)
+
+
+def _recsys_unsharded(dev):
+    """One unsharded run on the card per recsys arch (published width, seed
+    0: the model, a serve_p99 batch, a retrieval_cand query; Wide&Deep
+    also TRAIN_STEPS AdamW steps on a train_batch), to the host."""
+    out = {}
+    for arch in MESH_RECSYS:
+        cfg = RREG.get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = RM.init_params(cfg, gen, dev)
+        res = {"score": RM.score(model, RREG.make_batch(cfg, "serve_p99", gen, dev)).cpu()
+               .numpy(),
+               "retrieval": RM.retrieval_scores(model, RREG.make_batch(
+                   cfg, "retrieval_cand", gen, dev)).cpu().numpy()}
+        if arch == "wide-deep":
+            batch = RREG.make_batch(cfg, "train_batch", gen, dev)
+            res["loss"], res["gnorm"], _ = STEPS.run_train(model, batch, TRAIN_STEPS)
+            del batch
+        out[arch] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gnn_unsharded(dev):
+    out = {}
+    cfg = RREG.get_config("schnet")
+    for cell in MESH_GNN:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = STEPS.init_model(cfg, gen, dev, cell)
+        batch = RREG.make_batch(cfg, cell, gen, dev)
+        out[cell] = STEPS.run_train(model, batch, TRAIN_STEPS)[0]
+        del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _long_cfg():
+    return dataclasses.replace(RREG.get_config(LONG_ARCH), n_layers=TRAIN_LAYERS)
+
+
+def _long_decode(fn, batch, dev, steps=LONG_STEPS):
+    """`steps` greedy decode steps: -> (logits (steps, V) fp32 numpy,
+    tokens, ms a step)."""
+    nxt, pos, cache = batch["tokens"], batch["positions"], batch["cache"]
+    logits, toks, times = [], [], []
+    for _ in range(steps):
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        lg, cache = fn({"tokens": nxt, "cache": cache, "positions": pos})
+        _sync_dev(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        nxt, pos = lg.argmax(-1)[:, None], pos + 1
+        logits.append(lg[0].float().cpu().numpy())
+        toks.append(int(nxt[0, 0]))
+    return np.stack(logits), toks, times
+
+
+def _long_unsharded(dev):
+    """long_500k unsharded on the card: starcoder2 at published width,
+    depth 2, its one row of 524,288 cached positions (seed 0)."""
+    cfg = _long_cfg()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = TT.init_params(cfg, gen, dev)
+    batch = RREG.make_batch(cfg, "long_500k", gen, dev)
+    out = _long_decode(lambda b: TT.decode_step(model, b["tokens"], b["cache"],
+                                                b["positions"]), batch, dev)
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _launches():
+    return {"bag_sum": EO.bag_sum.launches, "bag_backward": EO.bag_backward.launches,
+            "flash_bwd": FO.mha_flash_bwd.launches}
+
+
+def _wide_cfg():
+    return dataclasses.replace(RREG.get_config("starcoder2-15b"), n_layers=TRAIN_LAYERS)
+
+
+def _wide_unsharded(dev):
+    """(d)'s reference on the card: starcoder2-15b whole at depth 2, drawn
+    as the ranks draw it (seed 0, then the prompt), prefill 1 x
+    TP_LM_PREFILL and TP_LM_DECODE greedy decode steps.  -> (prefill
+    logits (V,) fp32 numpy, decode logits (steps, V), tokens (the prefill's
+    first), decode ms a step)."""
+    cfg = _wide_cfg()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = TT.init_params(cfg, gen, dev)
+    batch = RREG.make_batch(cfg, "train_4k", gen, dev, batch=1, seq=TP_LM_PREFILL)
+    logits, cache = TT.prefill(model, batch["tokens"])
+    first = logits.argmax(-1)[:, None]
+    start = {"tokens": first, "cache": STEPS.grow_cache(cache, model, 8),
+             "positions": torch.full((1,), TP_LM_PREFILL, device=dev)}
+    lg, toks, times = _long_decode(lambda b: TT.decode_step(model, b["tokens"], b["cache"],
+                                                            b["positions"]),
+                                   start, dev, TP_LM_DECODE)
+    out = (logits[0].float().cpu().numpy(), lg, [int(first[0, 0])] + toks, times)
+    del model, batch, logits, cache, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _token_gate(label, got_logits, got_toks, want_logits, want_toks, tol=LONG_TOL):
+    """Greedy steps against a reference's, as far as their tokens agree:
+    each step's logits within `tol` of the reference row's max |logit|,
+    and its token equal unless the reference's top two are within that
+    tolerance (a near-tie).  -> the largest error."""
+    errs = []
+    for i, row in enumerate(want_logits):
+        if list(got_toks[:i]) != list(want_toks[:i]):
+            break
+        errs.append(float(np.abs(np.asarray(got_logits[i]) - row).max() / np.abs(row).max()))
+        if errs[-1] > tol:
+            raise RuntimeError(f"phase 2n {label} step {i}: logits {errs[-1]} of the row max "
+                               f"from the unsharded run (tol {tol})")
+        if got_toks[i] != want_toks[i]:
+            top = np.sort(row)[-2:]
+            if top[1] - top[0] > tol * np.abs(row).max():
+                raise RuntimeError(f"phase 2n {label} step {i}: token {got_toks[i]} vs "
+                                   f"{want_toks[i]} without a near-tie")
+    return max(errs)
+
+
+def _peak(device):
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _warm_ms(bundle, device):
+    """Host ms of one more call of a serving bundle (after its first),
+    the card synchronised."""
+    _sync_dev(device)
+    t0 = time.perf_counter()
+    bundle.fn(bundle.inputs)
+    _sync_dev(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mesh2_rank(rank, world, backend, device, _):
+    """A rank of phase 2n's dp = 2 world: (a) the recsys archs, (b) SchNet,
+    then long_500k.  -> its record."""
+    from repro_torch.sharding import ctx as CTX
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshConfig(dp=2, tp=1).build()
+    mesh.device = device
+    b5, k7 = BagRecorder(RM.bag_sum), BagBwdRecorder(RM.bag_backward)
+    k7.armed = True
+    saved = (RM.bag_sum, RM.bag_backward)
+    RM.bag_sum, RM.bag_backward = b5, k7
+    out = {"rank": rank, "device": str(device), "backend": backend,
+           "coords": dict(mesh.coords), "recsys": {}, "gnn": {}}
+    try:
+        before = _launches()
+        for arch in MESH_RECSYS:
+            cfg = RREG.get_config(arch)
+            gen = torch.Generator(device=device).manual_seed(0)
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            b = STEPS.build(arch, "serve_p99", mesh, device, generator=gen)
+            rec = {"init_s": time.perf_counter() - t0,
+                   "table_rows": {n: [int(b.model.row0[n]),
+                                      int(b.model.get_parameter(n).shape[0])]
+                                  for n in b.model.row0}}
+            rec["score"] = b.fn(b.inputs).cpu().numpy()
+            rec["score_ms"] = _warm_ms(b, device)
+            r = STEPS.build(arch, "retrieval_cand", mesh, device, model=b.model,
+                            batch=RREG.make_batch(cfg, "retrieval_cand", gen, device))
+            rec["retrieval"] = r.fn(r.inputs).cpu().numpy()
+            rec["retrieval_ms"] = _warm_ms(r, device)
+            rec["score_rows"], rec["retrieval_cut"] = int(rec["score"].shape[0]), r.dp_batch
+            del r
+            if arch == "wide-deep":
+                t = STEPS.build(arch, "train_batch", mesh, device, model=b.model,
+                                batch=RREG.make_batch(cfg, "train_batch", gen, device))
+                hist, times = [], []
+                for _ in range(TRAIN_STEPS):
+                    _sync_dev(device)
+                    t0 = time.perf_counter()
+                    m = t.fn(t.inputs)
+                    hist.append({k: float(v) for k, v in m.items()})
+                    _sync_dev(device)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                rec.update(loss=[h["loss"] for h in hist], gnorm=[h["gnorm"] for h in hist],
+                           step_ms=times, train_rows=int(t.inputs["labels"].shape[0]))
+                del t
+            rec["peak_gb"] = _peak(device)
+            out["recsys"][arch] = rec
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["recsys_launches"] = {k: v - before[k] for k, v in _launches().items()}
+        RM.bag_sum, RM.bag_backward = saved
+        out["windows"] = _window_checks(b5, k7)
+        cfg = RREG.get_config("schnet")
+        for cell in MESH_GNN:
+            gen = torch.Generator(device=device).manual_seed(0)
+            torch.cuda.reset_peak_memory_stats(device)
+            b = STEPS.build("schnet", cell, mesh, device, generator=gen)
+            hist, times = [], []
+            for _ in range(TRAIN_STEPS):
+                _sync_dev(device)
+                t0 = time.perf_counter()
+                m = b.fn(b.inputs)
+                hist.append(float(m["loss"]))
+                _sync_dev(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["gnn"][cell] = {"loss": hist, "step_ms": times, "peak_gb": _peak(device),
+                                "edges": list(b.inputs["edge_src"].shape),
+                                "data_mean": b.dp_batch}
+            del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        t0 = time.perf_counter()
+        b = STEPS.build(LONG_ARCH, "long_500k", mesh, device, generator=gen,
+                        layers=TRAIN_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        build_s = time.perf_counter() - t0
+        logits, toks, times = _long_decode(b.fn, b.inputs, device)
+        out["long"] = {"logits": logits, "tokens": toks, "decode_ms": times,
+                       "cache_block": list(b.inputs["cache"]["k"].shape), "build_s": build_s,
+                       "peak_gb": _peak(device), "dp_batch": b.dp_batch}
+        del b
+    finally:
+        RM.bag_sum, RM.bag_backward = saved
+    return out
+
+
+def _reduced_one_row(label, dev):
+    """A reduced() case's batch-1 decode input: the whole model's prefill
+    of the first prompt (tp = 1, outside any mesh) grown by 8 positions,
+    and its first greedy token.  -> (cfg, the model on `dev`, that input,
+    the prompt (1, 40), its prefill logits (1, V) fp32 numpy)."""
+    cfg, whole, toks, _ = _reduced_case(label)
+    model = whole.to(dev)
+    prompt = toks[:1].to(dev)
+    logits, cache = TT.prefill(model, prompt)
+    cache = STEPS.grow_cache(cache, model, 8)
+    return cfg, model, {"tokens": logits.argmax(-1)[:, None], "cache": cache,
+                        "positions": torch.full((1,), toks.shape[1], device=dev)}, prompt, \
+        logits.float().cpu().numpy()
+
+
+def _one_row_steps(fn, batch, dev, steps=2):
+    nxt, pos, cache, out = batch["tokens"], batch["positions"], batch["cache"], []
+    for _ in range(steps):
+        lg, cache = fn({"tokens": nxt, "cache": cache, "positions": pos})
+        nxt, pos = lg.argmax(-1)[:, None], pos + 1
+        out.append((lg.float().cpu().numpy(), nxt[:, 0].cpu().numpy()))
+    return out
+
+
+def kv_rank(rank, world, backend, device, _):
+    """A rank of phase 2n's 4-rank world: (c) the reduced() cases at
+    (1, 4) (the Dh cut, the cache over ``model``: prefill, 2 decode steps,
+    3 train steps) and at (2, 2) (the cache over every axis) a batch-1
+    decode from the whole model's cache, then a batch-1 prefill on the
+    mesh (each rank its block of positions, the kv heads gathered) and
+    its decode.  -> its record."""
+    from repro_torch.sharding import ctx as CTX
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "device": str(device), "backend": backend, "layouts": {}}
+    for layout in KV_LAYOUTS:
+        mesh = MeshConfig(dp=layout[0], tp=layout[1]).build()
+        mesh.device = device
+        res = {"coords": dict(mesh.coords), "cases": {}}
+        for label in TP_LM_REDUCED:
+            if layout == (1, 4):
+                cfg, whole, toks, batch = _reduced_case(label)
+                with CTX.axes(mesh):
+                    res["cases"][label] = _lm_steps(whole, mesh, toks, batch, 2, 3, device)
+                continue
+            cfg, model, row, prompt, _ = _reduced_one_row(label, device)
+            with CTX.axes(mesh):
+                serve = STEPS.rank_model(cfg, mesh, "decode", device, source=model)
+                inputs = STEPS.rank_inputs(cfg, mesh, "decode", row)
+                dec, _ = STEPS.mesh_fn(serve, mesh, "decode", 1)
+                case = {"decode": _one_row_steps(dec, inputs, device),
+                        "block": list(inputs["cache"]["k"].shape)}
+                # every data rank holds the row (`build` cuts a prefill's
+                # rows over the data axis, as the reference does)
+                logits, cache = TT.prefill(serve, prompt, dp_batch=False)
+                case.update(prefill=logits.float().cpu().numpy(),
+                            prefill_block=list(cache["k"].shape))
+                mine = {"tokens": logits.argmax(-1)[:, None],
+                        "cache": STEPS.grow_cache(cache, serve, 8, dp_batch=False),
+                        "positions": row["positions"]}
+                case["prefilled"] = _one_row_steps(dec, mine, device)
+                res["cases"][label] = case
+        out["layouts"][layout] = res
+    return out
+
+
+def wide_tp_rank(rank, world, backend, device, _):
+    """A rank of phase 2n's (d): starcoder2-15b at tp = WIDE_TP, depth 2:
+    prefill 1 x TP_LM_PREFILL, TP_LM_DECODE decode steps, TRAIN_STEPS AdamW
+    steps (K6 on the rank's query heads against its gathered kv head).
+    -> its record."""
+    from repro_torch.sharding import ctx as CTX
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshConfig(dp=1, tp=WIDE_TP).build()
+    mesh.device = device
+    rec = BwdRecorder(TL.mha_flash_bwd)
+    TL.mha_flash_bwd = rec
+    cfg = _wide_cfg()
+    out = {"rank": rank, "device": str(device), "backend": backend}
+    try:
+        with CTX.axes(mesh):
+            gen = torch.Generator(device=device).manual_seed(0)
+            torch.cuda.reset_peak_memory_stats(device)
+            before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches)
+            model = STEPS.rank_model(cfg, mesh, "train", device, generator=gen)
+            batch = RREG.make_batch(cfg, "train_4k", gen, device, batch=1, seq=TP_LM_PREFILL)
+            out["param_gb"] = sum(p.numel() * p.element_size()
+                                  for p in model.parameters()) / 1e9
+            out["heads"] = [list(model.layers[0].wq.shape), list(model.layers[0].wk.shape)]
+            fn, _ = STEPS.mesh_fn(model, mesh, "prefill", 1)
+            toks = STEPS.rank_inputs(cfg, mesh, "prefill", {"tokens": batch["tokens"]})
+            _sync_dev(device)
+            t0 = time.perf_counter()
+            logits, cache = fn(toks)
+            _sync_dev(device)
+            out["prefill_s"] = time.perf_counter() - t0
+            out["prefill_cache_block"] = list(cache["k"].shape)
+            cache = STEPS.grow_cache(cache, model, 8)
+            dec, _ = STEPS.mesh_fn(model, mesh, "decode", 1)
+            first = logits.argmax(-1)[:, None]
+            start = {"tokens": first, "cache": cache,
+                     "positions": torch.full((1,), TP_LM_PREFILL, device=device)}
+            lg, toks, times = _long_decode(dec, start, device, TP_LM_DECODE)
+            out.update(decode_ms=times, decode_cache_block=list(start["cache"]["k"].shape),
+                       finite=bool(np.isfinite(lg).all() and torch.isfinite(logits).all()),
+                       prefill_logits=logits[0].float().cpu().numpy(), decode_logits=lg,
+                       tokens=[int(first[0, 0])] + toks)
+            del logits, cache, start
+            gc.collect()
+            torch.cuda.empty_cache()
+            step, _ = STEPS.mesh_fn(model, mesh, "train", 1)
+            inputs = STEPS.rank_inputs(cfg, mesh, "train", batch)
+            rec.arm("starcoder2-15b:tp8")
+            losses, norms, times = [], [], []
+            for _ in range(TRAIN_STEPS):
+                _sync_dev(device)
+                t0 = time.perf_counter()
+                m = step(inputs)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["gnorm"]))
+                _sync_dev(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec.arm(None)
+            out.update(loss=losses, gnorm=norms, step_ms=times, peak_gb=_peak(device),
+                       k6_launches=FO.mha_flash_bwd.launches - before[0],
+                       k6_tc_launches=FO.mha_flash_bwd.tc_launches - before[1])
+            del model, batch, step, inputs
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["k6"] = _k6_rank_checks(rec.calls)
+    finally:
+        TL.mha_flash_bwd = rec.fn
+    return out
+
+
+def mesh_families_phase(smi, dev):
+    """Phase 2n (the module docstring).  -> its report."""
+    t0 = time.perf_counter()
+    cfg = _long_cfg()
+    long_gb = 2 * cfg.n_layers * 524_288 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 / 1e9
+    wide = dataclasses.replace(RREG.get_config("starcoder2-15b"), n_layers=TRAIN_LAYERS)
+    wide_gb = sum(p.numel() for p in TT.Transformer(wide, device="meta").parameters()) * 2 / 1e9
+    log(f"recsys, SchNet and the kv-split LM layouts on a mesh (phase 2n): ranks sharing one "
+        f"card over {collective_backend(2, 'cuda')} ({smi}); footprint: long_500k's cache "
+        f"{long_gb:.2f} GB in bf16 ({long_gb / 2:.2f} a rank at dp = 2), starcoder2-15b at "
+        f"depth 2 {wide_gb:.2f} GB of bf16 weights ({wide_gb / WIDE_TP:.2f} a rank at tp = "
+        f"{WIDE_TP}, plus each rank's CUDA context); times are gloo's host staging on one "
+        "card, not a multi-card speed")
+    # the unsharded references on the card, each freed before the ranks start
+    recsys_ref = _recsys_unsharded(dev)
+    gnn_ref = _gnn_unsharded(dev)
+    long_ref = _long_unsharded(dev)
+    wide_ref = _wide_unsharded(dev)
+    ref_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 1e9
+    if resident > LM_RESIDENT_GB:
+        raise RuntimeError(f"phase 2n: {resident:.2f} GB still allocated before the ranks")
+    t1 = time.perf_counter()
+    two = MESH_SPAWN(mesh2_rank, 2, "cuda", args=(None,))
+    two_s = time.perf_counter() - t1
+    report = {"nvidia_smi": smi, "reference_s": ref_s, "recsys": {}, "gnn": {}, "ranks2": []}
+    # gate (a): recsys at dp = 2 against the unsharded run
+    for arch in MESH_RECSYS:
+        want = recsys_ref[arch]
+        scores = np.concatenate([r["recsys"][arch]["score"] for r in two])
+        e = {"score": _scale_err(f"{arch} serve_p99 scores", scores, want["score"], MESH_TOL)}
+        for r in two:
+            got = r["recsys"][arch]
+            if got["retrieval_cut"]:
+                raise RuntimeError(f"phase 2n {arch}: the one retrieval query was cut")
+            e["retrieval"] = max(e.get("retrieval", 0.0), _scale_err(
+                f"{arch} retrieval_cand scores", got["retrieval"], want["retrieval"], MESH_TOL))
+            if "loss" in want:
+                for k, tol in (("loss", MESH_TOL), ("gnorm", TRAIN_TOL)):
+                    e[k] = max(e.get(k, 0.0), _scale_err(f"{arch} train {k}", got[k], want[k],
+                                                         tol))
+        report["recsys"][arch] = e
+    for r in two:
+        n = r["recsys_launches"]
+        if n["bag_sum"] == 0 or n["bag_backward"] == 0:
+            raise RuntimeError(f"phase 2n rank {r['rank']}: B5 launched {n['bag_sum']} and K7 "
+                               f"{n['bag_backward']} times on the rank's window: both must run")
+    log("  (a) recsys at dp = 2 == one unsharded run on the card (scores and Wide&Deep's "
+        f"losses within {MESH_TOL}, its gradient norms within {TRAIN_TOL}, of max|x|): "
+        + "; ".join(
+            f"{a} " + ", ".join(f"{k} {v:.1e}" for k, v in e.items())
+            for a, e in report["recsys"].items()))
+    records = []
+    for name, kernel in (("bag_sum", "embedding_bag"), ("bag_backward", "bag_backward")):
+        w = two[0]["windows"][name]
+        records.append({
+            "name": f"{kernel}:window", "route": "cuda", "source": KERNELS[kernel]["source"],
+            "replaces": KERNELS[kernel]["replaces"],
+            "launches": sum(r["recsys_launches"][name] for r in two),
+            "max_abs_err": max(r["windows"][name]["max_abs_err"] for r in two),
+            "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "library_note": "no single PyTorch call skips the ids outside a row window",
+            "device_ms": w["device_ms"], "device_note": w["device_note"],
+            "shapes": w["shapes"], "row0": w["row0"], "bytes": w["bytes"],
+            "tol": MESH_TOL, "nvidia_smi": smi})
+        log(f"  time {kernel} on rank 0's window (row0 {w['row0']}, {w['shapes']}): kernel "
+            f"{w['ms']:.4f} ms (device {w['device_ms'] if w['device_ms'] is None else round(w['device_ms'], 4)}), "
+            f"plain {w['plain_ms']:.4f} ms, bound {w['bound_ms']:.4f} ms (bytes, "
+            f"{w['bytes'] / 1e6:.1f} MB: {w['live_lookups']} lookups in the window)")
+    for r in two:
+        w = r["windows"]
+        log(f"  (a) rank {r['rank']} ({r['device']}, {r['backend']}): launches on its windows "
+            f"{r['recsys_launches']}; B5 at its largest call {w['bag_sum']['shapes']} row0 "
+            f"{w['bag_sum']['row0']} max|kernel-plain| {w['bag_sum']['max_abs_err']:.2e} "
+            f"(tol {MESH_TOL} x max(1, max|plain|); a second call bitwise equal), K7 at "
+            f"{w['bag_backward']['shapes']} row0 {w['bag_backward']['row0']} "
+            f"{w['bag_backward']['max_abs_err']:.2e} (tol {MESH_TOL} x max|plain| "
+            f"{w['bag_backward']['scale']:.3g})")
+        for arch, c in r["recsys"].items():
+            log(f"    {arch}: init {c['init_s']:.2f} s, serve_p99 {c['score_rows']} rows "
+                f"{c['score_ms']:.2f} ms, retrieval_cand {c['retrieval_ms']:.2f} ms (each a "
+                f"second call, host clock), peak "
+                f"{c['peak_gb']:.2f} GB, tables (row0, rows) {c['table_rows']}"
+                + (f"; train_batch {c['train_rows']} rows a rank, step ms "
+                   + ", ".join(f"{t:.1f}" for t in c["step_ms"]) if "step_ms" in c else ""))
+    # gate (b): SchNet
+    for cell in MESH_GNN:
+        e = max(_scale_err(f"schnet {cell} losses", r["gnn"][cell]["loss"], gnn_ref[cell],
+                           MESH_TOL) for r in two)
+        report["gnn"][cell] = e
+        log(f"  (b) schnet {cell} at dp = 2: losses {two[0]['gnn'][cell]['loss']} within "
+            f"{e:.1e} of max|x| of the unsharded run's (tol {MESH_TOL}); " + "; ".join(
+                f"rank {r['rank']}: edges {r['gnn'][cell]['edges']}, step ms "
+                + ", ".join(f"{t:.1f}" for t in r["gnn"][cell]["step_ms"])
+                + f", peak {r['gnn'][cell]['peak_gb']:.2f} GB" for r in two))
+    # long_500k
+    logits, toks, ref_ms = long_ref
+    errs = []
+    for r in two:
+        got = r["long"]
+        if got["dp_batch"]:
+            raise RuntimeError("phase 2n long_500k: the one row was cut over the data axis")
+        errs.append(_token_gate("long_500k", got["logits"], got["tokens"], logits, toks))
+    report["long"] = {"max_rel_err": max(errs), "tokens": toks, "unsharded_ms": ref_ms}
+    for r in two:
+        g = r["long"]
+        log(f"  long_500k rank {r['rank']}: cache block {g['cache_block']} (bf16), decode ms "
+            + ", ".join(f"{t:.1f}" for t in g["decode_ms"]) + f" (unsharded on the card: "
+            + ", ".join(f"{t:.1f}" for t in ref_ms) + f"), peak {g['peak_gb']:.2f} GB; tokens "
+            f"{g['tokens']} vs {toks}; logits within {max(errs):.2e} of the row max (tol "
+            f"{LONG_TOL})")
+        report["ranks2"].append({k: v for k, v in r.items() if k not in ("long", "recsys")}
+                                | {"long": {k: v for k, v in r["long"].items()
+                                            if k != "logits"},
+                                   "recsys": {a: {k: v for k, v in c.items()
+                                                  if k not in ("score", "retrieval")}
+                                              for a, c in r["recsys"].items()}})
+    # (c) the reduced() cases: the Dh cut at (1, 4), batch 1 over every axis at (2, 2)
+    t2 = time.perf_counter()
+    four = MESH_SPAWN(kv_rank, 4, "cuda", args=(None,))
+    four_s = time.perf_counter() - t2
+    one = MeshConfig(mesh_shape=(1, 1)).build()
+    errs = {}
+    for label in TP_LM_REDUCED:
+        cfg, whole, toks, batch = _reduced_case(label)
+        want = _lm_steps_cpu(whole, one, toks, batch)
+        _, _, row_in, _, row_logits = _reduced_one_row(label, torch.device("cpu"))
+        row = _one_row_steps(lambda b: TT.decode_step(whole, b["tokens"], b["cache"],
+                                                      b["positions"]), row_in,
+                             torch.device("cpu"))
+        e = {}
+        for r in four:
+            got = r["layouts"][(1, 4)]["cases"][label]
+            e["prefill"] = max(e.get("prefill", 0.0), _np_close(
+                f"phase 2n {label} (1, 4) prefill", got["prefill"], want["prefill"]))
+            for i, ((gl, gt), (wl, wt)) in enumerate(zip(got["decode"], want["decode"])):
+                e["decode"] = max(e.get("decode", 0.0), _np_close(
+                    f"phase 2n {label} (1, 4) decode {i}", gl, wl))
+                if not np.array_equal(gt, wt):
+                    raise RuntimeError(f"phase 2n {label} (1, 4) decode {i}: tokens {gt} vs "
+                                       f"the CPU's {wt}")
+            for k in ("loss", "gnorm"):
+                d = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got[k], want[k]))
+                if d > TRAIN_TOL:
+                    raise RuntimeError(f"phase 2n {label} (1, 4): {k} {got[k]} vs the CPU's "
+                                       f"{want[k]}")
+                e[k] = max(e.get(k, 0.0), d)
+            got = r["layouts"][(2, 2)]["cases"][label]
+            e["row_prefill"] = max(e.get("row_prefill", 0.0), _np_close(
+                f"phase 2n {label} (2, 2) batch-1 prefill", got["prefill"], row_logits))
+            for key in ("decode", "prefilled"):
+                for i, ((gl, gt), (wl, wt)) in enumerate(zip(got[key], row)):
+                    e["row"] = max(e.get("row", 0.0), _np_close(
+                        f"phase 2n {label} (2, 2) batch-1 {key} decode {i}", gl, wl))
+                    if not np.array_equal(gt, wt):
+                        raise RuntimeError(f"phase 2n {label} (2, 2) {key} decode {i}: tokens "
+                                           f"{gt} vs the CPU's {wt}")
+        errs[label] = e
+    report["reduced_vs_cpu"] = errs
+    for r in four:
+        cases = r["layouts"][(1, 4)]["cases"].values()
+        log(f"  (c) rank {r['rank']} ({r['device']}, {r['backend']}) at (1, 4), the "
+            f"{len(cases)} cases: prefill s " + ", ".join(f"{c['prefill_s']:.3f}" for c in cases)
+            + "; decode ms (median of each case's 2) " + ", ".join(
+                f"{statistics.median(c['decode_ms']):.1f}" for c in cases)
+            + "; train ms (median of 3) " + ", ".join(
+                f"{statistics.median(c['step_ms']):.1f}" for c in cases))
+    first = four[0]["layouts"][(2, 2)]["cases"][TP_LM_REDUCED[0]]
+    blocks, pre_blocks = first["block"], first["prefill_block"]
+    log(f"  (c) {len(errs)} reduced() cases (fp32) on the card == tp = 1 on the CPU: at (1, 4) "
+        f"prefill, 2 decode steps, 3 train steps (logits within {LM_TOL}, max "
+        f"{max(max(v['prefill'], v['decode']) for v in errs.values()):.2e}; losses and norms "
+        f"within {TRAIN_TOL}, max {max(max(v['loss'], v['gnorm']) for v in errs.values()):.2e}); "
+        f"at (2, 2) a batch-1 prefill on the mesh (cache blocks {pre_blocks}, max "
+        f"{max(v['row_prefill'] for v in errs.values()):.2e}) and 2 decode steps over blocks "
+        f"{blocks}, from it and from the whole model's cache: max "
+        f"{max(v['row'] for v in errs.values()):.2e}; greedy tokens equal; 4 ranks in "
+        f"{four_s:.1f} s")
+    # (d) starcoder2-15b at tp = 8
+    t3 = time.perf_counter()
+    eight = MESH_SPAWN(wide_tp_rank, WIDE_TP, "cuda", args=(None,))
+    eight_s = time.perf_counter() - t3
+    losses = [r["loss"] for r in eight]
+    if any(l != losses[0] for l in losses):
+        raise RuntimeError(f"phase 2n (d): the ranks report other losses {losses}")
+    # the prefill's and decode steps' logits and greedy tokens against the
+    # unsharded run on the card (long_500k's gate)
+    w_pre, w_dec, w_toks, w_ms = wide_ref
+    want = np.concatenate([w_pre[None], w_dec])
+    wide_err = max(_token_gate(f"(d) rank {r['rank']}",
+                               np.concatenate([r["prefill_logits"][None], r["decode_logits"]]),
+                               r["tokens"], want, w_toks) for r in eight)
+    report["tp8_vs_unsharded"] = {"max_rel_err": wide_err, "tokens": w_toks,
+                                  "unsharded_decode_ms": w_ms, "tol": LONG_TOL}
+    log(f"  (d) starcoder2-15b at tp = {WIDE_TP} == one unsharded run on the card: prefill and "
+        f"{TP_LM_DECODE} decode steps' logits within {wide_err:.2e} of the row max (tol "
+        f"{LONG_TOL}, bf16), greedy tokens {eight[0]['tokens']} vs {w_toks} (unsharded decode "
+        "ms " + ", ".join(f"{t:.1f}" for t in w_ms) + ")")
+    for r in eight:
+        k6 = r["k6"].get("starcoder2-15b:tp8")
+        if (not r["finite"] or not all(np.isfinite(r["loss"] + r["gnorm"]))
+                or not r["loss"][-1] < r["loss"][0] or r["k6_launches"] == 0
+                or r["k6_tc_launches"] != r["k6_launches"] or k6 is None or k6["route"] != "tc"):
+            raise RuntimeError(f"phase 2n (d) rank {r['rank']}: finite {r['finite']}, losses "
+                               f"{r['loss']}, K6 {r['k6_launches']} ({r['k6_tc_launches']} tc), "
+                               f"checked {k6}")
+        log(f"  (d) starcoder2-15b tp = {WIDE_TP} rank {r['rank']}: wq {r['heads'][0]}, wk "
+            f"{r['heads'][1]} ({r['param_gb']:.3f} GB of weights); prefill 1 x {TP_LM_PREFILL} "
+            f"{r['prefill_s']:.3f} s (cache block {r['prefill_cache_block']}), decode ms "
+            + ", ".join(f"{t:.1f}" for t in r["decode_ms"]) + "; train losses "
+            + ", ".join(f"{x:.4f}" for x in r["loss"]) + ", step ms "
+            + ", ".join(f"{t:.1f}" for t in r["step_ms"]) + f", peak {r['peak_gb']:.2f} GB; K6 "
+            f"launches {r['k6_launches']}, checked at q, k {k6['shapes'][:2]}: dq "
+            f"{k6['rel_err'][0]:.2e} dk {k6['rel_err'][1]:.2e} dv {k6['rel_err'][2]:.2e} of "
+            f"max|plain| (tol {k6['tol']}; {k6['route']} route, a second call bitwise equal)")
+    report.update(ranks8=[{k: v for k, v in r.items()
+                           if k not in ("prefill_logits", "decode_logits")} for r in eight],
+                  ranks4=[{k: v for k, v in r.items() if k != "layouts"}
+                                        for r in four],
+                  wall_s={"reference": ref_s, "dp2": two_s, "four": four_s, "tp8": eight_s})
+    log(f"  phase 2n {time.perf_counter() - t0:.1f} s (references on the card {ref_s:.1f} s, "
+        f"dp = 2 ranks {two_s:.1f} s, 4 ranks {four_s:.1f} s, {WIDE_TP} ranks {eight_s:.1f} s, "
+        "each with its ranks' start)")
+    return report, records
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -4586,6 +5299,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     report["tp_lm"] = lm_mesh_phase(smi)
     PHASE_S["2m"] = time.perf_counter() - t0
+
+    # ---- phase 2n: recsys and SchNet on a mesh, the kv-split LM layouts ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["mesh_families"], mesh_records = mesh_families_phase(smi, dev)
+    records = records + mesh_records
+    report["kernels"] = records
+    PHASE_S["2n"] = time.perf_counter() - t0
     report.update({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start})

@@ -184,6 +184,8 @@ def make_system(cfg: LMConfig, device="cuda", profile_name: str = "amazon",
         profile_name, n_items, n_requests_hist, seed)
     token_embed = None
     split = mesh is not None and mesh.shape["model"] > 1
+    if split:
+        SPECS.check_serving_divisibility(cfg, mesh)
     if model is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         if split:

@@ -19,6 +19,18 @@ radial centres as XLA computes `jnp.linspace(0, cutoff, n_rbf)` in fp32
 (`rbf_centres`): gamma = 1 / (cutoff / n_rbf)^2 = 900 at the published
 size amplifies any last-ulp difference in a centre.  Plain PyTorch: the
 reference has no kernel here.
+
+Edge-parallel on a mesh (`gnn_input_specs`: a graph's flat edge arrays
+split over every axis, ``edge_axes``): a rank computes the messages of
+its block of edges and each aggregation is summed over those ranks
+(`sharding.ctx.all_reduce` over ``edge_axes``, backward the identity).
+Everything that enters the edge region, the node states and the
+parameters applied to edges (``w_in`` and the filter network), enters
+through `sharding.ctx.copy_to_tp` over ``edge_axes``, whose backward sums the ranks' partial gradients: every rank then holds
+the whole gradient of a loss all ranks share, and per-node gradients are
+counted once.  Padded edges (`pad_edges`, the reference's ``_prep``:
+``edge_dst = n_nodes``) are masked out before the scatter, which the
+reference's ``segment_sum`` drops and ``index_add`` would refuse.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.recsys.models import ParamTree
+from repro_torch.sharding import ctx as CTX
 
 Batch = Dict[str, torch.Tensor]
 
@@ -117,12 +130,17 @@ def cosine_cutoff(d: torch.Tensor, cutoff: float) -> torch.Tensor:
 
 def interactions(model: SchNet, h: torch.Tensor, positions: torch.Tensor,
                  edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 edge_mask: Optional[torch.Tensor] = None, edge_axes: tuple = ()) -> torch.Tensor:
     """The cfconv stack: h (N, H), positions (N, 3), edges (E,) index
-    tensors (and an optional (E,) mask) -> h (N, H).  Messages are summed
-    into their destination rows by `index_add`."""
+    tensors (and an optional (E,) mask: a masked edge's destination may be
+    out of range, as a padded one's is) -> h (N, H).  Messages are summed
+    into their destination rows by `index_add`, and over the ranks of
+    `edge_axes` when the edges are this rank's block (the module
+    docstring)."""
     cfg = model.cfg
     src, dst = edge_src.long(), edge_dst.long()
+    if edge_mask is not None:
+        dst = dst.clamp(max=h.shape[0] - 1)
     diff = positions[src] - positions[dst]                       # (E, 3)
     d = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
     rbf = rbf_expand(d, cfg.n_rbf, cfg.cutoff)                   # (E, R)
@@ -130,20 +148,38 @@ def interactions(model: SchNet, h: torch.Tensor, positions: torch.Tensor,
     if edge_mask is not None:
         env = env * edge_mask.to(env.dtype)
     for ip in model.interactions:
-        w = ssp(rbf @ ip.filt_w1 + ip.filt_b1)
-        w = (w @ ip.filt_w2 + ip.filt_b2) * env[:, None]         # (E, H)
-        msg = (h @ ip.w_in)[src] * w                             # gather (E, H)
-        agg = torch.zeros_like(h).index_add(0, dst, msg)
+        f1, b1, f2, b2, w_in, hin = (CTX.copy_to_tp(t, edge_axes) for t in (
+            ip.filt_w1, ip.filt_b1, ip.filt_w2, ip.filt_b2, ip.w_in, h))
+        w = ssp(rbf @ f1 + b1)
+        w = (w @ f2 + b2) * env[:, None]                         # (E, H)
+        msg = (hin @ w_in)[src] * w                              # gather (E, H)
+        agg = CTX.all_reduce(torch.zeros_like(h).index_add(0, dst, msg), edge_axes)
         upd = ssp(agg @ ip.w_out1 + ip.b_out1)
         h = h + (upd @ ip.w_out2 + ip.b_out2)
     return h
 
 
-def node_logits(model: SchNet, batch: Batch) -> torch.Tensor:
-    """Graph regime: node-classification logits (N, n_classes)."""
+def node_logits(model: SchNet, batch: Batch, edge_axes: tuple = ()) -> torch.Tensor:
+    """Graph regime: node-classification logits (N, n_classes).  A padded
+    batch (`pad_edges`) carries its edges' mask."""
     h = batch["node_feat"] @ model.in_proj
-    h = interactions(model, h, batch["positions"], batch["edge_src"], batch["edge_dst"])
+    h = interactions(model, h, batch["positions"], batch["edge_src"], batch["edge_dst"],
+                     edge_mask=batch.get("edge_mask"), edge_axes=edge_axes)
     return h @ model.cls_w + model.cls_b
+
+
+def pad_edges(batch: Batch, ranks: int, n_nodes: int) -> Batch:
+    """The reference's ``_prep``: a graph's flat edges padded to a multiple
+    of `ranks` (src with 0, dst with `n_nodes`, out of range), with the
+    mask that drops the padded ones (``edge_mask``)."""
+    e = batch["edge_src"].shape[0]
+    pad = (-e) % ranks
+    out = dict(batch)
+    src, dst = batch["edge_src"], batch["edge_dst"]
+    out["edge_src"] = torch.cat([src, src.new_zeros(pad)])
+    out["edge_dst"] = torch.cat([dst, dst.new_full((pad,), n_nodes)])
+    out["edge_mask"] = torch.arange(e + pad, device=src.device) < e
+    return out
 
 
 def molecule_energy(model: SchNet, atom_types: torch.Tensor, positions: torch.Tensor,
@@ -173,13 +209,15 @@ def batched_energy(model: SchNet, batch: Batch) -> torch.Tensor:
     return e_atom[:, 0].reshape(B, N).sum(-1)
 
 
-def train_loss(model: SchNet, batch: Batch) -> torch.Tensor:
+def train_loss(model: SchNet, batch: Batch, edge_axes: tuple = ()) -> torch.Tensor:
     """The reference's `train_loss`: molecules, the energies' mean absolute
     error; graphs, the mean cross entropy of the labelled nodes (a
-    minibatch's seeds, the first rows of its subgraph)."""
+    minibatch's seeds, the first rows of its subgraph), with the edges
+    this rank's block over `edge_axes` (every rank then computes the
+    whole loss)."""
     if "atom_types" in batch:
         return (batched_energy(model, batch) - batch["targets"]).abs().mean()
-    logits = node_logits(model, batch)
+    logits = node_logits(model, batch, edge_axes)
     if "seed_labels" in batch:
         labels = batch["seed_labels"]
         logits = logits[:labels.shape[0]]

@@ -24,9 +24,17 @@
 // and the pointers allow, else V = 1, which serves any d), and a bag's
 // cols = d / V vectors over P lanes (P the power of two >= cols, at most
 // 256; blockIdx.y takes the next 256 vectors of wider rows).  The wrapper
-// (`ops.py:staged_geometry`) chooses TB, FC, S and P.  Ids must lie in
-// [0, rows): the wrapper's callers build them from per-field offsets;
-// nothing checks them here.
+// (`ops.py:staged_geometry`) chooses TB, FC, S and P.
+//
+// A row window.  `table` may be one rank's block of a table split by rows
+// (a recsys table over a mesh): rows `row0 .. row0 + nrows - 1` of the
+// global table.  An id outside that window is skipped: its row is never
+// loaded (the test is one unsigned compare of id - row0 against nrows,
+// beside the row load) and a zero is parked in its slot, so the sum phase
+// adds the window's rows in field order as before (+0 changes no fp32
+// sum).  With row0 = 0 and the whole table every id passes and the output
+// is the unwindowed kernel's, bit for bit.  Ids are global row ids; an id
+// inside the window must exist, and nothing else is checked here.
 //
 // Bound on the card: the row lookups.  The function reads 4*B*F bytes of
 // ids and B*F*d*elt bytes of rows and writes B*d*elt bytes, one add per row
@@ -75,7 +83,8 @@ struct Staged {
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 bag_staged_kernel(const T* __restrict__ table, const int* __restrict__ ids,
-                  T* __restrict__ out, int B, int F, int cols, Staged g) {
+                  T* __restrict__ out, int B, int F, int cols, int row0, int nrows,
+                  Staged g) {
   using PK = Pack<T, V>;
   constexpr int kBatch = sizeof(PK) == 16 ? 4 : 8;  // row loads in flight a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -110,7 +119,7 @@ bag_staged_kernel(const T* __restrict__ table, const int* __restrict__ ids,
         id[k] = 0;
         if (u + k * rps < units) {
           at[k] = (jj * g.S + ff) * P + c;
-          id[k] = ld_once(tile + (long long)jj * F + f0 + ff, stream);
+          id[k] = ld_once(tile + (long long)jj * F + f0 + ff, stream) - row0;
         }
         jj += dj;
         ff += df;
@@ -122,8 +131,15 @@ bag_staged_kernel(const T* __restrict__ table, const int* __restrict__ ids,
       if (live) {
         PK x[kBatch];
 #pragma unroll
-        for (int k = 0; k < kBatch; ++k)
-          if (at[k] >= 0) x[k] = rows[(size_t)id[k] * cols + col];
+        for (int k = 0; k < kBatch; ++k) {
+          if (at[k] < 0) continue;
+          if ((unsigned)id[k] < (unsigned)nrows) {
+            x[k] = rows[(size_t)(unsigned)id[k] * cols + col];
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v) x[k].e[v] = rt::from_f<T>(0.f);
+          }
+        }
 #pragma unroll
         for (int k = 0; k < kBatch; ++k)
           if (at[k] >= 0) vals[at[k]] = x[k];
@@ -150,7 +166,7 @@ bag_staged_kernel(const T* __restrict__ table, const int* __restrict__ ids,
 
 template <typename T, int V>
 cudaError_t launch_staged(const void* table, const void* ids, void* out, int B, int F,
-                          int d, Staged g, cudaStream_t st) {
+                          int d, int row0, int nrows, Staged g, cudaStream_t st) {
   const int cols = d / V;
   if (g.lgP < 0 || g.lgP > 8) return cudaErrorInvalidValue;
   const int P = 1 << g.lgP;
@@ -163,7 +179,7 @@ cudaError_t launch_staged(const void* table, const void* ids, void* out, int B, 
   if (tiles > 0x7fffffffLL || cblocks > 65535) return cudaErrorInvalidValue;
   bag_staged_kernel<T, V><<<dim3((unsigned)tiles, cblocks), kThreads, (size_t)smem, st>>>(
       static_cast<const T*>(table), static_cast<const int*>(ids), static_cast<T*>(out),
-      B, F, cols, g);
+      B, F, cols, row0, nrows, g);
   return cudaGetLastError();
 }
 
@@ -172,19 +188,21 @@ cudaError_t launch_staged(const void* table, const void* ids, void* out, int B, 
 // table: (rows, d); ids: (B, F) int32; out: (B, d), all contiguous, table
 // and out of one dtype.  `vec` = 1 selects 16-byte vectors (the wrapper
 // checks that d is a multiple of the vector and the pointers' alignment);
-// (lgP, TB, FC, S) the staged kernel's geometry (`ops.py:staged_geometry`).
+// (lgP, TB, FC, S) the staged kernel's geometry (`ops.py:staged_geometry`);
+// the table holds global rows row0 .. row0 + nrows - 1 (the row window).
 extern "C" int rt_embedding_bag(const void* table, const void* ids, void* out,
                                 int B, int F, int d, int dtype, int vec,
-                                int lgP, int TB, int FC, int S, void* stream) {
-  if (B < 1 || F < 0 || d < 1) return cudaErrorInvalidValue;
+                                int lgP, int TB, int FC, int S, int row0, int nrows,
+                                void* stream) {
+  if (B < 1 || F < 0 || d < 1 || row0 < 0 || nrows < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Staged g{lgP, TB, FC, S};
   return rt::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
     constexpr int V = 16 / sizeof(T);
     if (vec && d % V != 0) return cudaErrorInvalidValue;
-    return vec ? launch_staged<T, V>(table, ids, out, B, F, d, g, st)
-               : launch_staged<T, 1>(table, ids, out, B, F, d, g, st);
+    return vec ? launch_staged<T, V>(table, ids, out, B, F, d, row0, nrows, g, st)
+               : launch_staged<T, 1>(table, ids, out, B, F, d, row0, nrows, g, st);
   });
 }
 
@@ -200,7 +218,9 @@ extern "C" int rt_embedding_bag(const void* table, const void* ids, void* out,
 // wrapper zeroes first; rows repeated across bags and fields collide in
 // the atomics, so the order of their sums varies from run to run.  A bf16
 // table's gradient is then rounded once into the bf16 output by a second
-// kernel.  Ids must lie in [0, rows), as for the forward.
+// kernel.  On a row window (the forward's) an id outside rows row0 ..
+// row0 + rows - 1 issues no atomic and is not used as an address; with
+// row0 = 0 and the whole table nothing changes.
 //
 // Bound on the card: the atomics' throughput in L2.  Wide&Deep's
 // train_batch call (ids 65,536 x 40 into the 8,933,376 x 1 fp32 wide
@@ -219,14 +239,16 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bag_bwd_kernel(const int* __restrict__ ids, const T* __restrict__ dout,
-               float* __restrict__ grad, int B, int F, int d) {
+               float* __restrict__ grad, int B, int F, int d, long long row0,
+               long long rows) {
   const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (g >= (long long)B * F * d) return;
   const long long bf = g / d;
   const int c = (int)(g - bf * d);
   const long long b = bf / F;
-  const size_t row = (size_t)__ldg(ids + bf);
-  atomicAdd(grad + row * d + c, rt::to_f(dout[b * d + c]));
+  const long long row = (long long)__ldg(ids + bf) - row0;
+  if ((unsigned long long)row < (unsigned long long)rows)
+    atomicAdd(grad + (size_t)row * d + c, rt::to_f(dout[b * d + c]));
 }
 
 template <typename T>
@@ -238,13 +260,14 @@ round_kernel(const float* __restrict__ src, T* __restrict__ dst, long long n) {
 
 }  // namespace
 
-// ids (B, F) int32; dout (B, d) of the table's dtype; grad (rows, d) fp32,
+// ids (B, F) int32 global row ids; the window holds rows row0 .. row0 +
+// rows - 1; dout (B, d) of the table's dtype; grad (rows, d) fp32,
 // zeroed by the caller; out (rows, d) of the table's dtype (for fp32, the
 // same buffer as grad: nothing is rounded).  All contiguous.
 extern "C" int rt_bag_backward(const void* ids, const void* dout, void* grad, void* out,
-                               int B, int F, int d, long long rows, int dtype,
-                               void* stream) {
-  if (B < 1 || F < 0 || d < 1 || rows < 1) return cudaErrorInvalidValue;
+                               int B, int F, int d, long long rows, long long row0,
+                               int dtype, void* stream) {
+  if (B < 1 || F < 0 || d < 1 || rows < 1 || row0 < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return rt::with_dtype(dtype, [&](auto t) {
     using T = decltype(t);
@@ -254,7 +277,7 @@ extern "C" int rt_bag_backward(const void* ids, const void* dout, void* grad, vo
     if (blocks > 0) {
       bag_bwd_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
           static_cast<const int*>(ids), static_cast<const T*>(dout),
-          static_cast<float*>(grad), B, F, d);
+          static_cast<float*>(grad), B, F, d, row0, rows);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }

@@ -7,7 +7,13 @@ A CPU tensor runs the plain version (`ref.py`); a CUDA tensor launches
 the hand-written kernel (`bag.cu`) or raises.  `bag_sum.launches` and
 `bag_backward.launches` count kernel launches and nothing else.  The
 bag sum's kernel gathers tiles of bags through shared memory at the
-geometry `staged_geometry` chooses."""
+geometry `staged_geometry` chooses.
+
+Both take a row window: `row0`, the global id of the table's first row,
+where the table is one rank's block of a table split by rows (a recsys
+table over a mesh).  Ids are global; one outside the window is skipped
+(the sum adds the window's rows, the gradient issues nothing for it).
+With ``row0 = 0`` and the whole table they are the unwindowed calls."""
 from __future__ import annotations
 
 import ctypes
@@ -20,8 +26,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag.ref import bag_backward_ref, embedding_bag_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"rt_embedding_bag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-               "rt_bag_backward": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P]}
+_SIGNATURES = {"rt_embedding_bag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _P],
+               "rt_bag_backward": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]}
 
 
 BAG_THREADS = 256           # bag.cu kThreads
@@ -65,20 +72,22 @@ def staged_geometry(B: int, F: int, d: int, elt: int, vec: bool, sms: int) -> Ge
     return Geometry(lgP, TB, FC, S)
 
 
-def bag_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table: (rows, d) fp32 or bf16; ids: (B, F) int32 global row ids,
-    each in [0, rows).  -> (B, d) in the table's dtype: each bag's rows
-    summed in fp32 in field order and rounded once."""
+def bag_sum(table: torch.Tensor, ids: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """table: (rows, d) fp32 or bf16, global rows row0 .. row0 + rows - 1;
+    ids: (B, F) int32 global row ids.  -> (B, d) in the table's dtype:
+    each bag's rows that lie in the window summed in fp32 in field order
+    and rounded once (other ids skipped)."""
     if not K.on_cuda(table, ids):
-        return embedding_bag_ref(table, ids)
+        return embedding_bag_ref(table, ids, row0)
     if table.dim() != 2 or ids.dim() != 2:
         raise ValueError(f"table {tuple(table.shape)} / ids {tuple(ids.shape)}: "
                          "need (rows, d) / (B, F)")
     K.check_cuda_operand("table", table)
     K.check_cuda_operand("ids", ids, (torch.int32,))
     (B, F), d = ids.shape, table.shape[1]
-    if max(B, F, d) >= 2 ** 31:
-        raise ValueError(f"ids {tuple(ids.shape)}, d {d}: need B, F and d below 2^31")
+    if max(B, F, d, row0 + table.shape[0]) >= 2 ** 31 or row0 < 0 or table.shape[0] < 1:
+        raise ValueError(f"ids {tuple(ids.shape)}, d {d}, rows {row0}..+{table.shape[0]}: "
+                         "need B, F, d and the window below 2^31, a window of >= 1 row")
     out = torch.empty((B, d), dtype=table.dtype, device=table.device)
     if B == 0 or d == 0:
         return out
@@ -88,8 +97,8 @@ def bag_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     lib = _build.library("embedding_bag", _SIGNATURES)
     with K.on_device(table):
         err = lib.rt_embedding_bag(K.ptr(table), K.ptr(ids), K.ptr(out), B, F, d,
-                                   K.dtype_code("table", table), int(vec), *g,
-                                   K.stream_of(table))
+                                   K.dtype_code("table", table), int(vec), *g, int(row0),
+                                   table.shape[0], K.stream_of(table))
     _build.check(lib, err, "embedding_bag")
     bag_sum.launches += 1
     return out
@@ -98,23 +107,25 @@ def bag_sum(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 bag_sum.launches = 0
 
 
-def bag_backward(ids: torch.Tensor, d_out: torch.Tensor, rows: int) -> torch.Tensor:
-    """The gradient of `bag_sum` with respect to its (rows, d) table:
-    ids (B, F) int32 global row ids, each in [0, rows); d_out (B, d) in
-    the table's dtype (fp32 or bf16).  -> (rows, d) in d_out's dtype,
-    summed in fp32 (atomics on the card: the order of a row's sums varies
-    from run to run) and rounded once."""
+def bag_backward(ids: torch.Tensor, d_out: torch.Tensor, rows: int,
+                 row0: int = 0) -> torch.Tensor:
+    """The gradient of `bag_sum` with respect to its (rows, d) table of
+    global rows row0 .. row0 + rows - 1: ids (B, F) int32 global row ids
+    (those outside the window add nothing); d_out (B, d) in the table's
+    dtype (fp32 or bf16).  -> (rows, d) in d_out's dtype, summed in fp32
+    (atomics on the card: the order of a row's sums varies from run to
+    run) and rounded once."""
     if not K.on_cuda(ids, d_out):
-        return bag_backward_ref(ids, d_out, rows)
+        return bag_backward_ref(ids, d_out, rows, row0)
     if ids.dim() != 2 or d_out.dim() != 2 or d_out.shape[0] != ids.shape[0]:
         raise ValueError(f"ids {tuple(ids.shape)} / d_out {tuple(d_out.shape)}: "
                          "need (B, F) / (B, d)")
     K.check_cuda_operand("ids", ids, (torch.int32,))
     K.check_cuda_operand("d_out", d_out)
     (B, F), d = ids.shape, d_out.shape[1]
-    if max(B, F, d) >= 2 ** 31 or rows < 1:
-        raise ValueError(f"ids {tuple(ids.shape)}, d {d}, rows {rows}: need B, F, d "
-                         "below 2^31 and rows >= 1")
+    if max(B, F, d) >= 2 ** 31 or rows < 1 or row0 < 0:
+        raise ValueError(f"ids {tuple(ids.shape)}, d {d}, rows {row0}..+{rows}: need B, F, "
+                         "d below 2^31, rows >= 1 and row0 >= 0")
     code = K.dtype_code("d_out", d_out)
     grad = torch.zeros((rows, d), dtype=torch.float32, device=d_out.device)
     out = grad if d_out.dtype == torch.float32 else torch.empty(
@@ -124,7 +135,7 @@ def bag_backward(ids: torch.Tensor, d_out: torch.Tensor, rows: int) -> torch.Ten
     lib = _build.library("embedding_bag", _SIGNATURES)
     with K.on_device(d_out):
         err = lib.rt_bag_backward(K.ptr(ids), K.ptr(d_out), K.ptr(grad), K.ptr(out), B, F,
-                                  d, rows, code, K.stream_of(d_out))
+                                  d, rows, int(row0), code, K.stream_of(d_out))
     _build.check(lib, err, "bag_backward")
     bag_backward.launches += 1
     return out

@@ -30,15 +30,22 @@ molecule; ogb_products needs more than one card and is refused.
         --arch schnet --shape molecule
 
 `build(arch, shape, mesh, ...)` is the counterpart of the reference's
-`build` for an LM cell on a mesh: this rank's shard of the model
-(`lm_param_specs`, mode "train" for the train step, "serve" otherwise),
-its block of a global batch (`lm_input_specs`, `lm_cache_spec`) and the
-step, which runs inside ``sharding.ctx.axes(mesh)``; the train step's
-optimizer state lies as `lm_opt_state_specs` says (`train_layout`).  The
+`build` on a mesh, for every family: this rank's model, its block of a
+global batch and the step, which runs inside ``sharding.ctx.axes(mesh)``.
+LM: the rank's shard (`lm_param_specs`, mode "train" for the train step,
+"serve" otherwise; a kv head's Dh cut where tp does not divide the kv
+heads), its rows and cache block (`lm_input_specs`, `lm_cache_spec`,
+whose sequence may split over ``model`` or over every axis), the train
+step's optimizer state as `lm_opt_state_specs` says (`train_layout`).
+Recsys: the rank's rows of every split table (`shard_recsys_params` /
+`init_sharded_recsys`), its rows of the batch (`recsys_input_specs`)
+and AdamW on `recsys_train_layout`.  GNN: the whole model on every
+rank, a graph's edges cut over every axis (`gnn_input_specs`; padded by
+`gnn.schnet.pad_edges` past 1,000,000 edges the axes do not divide) or
+molecules over the data axis, AdamW with replicated moments.  The
 reference lowers that bundle; the port runs it on the ranks of a
 `torch.distributed` group (`launch.train`, the distributed-training
-example, `chip_smoke.py` phase 2m).  The recsys and GNN bundles under a
-mesh wait (ROADMAP A.2).
+example, `chip_smoke.py` phases 2m and 2n).
 
 It prints one JSON line: arch, shape, the dims run and every cut, device,
 the median time per call (host clock around a synchronised call, after
@@ -51,6 +58,7 @@ every time.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -62,7 +70,7 @@ import torch
 
 from repro_torch.configs import registry as R
 from repro_torch.configs.base import GNNConfig, LMConfig
-from repro_torch.launch.mesh import data_axes
+from repro_torch.launch.mesh import axis_size, data_axes
 from repro_torch.gnn import schnet as G
 from repro_torch.kernels.embedding_bag.ops import bag_backward, bag_sum
 from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
@@ -268,18 +276,16 @@ def run(arch: str, shape: str, device="cuda", smoke: bool = False,
 def cut_input(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's block of an input `x` under `spec`: a dimension over the
     data axis keeps the rank's share of its rows, one over ``model`` its
-    share of the heads (contiguous shares, in coordinate order)."""
-    dax = data_axes(mesh)
+    share of the heads or positions, one over several axes (a sequence or
+    edges over every axis) its block counted over them in mesh order
+    (contiguous shares, in coordinate order)."""
     for dim, ax in enumerate(spec):
         if ax is None:
             continue
-        names = ax if isinstance(ax, tuple) else (ax,)
-        n, c = 1, 0
-        for a in names:
-            n, c = n * mesh.shape[a], c * mesh.shape[a] + mesh.coords[a]
-        if "model" in names and any(a in dax for a in names):
-            raise ValueError(f"input spec {spec}: a sequence split over every rank "
-                             "(flash-decoding) waits (ROADMAP A.2)")
+        n, c = SPECS.block_index(mesh, ax if isinstance(ax, tuple) else (ax,))
+        if x.shape[dim] % n:
+            raise ValueError(f"input spec {spec}: dimension {dim} of {tuple(x.shape)} does "
+                             f"not split into {n} blocks")
         step = x.shape[dim] // n
         x = x.narrow(dim, c * step, step)
     return x
@@ -289,7 +295,9 @@ def rank_inputs(cfg: LMConfig, mesh, step: str, batch: Dict) -> Dict:
     """This rank's block of a global LM batch (`lm_input_specs`): prefill and
     train rows over the data axis; a decode batch's rows where the data
     axis divides them (else every data rank holds them all), its cache's
-    kv heads over the model axis."""
+    kv heads over the model axis, or its sequence over ``model`` (tp does
+    not divide the kv heads) or over every axis (the data axis does not
+    divide the batch)."""
     dims = {"batch": int(batch["tokens"].shape[0])}
     if step == "decode":
         dims["seq"] = int(batch["cache"]["k"].shape[2])
@@ -309,18 +317,36 @@ def data_sharded(cfg: LMConfig, mesh, step: str, batch: int) -> bool:
     return spec[0] is not None
 
 
+def grow_cache(cache: TT.Cache, model: TT.Transformer, extra: int,
+               dp_batch: bool = True) -> TT.Cache:
+    """A rank's prefill cache with `extra` empty positions after the
+    prompt's, in the decode layout: the blocks of a sequence split over
+    the ranks (`transformer.seq_axes`) are gathered, padded with zeros and
+    cut again, since a longer sequence splits at other positions."""
+    axes = TT.seq_axes(model, dp_batch)
+    spec = (None, None, axes or None)
+    out = {}
+    for name, x in cache.items():
+        x = CTX.all_gather(x, axes, 2)
+        x = torch.cat([x, x.new_zeros(x.shape[:2] + (extra,) + x.shape[3:])], dim=2)
+        out[name] = cut_input(x, spec, CTX.current()).contiguous()
+    return out
+
+
 @dataclasses.dataclass
 class MeshBundle:
-    """One LM cell on a mesh: the rank's `model` shard, its `inputs` block
+    """One cell on a mesh: the rank's `model` (shard), its `inputs` block
     and `fn(inputs)`, the step run inside the mesh (a train step keeps its
-    optimizer state across calls)."""
+    optimizer state across calls).  ``dp_batch``: the rows are cut over
+    the data axis."""
 
     mesh: object
     step: str
-    model: TT.Transformer
+    model: Model
     inputs: Dict
     fn: Callable[[Dict], object]
     optimizer: Optional[OPT.ClippedOptimizer] = None
+    dp_batch: bool = True
 
 
 def rank_model(cfg: LMConfig, mesh, step: str, device, source=None,
@@ -371,24 +397,128 @@ def mesh_fn(model: TT.Transformer, mesh, step: str, batch_rows: int,
 def build(arch: str, shape: str, mesh, device="cuda", smoke: bool = False, source=None,
           generator: Optional[torch.Generator] = None, batch: Optional[Dict] = None,
           batch_size: Optional[int] = None, seq: Optional[int] = None,
-          layers: Optional[int] = None, train_cfg: Optional[TrainConfig] = None) -> MeshBundle:
-    """The LM cell `shape` of `arch` on `mesh` (the module docstring): the
-    model from `source` or `generator` (seeded 0 on `device` by default),
-    the global batch `batch` or `registry.make_batch`'s (`batch_size` /
-    `seq` replacing the cell's dims), cut to this rank."""
-    if R.family_of(arch) != "lm":
-        raise ValueError(f"{arch}: the recsys and GNN bundles under a mesh wait "
-                         "(ROADMAP A.2)")
-    spec = R.LM_SHAPES[shape]
-    cfg = cut_config(R.get_config(arch, smoke), layers)
+          layers: Optional[int] = None, train_cfg: Optional[TrainConfig] = None,
+          model: Optional[Model] = None) -> MeshBundle:
+    """The cell `shape` of `arch` on `mesh` (the module docstring): the
+    model from `source` (a whole model; an LM also the reference's numpy
+    tree) or `generator` (seeded 0 on `device` by default), the global
+    batch `batch` or `registry.make_batch`'s (`batch_size` / `seq`
+    replacing the cell's dims), cut to this rank.  A recsys or GNN cell
+    may take this rank's `model` from an earlier bundle instead (one
+    shard scores and trains)."""
+    R.refuse_multi_card(shape)
     dev = torch.device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
+    fam = R.family_of(arch)
+    if fam == "recsys":
+        return _recsys_bundle(R.get_config(arch, smoke), shape, mesh, dev, gen, source, batch,
+                              batch_size, model)
+    if fam == "gnn":
+        return _gnn_bundle(R.get_config(arch, smoke), shape, mesh, dev, gen, source, batch,
+                           batch_size, model)
+    spec = R.LM_SHAPES[shape]
+    cfg = cut_config(R.get_config(arch, smoke), layers)
     model = rank_model(cfg, mesh, spec.step, dev, source, gen)
     if batch is None:
         batch = R.make_batch(cfg, shape, gen, dev, batch_size, seq)
     inputs = rank_inputs(cfg, mesh, spec.step, batch)
-    fn, opt = mesh_fn(model, mesh, spec.step, int(batch["tokens"].shape[0]), train_cfg)
-    return MeshBundle(mesh, spec.step, model, inputs, fn, opt)
+    rows = int(batch["tokens"].shape[0])
+    fn, opt = mesh_fn(model, mesh, spec.step, rows, train_cfg)
+    return MeshBundle(mesh, spec.step, model, inputs, fn, opt,
+                      data_sharded(cfg, mesh, spec.step, rows))
+
+
+# ------------------------------------------------ recsys and GNN on a mesh
+REPLICATED_IDS = ("candidate_ids", "neg_samples")
+
+
+def recsys_inputs(mesh, batch: Dict) -> Tuple[Dict, bool]:
+    """This rank's block of a recsys batch (`recsys_input_specs`' rule at
+    the batch's own size): each row-wise input over the data axis where it
+    divides the batch, the candidates' and negatives' ids whole.  ->
+    (inputs, whether the rows are cut)."""
+    dax = data_axes(mesh)
+    b = next(int(v.shape[0]) for k, v in batch.items() if k not in REPLICATED_IDS)
+    cut = b % axis_size(mesh, dax) == 0
+    return {k: v if k in REPLICATED_IDS or not cut else
+            cut_input(v, SPECS.P(dax), mesh) for k, v in batch.items()}, cut
+
+
+def _recsys_bundle(cfg, shape: str, mesh, dev, gen, source, batch, batch_size,
+                   model=None) -> MeshBundle:
+    """The reference's `_recsys_bundle` on this rank (the module
+    docstring)."""
+    step = R.RECSYS_SHAPES[shape].step
+    if model is None:
+        model = (SPECS.shard_recsys_params(source, cfg, mesh, device=dev) if source is not None
+                 else SPECS.init_sharded_recsys(cfg, mesh, gen, dev))
+    if batch is None:
+        batch = R.make_batch(cfg, shape, gen, dev, batch_size)
+    inputs, cut = recsys_inputs(mesh, batch)
+    if step in ("score", "retrieval"):
+        call = RM.score if step == "score" else RM.retrieval_scores
+
+        def fn(inputs):
+            with CTX.axes(mesh):
+                return call(model, inputs, cut)
+        return MeshBundle(mesh, step, model, inputs, fn, None, cut)
+    with CTX.axes(mesh):
+        opt = OPT.get("adamw", list(model.named_parameters()),
+                      layout=SPECS.recsys_train_layout(cfg, mesh))
+    train = make_train_step(lambda m, b: RM.train_loss(m, b, cut), TrainConfig(), model, opt)
+
+    def fn(inputs):
+        with CTX.axes(mesh), trainable(model):
+            return train(inputs)
+    return MeshBundle(mesh, step, model, inputs, fn, opt, cut)
+
+
+def gnn_inputs(mesh, shape: str, batch: Dict) -> Tuple[Dict, tuple]:
+    """This rank's block of a SchNet batch (`gnn_input_specs`): a graph's
+    flat edges over every axis (padded first past 1,000,000 edges that do
+    not divide, `schnet.pad_edges`), a molecule batch over the data axis.
+    A node-feature matrix the specs split over the data axis stays whole
+    (a data-axis cut, as the LM's parameter cuts are).  -> (inputs, the
+    axes the edges are cut over)."""
+    specs = SPECS.gnn_input_specs(mesh, shape, batch)
+    edge_ax = tuple(data_axes(mesh)) + ("model",)
+    esz = axis_size(mesh, edge_ax)
+    e = batch["edge_src"]
+    if e.dim() == 1 and e.shape[0] % esz and e.shape[0] > 1_000_000:
+        batch = G.pad_edges(batch, esz, int(batch["node_feat"].shape[0]))
+        specs = dict(specs, edge_src=SPECS.P(edge_ax), edge_dst=SPECS.P(edge_ax),
+                     edge_mask=SPECS.P(edge_ax))
+    out = {}
+    for k, v in batch.items():
+        spec = specs[k]
+        out[k] = v if k == "node_feat" else cut_input(v, spec, mesh)
+    cut = e.dim() == 1 and specs["edge_src"][0] is not None and esz > 1
+    return out, (edge_ax if cut else ())
+
+
+def _gnn_bundle(cfg, shape: str, mesh, dev, gen, source, batch, batch_size,
+                model=None) -> MeshBundle:
+    """The reference's `_gnn_bundle` on this rank (the module docstring):
+    the molecule regime's loss is each data rank's mean over its
+    molecules, a graph's is every rank's whole loss.  A `source` is
+    copied (the rank trains its own)."""
+    if model is None:
+        model = copy.deepcopy(source) if source is not None else \
+            init_model(cfg, gen, dev, shape)
+    if batch is None:
+        batch = R.make_batch(cfg, shape, gen, dev, batch_size)
+    inputs, axes = gnn_inputs(mesh, shape, batch)
+    molecules = "atom_types" in batch
+    with CTX.axes(mesh):
+        opt = OPT.get("adamw", list(model.named_parameters()),
+                      layout={n: SPECS.ParamLayout() for n, _ in model.named_parameters()})
+    train = make_train_step(lambda m, b: G.train_loss(m, b, axes), TrainConfig(), model, opt,
+                            data_mean=molecules)
+
+    def fn(inputs):
+        with CTX.axes(mesh), trainable(model):
+            return train(inputs)
+    return MeshBundle(mesh, "train", model, inputs, fn, opt, molecules)
 
 
 def main(argv=None) -> Dict:

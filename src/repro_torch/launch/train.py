@@ -24,16 +24,27 @@ dry run; the port runs the family's train cell (`train_4k`,
 `train_batch`, `full_graph_sm`) through `launch.steps` and prints its
 JSON line.  It runs on the card unless `--device cpu`.
 
-With ``--config mesh.tp=...,mesh.dp=...`` an LM trains on a mesh: the
+With ``--config mesh.tp=...,mesh.dp=...`` a model trains on a mesh: the
 launcher starts one rank per device of the mesh (`launch.mesh.spawn_ranks`,
 or joins the ranks ``torchrun`` started), each holding its shard of the
 model drawn from the same seed (`sharding.specs.init_sharded_params`),
 its rows of each batch and its block of the optimizer state
-(`train_layout`).  `--smoke` runs the loop (checkpoints gathered to rank
-0, written whole), otherwise the train cell (`launch.steps.build`).
-Rank 0 prints one JSON line with the loss and gradient-norm history and
-a ``mesh`` record: tp, dp, the backend and every rank's device, wall
-seconds and peak device GB.
+(`train_layout`).  For an LM `--smoke` runs the loop (checkpoints
+gathered to rank 0, written whole), otherwise the train cell
+(`launch.steps.build`).  A recsys arch or SchNet runs its family's train
+cell through `launch.steps.build` (reduced() with `--smoke`, `--steps`
+steps; else the published width, at most 3): a recsys rank holds its
+rows of every split table and its rows of the batch (`--batch`, default
+64 with `--smoke`), SchNet's ranks the whole model and their edges of
+the graph.  Rank 0 prints one JSON line with the loss and gradient-norm
+history and a ``mesh`` record: tp, dp, the backend and every rank's
+device, wall seconds and peak device GB.
+
+    # Wide&Deep and SchNet on two gloo ranks of the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep --smoke \
+        --device cpu --steps 3 --config mesh.dp=2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch schnet --smoke \
+        --device cpu --steps 3 --config mesh.dp=2
 """
 from __future__ import annotations
 
@@ -112,8 +123,18 @@ def train_rank(rank: int, world: int, backend: str, device, args, mesh_cfg: Mesh
     mesh.device = device
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
+    fam = R.family_of(args.arch)
     with CTX.axes(mesh):
-        if args.smoke:
+        if fam != "lm":
+            bundle = STEPS.build(args.arch, TRAIN_CELL[fam], mesh, device, smoke=args.smoke,
+                                 generator=gen,
+                                 batch_size=args.batch or (64 if args.smoke and
+                                                           fam == "recsys" else None))
+            hist = []
+            for _ in range(args.steps if args.smoke else min(args.steps, 3)):
+                m = bundle.fn(bundle.inputs)
+                hist.append({k: float(v) for k, v in m.items()})
+        elif args.smoke:
             cfg = R.get_config(args.arch, smoke=True)
             model = STEPS.rank_model(cfg, mesh, "train", device, generator=gen)
             pipe = BatchPipeline(lm_synthetic_batches(cfg.vocab_size, args.batch or 8,
@@ -156,13 +177,11 @@ def mesh_report(args, ranks: List[Dict]) -> Dict:
 def run_mesh(args, mesh_cfg: MeshConfig) -> Dict:
     """Train on `mesh_cfg`'s ranks (spawned here, or the ranks ``torchrun``
     started); rank 0 prints the JSON and returns it."""
-    if R.family_of(args.arch) != "lm":
-        raise SystemExit(f"{args.arch}: training on a mesh covers the LM archs; the recsys "
-                         "and GNN bundles under a mesh wait (ROADMAP A.2)")
-    try:
-        SPECS._check_shardable(R.get_config(args.arch, smoke=args.smoke), mesh_cfg)
-    except ValueError as e:
-        raise SystemExit(str(e))
+    if R.family_of(args.arch) == "lm":
+        try:
+            SPECS._check_shardable(R.get_config(args.arch, smoke=args.smoke), mesh_cfg)
+        except ValueError as e:
+            raise SystemExit(str(e))
     device_type = torch.device(args.device).type
     if MESH.under_torchrun():
         import os
@@ -201,7 +220,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--compression", default=None, choices=["int8", "topk"])
     ap.add_argument("--config", default=None,
-                    help="mesh.tp=N,mesh.dp=M: train an LM on a mesh of ranks")
+                    help="mesh.tp=N,mesh.dp=M: train on a mesh of ranks")
     args = ap.parse_args(argv)
     return run(args)
 

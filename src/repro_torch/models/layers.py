@@ -240,6 +240,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     off-diagonal zeros add exactly nothing); a per-head product over the
     (B, S, Hkv, D) layout would first copy the cache into head-major
     order."""
+    s, _ = _decode_scores(q, k_cache, positions, 0, sliding_window)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return _decode_pv(p, v_cache).to(q.dtype)
+
+
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor, positions: torch.Tensor,
+                   offset: int, sliding_window: Optional[int]):
+    """`decode_attention`'s masked fp32 scores (B, Hq, S) of the keys at
+    global positions offset .. offset + S - 1, and their liveness (B, S)."""
     B, S, Hkv, D = k_cache.shape
     Hq = q.shape[2]
     G = Hq // Hkv
@@ -248,15 +257,46 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     s = matmul_f32(qb.view(B, Hq, Hkv * D), k_cache.reshape(B, S, Hkv * D).transpose(1, 2))
     s.mul_(1.0 / (D ** 0.5))                                      # (B, Hq, S)
     idx = torch.arange(S, device=q.device)[None, :]
+    if offset:
+        idx = idx + offset
     lens = positions.to(q.device)[:, None]
     valid = idx < lens
     if sliding_window is not None:
         valid &= idx >= lens - sliding_window
     s.masked_fill_(~valid[:, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return s, valid
+
+
+def _decode_pv(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """Weights p (B, Hq, S) in V's dtype times the cache's V, fp32:
+    -> (B, 1, Hq, D)."""
+    B, S, Hkv, D = v_cache.shape
+    Hq = p.shape[1]
+    G = Hq // Hkv
     o = matmul_f32(p, v_cache.reshape(B, S, Hkv * D))                    # (B, Hq, Hkv*D)
     o = o.view(B, Hkv, G, Hkv, D).diagonal(dim1=1, dim2=3)              # (B, G, D, Hkv)
-    return o.permute(0, 3, 1, 2).reshape(B, 1, Hq, D).to(q.dtype)
+    return o.permute(0, 3, 1, 2).reshape(B, 1, Hq, D)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             positions: torch.Tensor, *, offset: int = 0,
+                             sliding_window: Optional[int] = None):
+    """`decode_attention` over one block of a cache whose sequence is split
+    across ranks (flash-decoding): k_cache, v_cache (B, Sb, Hkv, D) hold
+    global positions offset .. offset + Sb - 1, and the mask and window
+    read those positions.  -> (m (B, Hq), the block's max fp32 score; s
+    (B, Hq), the sum of exp(score - m) over its live keys; o (B, Hq, D),
+    fp32, those weights, cast to V's dtype, times V, unnormalised), which
+    `sharding.ctx.merge_attention` combines.  A block with no live key
+    gives s = 0 and o = 0 (its m is the mask constant).  Against
+    `decode_attention` the order of sums differs and the weights are
+    rounded to V's dtype before, not after, normalising: in fp32 the two
+    agree to ~1e-6 relative, in bf16 to a bf16 rounding of the weights."""
+    s, valid = _decode_scores(q, k_cache, positions, offset, sliding_window)
+    m = s.amax(-1)
+    p = torch.where(valid[:, None, :], torch.exp(s - m[..., None]), torch.zeros_like(s))
+    o = _decode_pv(p.to(v_cache.dtype), v_cache)[:, 0]
+    return m, p.sum(-1), o
 
 
 # ---------------------------------------------------------------- MLPs

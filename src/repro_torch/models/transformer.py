@@ -36,6 +36,24 @@ keeps them and `loss_fn` takes a vocabulary-parallel log-sum-exp.  It
 runs inside ``sharding.ctx.axes(mesh)`` of a mesh whose model axis has
 ``tp`` ranks.  With ``tp == 1`` nothing is reduced.
 
+Where ``tp`` does not divide the kv heads (`sharding.specs.kv_dh_cut`) a
+shard holds every kv head's ``head_dim / tp`` columns of wk / wv: `qkv`
+gathers k and v over the model axis into whole heads, then rotates them
+(RoPE pairs column i with i + Dh/2, on other ranks before the gather),
+and attention reads the kv heads the rank's query heads read (`own_kv`:
+whole GQA groups, so the flash kernels, K6 and the plain attention see
+an ordinary GQA call).  The serving steps' dense cache then splits the
+sequence (`sharding.specs.lm_cache_spec`): over ``model``, or over every
+axis where every data rank holds the whole batch (a decode batch the data
+axis does not divide; ``dp_batch=False``), also where the kv heads divide
+(the shards' heads are then gathered), each rank holding a block
+of positions with every kv head whole (`seq_axes`).  `prefill` returns
+the rank's block; `decode_step` writes a row's new k / v on the rank
+whose block holds its position, attends every query head (gathered) to
+its block with the block's global positions, merges the blocks by their
+log-sum-exp (`sharding.ctx.merge_attention`, flash-decoding) and keeps
+its own heads for ``wo``.
+
 Under data parallelism the steps take the rank's rows of a batch cut over
 the data axis (``dp_batch=True``, the default; False where every data
 rank holds the whole batch, as a decode batch the data axis does not
@@ -54,6 +72,7 @@ from repro_torch.kernels.flash_attention.ops import mha_flash
 from repro_torch.kernels.flash_attention.ref import mha_flash_ref
 from repro_torch.models import layers as L
 from repro_torch.sharding import ctx as CTX
+from repro_torch.sharding.specs import kv_dh_cut
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -65,16 +84,23 @@ class Block(nn.Module):
     `cfg.moe` is set, experts (`moe`: router (D, E) fp32 whatever the
     model's dtype, w_gate / w_up (E, D, F), w_down (E, F, D))."""
 
-    def __init__(self, cfg: LMConfig, device=None, tp: int = 1):
+    def __init__(self, cfg: LMConfig, device=None, tp: int = 1, tp_rank: int = 0):
         super().__init__()
         D, dh, dt = cfg.d_model, cfg.resolved_head_dim, cfg.torch_dtype
         kw = dict(dtype=dt, device=device)
-        H, Hkv, F = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.d_ff // tp
+        H, F = cfg.n_heads // tp, cfg.d_ff // tp
+        # a Dh-cut shard: every kv head, dh / tp columns; `kv_keep` the kv
+        # heads its query heads read
+        self.kv_cut = kv_dh_cut(cfg, tp)
+        Hkv, dk = (cfg.n_kv_heads, dh // tp) if self.kv_cut else (cfg.n_kv_heads // tp, dh)
+        group = cfg.n_heads // cfg.n_kv_heads
+        first = tp_rank * H // group
+        self.kv_keep = slice(first, first + max(1, H // group)) if self.kv_cut else None
         self.attn_norm = _frozen(torch.zeros(D, **kw))
         self.mlp_norm = _frozen(torch.zeros(D, **kw))
         self.wq = _frozen(torch.empty(D, H, dh, **kw))
-        self.wk = _frozen(torch.empty(D, Hkv, dh, **kw))
-        self.wv = _frozen(torch.empty(D, Hkv, dh, **kw))
+        self.wk = _frozen(torch.empty(D, Hkv, dk, **kw))
+        self.wv = _frozen(torch.empty(D, Hkv, dk, **kw))
         self.wo = _frozen(torch.empty(H, dh, D, **kw))
         names = ["w_up", "w_down"]
         if cfg.mlp_type in ("swiglu", "geglu"):
@@ -103,7 +129,7 @@ class Transformer(nn.Module):
         V = cfg.vocab_size // self.tp
         kw = dict(dtype=cfg.torch_dtype, device=device)
         self.embed = _frozen(torch.empty(V, cfg.d_model, **kw))
-        self.layers = nn.ModuleList([Block(cfg, device, self.tp)
+        self.layers = nn.ModuleList([Block(cfg, device, self.tp, self.tp_rank)
                                      for _ in range(cfg.n_layers)])
         self.final_norm = _frozen(torch.zeros(cfg.d_model, **kw))
         self.lm_head = (None if cfg.tie_embeddings else
@@ -208,13 +234,25 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 def qkv(x: torch.Tensor, lp: Block, cfg: LMConfig,
         positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) at `positions` (broadcastable to (B, S)) -> q, k (both
-    rotated), v: (B, S, H, Dh)."""
+    rotated), v: (B, S, H, Dh).  A Dh-cut shard's k and v have every kv
+    head whole: gathered over the model axis (backward a reduce-scatter),
+    then rotated."""
     h = CTX.copy_to_tp(L.rms_norm(x, lp.attn_norm, cfg.norm_eps))
     q = torch.einsum("bsd,dhe->bshe", h, lp.wq)
     k = torch.einsum("bsd,dhe->bshe", h, lp.wk)
     v = torch.einsum("bsd,dhe->bshe", h, lp.wv)
+    if lp.kv_cut:
+        k, v = CTX.gather_last(k), CTX.gather_last(v)
     return (L.apply_rope(q, positions, cfg.rope_theta),
             L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def own_kv(lp: Block, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads this rank's query heads read (all of `qkv`'s but on a
+    Dh-cut shard)."""
+    if lp.kv_cut:
+        return k[:, :, lp.kv_keep], v[:, :, lp.kv_keep]
+    return k, v
 
 
 def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
@@ -222,6 +260,7 @@ def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
     """Causal self-attention over (B, S, D) at positions 0..S-1; `kernels`
     False runs the flash kernel's plain version on any device."""
     q, k, v = qkv(x, lp, cfg, torch.arange(x.shape[1], device=x.device))
+    k, v = own_kv(lp, k, v)
     o = (mha_flash if kernels else mha_flash_ref)(q, k, v.contiguous(), causal=True)
     return CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
 
@@ -246,9 +285,11 @@ Cache = Dict[str, torch.Tensor]
 def prefill_attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
                             positions: torch.Tensor):
     """The reference's `_attention_block`: causal (and windowed) chunked
-    attention over x (B, S, D).  -> (output (B, S, D), (k, v))."""
+    attention over x (B, S, D).  -> (output (B, S, D), (k, v) as `qkv`
+    gives them)."""
     q, k, v = qkv(x, lp, cfg, positions)
-    o = L.chunked_attention(q, k, v, causal=True, q_positions=positions,
+    ka, va = own_kv(lp, k, v)
+    o = L.chunked_attention(q, ka, va, causal=True, q_positions=positions,
                             kv_positions=positions, sliding_window=cfg.sliding_window,
                             q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
     return CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo)), (k, v)
@@ -272,8 +313,29 @@ def _last_logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 
 def kv_heads(model: Transformer) -> int:
-    """The kv heads the model holds (a shard: its own)."""
+    """The kv heads the model holds (a shard: its own; a Dh-cut shard
+    every one)."""
     return model.layers[0].wk.shape[1]
+
+
+def seq_axes(model: Transformer, dp_batch: bool = True) -> tuple:
+    """The mesh axes a serving step's dense cache splits its sequence over
+    (`sharding.specs.lm_cache_spec`): every axis for a decode batch that
+    the data axis does not divide (not `dp_batch`), ``model`` where the
+    shard cuts the kv heads' Dh, else none."""
+    if CTX.current() is None:
+        return ()
+    if not dp_batch and CTX.dp_size() > 1:
+        return CTX.every_axis()
+    return ("model",) if model.layers[0].kv_cut else ()
+
+
+def _every_kv_head(lp: Block, k: torch.Tensor, v: torch.Tensor):
+    """A shard's kv heads (B, S, Hkv / tp, Dh) -> every kv head, gathered
+    over the model axis (a Dh-cut shard's `qkv` has them all already)."""
+    if lp.kv_cut:
+        return k, v
+    return CTX.all_gather(k, "model", 2), CTX.all_gather(v, "model", 2)
 
 
 @torch.no_grad()
@@ -282,19 +344,29 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     """Prompt prefill (the reference's `transformer.prefill`): tokens
     (B, S) -> the last position's logits (B, V) and the cache {k, v}:
     (L, B, S, Hkv, Dh), post-RoPE, in the model's dtype (a shard: its
-    Hkv / tp heads, and the whole vocabulary's logits).  The head runs on
-    the last row only (the reference slices it from (B, S, V) logits,
-    16.8 GB in bf16 at S = 32768 and V = 256000); normalisation is per
-    row, so the two agree."""
+    Hkv / tp heads, and the whole vocabulary's logits; a rank of a
+    sequence split over `seq_axes`: its block of positions with every kv
+    head, gathered where the shard holds some).  The
+    head runs on the last row only (the reference slices it from (B, S,
+    V) logits, 16.8 GB in bf16 at S = 32768 and V = 256000);
+    normalisation is per row, so the two agree."""
     cfg = model.cfg
     B, S = tokens.shape
     x = model.embed_tokens(tokens)
     positions = torch.arange(S, device=x.device)
-    shape = (cfg.n_layers, B, S, kv_heads(model), cfg.resolved_head_dim)
+    axes = seq_axes(model, dp_batch)
+    n, c = CTX.block_of(axes)
+    if S % n:
+        raise ValueError(f"a prompt of {S} tokens does not split into {n} cache blocks")
+    blk = slice(c * (S // n), (c + 1) * (S // n))
+    heads = cfg.n_kv_heads if axes else kv_heads(model)
+    shape = (cfg.n_layers, B, S // n, heads, cfg.resolved_head_dim)
     cache = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
     for i, lp in enumerate(model.layers):
         a, (k, v) = prefill_attention_block(x, lp, cfg, positions)
-        cache["k"][i], cache["v"][i] = k, v
+        if axes:                         # the heads of every position, then the block
+            k, v = _every_kv_head(lp, k, v)
+        cache["k"][i], cache["v"][i] = k[:, blk], v[:, blk]
         x = x + a
         del a, k, v
         x = x + ffn_block(x, lp, cfg, dp_batch)[0]
@@ -306,7 +378,8 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
                 positions: torch.Tensor, dp_batch: bool = True) -> Tuple[torch.Tensor, Cache]:
     """One decode step (the reference's `transformer.decode_step`): tokens
     (B, 1) at `positions` (B,), the rows' current lengths, against
-    cache {k, v}: (L, B, S, Hkv, Dh).  -> (logits (B, V), cache).
+    cache {k, v}: (L, B, S, Hkv, Dh) (a rank of a split sequence: its
+    block of positions, `seq_axes`).  -> (logits (B, V), cache).
 
     The new k / v are written at `positions` IN PLACE into the caller's
     cache tensors, and the same dict is returned: the reference's
@@ -316,16 +389,41 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
     x = model.embed_tokens(tokens[:, 0])[:, None]                  # (B, 1, D)
     pos = positions.to(x.device, torch.long)
     rows = torch.arange(B, device=x.device)
+    axes = seq_axes(model, dp_batch)
     for i, lp in enumerate(model.layers):
         q, k, v = qkv(x, lp, cfg, pos[:, None])
         k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[rows, pos] = k[:, 0]
-        v_cache[rows, pos] = v[:, 0]
-        o = L.decode_attention(q, k_cache, v_cache, pos + 1,
-                               sliding_window=cfg.sliding_window)
+        if axes:
+            o = _split_decode(model, lp, q, k, v, k_cache, v_cache, pos, rows, axes)
+        else:
+            k_cache[rows, pos] = k[:, 0]
+            v_cache[rows, pos] = v[:, 0]
+            o = L.decode_attention(q, k_cache, v_cache, pos + 1,
+                                   sliding_window=cfg.sliding_window)
         x = x + CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
         x = x + ffn_block(x, lp, cfg, dp_batch)[0]
     return _last_logits(model, x[:, 0]), cache
+
+
+def _split_decode(model: Transformer, lp: Block, q, k, v, k_cache, v_cache, pos, rows,
+                  axes: tuple) -> torch.Tensor:
+    """One layer's decode attention on a rank's block of a cache split over
+    `axes` (the module docstring).  -> the rank's heads' output (B, 1,
+    H / tp, Dh)."""
+    _, c = CTX.block_of(axes)
+    Sb = k_cache.shape[1]
+    k, v = _every_kv_head(lp, k, v)
+    local = pos - c * Sb
+    own = ((local >= 0) & (local < Sb))[:, None, None]
+    at = local.clamp(0, Sb - 1)
+    k_cache[rows, at] = torch.where(own, k[:, 0], k_cache[rows, at])
+    v_cache[rows, at] = torch.where(own, v[:, 0], v_cache[rows, at])
+    m, s, o = L.decode_attention_partial(CTX.all_gather(q, "model", 2), k_cache, v_cache,
+                                         pos + 1, offset=c * Sb,
+                                         sliding_window=model.cfg.sliding_window)
+    o = CTX.merge_attention(m, s, o, axes)                           # (B, H, Dh) fp32
+    H = lp.wq.shape[1]
+    return o[:, None, model.tp_rank * H:(model.tp_rank + 1) * H].to(q.dtype)
 
 
 # ------------------------------------------------------- training path
@@ -334,6 +432,7 @@ def _train_layer(x: torch.Tensor, lp: Block, cfg: LMConfig, positions: torch.Ten
     """One layer of the reference's scan body: causal (and windowed)
     attention through `flash_attention`, then the FFN.  -> (x, aux)."""
     q, k, v = qkv(x, lp, cfg, positions)
+    k, v = own_kv(lp, k, v)
     o = L.flash_attention(q, k, v, causal=True, q_positions=positions,
                           kv_positions=positions, sliding_window=cfg.sliding_window,
                           q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)

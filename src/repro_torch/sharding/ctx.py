@@ -23,6 +23,18 @@ once), `grad_mean_dp`, `all_gather` over either axis and
 `exclusive_cumsum_dp` (the MoE's per-expert offsets).  Every helper is
 the identity outside a mesh, or where its axis has one rank.
 
+Over a named group of axes (one axis, or every axis of the mesh: the
+world's group): `copy_to_tp` / `all_reduce` with ``axes``, the same
+Megatron pair for an edge-parallel region (SchNet's messages);
+`block_of`, a rank's block of a dimension split over them;
+`sum_lookups`, the sum of the ranks' partial lookups of a table split by
+rows over every axis, each data rank keeping its rows (a reduce-scatter,
+done as one all-reduce over every axis and the rank's slice);
+`gather_last`, an all-gather over ``model`` on the last dimension whose
+backward is the reduce-scatter (a kv head's Dh cut); `merge_attention`,
+the log-sum-exp merge of partial attention ``(max, sum, unnormalised
+output)`` over the ranks that split a cache's sequence.
+
 Logical axes:  "dp" -> ("pod", "data") / ("data",)   "mp" -> "model"
 """
 from __future__ import annotations
@@ -30,14 +42,14 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import hashlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_size, data_axes
-from repro_torch.sharding.specs import P
+from repro_torch.sharding.specs import P, block_index
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("mesh_ctx", default=None)
 
@@ -76,15 +88,6 @@ def resolve(*logical) -> Optional[P]:
     return P(*out)
 
 
-def _tp():
-    """(mesh, its model-axis group) when the current mesh splits the
-    model over more than one rank, else None."""
-    mesh = current()
-    if mesh is None or mesh.shape["model"] == 1:
-        return None
-    return mesh, mesh.groups["model"]
-
-
 def tp_size() -> int:
     mesh = current()
     return 1 if mesh is None else mesh.shape["model"]
@@ -116,19 +119,10 @@ def dp_rank() -> int:
     return 0 if dp is None else dp[0].coords["data"]
 
 
-def _axis(axis: str):
-    """(group, size) of `axis` ("model" or "data") when it splits over more
-    than one rank, else None."""
-    if axis == "model":
-        tp = _tp()
-        return None if tp is None else (tp[1], tp[0].shape["model"])
-    dp = _dp()
-    return None if dp is None else (dp[1], dp[2])
-
-
 class _ReduceTP(torch.autograd.Function):
-    """Forward: the sum over the model axis; backward: the identity (each
-    rank's partial product gets the whole output's gradient)."""
+    """Forward: the sum over a group (the model axis); backward: the
+    identity (each rank's partial product gets the whole output's
+    gradient)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -142,9 +136,9 @@ class _ReduceTP(torch.autograd.Function):
 
 
 class _CopyToTP(torch.autograd.Function):
-    """Forward: the identity; backward: the gradient summed over the model
-    axis (each rank's heads or columns add their share of the input's
-    gradient)."""
+    """Forward: the identity; backward: the gradient summed over a group
+    (the model axis: each rank's heads or columns add their share of the
+    input's gradient)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -178,50 +172,48 @@ def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Sum `x` over the ranks of the model axis: the partial products of a
-    rank's heads or MLP columns become the layer's output.  In place (and
-    returned) on a tensor that takes no gradient; out of place, with the
-    identity for its backward, on one that does."""
-    tp = _tp()
-    if tp is None:
+def all_reduce(x: torch.Tensor, axes=("model",)) -> torch.Tensor:
+    """Sum `x` over the ranks of `axes` (`group_of`; the model axis: the
+    partial products of a rank's heads or MLP columns become the layer's
+    output).  In place (and returned) on a tensor that takes no gradient;
+    out of place, with the identity for its backward, on one that does."""
+    g = group_of(axes)
+    if g is None:
         return x
     if _tracked(x):
-        return _ReduceTP.apply(x, tp[1])
-    dist.all_reduce(x, group=tp[1])
+        return _ReduceTP.apply(x, g[0])
+    dist.all_reduce(x, group=g[0])
     return x
 
 
-def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
-    """Where a column-parallel block is entered: `x` itself, whose
-    gradient is summed over the model axis."""
-    tp = _tp()
-    if tp is None or not _tracked(x):
+def copy_to_tp(x: torch.Tensor, axes=("model",)) -> torch.Tensor:
+    """Where a block split over `axes` is entered (the model axis: a
+    column-parallel block): `x` itself, whose gradient is summed over
+    those ranks."""
+    g = group_of(axes)
+    if g is None or not _tracked(x):
         return x
-    return _CopyToTP.apply(x, tp[1])
+    return _CopyToTP.apply(x, g[0])
 
 
 def max_over_tp(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max over the model axis (in place; no gradient)."""
-    tp = _tp()
-    if tp is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=tp[1])
-    return x
+    return reduce_(x, "model", dist.ReduceOp.MAX)
 
 
 def reduce_(x: torch.Tensor, axis: str, op=None) -> torch.Tensor:
     """`x` summed (or reduced by `op`) over `axis` in place, no gradient."""
-    ax = _axis(axis)
-    if ax is not None:
-        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=ax[0])
+    g = group_of((axis,))
+    if g is not None:
+        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=g[0])
     return x
 
 
 def broadcast_(x: torch.Tensor, axis: str, src: int) -> torch.Tensor:
     """`x` as the rank at coordinate `src` of `axis` holds it (in place)."""
-    ax = _axis(axis)
-    if ax is not None:
-        dist.broadcast(x, src=current().axis_ranks(axis)[src], group=ax[0])
+    g = group_of((axis,))
+    if g is not None:
+        dist.broadcast(x, src=current().axis_ranks(axis)[src], group=g[0])
     return x
 
 
@@ -244,15 +236,142 @@ def grad_mean_dp(tensors) -> None:
         g.div_(dp[2])
 
 
-def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """The ranks' blocks of `axis` concatenated along `dim`, in coordinate
-    order (every rank's block has `x`'s shape)."""
-    ax = _axis(axis)
-    if ax is None:
+def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The ranks' blocks of `axis` (one axis name, or the axes of
+    `group_of`) concatenated along `dim`, in coordinate order (every
+    rank's block has `x`'s shape)."""
+    g = group_of((axis,) if isinstance(axis, str) else axis)
+    if g is None:
         return x
-    parts = [torch.empty_like(x) for _ in range(ax[1])]
-    dist.all_gather(parts, x.contiguous(), group=ax[0])
+    parts = [torch.empty_like(x) for _ in range(g[1])]
+    dist.all_gather(parts, x.contiguous(), group=g[0])
     return torch.cat(parts, dim=dim)
+
+
+def group_of(axes):
+    """(process group, size, this rank's coordinate) of the ranks that
+    differ from this one only along `axes` (names; a coordinate counts the
+    axes in mesh order, the last fastest), or None where they are this
+    rank alone.  `axes` is one axis or every axis of the mesh."""
+    mesh = current()
+    if mesh is None:
+        return None
+    axes = tuple(a for a in mesh.axis_names if a in axes)
+    n, c = block_index(mesh, axes)
+    if n == 1:
+        return None
+    if len(axes) == 1:
+        return mesh.groups[axes[0]], n, c
+    if set(axes) != set(mesh.axis_names):
+        raise ValueError(f"a collective over {axes} of a mesh {mesh.axis_names}: the port "
+                         "reduces over one axis or over every axis")
+    return dist.group.WORLD, n, c
+
+
+def block_of(axes) -> Tuple[int, int]:
+    """(blocks, this rank's block) of a dimension split over `axes`
+    (`group_of`; (1, 0) where they are this rank alone)."""
+    g = group_of(axes)
+    return (1, 0) if g is None else (g[1], g[2])
+
+
+def every_axis() -> tuple:
+    """The current mesh's axis names (() outside a mesh)."""
+    mesh = current()
+    return () if mesh is None else tuple(mesh.axis_names)
+
+
+class _SumLookups(torch.autograd.Function):
+    """Forward: the sum of every rank's partial lookups (each row of a
+    row-split table lives on one rank, zeros elsewhere), of which a rank
+    keeps its data rank's block of rows (`rows`) or every row.  Backward:
+    each data rank's loss is the mean over its rows and the objective is
+    their mean (`mean_over_dp`), so a rank's partial takes the data
+    group's gradients gathered over the data axis (`rows`) or their mean
+    over it, divided by the data axis's size; the model axis's ranks
+    share one loss and add nothing."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        every, data = group_of(every_axis()), group_of(("data",))
+        ctx.rows, ctx.data = rows, data
+        y = x.clone()
+        if every is not None:
+            dist.all_reduce(y, group=every[0])
+        if rows and data is not None:
+            step = y.shape[0] // data[1]
+            y = y.narrow(0, data[2] * step, step).contiguous()
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        data = ctx.data
+        if data is None:
+            return g, None
+        group, n, _ = data
+        g = g.contiguous()
+        if ctx.rows:
+            parts = [torch.empty_like(g) for _ in range(n)]
+            dist.all_gather(parts, g, group=group)
+            return torch.cat(parts, 0) / n, None
+        g = g.clone()
+        dist.all_reduce(g, group=group)
+        return g / n, None
+
+
+def sum_lookups(x: torch.Tensor, rows: bool) -> torch.Tensor:
+    """The ranks' partial lookups (..., zeros outside each rank's rows of a
+    table split over every axis) summed.  `rows`: `x` covers the data
+    group's rows (the ids gathered over the data axis) and each data rank
+    keeps its block of dim 0; else every rank looked up the same ids and
+    keeps them all (`_SumLookups`)."""
+    if group_of(every_axis()) is None:
+        return x
+    return _SumLookups.apply(x, rows)
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward: the model axis's blocks of the last dimension concatenated;
+    backward: the gradient summed over the model axis and this rank's
+    block kept (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, c):
+        ctx.group, ctx.n, ctx.c, ctx.w = group, n, c, x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(-1, ctx.c * ctx.w, ctx.w).contiguous(), None, None, None
+
+
+def gather_last(x: torch.Tensor) -> torch.Tensor:
+    """The model axis's blocks of `x`'s last dimension, in coordinate order
+    (a kv head's Dh columns), with the reduce-scatter for a backward."""
+    g = group_of(("model",))
+    return x if g is None else _GatherLast.apply(x, *g)
+
+
+def merge_attention(m: torch.Tensor, s: torch.Tensor, o: torch.Tensor,
+                    axes) -> torch.Tensor:
+    """Attention over a sequence split across the ranks of `axes`, from each
+    rank's partial: m (...,) its block's max score, s (...,) the sum of
+    exp(score - m) over its live keys, o (..., D) the unnormalised sum of
+    those weights times V (s = 0 and o = 0 for a block with no live key).
+    -> o / s over every block, fp32 (no gradient)."""
+    g = group_of(axes)
+    if g is not None:
+        top = m.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g[0])
+        w = torch.exp(m - top)
+        s, o = s * w, o * w[..., None]
+        dist.all_reduce(s, group=g[0])
+        dist.all_reduce(o, group=g[0])
+    return o / s[..., None]
 
 
 def exclusive_cumsum_dp(counts: torch.Tensor) -> torch.Tensor:
@@ -271,10 +390,10 @@ def exclusive_cumsum_dp(counts: torch.Tensor) -> torch.Tensor:
 def mean_over_tp(x: torch.Tensor) -> torch.Tensor:
     """Mean over the model axis of per-rank means over equal head counts:
     the mean over every head."""
-    tp = _tp()
-    if tp is None:
+    g = group_of(("model",))
+    if g is None:
         return x
-    return all_reduce(x) / tp[0].shape["model"]
+    return all_reduce(x) / g[1]
 
 
 def gather_vocab(x: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -283,13 +402,13 @@ def gather_vocab(x: torch.Tensor, vocab: int) -> torch.Tensor:
     zeroed buffer and the buffers are summed, which is exact (one rank
     holds each entry) and needs only the all-reduce every backend
     offers."""
-    tp = _tp()
-    if tp is None:
+    g = group_of(("model",))
+    if g is None:
         return x
-    mesh, group = tp
+    group, _, c = g
     n = x.shape[-1]
     out = x.new_zeros(x.shape[:-1] + (vocab,), dtype=torch.float32)
-    out[..., mesh.coords["model"] * n:(mesh.coords["model"] + 1) * n] = x
+    out[..., c * n:(c + 1) * n] = x
     dist.all_reduce(out, group=group)
     return out
 
@@ -298,12 +417,11 @@ def decide(value):
     """`value` as the model axis's first rank has it: a host value that
     could differ between the ranks' processes (a measured time) is
     decided once and shared, so every rank plans the same next step."""
-    tp = _tp()
-    if tp is None:
+    g = group_of(("model",))
+    if g is None:
         return value
-    mesh, group = tp
     box = [value]
-    dist.broadcast_object_list(box, src=mesh.axis_ranks("model")[0], group=group)
+    dist.broadcast_object_list(box, src=current().axis_ranks("model")[0], group=g[0])
     return box[0]
 
 
@@ -337,10 +455,10 @@ def check(tag: str, value) -> None:
     across the ranks of the model axis, record it in the mesh's log, and
     raise on every rank at the first difference (before the ranks' next
     collectives part).  Off, or outside a split model axis: nothing."""
-    tp = _tp()
-    if tp is None or not tp[0].check:
+    g, mesh = group_of(("model",)), current()
+    if g is None or not mesh.check:
         return
-    mesh, group = tp
+    group = g[0]
     mine = digest(value)
     got = [None] * mesh.shape["model"]
     dist.all_gather_object(got, mine, group=group)

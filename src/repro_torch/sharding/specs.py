@@ -7,21 +7,31 @@ the reference's parameter pytrees (an LM's layer parameters stacked on a
 leading layer axis), so every tree here equals the reference's.  The
 meshes need only ``.shape`` (axis -> size) and ``.axis_names``.
 
-The LM rules are APPLIED in the port: `shard_lm_params` cuts one rank's
-parameters out of a whole model (or the reference's numpy tree) by
-`lm_param_specs` (mode "serve" for the serving steps, "train" for the
+The rules are APPLIED in the port.  LM: `shard_lm_params` cuts one
+rank's parameters out of a whole model (or the reference's numpy tree)
+by `lm_param_specs` (mode "serve" for the serving steps, "train" for the
 train step), and `init_sharded_params` draws a rank's parameters from a
 seeded generator one whole parameter at a time.  Query heads are split
-contiguously, so each GQA group of ``n_heads // n_kv_heads`` query heads
-stays with its kv head on one rank; an MoE's experts are split over the
-model axis (EP) and its router stays whole.  `train_layout` turns
-`lm_opt_state_specs` into where each rank's optimizer state lives.
+contiguously; where the model axis divides the kv heads each GQA group
+stays with its kv head on one rank, and where it does not every rank
+holds every kv head's ``head_dim / tp`` columns of wk / wv (the
+reference's ``P(None, din, None, 'model')``), which the forward gathers
+into whole heads.  An MoE's experts are split over the model axis (EP)
+and its router stays whole.  `train_layout` turns `lm_opt_state_specs`
+into where each rank's optimizer state lives.  Recsys:
+`shard_recsys_params` / `init_sharded_recsys` give each rank its
+contiguous block of rows of every table that `recsys_param_specs` splits
+over every axis (the data axes, then ``model``), and
+`recsys_train_layout` its AdamW moments (ZeRO-cut over the data axis,
+the tables' with their rows).  GNN parameters replicate, and so do their
+moments.
 
 Entries over the DATA axis in a parameter's spec (an MoE's expert-ff
 dimension, serve mode's ``din`` of an MoE model) are not cut: every data
 rank keeps those parameters whole.  That computes the same function at
 more memory per rank; gathering them on use waits (ROADMAP A.2).  The
-optimizer state does take its data-axis cuts (ZeRO's moments).
+optimizer state does take its data-axis cuts (ZeRO's moments), and a
+recsys table its rows over every axis.
 """
 from __future__ import annotations
 
@@ -131,17 +141,33 @@ def check_serving_divisibility(cfg: LMConfig, mesh) -> None:
             f"tp dividing both, or a model with more kv heads")
 
 
+def kv_dh_cut(cfg: LMConfig, tp: int) -> bool:
+    """Does a `tp`-way model axis cut each kv head's Dh (it does not divide
+    the kv heads)?"""
+    return tp > 1 and cfg.n_kv_heads % tp != 0
+
+
 def _check_shardable(cfg: LMConfig, mesh) -> None:
-    """What the port's rank-local model also needs: whole kv heads, and
-    MLP columns, experts and vocabulary rows that split evenly."""
+    """What the port's rank-local model needs: whole query heads; where
+    tp does not divide the kv heads, a Dh it divides and query heads that
+    cover whole GQA groups or lie in one; MLP columns, experts and
+    vocabulary rows that split evenly."""
     msz = mesh.shape["model"]
-    if cfg.n_kv_heads % msz and cfg.n_heads % msz == 0:
-        raise ValueError(
-            f"mesh.tp={msz} does not divide n_kv_heads={cfg.n_kv_heads}: the reference "
-            "then cuts each kv head's Dh over the model axis (P(None, din, None, 'model')); "
-            "the port keeps whole kv heads, and that layout waits (ROADMAP A.2: "
-            "non-divisible kv-head layouts)")
-    check_serving_divisibility(cfg, mesh)
+    if cfg.n_heads % msz:
+        raise ValueError(f"mesh.tp={msz} must divide n_heads={cfg.n_heads} (a rank holds "
+                         "whole query heads)")
+    if kv_dh_cut(cfg, msz):
+        dh, local, group = cfg.resolved_head_dim, cfg.n_heads // msz, \
+            cfg.n_heads // cfg.n_kv_heads
+        if dh % msz:
+            raise ValueError(f"mesh.tp={msz} divides neither n_kv_heads={cfg.n_kv_heads} nor "
+                             f"head_dim={dh}: the kv heads' Dh is cut over the model axis "
+                             "(P(None, din, None, 'model')), which needs tp | head_dim")
+        if local % group and group % local:
+            raise ValueError(f"mesh.tp={msz}: a rank's {local} query heads and the GQA group "
+                             f"of {group} (n_heads={cfg.n_heads}, n_kv_heads="
+                             f"{cfg.n_kv_heads}) must divide one another, so that a rank's "
+                             "heads read whole kv heads")
     sizes = [("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)]
     if cfg.moe is not None:
         sizes.append(("moe.n_experts", cfg.moe.n_experts))
@@ -153,8 +179,9 @@ def _check_shardable(cfg: LMConfig, mesh) -> None:
 
 def _cut(x: torch.Tensor, spec: Tuple, mesh, coords: Mapping[str, int]) -> torch.Tensor:
     """This rank's block of `x` under `spec`: each dimension split over
-    ``model`` keeps the rank's contiguous slice; one split over the data
-    axis stays whole (the module docstring)."""
+    ``model`` (heads, a kv head's Dh, MLP columns, experts, vocabulary
+    rows) keeps the rank's contiguous slice; one split over the data axis
+    stays whole (the module docstring)."""
     dax = data_axes(mesh)
     for dim, ax in enumerate(spec):
         if ax is None or (ax != "model" and all(a in dax for a in
@@ -335,11 +362,15 @@ class ParamLayout:
     this rank's block over the data axis: the slice of ``data_dim``, or,
     where the reference's ZeRO cut falls on the stacked layer axis, the
     whole layer's moments on data rank ``data_owner`` and none elsewhere;
-    both None: whole on every data rank."""
+    both None: whole on every data rank.  ``data_cut``: the parameter
+    itself is this rank's block over the data axis too (a recsys table's
+    rows over every axis): its gradient is its own, not a share to
+    average over the data axis, and its moments lie with it."""
 
     model_dims: Tuple[int, ...] = ()
     data_dim: Optional[int] = None
     data_owner: Optional[int] = None
+    data_cut: bool = False
 
     @property
     def data_split(self) -> bool:
@@ -469,6 +500,130 @@ def recsys_param_specs(cfg: RecsysConfig, mesh) -> Dict[str, Any]:
     return walk(_param_tree(RM.init_params(cfg, device="meta")), ())
 
 
+def _map_named(tree, fn, path: Tuple[str, ...] = ()):
+    """`fn(name, leaf)` over a tree of dicts and lists, each leaf named as
+    `named_parameters` names it (keys and indices joined by dots); ->
+    a tree of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _map_named(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_named(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn(".".join(path), tree)
+
+
+def _split_tables(cfg: RecsysConfig, mesh) -> Dict[str, bool]:
+    """Per `RecsysModel.named_parameters` name: is it a table split by rows
+    over every axis (`recsys_param_specs`)?"""
+    out: Dict[str, bool] = {}
+    _map_named(recsys_param_specs(cfg, mesh),
+               lambda name, spec: out.__setitem__(name, spec[0] is not None))
+    return out
+
+
+def block_index(mesh, axes=None, coords: Optional[Mapping[str, int]] = None) -> Tuple[int, int]:
+    """(blocks, this rank's block) of a dimension split over `axes` (names;
+    default every axis), counted in mesh order, the last axis fastest.
+    `coords`: the rank's mesh coordinate (default the mesh's own)."""
+    coords = mesh.coords if coords is None else coords
+    n, c = 1, 0
+    for a in mesh.axis_names:
+        if axes is None or a in axes:
+            n, c = n * mesh.shape[a], c * mesh.shape[a] + coords[a]
+    return n, c
+
+
+def row_block(rows: int, mesh, coords: Optional[Mapping[str, int]] = None) -> Tuple[int, int]:
+    """(first row, rows) of this rank's block of a table of `rows` rows
+    split over every axis (`block_index`)."""
+    n, c = block_index(mesh, coords=coords)
+    if rows % n:
+        raise ValueError(f"a table of {rows} rows does not split over {n} ranks")
+    return c * (rows // n), rows // n
+
+
+def _recsys_shard(model, cfg: RecsysConfig, mesh, coords) -> None:
+    """Record each split table's first global row (`RecsysModel.row0`)."""
+    _, c = block_index(mesh, coords=coords)
+    for name, split in _split_tables(cfg, mesh).items():
+        if split:
+            model.row0[name] = c * model.get_parameter(name).shape[0]
+
+
+@torch.no_grad()
+def shard_recsys_params(source, cfg: RecsysConfig, mesh,
+                        coords: Optional[Mapping[str, int]] = None, device=None):
+    """One rank's `RecsysModel`: `source` (a whole model) with each table
+    that `recsys_param_specs` splits cut to the rank's block of rows, the
+    rest whole; its ``row0`` maps each cut table to its first global row.
+    `coords`: the rank's mesh coordinate (default the mesh's own)."""
+    from repro_torch.recsys import models as RM
+
+    coords = mesh.coords if coords is None else coords
+    device = source.device if device is None else device
+    split = _split_tables(cfg, mesh)
+
+    def cut(name: str, t: torch.Tensor) -> torch.Tensor:
+        if split[name]:
+            r0, n = row_block(t.shape[0], mesh, coords)
+            t = t[r0:r0 + n]
+        return t.detach().to(device).clone()
+    model = RM.RecsysModel(cfg, _map_named(_param_tree(source), cut))
+    _recsys_shard(model, cfg, mesh, coords)
+    return model
+
+
+def init_sharded_recsys(cfg: RecsysConfig, mesh, generator: torch.Generator, device,
+                        coords: Optional[Mapping[str, int]] = None):
+    """One rank's `RecsysModel` drawn from `generator` as
+    `recsys.models.init_params` draws the whole model: each table is drawn
+    whole and cut to the rank's block of rows at once, so the rank holds
+    one whole table at a time."""
+    from repro_torch.recsys import models as RM
+
+    coords = mesh.coords if coords is None else coords
+
+    def keep(full: torch.Tensor) -> torch.Tensor:
+        r0, n = row_block(full.shape[0], mesh, coords)
+        return full[r0:r0 + n].clone()
+    model = RM.init_params(cfg, generator, device, keep=keep)
+    _recsys_shard(model, cfg, mesh, coords)
+    cut = {n for n, _ in model.named_parameters() if n in model.row0}
+    if cut != {n for n, s in _split_tables(cfg, mesh).items() if s}:
+        raise AssertionError(f"tables cut {sorted(cut)} differ from recsys_param_specs'")
+    return model
+
+
+def recsys_opt_state_specs(cfg: RecsysConfig, mesh):
+    """The recsys train bundle's AdamW state (the reference's
+    `_recsys_bundle`): the moments take the parameters' specs ZeRO-cut
+    over the data axis."""
+    from repro_torch.recsys import models as RM
+    from repro_torch.training.optimizer import OptState
+
+    pspecs = recsys_param_specs(cfg, mesh)
+    zspecs = zero_shard(pspecs, _param_tree(RM.init_params(cfg, device="meta")), mesh)
+    return OptState(step=P(), inner={"m": zspecs, "v": zspecs})
+
+
+def recsys_train_layout(cfg: RecsysConfig, mesh) -> Dict[str, "ParamLayout"]:
+    """Per `RecsysModel.named_parameters` name, its `ParamLayout` under
+    `recsys_opt_state_specs`: a split table is cut over the model axis on
+    its rows and is its own data block (``data_cut``); every other
+    parameter is whole, its moments on the data block ZeRO gives it."""
+    dax = data_axes(mesh)
+    split = _split_tables(cfg, mesh)
+    out: Dict[str, ParamLayout] = {}
+
+    def layout(name: str, mspec: P) -> None:
+        if split[name]:
+            out[name] = ParamLayout(model_dims=(0,), data_cut=True)
+        else:
+            out[name] = ParamLayout(data_dim=next(
+                (i for i, d in enumerate(mspec) if d is not None and _has(d, dax)), None))
+    _map_named(recsys_opt_state_specs(cfg, mesh).inner["m"], layout)
+    return out
+
+
 def _input_ndims(cfg: RecsysConfig, shape_name: str) -> Dict[str, int]:
     """Rank of each model input of one recsys cell (a two-row batch of
     the cell: only the ranks are read)."""
@@ -511,6 +666,15 @@ def _shape_name_of(cfg, step, dims):
 def gnn_param_specs(params_abstract, mesh):
     """Every GNN parameter replicated.  Leaves have ``.shape``."""
     return tree_map(lambda leaf: P(*([None] * len(leaf.shape))), params_abstract)
+
+
+def gnn_opt_state_specs(params_abstract, mesh):
+    """The GNN train bundle's AdamW state (the reference's `_gnn_bundle`):
+    the moments lie like the parameters, replicated, with no ZeRO cut."""
+    from repro_torch.training.optimizer import OptState
+
+    pspecs = gnn_param_specs(params_abstract, mesh)
+    return OptState(step=P(), inner={"m": pspecs, "v": pspecs})
 
 
 def gnn_input_specs(mesh, shape_name: str, spec_shapes: Dict[str, Any]):

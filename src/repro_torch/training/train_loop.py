@@ -167,12 +167,18 @@ def _microbatches(batch: Dict, n: int) -> List[Dict]:
 
 def make_train_step(loss_fn: Callable, cfg: TrainConfig, model: nn.Module,
                     optimizer: OPT.ClippedOptimizer,
-                    err_state: Optional[List[torch.Tensor]] = None) -> Callable:
+                    err_state: Optional[List[torch.Tensor]] = None,
+                    data_mean: bool = True) -> Callable:
     """-> step(batch) -> {"loss", "gnorm"} (0-d tensors): gradients of
     `loss_fn(model, batch)` (summed over `cfg.microbatches` microbatches
     and divided by their count; the loss is their mean), compressed,
     then one optimizer update in place.  The model's parameters must take
-    gradients (`trainable`)."""
+    gradients (`trainable`).  Under data parallelism the loss and the
+    gradients are averaged over the data axis (`data_mean`: each data
+    rank's loss is the mean over its rows), but a parameter that is its
+    own block over the data axis (``layout.data_cut``), whose gradient
+    is already its share; without `data_mean` every rank computes the
+    whole loss (a graph cut by edges) and nothing is averaged."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     device = params[0].device
 
@@ -195,11 +201,13 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig, model: nn.Module,
             loss = loss_fn(model, batch)
             loss.backward()
             loss = loss.detach()
-        if CTX.dp_size() > 1:
+        if CTX.dp_size() > 1 and data_mean:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            CTX.grad_mean_dp([p.grad for p in params])
+            layouts = optimizer.layouts or [None] * len(params)
+            CTX.grad_mean_dp([p.grad for p, lay in zip(params, layouts)
+                              if lay is None or not lay.data_cut])
             loss = CTX.mean_over_dp(loss)
         apply_compression(params, cfg, err_state, optimizer.layouts)
         gnorm = optimizer.step()

@@ -1465,6 +1465,47 @@ def test_bag_backward_kernel_edges(cuda, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 32])
+def test_windowed_bag_kernels_match_plain(cuda, dtype, d):
+    """B5 and K7 on row windows (a rank's block of a table split by rows
+    over 2 and 4 ranks, the whole table at row0 = 0) against their plain
+    versions on the same `row0`: B5 within BAG_TOL and bitwise on a second
+    call, K7 within BAG_TOL; ids far outside every window (2e9) are
+    skipped, never loaded; the whole table's window at row0 = 0 is the
+    unwindowed call, and a window shifted with its ids is bitwise the
+    same sums."""
+    from repro_torch.kernels.embedding_bag.ops import bag_backward
+    from repro_torch.kernels.embedding_bag.ref import bag_backward_ref
+
+    g = torch.Generator(device=cuda).manual_seed(20 + d)
+    rows, B, F = 8192, 4097, 40
+    table = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    ids = torch.randint(0, rows, (B, F), device=cuda, generator=g, dtype=torch.int32)
+    ids[:20] = ids[0]
+    ids[7, 3] = 2_000_000_000
+    d_out = torch.randn(B, d, device=cuda, generator=g).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    whole = bag_sum(table, ids[:, :1].clone().fill_(5))
+    assert torch.equal(whole, bag_sum(table, ids[:, :1].clone().fill_(5), row0=0))
+    assert torch.equal(bag_sum(table, ids[8:] + 7, row0=7), bag_sum(table, ids[8:]))
+    for n in (2, 4):
+        step = rows // n
+        for c in range(n):
+            block = table[c * step:(c + 1) * step]
+            before = (bag_sum.launches, bag_backward.launches)
+            got, again = bag_sum(block, ids, row0=c * step), bag_sum(block, ids, row0=c * step)
+            grad = bag_backward(ids, d_out, step, row0=c * step)
+            assert (bag_sum.launches, bag_backward.launches) == (before[0] + 2, before[1] + 1)
+            want = embedding_bag_ref(block, ids, row0=c * step)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            _close(got.float(), want.float(), tol * max(1.0, float(want.float().abs().max())))
+            gwant = bag_backward_ref(ids, d_out, step, row0=c * step)
+            _close(grad.float(), gwant.float(), tol * max(1.0, float(gwant.float().abs().max())))
+
+
+@pytest.mark.cuda
 def test_wide_bag_autograd_launches_both_kernels(cuda):
     from repro_torch.kernels.embedding_bag.ops import bag_backward, bag_sum
     from repro_torch.kernels.embedding_bag.ref import bag_backward_ref

@@ -152,13 +152,15 @@ def test_staged_geometry_invariants(B, F, d, elt, vec):
     assert g.TB * g.S * P * V * elt <= EO.STAGE_BYTES
 
 
-def _staged_walk(table, ids, vec):
+def _staged_walk(table, ids, vec, row0=0):
     """`bag_staged_kernel` step by step in numpy: each block's gather walk
     (every thread's (bag, field) counters, 8 or 4 units at a time) into a
-    shared tile at (bag * S + field) * P + lane, then each bag's fp32 sum in
-    field order, rounded once.  Asserts that the walk writes each unit of
-    a chunk once, inside the tile, and (4-byte rows) that a warp's reads in
-    the sum fall in 32 banks.  -> (B, d) in the table's dtype."""
+    shared tile at (bag * S + field) * P + lane (a zero where the id lies
+    outside the table's row window row0 .. row0 + rows - 1, whose row is
+    never read), then each bag's fp32 sum in field order, rounded once.
+    Asserts that the walk writes each unit of a chunk once, inside the
+    tile, and (4-byte rows) that a warp's reads in the sum fall in 32
+    banks.  -> (B, d) in the table's dtype."""
     (B, F), (_, d) = ids.shape, table.shape
     elt = table.element_size()
     g = EO.staged_geometry(B, F, d, elt, vec, sms=132)
@@ -188,7 +190,8 @@ def _staged_walk(table, ids, vec):
                         for k in range(batch):
                             if u + k * rps < units and col < cols:
                                 at = (jj * g.S + ff) * P + c
-                                smem[at] = rows[ids_np[b0 + jj, f0 + ff], col]
+                                rid = int(ids_np[b0 + jj, f0 + ff]) - row0
+                                smem[at] = rows[rid, col] if 0 <= rid < len(rows) else 0.0
                                 written[at] += 1
                             jj, ff = jj + dj, ff + df
                             if ff >= fc:
@@ -272,3 +275,75 @@ def test_plain_matches_jax_edges(F, B, d, dtype):
     ids[0, 0], ids[-1, -1] = 0, rows - 1
     ids[B // 2] = 11
     _check(table, ids, dtype)
+
+
+# ------------------------------------------------------- the row window
+WINDOW_CASES = [(1, 40, 1, False), (40, 13, 1, False), (9, 130, 1, False), (3, 20, 32, True),
+                (2, 9, 33, False)]
+
+
+@pytest.mark.parametrize("B,F,d,vec", WINDOW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_walk_is_pallas_on_the_window_bitwise(B, F, d, vec, dtype):
+    """On a row window (a rank's block of a table split by rows) the
+    staged kernel's walk skips every id outside it and sums the others in
+    field order: bitwise the Pallas kernel on the whole table with the
+    rows outside the window zeroed; the plain version (`row0`) too within
+    TOL.  At row0 = 0 with the whole table the walk is the unwindowed
+    one, bitwise."""
+    rng = np.random.default_rng(B * 100 + F + d)
+    rows, n = 300, 3
+    table_np = rng.normal(size=(rows, d)).astype(np.float32)
+    ids_np = rng.integers(0, rows, (B, F)).astype(np.int32)
+    ids_np[0, 0], ids_np[-1, -1] = 0, rows - 1
+    table = torch.from_numpy(table_np).to(dtype)
+    ids = torch.from_numpy(ids_np)
+    assert torch.equal(_staged_walk(table, ids, vec, row0=0), _staged_walk(table, ids, vec))
+    assert torch.equal(bag_sum(table, ids, row0=0), bag_sum(table, ids))
+    for w in range(n):
+        r0 = w * rows // n
+        block = table[r0:r0 + rows // n]
+        masked = np.zeros_like(table_np)
+        masked[r0:r0 + rows // n] = table_np[r0:r0 + rows // n]
+        pallas = jax_bag_sum(jnp.asarray(masked, DTYPES[dtype]), jnp.asarray(ids_np),
+                             interpret=True)
+        got = _staged_walk(block, ids, vec, row0=r0)
+        assert np.array_equal(_np32(got), _np32(pallas))
+        plain = bag_sum(block, ids, row0=r0)
+        assert plain.shape == (B, d)
+        torch.testing.assert_close(plain.float(), got.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_sums_add_up_and_gradients_concatenate(n, dtype):
+    """The windows' bag sums over the ranks add up to the whole table's
+    (fp32 within TOL: each window sums its fields, then the windows are
+    added); K7's plain version on each window is that block of the whole
+    gradient, bitwise (an id outside a window adds nothing, not even a
+    signed zero), ids far outside every window included."""
+    from repro_torch.kernels.embedding_bag.ref import bag_backward_ref
+
+    rng = np.random.default_rng(n)
+    rows, d, B, F = 4096, 3, 33, 40
+    table = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, rows, (B, F)).astype(np.int32))
+    ids[:5] = ids[0]
+    whole = bag_sum(table, ids)
+    step = rows // n
+    parts = sum(bag_sum(table[c * step:(c + 1) * step], ids, row0=c * step).float()
+                for c in range(n))
+    torch.testing.assert_close(parts, whole.float(), rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    d_out = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(dtype)
+    want = bag_backward_ref(ids, d_out, rows)
+    blocks = [EO.bag_backward(ids, d_out, step, row0=c * step) for c in range(n)]
+    assert torch.equal(torch.cat(blocks), want)
+    far = ids.clone()
+    far[1] = 2_000_000_000
+    assert torch.equal(EO.bag_backward(far, d_out, step, row0=step),
+                       bag_backward_ref(far, d_out, rows)[step:2 * step])
+    zero = ids.clone()
+    zero[1] = 0                                           # outside the window too
+    assert torch.equal(bag_sum(table[step:2 * step], far, row0=step),
+                       bag_sum(table[step:2 * step], zero, row0=step))

@@ -404,16 +404,21 @@ def test_cluster_bills_measured_transfer_time(tiny_port):
 # ------------------------------------------------ what waits (ROADMAP A.2)
 def test_session_server_under_tp_names_the_roadmap_item():
     """The server runs under tp > 1 now (`test_torch_tp_server.py`), inside
-    a mesh of that tp only; what waits, a kv-head count tp does not
-    divide, names its ROADMAP item."""
+    a mesh of that tp only.  A kv-head count tp does not divide no longer
+    waits: the LM steps cut each kv head's Dh (`test_torch_tp_kv_split.py`),
+    and the RcLLM serving path refuses it as the reference does, naming
+    both head counts."""
     from repro_torch.serving.server import AsyncSessionServer
 
     with pytest.raises(ValueError, match="runs inside a mesh whose model axis has 2 ranks"):
         AsyncSessionServer(None, ServeConfig(mesh=MeshConfig(tp=2)))
     cfg = TR.get_config("rcllm-qwen3-8b", smoke=True)      # 4 query / 2 kv heads
-    with pytest.raises(ValueError, match="ROADMAP A.2: non-divisible kv-head layouts"):
-        TS.shard_lm_params(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
-                           cfg, _stub((1, 4)), coords={"model": 0})
+    shard = TS.shard_lm_params(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+                               cfg, _stub((1, 4)), coords={"model": 1})
+    assert tuple(shard.layers[0].wk.shape) == (64, 2, 4)   # every kv head, Dh / 4
+    assert shard.layers[0].kv_keep == slice(0, 1)          # query head 1 reads kv head 0
+    with pytest.raises(ValueError, match="n_kv_heads=2"):
+        TS.check_serving_divisibility(cfg, _stub((1, 4)))
 
 
 def test_tp_must_divide_kv_heads(tiny_port):

@@ -254,3 +254,162 @@ def server_rank_job(rank, world, backend, device, tree):
         out["cancel_pool"], out["cancel"] = _cancel_run(system, pend, plans, reuse, mesh)
         out["cancel_log"] = list(mesh.log)
     return out
+
+
+# ------------------------------------------- recsys and SchNet on a mesh
+RECSYS_SHAPES = (("score", "serve_p99"), ("retrieval", "retrieval_cand"))
+GNN_CELLS = ("full_graph_sm", "molecule", "minibatch_lg")
+MESH_STEPS = 2
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def _train(bundle):
+    hist = []
+    for _ in range(MESH_STEPS):
+        m = bundle.fn(bundle.inputs)
+        hist.append({k: float(v) for k, v in m.items()})
+    return hist
+
+
+def recsys_gnn_rank_job(rank, world, backend, device, cases, layout):
+    """On this rank of a (dp, tp) `layout`: per recsys arch (`cases[arch]`:
+    the reference's numpy tree and its score, retrieval and train
+    batches) the score and retrieval steps (this data rank's rows) and
+    MESH_STEPS AdamW steps of `launch.steps.build`'s train bundle (the
+    history and the rank's parameters after them, tables as its blocks
+    with their first rows); per SchNet cell (`cases["schnet"]`) the same
+    train steps and the whole parameters after them."""
+    from repro_torch.gnn.convert import schnet_params_from_numpy
+    from repro_torch.recsys.convert import recsys_params_from_numpy
+
+    torch.set_num_threads(1)
+    mesh = MeshConfig(dp=layout[0], tp=layout[1]).build()
+    out = {"rank": rank, "backend": backend, "coords": dict(mesh.coords), "recsys": {},
+           "gnn": {}}
+    for arch, case in cases.items():
+        if arch == "schnet":
+            continue
+        tree, batches = case
+        cfg = TR.get_config(arch, smoke=True)
+        whole = recsys_params_from_numpy(tree, cfg, device="cpu")
+        res = {}
+        for step, shape in RECSYS_SHAPES:
+            b = ST.build(arch, shape, mesh, "cpu", smoke=True, source=whole,
+                         batch=_torch_batch(batches[step]))
+            res[step] = (b.fn(b.inputs).numpy(), b.dp_batch)
+        b = ST.build(arch, "train_batch", mesh, "cpu", smoke=True, source=whole,
+                     batch=_torch_batch(batches["train"]))
+        res["train"] = _train(b)
+        res["params"] = {n: p.detach().numpy() for n, p in b.model.named_parameters()}
+        res["row0"] = dict(b.model.row0)
+        out["recsys"][arch] = res
+    for cell, (tree, batch, graph) in cases.get("schnet", {}).items():
+        cfg = TR.get_config("schnet", smoke=True)
+        whole = schnet_params_from_numpy(tree, cfg, "cpu", **graph)
+        b = ST.build("schnet", cell, mesh, "cpu", smoke=True, source=whole,
+                     batch=_torch_batch(batch))
+        hist = _train(b)
+        out["gnn"][cell] = {"hist": hist, "edges": int(b.inputs["edge_src"].numel()),
+                            "params": {n: p.detach().numpy()
+                                       for n, p in b.model.named_parameters()}}
+    return out
+
+
+# ------------------------------- LM layouts whose kv heads tp does not divide
+KV_LAYOUTS_4 = ((1, 4), (2, 2))          # one 4-rank job: the Dh cut, batch 1 over every axis
+DECODE_ROW = 0                          # the batch-1 decode's prompt row
+
+
+def kv_split_run(run, tree, mesh):
+    """At (1, 4) (tp cuts the kv heads' Dh; the cache's sequence over
+    ``model``): prefill of the run's prompts (the rank's logits and
+    cache block), two greedy decode steps in the cache grown by EXTRA
+    positions (`launch.steps.grow_cache`), the loss and two training steps
+    of the port's loop with the whole parameters gathered."""
+    cfg = port_config(run)
+    toks, batches = run_data(run)
+    whole = params_from_numpy(tree, cfg, device="cpu")
+    out = {}
+    serve = SPECS.shard_lm_params(whole, cfg, mesh)
+    logits, cache = TT.prefill(serve, torch.from_numpy(toks))
+    out["prefill"] = (logits.numpy(), cache["k"].numpy(), cache["v"].numpy())
+    cache = ST.grow_cache(cache, serve, EXTRA)
+    pos, nxt, steps = torch.tensor(POSITIONS), logits.argmax(-1)[:, None], []
+    for _ in range(2):
+        logits, cache = TT.decode_step(serve, nxt, cache, pos)
+        nxt, pos = logits.argmax(-1)[:, None], pos + 1
+        steps.append((logits.numpy(), nxt[:, 0].numpy()))
+    out["decode"] = steps
+    b0 = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+    loss, nll = TT.loss_fn(serve, b0["tokens"], b0["labels"])
+    out["loss"] = (float(loss), float(nll))
+    tcfg = train_cfgs(run, cfg)[None]
+    model = SPECS.shard_lm_params(whole, cfg, mesh, mode="train")
+    model, opt, hist = TTL.train(model, ST.lm_loss, iter(batches), tcfg,
+                                 layout=SPECS.train_layout(cfg, mesh, tcfg.optimizer))
+    params = TTL.whole_state(model, opt)["params"]
+    out["train"] = {"hist": hist, "params": {k: v.numpy() for k, v in params.items()}}
+    return out
+
+
+def _greedy(fn, cache, first, pos):
+    steps, nxt = [], first
+    for _ in range(2):
+        logits, cache = fn({"tokens": nxt, "cache": cache, "positions": pos})
+        nxt, pos = logits.argmax(-1)[:, None], pos + 1
+        steps.append((logits.numpy(), nxt[:, 0].numpy()))
+    return steps
+
+
+def one_row_decode(run, tree, row, mesh):
+    """A batch-1 decode (the data axis does not divide it: the cache's
+    sequence over every axis), two greedy steps from `row`: the
+    reference's whole cache of row DECODE_ROW's prompt ({k, v}, grown here
+    by EXTRA positions) and its first greedy token (1, 1).  Then the same
+    prompt's prefill on the mesh with every data rank holding the row
+    (``dp_batch=False``: the rank's block of positions, every kv head) and
+    two greedy steps in its cache grown by `grow_cache`."""
+    cache, first, _ = row
+    cfg = port_config(run)
+    toks, _ = run_data(run)
+    whole = params_from_numpy(tree, cfg, device="cpu")
+    serve = SPECS.shard_lm_params(whole, cfg, mesh)
+    batch = {"tokens": torch.zeros((1, 1), dtype=torch.long),
+             "cache": {k: torch.from_numpy(pad(v)) for k, v in cache.items()},
+             "positions": torch.tensor([toks.shape[1]])}
+    inputs = ST.rank_inputs(cfg, mesh, "decode", batch)
+    fn, _ = ST.mesh_fn(serve, mesh, "decode", 1)
+    out = {"decode": _greedy(fn, inputs["cache"], torch.from_numpy(first),
+                             inputs["positions"]),
+           "block": tuple(inputs["cache"]["k"].shape)}
+    # every data rank holds the row (the reference's prefill cuts its rows
+    # over the data axis, so `build` refuses one row there)
+    logits, block = TT.prefill(serve, torch.from_numpy(toks[DECODE_ROW:DECODE_ROW + 1]),
+                               dp_batch=False)
+    out["prefill"] = (logits.numpy(), block["k"].numpy(), block["v"].numpy())
+    grown = ST.grow_cache(block, serve, EXTRA, dp_batch=False)
+    out["prefilled"] = _greedy(fn, grown, logits.argmax(-1)[:, None],
+                               torch.tensor([toks.shape[1]]))
+    return out
+
+
+def kv_split_rank_job(rank, world, backend, device, trees, rows, layouts):
+    """Every run on this rank at each (dp, tp) of `layouts` (one world):
+    `kv_split_run` at (1, 4), `one_row_decode` where the data axis has two
+    ranks (`rows[run]`: the reference's batch-1 cache, first token and
+    logits)."""
+    torch.set_num_threads(1)
+    out = {"rank": rank, "backend": backend, "layouts": {}}
+    for layout in layouts:
+        mesh = MeshConfig(dp=layout[0], tp=layout[1]).build()
+        res = {"coords": dict(mesh.coords), "runs": {}}
+        with CTX.axes(mesh):
+            for run in RUNS:
+                tree = trees[RUNS[run][0]]
+                res["runs"][run] = (kv_split_run(run, tree, mesh) if layout[0] == 1 else
+                                    one_row_decode(run, tree, rows[run], mesh))
+        out["layouts"][layout] = res
+    return out
