@@ -192,6 +192,31 @@ else (no network, no JAX).  Phases:
    held to its plain version after the counts are read.  Per rank: step
    times, peak GB, launches by kernel and the largest call's shapes.  As
    in 2l and 2m, ranks share one card over gloo: no multi-card speed;
+2o. the data-axis parameter cuts (after phase 2n): four ranks at (dp, tp)
+   = (2, 2) sharing the card over gloo.  (a) kimi-k2 at published width,
+   depth 1, serve mode: each rank draws the whole model in turn (seed 0)
+   and keeps 192 experts' halves of the expert-ff dimension and half of
+   the attention's d_model (~10.9 GB a rank), prefills its row of 2 x
+   1,024 tokens and takes 4 greedy decode steps, gathering the experts a
+   chunk at a time over the data axis (a decode step only those a token
+   reaches); then, after the ranks exit, the same model whole on the card
+   (~38.8 GB): logits within 2e-2 of the row max, tokens equal.  Each
+   rank's max_memory_allocated, parameter bytes and expert-ff bytes (1 /
+   2 of the whole-over-data layout's) are printed, and what it holds
+   beside its shards and cache after the layer must stay under 1 GB.
+   (c) The dry run (`launch.dryrun.trace_cell`) of that cell at (2, 2) on
+   fake tensors: its parameter bytes must equal each rank's in (a).  (b)
+   moonshot at published width, depth 4: 3 AdamW steps on 2 x 2,048
+   tokens (a row a data rank, K6 on a rank's 8 heads on its tensor-core
+   route, held to its plain version after the counts are read), losses
+   within 1e-2 relative of the same model trained whole on the card; the
+   reduced() moonshot and kimi-k2 (Adafactor) cases against one process
+   on the CPU (2m's gate); and reduced() moonshot trained 2 steps at (2,
+   2) with a checkpoint each step, its third step at (1, 2) from that
+   checkpoint, against the CPU's 3 steps (a published-width checkpoint
+   is not written: `train_loop.whole_state` gathers the whole state on
+   every rank, ~30 GB a rank at depth 4).  Gloo's host staging sets the
+   times, as in 2l-2n;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies, at its largest all-layer call of
@@ -5218,6 +5243,400 @@ def mesh_families_phase(smi, dev):
     return report, records
 
 
+# ---------------------------------------------------------------- phase 2o
+# the data-axis parameter cuts (the module docstring's 2o): four ranks at
+# (dp, tp) = (2, 2) sharing the card
+CUT_LAYOUT = (2, 2)
+CUT_SERVE_ARCH, CUT_SERVE_LAYERS, CUT_SERVE_SEQ, CUT_SERVE_DECODE = "kimi-k2-1t-a32b", 1, 1024, 4
+CUT_TRAIN_ARCH, CUT_TRAIN_LAYERS, CUT_TRAIN_SEQ = "moonshot-v1-16b-a3b", 4, 2048
+CUT_REDUCED = ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b")
+CUT_TOL, CUT_LOSS_TOL, CUT_RANK_GB = 2e-2, 1e-2, 72.0
+
+
+def _cut_cfg(arch, layers):
+    return dataclasses.replace(RREG.get_config(arch), n_layers=layers)
+
+
+def _expert_ff_bytes(model):
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if ".moe.w_" in n)
+
+
+def _cut_serve(mesh, device):
+    """(a) on this rank: kimi-k2 at published width, depth 1, drawn in turn
+    with the other ranks (seed 0; serve mode: experts over model, expert-ff
+    and d_model over data), a prefill of its row of the 2 x CUT_SERVE_SEQ
+    prompt and CUT_SERVE_DECODE greedy decode steps."""
+    cfg = _cut_cfg(CUT_SERVE_ARCH, CUT_SERVE_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = STEPS.rank_model(cfg, mesh, "prefill", device, generator=gen)
+    torch.cuda.synchronize(device)
+    init_peak = _peak(device)
+    batch = RREG.make_batch(cfg, "prefill_32k", gen, device, batch=2, seq=CUT_SERVE_SEQ)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    lp = model.layers[0]
+    out = {"param_bytes": params, "expert_ff_bytes": _expert_ff_bytes(model),
+           "w_up": list(lp.moe.w_up.shape), "wq": list(lp.wq.shape), "init_peak_gb": init_peak}
+    torch.cuda.reset_peak_memory_stats(device)
+    fn, _ = STEPS.mesh_fn(model, mesh, "prefill", 2)
+    inputs = STEPS.rank_inputs(cfg, mesh, "prefill", batch)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, cache = fn(inputs)
+    torch.cuda.synchronize(device)
+    out["prefill_s"] = time.perf_counter() - t0
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    # what stays on the card after the layer: the shards and the cache,
+    # no gathered expert or attention weights
+    out["resident_after_prefill_gb"] = (torch.cuda.memory_allocated(device) - params
+                                        - cache_bytes) / 1e9
+    out["prefill"] = logits.float().cpu().numpy()
+    cache = STEPS.grow_cache(cache, model, 8)
+    dec, _ = STEPS.mesh_fn(model, mesh, "decode", 2)
+    pos = torch.full((inputs["tokens"].shape[0],), CUT_SERVE_SEQ, device=device)
+    nxt, steps, times = logits.argmax(-1)[:, None], [], []
+    out["first"] = nxt[:, 0].cpu().numpy()
+    for _ in range(CUT_SERVE_DECODE):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        lg, cache = dec({"tokens": nxt, "cache": cache, "positions": pos})
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+        nxt, pos = lg.argmax(-1)[:, None], pos + 1
+        steps.append((lg.float().cpu().numpy(), nxt[:, 0].cpu().numpy()))
+    out.update(decode=steps, decode_ms=[t * 1e3 for t in times], peak_gb=_peak(device))
+    del model, logits, cache, lg, batch, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut_train(mesh, device, rec):
+    """(b) on this rank: moonshot at published width, depth
+    CUT_TRAIN_LAYERS (seed 0; train mode: experts over model, expert-ff
+    over data, moments with them), 3 AdamW steps on its row of 2 x
+    CUT_TRAIN_SEQ tokens, K6 on the rank's heads."""
+    cfg = _cut_cfg(CUT_TRAIN_ARCH, CUT_TRAIN_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = STEPS.rank_model(cfg, mesh, "train", device, generator=gen)
+    batch = RREG.make_batch(cfg, "train_4k", gen, device, batch=2, seq=CUT_TRAIN_SEQ)
+    step, opt = STEPS.mesh_fn(model, mesh, "train", 2)
+    inputs = STEPS.rank_inputs(cfg, mesh, "train", batch)
+    before = (FO.mha_flash_bwd.launches, FO.mha_flash_bwd.tc_launches)
+    rec.arm(CUT_TRAIN_ARCH)
+    losses, norms, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m = step(inputs)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["gnorm"]))
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    rec.arm(None)
+    out = {"loss": losses, "gnorm": norms, "step_ms": [t * 1e3 for t in times],
+           "peak_gb": _peak(device), "optimizer": type(opt).__name__,
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "expert_ff_bytes": _expert_ff_bytes(model),
+           "k6_launches": FO.mha_flash_bwd.launches - before[0],
+           "k6_tc_launches": FO.mha_flash_bwd.tc_launches - before[1]}
+    del model, batch, step, opt, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut_ckpt_case():
+    """The checkpoint case: moonshot at reduced() size (fp32, seed 0) and
+    three 2 x 64 training batches (numpy draws, the same in every
+    process)."""
+    cfg, whole, _, batch = _reduced_case(CUT_TRAIN_ARCH)
+    rng = np.random.default_rng(11)
+    batches = [batch]
+    for _ in range(2):
+        t = rng.integers(1, cfg.vocab_size, (2, 65)).astype(np.int64)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return cfg, whole, [{k: np.asarray(v) for k, v in b.items()} for b in batches]
+
+
+def _cut_ckpt_train(mesh, device, ckpt_dir, steps):
+    """The checkpoint case on this rank: the port's loop to `steps` on its
+    rows, a checkpoint each step in `ckpt_dir` (resuming from its latest
+    and skipping the batches taken before it).  -> the history of the
+    steps run here."""
+    from repro_torch.checkpoint import checkpoint as CKPT
+    from repro_torch.data.pipeline import rows_of
+    from repro_torch.sharding import specs as SPECS
+    from repro_torch.training import train_loop as TTL
+
+    cfg, whole, batches = _cut_ckpt_case()
+    model = STEPS.rank_model(cfg, mesh, "train", device, source=whole)
+    n, d = mesh.shape["data"], mesh.coords["data"]
+    done = CKPT.latest_step(ckpt_dir) or 0
+    data = iter([{k: rows_of(v, d, n) for k, v in b.items()} for b in batches[done:]])
+    _, _, hist = TTL.train(model, STEPS.lm_loss, data, TTL.TrainConfig(
+        steps=steps, optimizer=cfg.optimizer, lr=1e-3, ckpt_dir=ckpt_dir, ckpt_every=1),
+        layout=SPECS.train_layout(cfg, mesh, cfg.optimizer))
+    return hist
+
+
+def cut_rank(rank, world, backend, device, layout, part, ckpt_dir):
+    """A rank of phase 2o on a (dp, tp) `layout`: `part` "serve" is (a);
+    "train" is (b): moonshot at published width, the reduced() cases and
+    the checkpoint case's first two steps; "resume" the checkpoint case's
+    third step from the (2, 2) checkpoint."""
+    from repro_torch.sharding import ctx as CTX
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshConfig(dp=layout[0], tp=layout[1]).build()
+    mesh.device = device
+    out = {"rank": rank, "device": str(device), "backend": backend,
+           "coords": dict(mesh.coords)}
+    with CTX.axes(mesh):
+        if part == "serve":
+            out["serve"] = _cut_serve(mesh, device)
+            return out
+        if part == "resume":
+            out["resumed"] = _cut_ckpt_train(mesh, device, ckpt_dir, 3)
+            return out
+        rec = BwdRecorder(TL.mha_flash_bwd)
+        TL.mha_flash_bwd = rec
+        try:
+            out["train"] = _cut_train(mesh, device, rec)
+            out["reduced"] = {}
+            for label in CUT_REDUCED:
+                cfg, whole, toks, batch = _reduced_case(label)
+                out["reduced"][label] = _lm_steps(whole, mesh, toks, batch, 2, 3, device)
+            out["ckpt"] = _cut_ckpt_train(mesh, device, ckpt_dir, 2)
+        finally:
+            TL.mha_flash_bwd = rec.fn
+        out["k6"] = _k6_rank_checks(rec.calls)
+    return out
+
+
+def _cut_serve_unsharded(dev):
+    """(a)'s reference: the same depth-1 kimi-k2 whole on the card (seed 0,
+    then the prompt), its prefill and CUT_SERVE_DECODE greedy steps."""
+    cfg = _cut_cfg(CUT_SERVE_ARCH, CUT_SERVE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = TT.init_params(cfg, gen, dev)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch = RREG.make_batch(cfg, "prefill_32k", gen, dev, batch=2, seq=CUT_SERVE_SEQ)
+    logits, cache = TT.prefill(model, batch["tokens"])
+    nxt = logits.argmax(-1)[:, None]
+    out = {"prefill": logits.float().cpu().numpy(), "first": nxt[:, 0].cpu().numpy(),
+           "param_bytes": params}
+    cache = STEPS.grow_cache(cache, model, 8)
+    pos = torch.full((2,), CUT_SERVE_SEQ, device=dev)
+    steps = []
+    for _ in range(CUT_SERVE_DECODE):
+        lg, cache = TT.decode_step(model, nxt, cache, pos)
+        nxt, pos = lg.argmax(-1)[:, None], pos + 1
+        steps.append((lg.float().cpu().numpy(), nxt[:, 0].cpu().numpy()))
+    out.update(decode=steps, peak_gb=_peak(dev))
+    del model, batch, logits, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut_train_unsharded(dev):
+    """(b)'s reference: the same depth-4 moonshot whole on the card, 3
+    AdamW steps on the whole 2 x CUT_TRAIN_SEQ batch."""
+    cfg = _cut_cfg(CUT_TRAIN_ARCH, CUT_TRAIN_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = TT.init_params(cfg, gen, dev)
+    batch = RREG.make_batch(cfg, "train_4k", gen, dev, batch=2, seq=CUT_TRAIN_SEQ)
+    losses, norms, _ = STEPS.run_train(model, batch, TRAIN_STEPS)
+    out = {"loss": losses, "gnorm": norms, "peak_gb": _peak(dev)}
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cut_close(label, rank, got, want):
+    """(a)'s gate on one rank's row: logits within CUT_TOL of the row max
+    of the unsharded run, greedy tokens equal.  -> the largest error."""
+    d = rank["coords"]["data"]
+    rows = [(got["prefill"], want["prefill"][d:d + 1])] + [
+        (g[0], w[0][d:d + 1]) for g, w in zip(got["decode"], want["decode"])]
+    errs = []
+    for i, (g, w) in enumerate(rows):
+        errs.append(float(np.abs(g - w).max() / np.abs(w).max()))
+        if errs[-1] > CUT_TOL:
+            raise RuntimeError(f"phase 2o {label} rank {rank['rank']} step {i}: logits "
+                               f"{errs[-1]} of the row max from the unsharded run "
+                               f"(tol {CUT_TOL})")
+    toks = [got["first"]] + [g[1] for g in got["decode"]]
+    want_toks = [want["first"][d:d + 1]] + [w[1][d:d + 1] for w in want["decode"]]
+    if not all(np.array_equal(a, b) for a, b in zip(toks, want_toks)):
+        raise RuntimeError(f"phase 2o {label} rank {rank['rank']}: greedy tokens {toks} vs "
+                           f"the unsharded run's {want_toks}")
+    return max(errs)
+
+
+def data_cut_phase(smi, dev):
+    """Phase 2o (the module docstring).  -> its report."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.sharding import ctx as CTX
+    from repro_torch.training import train_loop as TTL
+
+    t0 = time.perf_counter()
+    world = CUT_LAYOUT[0] * CUT_LAYOUT[1]
+    report = {"nvidia_smi": smi, "layout": list(CUT_LAYOUT),
+              "cuts": {"serve": {"arch": CUT_SERVE_ARCH, "n_layers": CUT_SERVE_LAYERS,
+                                 "batch": 2, "seq": CUT_SERVE_SEQ},
+                       "train": {"arch": CUT_TRAIN_ARCH, "n_layers": CUT_TRAIN_LAYERS,
+                                 "batch": 2, "seq": CUT_TRAIN_SEQ},
+                       "checkpoint": f"{CUT_TRAIN_ARCH} at reduced() (fp32)"}}
+    log(f"data-axis parameter cuts (phase 2o): {world} ranks at (dp, tp) = {CUT_LAYOUT} "
+        f"sharing one card over {collective_backend(world, 'cuda')} ({smi}); depth cut: "
+        f"{CUT_SERVE_ARCH} {CUT_SERVE_LAYERS} layer, {CUT_TRAIN_ARCH} {CUT_TRAIN_LAYERS} "
+        "layers (published widths)")
+    # (a) kimi-k2 serve, then the unsharded run after the ranks exit
+    serve = MESH_SPAWN(cut_rank, world, "cuda", args=(CUT_LAYOUT, "serve", None))
+    t_a = time.perf_counter() - t0
+    want = _cut_serve_unsharded(dev)
+    errs = []
+    for r in serve:
+        a = r["serve"]
+        errs.append(_cut_close(CUT_SERVE_ARCH, r, a, want))
+        dp, tp = CUT_LAYOUT
+        cfg = _cut_cfg(CUT_SERVE_ARCH, CUT_SERVE_LAYERS)
+        whole_ff = 3 * cfg.moe.n_experts // tp * cfg.d_model * cfg.moe.d_ff * \
+            torch.empty((), dtype=cfg.torch_dtype).element_size()
+        if a["expert_ff_bytes"] * dp != whole_ff or a["wq"][0] * dp != cfg.d_model:
+            raise RuntimeError(f"phase 2o (a) rank {r['rank']}: expert bytes "
+                               f"{a['expert_ff_bytes']} (want {whole_ff // dp}), wq {a['wq']}")
+        if max(a["peak_gb"], a["init_peak_gb"]) > CUT_RANK_GB or \
+                a["resident_after_prefill_gb"] > 1.0:
+            raise RuntimeError(f"phase 2o (a) rank {r['rank']}: peak {a['peak_gb']:.2f} GB, "
+                               f"init {a['init_peak_gb']:.2f} GB, "
+                               f"{a['resident_after_prefill_gb']:.2f} GB beside the shards and "
+                               "the cache after the layer")
+        log(f"  (a) rank {r['rank']} {r['coords']}: {a['param_bytes'] / 1e9:.3f} GB of weights "
+            f"(expert-ff {a['expert_ff_bytes'] / 1e9:.3f} GB, w_up {a['w_up']}, wq {a['wq']}); "
+            f"max_memory_allocated {a['peak_gb']:.2f} GB (init {a['init_peak_gb']:.2f} GB), "
+            f"{a['resident_after_prefill_gb']:.3f} GB beside shards and cache after the "
+            f"prefill; prefill 1 x {CUT_SERVE_SEQ} {a['prefill_s']:.2f} s, decode ms "
+            + ", ".join(f"{t:.0f}" for t in a["decode_ms"]))
+    log(f"  (a) check: {CUT_SERVE_ARCH} at (2, 2) vs whole on the card "
+        f"({want['param_bytes'] / 1e9:.2f} GB, peak {want['peak_gb']:.2f} GB): logits within "
+        f"{CUT_TOL} of the row max (max {max(errs):.2e}), greedy tokens equal")
+    report["serve"] = {"ranks": [{k: v for k, v in r["serve"].items()
+                                  if k not in ("prefill", "decode", "first")} | {
+                                      "rank": r["rank"], "coords": r["coords"]} for r in serve],
+                       "unsharded": {"param_bytes": want["param_bytes"],
+                                     "peak_gb": want["peak_gb"]},
+                       "max_err": max(errs), "wall_s": t_a}
+    del want
+    # (c) the dry run of the same cell at (2, 2), no card
+    t1 = time.perf_counter()
+    dry = DRY.trace_cell(CUT_SERVE_ARCH, "prefill_32k", CUT_LAYOUT, layers=CUT_SERVE_LAYERS,
+                         batch_size=2, seq=CUT_SERVE_SEQ)
+    held = {r["serve"]["param_bytes"] for r in serve}
+    if held != {dry["memory"]["argument_parts"]["params"]}:
+        raise RuntimeError(f"phase 2o (c): the dry run's parameter bytes "
+                           f"{dry['memory']['argument_parts']} vs the ranks' {held}")
+    log(f"  (c) dry run of {CUT_SERVE_ARCH} prefill 2 x {CUT_SERVE_SEQ}, depth "
+        f"{CUT_SERVE_LAYERS}, at {CUT_LAYOUT} (fake {dry['device']} tensors): parameter bytes "
+        f"{dry['memory']['argument_parts']['params']} == each rank's resident bytes in (a); "
+        f"{dry['flops_per_device'] / 1e9:.1f} GFLOP, {dry['bytes_per_device'] / 1e9:.2f} GB, "
+        f"collectives {dry['collectives']['total_bytes'] / 1e9:.2f} GB per rank, modelled "
+        f"temp {dry['memory']['temp_size'] / 1e9:.2f} GB ({time.perf_counter() - t1:.1f} s)")
+    report["dryrun"] = dict(dry)
+    # (b) moonshot training, the reduced() cases and the checkpoint
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="cut_ckpt_", dir=str(ROOT / "chiprun_out"))
+    t2 = time.perf_counter()
+    train = MESH_SPAWN(cut_rank, world, "cuda", args=(CUT_LAYOUT, "train", ckpt))
+    resumed = MESH_SPAWN(cut_rank, 2, "cuda", args=((1, 2), "resume", ckpt))
+    t_b = time.perf_counter() - t2
+    want = _cut_train_unsharded(dev)
+    losses = [r["train"]["loss"] for r in train]
+    if any(l != losses[0] for l in losses):
+        raise RuntimeError(f"phase 2o (b): the ranks report other losses {losses}")
+    for r in train:
+        b = r["train"]
+        d = max(abs(x - y) / abs(y) for x, y in zip(b["loss"], want["loss"]))
+        if d > CUT_LOSS_TOL or b["optimizer"] != "AdamW":
+            raise RuntimeError(f"phase 2o (b) rank {r['rank']}: losses {b['loss']} vs the "
+                               f"unsharded {want['loss']} ({d:.2e} > {CUT_LOSS_TOL})")
+        if b["k6_launches"] == 0 or b["k6_tc_launches"] != b["k6_launches"] \
+                or b["peak_gb"] > CUT_RANK_GB:
+            raise RuntimeError(f"phase 2o (b) rank {r['rank']}: K6 {b['k6_launches']} "
+                               f"({b['k6_tc_launches']} tc), peak {b['peak_gb']:.2f} GB")
+        k6 = r["k6"][CUT_TRAIN_ARCH]
+        if k6["route"] != "tc":
+            raise RuntimeError(f"phase 2o (b) rank {r['rank']}: K6 on the {k6['route']} route")
+        log(f"  (b) rank {r['rank']} {r['coords']}: {CUT_TRAIN_ARCH} "
+            f"{b['param_bytes'] / 1e9:.3f} GB of weights (expert-ff "
+            f"{b['expert_ff_bytes'] / 1e9:.3f} GB), losses "
+            + ", ".join(f"{x:.4f}" for x in b["loss"]) + " (unsharded "
+            + ", ".join(f"{x:.4f}" for x in want["loss"]) + f"; {d:.2e} rel), step ms "
+            + ", ".join(f"{t:.0f}" for t in b["step_ms"]) + f", peak {b['peak_gb']:.2f} GB; "
+            f"K6 launches {b['k6_launches']} (tc), checked at q, k {k6['shapes'][:2]}: dq "
+            f"{k6['rel_err'][0]:.2e} dk {k6['rel_err'][1]:.2e} dv {k6['rel_err'][2]:.2e} of "
+            f"max|plain| (tol {k6['tol']}; a second call bitwise equal)")
+    # the reduced() cases at (2, 2) on the card against one process on the CPU
+    from repro_torch.serving.api import MeshConfig as _MC
+    one = _MC(mesh_shape=(1, 1)).build()
+    rerr = {}
+    for label in CUT_REDUCED:
+        cfg, whole, toks, batch = _reduced_case(label)
+        ref = _lm_steps_cpu(whole, one, toks, batch)
+        e = 0.0
+        for r in train:
+            got, dd = r["reduced"][label], r["coords"]["data"]
+            e = max(e, _np_close(f"phase 2o {label} prefill", got["prefill"],
+                                 ref["prefill"][dd:dd + 1]))
+            for i, ((gl, gt), (wl, wt)) in enumerate(zip(got["decode"], ref["decode"])):
+                e = max(e, _np_close(f"phase 2o {label} decode {i}", gl, wl[dd:dd + 1]))
+                if not np.array_equal(gt, wt[dd:dd + 1]):
+                    raise RuntimeError(f"phase 2o {label} decode {i}: tokens {gt} vs "
+                                       f"{wt[dd:dd + 1]}")
+            for k in ("loss", "gnorm"):
+                dk = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got[k], ref[k]))
+                if dk > TRAIN_TOL:
+                    raise RuntimeError(f"phase 2o {label}: {k} {got[k]} vs the CPU's {ref[k]}")
+                e = max(e, dk)
+        rerr[label] = e
+    log(f"  check: {len(CUT_REDUCED)} reduced() MoE cases (fp32) at {CUT_LAYOUT} on the card "
+        f"== one process on the CPU: logits within rtol=atol={LM_TOL}, tokens equal, losses "
+        f"and norms within {TRAIN_TOL} (max {max(rerr.values()):.2e})")
+    # the checkpoint: two steps at (2, 2), the third at (1, 2) from it
+    cfg, whole, batches = _cut_ckpt_case()
+    with CTX.axes(one):
+        _, _, cpu = TTL.train(whole, STEPS.lm_loss, iter(batches), TTL.TrainConfig(
+            steps=3, optimizer=cfg.optimizer, lr=1e-3))
+    got = train[0]["ckpt"] + resumed[0]["resumed"]
+    for k in ("loss", "gnorm"):
+        dk = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(got, cpu))
+        if len(got) != 3 or dk > TRAIN_TOL or any(r["resumed"] != resumed[0]["resumed"]
+                                                 for r in resumed):
+            raise RuntimeError(f"phase 2o checkpoint: {got} vs the CPU's {cpu}")
+    shutil.rmtree(ckpt)
+    log(f"  checkpoint: {CUT_TRAIN_ARCH} reduced() written at {CUT_LAYOUT} after step 2, "
+        "restored at (1, 2) for step 3: losses " + ", ".join(f"{h['loss']:.5f}" for h in got)
+        + " == the CPU's 3 steps within " + f"{TRAIN_TOL}")
+    report["train"] = {"ranks": [{k: v for k, v in r.items() if k not in ("reduced",)}
+                                 for r in train],
+                       "unsharded": want, "reduced_err": rerr, "checkpoint": got,
+                       "wall_s": t_b}
+    log(f"  phase 2o {time.perf_counter() - t0:.1f} s ((a) ranks {t_a:.1f} s, (b) ranks "
+        f"{t_b:.1f} s, each with its ranks' start)")
+    return report
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -5308,6 +5727,13 @@ def main(argv=None):
     records = records + mesh_records
     report["kernels"] = records
     PHASE_S["2n"] = time.perf_counter() - t0
+
+    # ---- phase 2o: the data-axis parameter cuts, four ranks on the card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["data_cuts"] = data_cut_phase(smi, dev)
+    PHASE_S["2o"] = time.perf_counter() - t0
     report.update({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start})

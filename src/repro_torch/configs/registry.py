@@ -1,12 +1,13 @@
 """Architecture registry of the port: the JAX package's LM architectures
 (the five assigned and the paper's `rcllm-qwen3-8b`), its four recsys
 architectures and SchNet (`configs/registry.py`), their input-shape
-cells, and `make_batch`, which fills one cell's inputs (the shapes and
-dtypes of the reference's `input_specs`) with seeded random values."""
+cells (`cells`: the 40 assigned (arch, shape) pairs), `input_specs`,
+the shapes and dtypes of a cell's whole inputs, and `make_batch`, which
+fills one cell's inputs with seeded random values."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -30,6 +31,9 @@ ARCHS: Dict[str, Union[LMConfig, RecsysConfig, GNNConfig]] = {
     # the paper's own serving model (not one of the assigned cells)
     "rcllm-qwen3-8b": rcllm_qwen3_8b.CONFIG,
 }
+
+
+ASSIGNED = [a for a in ARCHS if a != "rcllm-qwen3-8b"]
 
 
 def family_of(arch: str) -> str:
@@ -106,9 +110,81 @@ def shapes_of(arch: str) -> Dict[str, ShapeSpec]:
     return SHAPES[family_of(arch)]
 
 
+def cells() -> Iterator[Tuple[str, str]]:
+    """All 40 (architecture, input-shape) dry-run cells."""
+    for arch in ASSIGNED:
+        for shape in shapes_of(arch):
+            yield arch, shape
+
+
 def get_config(arch: str, smoke: bool = False):
     cfg = ARCHS[arch]
     return reduced(cfg) if smoke else cfg
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of one whole input (the reference's
+    `jax.ShapeDtypeStruct`): no memory behind it."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def lm_kv_cache_specs(cfg: LMConfig, batch: int, seq: int) -> Dict[str, TensorSpec]:
+    kv = TensorSpec(lm_kv_cache_shape(cfg, batch, seq), cfg.torch_dtype)
+    return {"k": kv, "v": kv}
+
+
+def input_specs(arch: str, shape_name: str) -> Dict[str, Any]:
+    """`TensorSpec`s of every model input of one cell, as `make_batch`
+    fills them (the reference's `input_specs`)."""
+    cfg = ARCHS[arch]
+    fam = family_of(arch)
+    spec = SHAPES[fam][shape_name]
+    d = spec.dims
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    T = lambda *shape_dtype: TensorSpec(tuple(shape_dtype[:-1]), shape_dtype[-1])
+    if fam == "lm":
+        b, s = d["batch"], d["seq"]
+        if spec.step == "train":
+            return {"tokens": T(b, s, i32), "labels": T(b, s, i32)}
+        if spec.step == "prefill":
+            return {"tokens": T(b, s, i32)}
+        return {"tokens": T(b, 1, i32), "cache": lm_kv_cache_specs(cfg, b, s),
+                "positions": T(b, i32)}
+    if fam == "gnn":
+        if shape_name == "molecule":
+            b, n, e = d["batch"], d["n_nodes"], d["n_edges"]
+            return {"atom_types": T(b, n, i32), "positions": T(b, n, 3, f32),
+                    "edge_src": T(b, e, i32), "edge_dst": T(b, e, i32),
+                    "edge_mask": T(b, e, b8), "targets": T(b, f32)}
+        sub = shape_name == "minibatch_lg"
+        n, e = (d["sub_nodes"], d["sub_edges"]) if sub else (d["n_nodes"], d["n_edges"])
+        out = {"node_feat": T(n, d["d_feat"], f32), "positions": T(n, 3, f32),
+               "edge_src": T(e, i32), "edge_dst": T(e, i32)}
+        if sub:
+            out["seed_labels"] = T(d["batch_nodes"], i32)
+        else:
+            out["labels"] = T(n, i32)
+        return out
+    b = d["batch"]
+    if cfg.kind in ("wide_deep", "autoint"):
+        out = {"dense": T(b, cfg.n_dense, f32), "sparse_ids": T(b, len(cfg.field_vocabs), i32)}
+    elif cfg.kind == "dien":
+        L = cfg.seq_len
+        out = {"hist_items": T(b, L, i32), "hist_cates": T(b, L, i32),
+               "hist_mask": T(b, L, b8), "target_item": T(b, i32), "target_cate": T(b, i32)}
+    else:
+        out = {"item_seq": T(b, cfg.seq_len, i32), "seq_mask": T(b, cfg.seq_len, b8)}
+    if spec.step == "retrieval":
+        out["candidate_ids"] = T(d["n_candidates"], i32)
+    if spec.step == "train":
+        if cfg.kind == "bert4rec":
+            n_mask = max(1, cfg.seq_len // 10)
+            out.update(mlm_positions=T(b, n_mask, i32), mlm_labels=T(b, n_mask, i32),
+                       neg_samples=T(BERT4REC_NEGATIVES, i32))
+        else:
+            out["labels"] = T(b, f32)
+    return out
 
 
 def lm_kv_cache_shape(cfg: LMConfig, batch: int, seq: int) -> Tuple[int, ...]:
@@ -157,7 +233,8 @@ def make_lm_batch(cfg: LMConfig, shape_name: str, generator: torch.Generator,
 
 
 def make_gnn_batch(cfg: GNNConfig, shape_name: str, generator: torch.Generator,
-                   device="cuda", batch: Optional[int] = None) -> Dict:
+                   device="cuda", batch: Optional[int] = None,
+                   multi_card: bool = False) -> Dict:
     """A SchNet train cell's inputs (`input_specs`' keys, shapes and
     dtypes).  molecule: B molecules of N atoms (types uniform over
     `n_atom_types`, positions normal x 1.5), E edges each between atoms
@@ -167,8 +244,10 @@ def make_gnn_batch(cfg: GNNConfig, shape_name: str, generator: torch.Generator,
     the cutoff), edges uniform over the nodes, labels uniform over the
     classes (minibatch_lg: a random graph of the sampled subgraph's
     sizes, the seeds' labels only; `chip_smoke.py` samples the real
-    graph through `gnn.sampler`).  `batch` replaces molecule's batch."""
-    refuse_multi_card(shape_name)
+    graph through `gnn.sampler`).  `batch` replaces molecule's batch.
+    A cell of MULTI_CARD_CELLS is refused unless `multi_card`."""
+    if not multi_card:
+        refuse_multi_card(shape_name)
     d = GNN_SHAPES[shape_name].dims
     kw = dict(generator=generator, device=generator.device)
     if shape_name == "molecule":
@@ -195,7 +274,8 @@ def make_gnn_batch(cfg: GNNConfig, shape_name: str, generator: torch.Generator,
 
 
 def make_batch(cfg, shape_name: str, generator: torch.Generator, device="cuda",
-               batch: Optional[int] = None, seq: Optional[int] = None) -> Dict:
+               batch: Optional[int] = None, seq: Optional[int] = None,
+               multi_card: bool = False) -> Dict:
     """One cell's inputs, drawn from `generator` on its own device and
     moved to `device`.  LM cells: `make_lm_batch`; GNN cells:
     `make_gnn_batch`.  Recsys cells: ids uniform over each field's
@@ -209,7 +289,7 @@ def make_batch(cfg, shape_name: str, generator: torch.Generator, device="cuda",
     if isinstance(cfg, LMConfig):
         return make_lm_batch(cfg, shape_name, generator, device, batch, seq)
     if isinstance(cfg, GNNConfig):
-        return make_gnn_batch(cfg, shape_name, generator, device, batch)
+        return make_gnn_batch(cfg, shape_name, generator, device, batch, multi_card)
     spec = RECSYS_SHAPES[shape_name]
     b = spec.dims["batch"] if batch is None else batch
     kw = dict(generator=generator, device=generator.device)

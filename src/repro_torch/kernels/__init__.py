@@ -2,7 +2,13 @@
 they replace, each with its plain PyTorch version (`ref.py`) and a
 wrapper (`ops.py`).  A wrapper picks by the device of its tensors: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (or
-raises) — there is no fallback from one to the other."""
+raises) — there is no fallback from one to the other.
+
+The one exception is the dry run (`launch.dryrun`), which traces a
+rank's step on fake tensors that hold no memory: there (`shape_only`) a
+wrapper launches nothing and runs no plain version, but returns outputs
+of the right shape and dtype and records its kernel's work, the FLOPs
+and bytes of the formula its bound uses (`record_work`)."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +18,28 @@ import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMS: Dict[int, int] = {}
+
+# the dry run's recorder, fn(kernel name, flops, bytes); None outside one
+DRY_RUN = None
+
+
+def shape_only(*tensors: torch.Tensor) -> bool:
+    """Is this call traced by the dry run on its fake tensors?"""
+    if DRY_RUN is None:
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def record_work(name: str, flops: float, nbytes: float) -> None:
+    """Add a shape-only call's kernel work to the dry run's counts."""
+    DRY_RUN(name, float(flops), float(nbytes))
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors' elements (None counts 0)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

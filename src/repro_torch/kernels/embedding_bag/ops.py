@@ -77,6 +77,12 @@ def bag_sum(table: torch.Tensor, ids: torch.Tensor, row0: int = 0) -> torch.Tens
     ids: (B, F) int32 global row ids.  -> (B, d) in the table's dtype:
     each bag's rows that lie in the window summed in fp32 in field order
     and rounded once (other ids skipped)."""
+    if K.shape_only(table, ids):
+        # ids read once, each bag's rows read once, the sums written once
+        rows = ids.numel() * table.shape[1]
+        out = table.new_empty((ids.shape[0], table.shape[1]))
+        K.record_work("bag_sum", rows, K.nbytes(ids, out) + rows * table.element_size())
+        return out
     if not K.on_cuda(table, ids):
         return embedding_bag_ref(table, ids, row0)
     if table.dim() != 2 or ids.dim() != 2:
@@ -115,6 +121,11 @@ def bag_backward(ids: torch.Tensor, d_out: torch.Tensor, rows: int,
     dtype (fp32 or bf16).  -> (rows, d) in d_out's dtype, summed in fp32
     (atomics on the card: the order of a row's sums varies from run to
     run) and rounded once."""
+    if K.shape_only(ids, d_out):
+        # ids and d_out read once, the (rows, d) fp32 gradient written once
+        K.record_work("bag_backward", ids.numel() * d_out.shape[1],
+                      K.nbytes(ids, d_out) + rows * d_out.shape[1] * 4)
+        return d_out.new_empty((rows, d_out.shape[1]))
     if not K.on_cuda(ids, d_out):
         return bag_backward_ref(ids, d_out, rows, row0)
     if ids.dim() != 2 or d_out.dim() != 2 or d_out.shape[0] != ids.shape[0]:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import kernels as K
@@ -150,11 +151,25 @@ def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "simt"
 
 
+def live_pairs(q_positions, kv_positions, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs `ref.band_mask` keeps at these host positions
+    (numpy), counted without building the (Sq, Skv) mask."""
+    kpos = np.sort(np.asarray(kv_positions, dtype=np.int64))
+    q = np.asarray(q_positions, dtype=np.int64)
+    if causal:
+        hi = np.searchsorted(kpos, q, side="right")
+        lo = 0 if window is None else np.searchsorted(kpos, q - window, side="right")
+    else:
+        hi = len(kpos) if window is None else np.searchsorted(kpos, q + window, side="left")
+        lo = 0 if window is None else np.searchsorted(kpos, q - window, side="right")
+    return int(np.sum(hi - lo))
+
+
 def mha_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                   lse: torch.Tensor, dout: torch.Tensor, q_positions: torch.Tensor,
                   kv_positions: torch.Tensor, *, causal: bool = True,
                   window: Optional[int] = None, q_chunk: int = 512,
-                  kv_chunk: int = 1024):
+                  kv_chunk: int = 1024, host_positions=None):
     """Gradients of attention with respect to q, k and v (the JAX
     package's `_flash_bwd`): q, out, dout (B, Sq, Hq, D); k, v (B, Skv,
     Hkv, D), Hkv | Hq; lse (B, Sq, Hq) fp32, the forward's log-sum-exp;
@@ -163,8 +178,18 @@ def mha_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     every float operand must be contiguous and of one dtype (fp32 or
     bf16), D <= 256, and the call takes the route `_bwd_route` names;
     q_chunk and kv_chunk shape only the plain version's tiles (the order
-    of its sums)."""
+    of its sums).  `host_positions`: the positions as host arrays,
+    which only the dry run's shape-only branch reads (it counts the live
+    pairs of the bound's formula from them)."""
     tensors = (q, k, v, out, lse, dout, q_positions, kv_positions)
+    if K.shape_only(*tensors):
+        if host_positions is None:
+            raise ValueError("a shape-only call counts its live pairs from host_positions")
+        B, _, Hq, D = q.shape
+        live = live_pairs(*host_positions, causal, window)
+        K.record_work("flash_bwd", 10 * D * live * B * Hq,
+                      K.nbytes(*tensors) + K.nbytes(q, k, v))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not K.on_cuda(*tensors):
         return flash_bwd_ref(q, k, v, out, lse, dout, q_positions, kv_positions,
                              causal=causal, window=window, q_chunk=q_chunk,

@@ -15,6 +15,15 @@ replica ``d``.
 process group.  Without an initialised group the world is this one
 process, so only a one-device shape such as (1, 1) builds there, and a
 larger explicit shape raises the reference's explicit-shape error.
+``multi_pod=True`` prepends a ``pod`` axis of 2, as the reference's does;
+the data axes are then ``("pod", "data")`` and a rank also gets one group
+over both of them (`Mesh.groups[("pod", "data")]`).
+
+`fake_world` joins this process to a world of any size through
+torch's ``fake`` backend, whose collectives move nothing: the dry run
+(`launch.dryrun`) builds rank 0's (or any rank's) mesh of a 16 x 16 pod or
+of two pods there, with every group a real mesh has, and traces the
+rank's step on fake tensors.
 
 `spawn_ranks` starts the ranks of a run itself (`torch.multiprocessing`,
 one fresh interpreter per rank, a free local port); `init_rank` also
@@ -26,6 +35,7 @@ on the CPU when asked.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
 import math
@@ -97,14 +107,20 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.shape.values())
 
-    def axis_ranks(self, axis: str) -> List[int]:
-        """Global ranks of this rank's group along `axis`, by coordinate
-        (the first is the group's deciding rank)."""
+    def axis_ranks(self, axis) -> List[int]:
+        """Global ranks of this rank's group along `axis` (a name, or a
+        tuple of names: the ranks that differ from this one only along
+        them), by their block index over those axes, counted in mesh order
+        with the last axis fastest (the first is the group's deciding
+        rank)."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
         names = self.axis_names
         dims = tuple(self.shape[a] for a in names)
+        free = [a for a in names if a in axes]
         out = []
-        for c in range(self.shape[axis]):
-            idx = tuple(c if a == axis else self.coords[a] for a in names)
+        for fixed in itertools.product(*(range(self.shape[a]) for a in free)):
+            at = dict(zip(free, fixed))
+            idx = tuple(at.get(a, self.coords[a]) for a in names)
             out.append(int(np.ravel_multi_index(idx, dims)))
         return out
 
@@ -128,15 +144,22 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_production_mesh(*, shape: Optional[Sequence[int]] = None,
+def make_production_mesh(*, multi_pod: bool = False, shape: Optional[Sequence[int]] = None,
                          axis_names: Optional[Sequence[str]] = None) -> Mesh:
     """This rank's `Mesh` over the initialised process group (the world is
     this one process when none is initialised).  Without `shape` the
-    world is factored into (data, model) (`factor_devices`).  An explicit
-    shape must cover exactly the world's ranks."""
+    world is factored into (data, model) (`factor_devices`), with
+    `multi_pod` into (2, data, model) over ("pod", "data", "model").  An
+    explicit shape must cover exactly the world's ranks."""
     n_avail = _world()
     if shape is None:
-        shape = factor_devices(n_avail)
+        if multi_pod:
+            if n_avail % 2:
+                raise RuntimeError(f"multi-pod mesh needs an even device count to split "
+                                   f"across 2 pods, found {n_avail}")
+            shape = (2,) + factor_devices(n_avail // 2)
+        else:
+            shape = factor_devices(n_avail)
     shape = tuple(int(s) for s in shape)
     if axis_names is None:
         axis_names = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
@@ -160,19 +183,44 @@ def make_production_mesh(*, shape: Optional[Sequence[int]] = None,
     mesh = Mesh(shape, axis_names, rank=rank,
                 backend=dist.get_backend() if dist.is_initialized() else None)
     if n > 1:
-        # every rank takes part in creating every group, in one order
-        for axis in axis_names:
-            others = [a for a in axis_names if a != axis]
+        # every rank takes part in creating every group, in one order: one
+        # per axis, and on a pod mesh one over both data axes
+        keys = list(axis_names)
+        if "pod" in axis_names:
+            keys.append(data_axes(mesh))
+        for key_axes in keys:
+            free = (key_axes,) if isinstance(key_axes, str) else key_axes
+            others = [a for a in axis_names if a not in free]
             for fixed in itertools.product(*(range(mesh.shape[a]) for a in others)):
-                at = dict(zip(others, fixed))
-                ranks = [int(np.ravel_multi_index(
-                    tuple(c if a == axis else at[a] for a in axis_names), shape))
-                    for c in range(mesh.shape[axis])]
+                at = Mesh(shape, axis_names, rank=int(np.ravel_multi_index(
+                    tuple(fixed[others.index(a)] if a in others else 0
+                          for a in axis_names), shape)))
+                ranks = at.axis_ranks(free)
                 group = dist.new_group(ranks) if len(ranks) > 1 else None
                 if mesh.rank in ranks:
-                    mesh.groups[axis] = group
+                    mesh.groups[key_axes] = group
     _BUILT[key] = mesh
     return mesh
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """This process as rank `rank` of a `world`-rank process group on
+    torch's ``fake`` backend (collectives complete at once and move
+    nothing) while the block runs; the group and every mesh built over it
+    are dropped on exit.  Meshes are built inside with
+    `make_production_mesh`."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a fake world needs a process with no process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        for k in [k for k in _BUILT if k[2] == world]:
+            del _BUILT[k]
 
 
 # ------------------------------------------------------------ launching ranks

@@ -398,15 +398,18 @@ def build(arch: str, shape: str, mesh, device="cuda", smoke: bool = False, sourc
           generator: Optional[torch.Generator] = None, batch: Optional[Dict] = None,
           batch_size: Optional[int] = None, seq: Optional[int] = None,
           layers: Optional[int] = None, train_cfg: Optional[TrainConfig] = None,
-          model: Optional[Model] = None) -> MeshBundle:
+          model: Optional[Model] = None, multi_card: bool = False) -> MeshBundle:
     """The cell `shape` of `arch` on `mesh` (the module docstring): the
     model from `source` (a whole model; an LM also the reference's numpy
     tree) or `generator` (seeded 0 on `device` by default), the global
     batch `batch` or `registry.make_batch`'s (`batch_size` / `seq`
     replacing the cell's dims), cut to this rank.  A recsys or GNN cell
     may take this rank's `model` from an earlier bundle instead (one
-    shard scores and trains)."""
-    R.refuse_multi_card(shape)
+    shard scores and trains).  `multi_card`: build a cell one card cannot
+    hold (`registry.MULTI_CARD_CELLS`; the dry run's ranks), which is
+    refused otherwise."""
+    if not multi_card:
+        R.refuse_multi_card(shape)
     dev = torch.device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
     fam = R.family_of(arch)
@@ -415,7 +418,7 @@ def build(arch: str, shape: str, mesh, device="cuda", smoke: bool = False, sourc
                               batch_size, model)
     if fam == "gnn":
         return _gnn_bundle(R.get_config(arch, smoke), shape, mesh, dev, gen, source, batch,
-                           batch_size, model)
+                           batch_size, model, multi_card)
     spec = R.LM_SHAPES[shape]
     cfg = cut_config(R.get_config(arch, smoke), layers)
     model = rank_model(cfg, mesh, spec.step, dev, source, gen)
@@ -497,7 +500,7 @@ def gnn_inputs(mesh, shape: str, batch: Dict) -> Tuple[Dict, tuple]:
 
 
 def _gnn_bundle(cfg, shape: str, mesh, dev, gen, source, batch, batch_size,
-                model=None) -> MeshBundle:
+                model=None, multi_card: bool = False) -> MeshBundle:
     """The reference's `_gnn_bundle` on this rank (the module docstring):
     the molecule regime's loss is each data rank's mean over its
     molecules, a graph's is every rank's whole loss.  A `source` is
@@ -506,7 +509,7 @@ def _gnn_bundle(cfg, shape: str, mesh, dev, gen, source, batch, batch_size,
         model = copy.deepcopy(source) if source is not None else \
             init_model(cfg, gen, dev, shape)
     if batch is None:
-        batch = R.make_batch(cfg, shape, gen, dev, batch_size)
+        batch = R.make_batch(cfg, shape, gen, dev, batch_size, multi_card=multi_card)
     inputs, axes = gnn_inputs(mesh, shape, batch)
     molecules = "atom_types" in batch
     with CTX.axes(mesh):

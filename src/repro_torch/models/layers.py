@@ -18,8 +18,11 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention.ops import mha_flash_bwd
 from repro_torch.sharding import ctx as CTX
 
@@ -66,15 +69,18 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched product (B, n, k) @ (B, k, m) with an fp32 result, as the
     reference's `preferred_element_type=float32`: fp32 inputs as they
     are; bf16 inputs on the card accumulate in fp32 and come out
-    unrounded; elsewhere they are widened first (exact)."""
+    unrounded (and so does the dry run's trace of the card's program,
+    `kernels.shape_only`); elsewhere they are widened first (exact)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.is_cuda or K.shape_only(a):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
 
 def _host(positions) -> np.ndarray:
+    if isinstance(positions, np.ndarray):
+        return positions.astype(np.int64, copy=False)
     return np.asarray(torch.as_tensor(positions).cpu(), dtype=np.int64)
 
 
@@ -189,24 +195,27 @@ class _FlashAttention(torch.autograd.Function):
     tile-for-tile plain version on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window, q_chunk, kv_chunk):
+    def forward(ctx, q, k, v, q_positions, kv_positions, host, causal, window, q_chunk,
+                kv_chunk):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = chunked_attention(q, k, v, causal=causal, q_positions=q_positions,
-                                     kv_positions=kv_positions, sliding_window=window,
+        out, lse = chunked_attention(q, k, v, causal=causal, q_positions=host[0],
+                                     kv_positions=host[1], sliding_window=window,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=True)
         out, lse = out.contiguous(), lse.contiguous()
         ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions)
-        ctx.cfg = (causal, window, q_chunk, kv_chunk)
+        ctx.cfg = (causal, window, q_chunk, kv_chunk, host)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, qpos, kpos = ctx.saved_tensors
-        causal, window, q_chunk, kv_chunk = ctx.cfg
+        causal, window, q_chunk, kv_chunk, host = ctx.cfg
+        # the dry run's shape-only call counts its live pairs on the host
+        extra = {"host_positions": host} if K.shape_only(q) else {}
         dq, dk, dv = mha_flash_bwd(q, k, v, out, lse, dout.contiguous(), qpos, kpos,
                                    causal=causal, window=window, q_chunk=q_chunk,
-                                   kv_chunk=kv_chunk)
-        return dq, dk, dv, None, None, None, None, None, None
+                                   kv_chunk=kv_chunk, **extra)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -215,11 +224,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """Differentiable attention of the training path (the reference's
     `chunked_attention` without `kv_valid`, which routes through `_flash`):
     the value of `chunked_attention`, the gradient of `_flash_bwd`.
-    Positions go to the backward as int32 tensors on q's device."""
+    Positions go to the backward as int32 tensors on q's device (and as
+    host arrays, which the forward's chunk plan reads)."""
     dev = q.device
-    qpos = torch.as_tensor(q_positions, device=dev).to(torch.int32).contiguous()
-    kpos = torch.as_tensor(kv_positions, device=dev).to(torch.int32).contiguous()
-    return _FlashAttention.apply(q, k, v, qpos, kpos, causal, sliding_window, q_chunk,
+    host = (_host(q_positions), _host(kv_positions))
+    qpos = torch.as_tensor(host[0], device=dev).to(torch.int32).contiguous()
+    kpos = torch.as_tensor(host[1], device=dev).to(torch.int32).contiguous()
+    return _FlashAttention.apply(q, k, v, qpos, kpos, host, causal, sliding_window, q_chunk,
                                  kv_chunk)
 
 
@@ -403,9 +414,76 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, *, n_experts: int, top_k: i
             "slot_tok": order[clipped] // K, "slot_valid": slot_valid}
 
 
+# bytes of one weight's gathered experts that `moe_apply` holds at a time
+# (a chunk of experts; kimi-k2's w_up at 16-way EP is 11.3 GB / 16 whole)
+GATHER_CHUNK_BYTES = 256 << 20
+
+
+def _expert_ffn(expert_in: torch.Tensor, params: Mapping[str, torch.Tensor],
+                mlp_type: str, gather: bool,
+                experts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The experts' products on their slots: expert_in (E, C, D) ->
+    (E, C, D).  With `gather` the weights are the rank's expert-ff blocks
+    over the data axes, gathered whole a chunk of experts at a time
+    (`GATHER_CHUNK_BYTES`), each chunk dropped before the next.  With
+    `experts` (the indices of the experts that have slots, `_used_experts`)
+    only those are computed, the other experts' rows are zeros."""
+    E = expert_in.shape[0]
+    names = ("w_gate", "w_up", "w_down") if mlp_type in ("swiglu", "geglu") else \
+        ("w_up", "w_down")
+    step = E
+    if gather:
+        whole = params["w_up"][0].numel() * params["w_up"].element_size() * CTX.dp_size()
+        step = max(1, min(E, GATHER_CHUNK_BYTES // max(1, whole)))
+    outs = []
+    n = E if experts is None else experts.numel()
+    for e0 in range(0, n, step):
+        if experts is None:
+            w = {k: params[k][e0:e0 + step] for k in names}
+            xe = expert_in[e0:e0 + step]
+        else:
+            w = {k: params[k][experts[e0:e0 + step]] for k in names}
+            xe = expert_in[experts[e0:e0 + step]]
+        if gather:
+            w = {k: CTX.gather_data(t, 1 if k == "w_down" else 2) for k, t in w.items()}
+        if mlp_type in ("swiglu", "geglu"):
+            h = activation(torch.bmm(xe, w["w_gate"]), mlp_type) * torch.bmm(xe, w["w_up"])
+        else:
+            h = activation(torch.bmm(xe, w["w_up"]), mlp_type)
+        outs.append(torch.bmm(h, w["w_down"]))
+        del w, h
+    if experts is not None:
+        out = torch.zeros_like(expert_in)
+        if outs:
+            out[experts] = torch.cat(outs)
+        return out
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _used_experts(slot_valid: torch.Tensor) -> torch.Tensor:
+    """Serving with gathered experts: the rank's experts that some data
+    rank fills a slot of (their union over the data axes, so that the
+    data ranks gather the same ones), read on the host (one sync a
+    layer).  A decode step's few tokens reach a few of the experts, and
+    only those are gathered."""
+    used = slot_valid.any(-1).to(torch.int32)
+    CTX.reduce_(used, "data", dist.ReduceOp.MAX)
+    return torch.nonzero(used).flatten()
+
+
+def _expert_ffn_in(mesh, *args) -> torch.Tensor:
+    """`_expert_ffn` inside `mesh` (a recomputation in the backward runs on
+    autograd's thread, where the caller's mesh is not current)."""
+    if mesh is None:
+        return _expert_ffn(*args)
+    with CTX.axes(mesh):
+        return _expert_ffn(*args)
+
+
 def moe_apply(x: torch.Tensor, params: Mapping[str, torch.Tensor], *, n_experts: int,
               top_k: int, capacity_factor: float, mlp_type: str,
-              dp_batch: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+              dp_batch: bool = True, ff_cut: bool = False,
+              remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (T, D) -> (T, D) and the aux term, by the reference's gather-only
     dispatch: `moe_route`, the (E, C, D) expert inputs gathered by slot,
     the experts as batched products, and the K routes combined by
@@ -417,7 +495,16 @@ def moe_apply(x: torch.Tensor, params: Mapping[str, torch.Tensor], *, n_experts:
     the whole router, runs only its experts' slots, combines the routes
     that went to them, and the ranks' outputs are summed over the model
     axis; x and the gates enter that region through `copy_to_tp`, so the
-    router's gradient is the whole model's."""
+    router's gradient is the whole model's.
+
+    `ff_cut`: the expert weights are the rank's blocks of the expert-ff
+    dimension over the data axes, gathered where they are used
+    (`_expert_ffn`).  Under autograd without `remat` (whose layer
+    recomputation already drops them) the products are recomputed in the
+    backward, so the gathered weights are not kept for it.  Serving
+    gathers only the experts that some data rank routes a token to
+    (`_used_experts`); the dry run's trace, which cannot read the routing,
+    gathers every one."""
     T, D = x.shape
     r = moe_route(x, params["router"], n_experts=n_experts, top_k=top_k,
                   capacity_factor=capacity_factor, dp_batch=dp_batch)
@@ -428,13 +515,16 @@ def moe_apply(x: torch.Tensor, params: Mapping[str, torch.Tensor], *, n_experts:
     C = r["C"]
     slot_tok, slot_valid = r["slot_tok"][e0:e0 + E_loc], r["slot_valid"][e0:e0 + E_loc]
     expert_in = torch.where(slot_valid[..., None], x[slot_tok.clamp(0, T - 1)], 0)
-    if mlp_type in ("swiglu", "geglu"):
-        h = activation(torch.bmm(expert_in, params["w_gate"]), mlp_type) * \
-            torch.bmm(expert_in, params["w_up"])
+    gather = ff_cut and CTX.dp_size() > 1
+    if gather and not remat and torch.is_grad_enabled():
+        flat_out = checkpoint(_expert_ffn_in, CTX.current(), expert_in, dict(params), mlp_type,
+                              gather, use_reentrant=False)
     else:
-        h = activation(torch.bmm(expert_in, params["w_up"]), mlp_type)
-    flat_out = torch.bmm(h, params["w_down"]).reshape(-1, D)            # (E_loc*C, D)
-    del expert_in, h
+        serving = gather and not torch.is_grad_enabled() and not K.shape_only(x)
+        flat_out = _expert_ffn(expert_in, params, mlp_type, gather,
+                               _used_experts(slot_valid) if serving else None)
+    flat_out = flat_out.reshape(-1, D)                                  # (E_loc*C, D)
+    del expert_in
     y = None
     for j in range(top_k):
         keep = r["keep_tk"][:, j]

@@ -54,6 +54,14 @@ its block with the block's global positions, merges the blocks by their
 log-sum-exp (`sharding.ctx.merge_attention`, flash-decoding) and keeps
 its own heads for ``wo``.
 
+A shard may also be cut over the data axes (``dp > 1``: an MoE's
+expert-ff columns, ``d_ff / dp`` of w_gate / w_up and rows of w_down;
+with ``din``, serve mode's d_model rows of wq / wk / wv and columns of
+wo, ``d_model / dp``): each layer gathers those weights over the data
+axes just before its products (`sharding.ctx.gather_data`; the experts
+a chunk at a time, `layers.moe_apply`) and drops them after, so no whole
+copy lives between layers.
+
 Under data parallelism the steps take the rank's rows of a batch cut over
 the data axis (``dp_batch=True``, the default; False where every data
 rank holds the whole batch, as a decode batch the data axis does not
@@ -63,6 +71,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -84,11 +93,17 @@ class Block(nn.Module):
     `cfg.moe` is set, experts (`moe`: router (D, E) fp32 whatever the
     model's dtype, w_gate / w_up (E, D, F), w_down (E, F, D))."""
 
-    def __init__(self, cfg: LMConfig, device=None, tp: int = 1, tp_rank: int = 0):
+    def __init__(self, cfg: LMConfig, device=None, tp: int = 1, tp_rank: int = 0,
+                 dp: int = 1, din: bool = False):
         super().__init__()
         D, dh, dt = cfg.d_model, cfg.resolved_head_dim, cfg.torch_dtype
         kw = dict(dtype=dt, device=device)
         H, F = cfg.n_heads // tp, cfg.d_ff // tp
+        # the data-axis cuts (the module docstring): d_model of the
+        # attention's weights, an MoE's expert-ff columns
+        self.din_cut = din and dp > 1
+        self.ff_cut = cfg.moe is not None and dp > 1
+        Din = D // dp if self.din_cut else D
         # a Dh-cut shard: every kv head, dh / tp columns; `kv_keep` the kv
         # heads its query heads read
         self.kv_cut = kv_dh_cut(cfg, tp)
@@ -98,10 +113,10 @@ class Block(nn.Module):
         self.kv_keep = slice(first, first + max(1, H // group)) if self.kv_cut else None
         self.attn_norm = _frozen(torch.zeros(D, **kw))
         self.mlp_norm = _frozen(torch.zeros(D, **kw))
-        self.wq = _frozen(torch.empty(D, H, dh, **kw))
-        self.wk = _frozen(torch.empty(D, Hkv, dk, **kw))
-        self.wv = _frozen(torch.empty(D, Hkv, dk, **kw))
-        self.wo = _frozen(torch.empty(H, dh, D, **kw))
+        self.wq = _frozen(torch.empty(Din, H, dh, **kw))
+        self.wk = _frozen(torch.empty(Din, Hkv, dk, **kw))
+        self.wv = _frozen(torch.empty(Din, Hkv, dk, **kw))
+        self.wo = _frozen(torch.empty(H, dh, Din, **kw))
         names = ["w_up", "w_down"]
         if cfg.mlp_type in ("swiglu", "geglu"):
             names.append("w_gate")
@@ -110,7 +125,7 @@ class Block(nn.Module):
             self.mlp = nn.ParameterDict(
                 {n: _frozen(torch.empty(shapes[n], **kw)) for n in names})
         else:
-            E, Fe = cfg.moe.n_experts // tp, cfg.moe.d_ff
+            E, Fe = cfg.moe.n_experts // tp, cfg.moe.d_ff // dp
             shapes = {"w_up": (E, D, Fe), "w_gate": (E, D, Fe), "w_down": (E, Fe, D)}
             router = torch.empty(D, cfg.moe.n_experts, dtype=torch.float32, device=device)
             self.moe = nn.ParameterDict(
@@ -122,14 +137,15 @@ class Transformer(nn.Module):
     """The whole model, or with ``tp > 1`` rank ``tp_rank``'s shard of it
     (the module docstring)."""
 
-    def __init__(self, cfg: LMConfig, device=None, tp: int = 1, tp_rank: int = 0):
+    def __init__(self, cfg: LMConfig, device=None, tp: int = 1, tp_rank: int = 0,
+                 dp: int = 1, din: bool = False):
         super().__init__()
         self.cfg = cfg
         self.tp, self.tp_rank = int(tp), int(tp_rank)
         V = cfg.vocab_size // self.tp
         kw = dict(dtype=cfg.torch_dtype, device=device)
         self.embed = _frozen(torch.empty(V, cfg.d_model, **kw))
-        self.layers = nn.ModuleList([Block(cfg, device, self.tp, self.tp_rank)
+        self.layers = nn.ModuleList([Block(cfg, device, self.tp, self.tp_rank, dp, din)
                                      for _ in range(cfg.n_layers)])
         self.final_norm = _frozen(torch.zeros(cfg.d_model, **kw))
         self.lm_head = (None if cfg.tie_embeddings else
@@ -180,21 +196,21 @@ class Transformer(nn.Module):
 
 def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
                 device="cuda", tp: int = 1, tp_rank: int = 0,
-                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
-                ) -> Transformer:
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+                dp: int = 1, din: bool = False) -> Transformer:
     """Random weights with the reference's init scales, drawn from an
     explicit `torch.Generator` (which must live on `device`).  torch does
     not reproduce JAX's PRNG: parity tests build weights in JAX and
     convert them (`models.convert.params_from_numpy`).
 
-    With `keep`, the model is rank `tp_rank`'s shard of `tp`: each
-    parameter is drawn whole, with the same draws as the whole model's,
-    and ``keep(name, full)`` returns the rank's block of it
-    (`sharding.specs.init_sharded_params`), so the rank holds one whole
-    parameter at a time."""
-    if tp != 1 and keep is None:
+    With `keep`, the model is rank `tp_rank`'s shard of `tp` (and of the
+    data-axis cuts `dp` / `din`): each parameter is drawn whole, with the
+    same draws as the whole model's, and ``keep(name, full)`` returns the
+    rank's block of it (`sharding.specs.init_sharded_params`), so the rank
+    holds one whole parameter at a time."""
+    if (tp != 1 or dp != 1) and keep is None:
         raise ValueError("a shard's parameters are cut from whole draws: pass keep")
-    model = Transformer(cfg, device=device, tp=tp, tp_rank=tp_rank)
+    model = Transformer(cfg, device=device, tp=tp, tp_rank=tp_rank, dp=dp, din=din)
     whole = model if keep is None else Transformer(cfg, device="meta")
     D, dh = cfg.d_model, cfg.resolved_head_dim
     std = D ** -0.5
@@ -232,19 +248,31 @@ def init_params(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 
 
 def qkv(x: torch.Tensor, lp: Block, cfg: LMConfig,
-        positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        positions) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B, S, D) at `positions` (broadcastable to (B, S)) -> q, k (both
     rotated), v: (B, S, H, Dh).  A Dh-cut shard's k and v have every kv
     head whole: gathered over the model axis (backward a reduce-scatter),
     then rotated."""
     h = CTX.copy_to_tp(L.rms_norm(x, lp.attn_norm, cfg.norm_eps))
-    q = torch.einsum("bsd,dhe->bshe", h, lp.wq)
-    k = torch.einsum("bsd,dhe->bshe", h, lp.wk)
-    v = torch.einsum("bsd,dhe->bshe", h, lp.wv)
+    q = torch.einsum("bsd,dhe->bshe", h, _din(lp, lp.wq, 0))
+    k = torch.einsum("bsd,dhe->bshe", h, _din(lp, lp.wk, 0))
+    v = torch.einsum("bsd,dhe->bshe", h, _din(lp, lp.wv, 0))
     if lp.kv_cut:
         k, v = CTX.gather_last(k), CTX.gather_last(v)
     return (L.apply_rope(q, positions, cfg.rope_theta),
             L.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _din(lp: Block, w: torch.Tensor, dim: int) -> torch.Tensor:
+    """`w` with its d_model dimension `dim` whole: gathered over the data
+    axes where the shard holds its block of it (serve mode of an MoE)."""
+    return CTX.gather_data(w, dim) if lp.din_cut else w
+
+
+def out_proj(o: torch.Tensor, lp: Block) -> torch.Tensor:
+    """The attention output (B, S, H, Dh) through ``wo``, the shards'
+    partial products summed over the model axis."""
+    return CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, _din(lp, lp.wo, 2)))
 
 
 def own_kv(lp: Block, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -262,7 +290,7 @@ def attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
     q, k, v = qkv(x, lp, cfg, torch.arange(x.shape[1], device=x.device))
     k, v = own_kv(lp, k, v)
     o = (mha_flash if kernels else mha_flash_ref)(q, k, v.contiguous(), causal=True)
-    return CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
+    return out_proj(o, lp)
 
 
 @torch.no_grad()
@@ -283,16 +311,17 @@ Cache = Dict[str, torch.Tensor]
 
 
 def prefill_attention_block(x: torch.Tensor, lp: Block, cfg: LMConfig,
-                            positions: torch.Tensor):
+                            positions: np.ndarray):
     """The reference's `_attention_block`: causal (and windowed) chunked
-    attention over x (B, S, D).  -> (output (B, S, D), (k, v) as `qkv`
+    attention over x (B, S, D) at `positions` (host numpy: the attention
+    plans its chunks from them).  -> (output (B, S, D), (k, v) as `qkv`
     gives them)."""
     q, k, v = qkv(x, lp, cfg, positions)
     ka, va = own_kv(lp, k, v)
     o = L.chunked_attention(q, ka, va, causal=True, q_positions=positions,
                             kv_positions=positions, sliding_window=cfg.sliding_window,
                             q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-    return CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo)), (k, v)
+    return out_proj(o, lp), (k, v)
 
 
 def ffn_block(x: torch.Tensor, lp: Block, cfg: LMConfig, dp_batch: bool = True):
@@ -303,7 +332,8 @@ def ffn_block(x: torch.Tensor, lp: Block, cfg: LMConfig, dp_batch: bool = True):
         B, S, D = h.shape
         y, aux = L.moe_apply(h.reshape(B * S, D), lp.moe, n_experts=cfg.moe.n_experts,
                              top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
-                             mlp_type=cfg.mlp_type, dp_batch=dp_batch)
+                             mlp_type=cfg.mlp_type, dp_batch=dp_batch, ff_cut=lp.ff_cut,
+                             remat=cfg.remat)
         return y.reshape(B, S, D), aux
     return CTX.all_reduce(L.mlp_apply(CTX.copy_to_tp(h), lp.mlp, cfg.mlp_type)), 0.0
 
@@ -353,7 +383,7 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     cfg = model.cfg
     B, S = tokens.shape
     x = model.embed_tokens(tokens)
-    positions = torch.arange(S, device=x.device)
+    positions = np.arange(S)
     axes = seq_axes(model, dp_batch)
     n, c = CTX.block_of(axes)
     if S % n:
@@ -400,7 +430,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: Cache,
             v_cache[rows, pos] = v[:, 0]
             o = L.decode_attention(q, k_cache, v_cache, pos + 1,
                                    sliding_window=cfg.sliding_window)
-        x = x + CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
+        x = x + out_proj(o, lp)
         x = x + ffn_block(x, lp, cfg, dp_batch)[0]
     return _last_logits(model, x[:, 0]), cache
 
@@ -427,16 +457,17 @@ def _split_decode(model: Transformer, lp: Block, q, k, v, k_cache, v_cache, pos,
 
 
 # ------------------------------------------------------- training path
-def _train_layer(x: torch.Tensor, lp: Block, cfg: LMConfig, positions: torch.Tensor,
+def _train_layer(x: torch.Tensor, lp: Block, cfg: LMConfig, positions: np.ndarray,
                  dp_batch: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of the reference's scan body: causal (and windowed)
-    attention through `flash_attention`, then the FFN.  -> (x, aux)."""
+    attention through `flash_attention` at `positions` (host numpy), then
+    the FFN.  -> (x, aux)."""
     q, k, v = qkv(x, lp, cfg, positions)
     k, v = own_kv(lp, k, v)
     o = L.flash_attention(q, k, v, causal=True, q_positions=positions,
                           kv_positions=positions, sliding_window=cfg.sliding_window,
                           q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-    x = x + CTX.all_reduce(torch.einsum("bshe,hed->bsd", o, lp.wo))
+    x = x + out_proj(o, lp)
     y, aux = ffn_block(x, lp, cfg, dp_batch)
     return x + y, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
@@ -461,7 +492,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
     logits, (..., V / tp), for `loss_fn`'s vocabulary-parallel loss."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    positions = np.arange(tokens.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
         if cfg.remat and torch.is_grad_enabled():

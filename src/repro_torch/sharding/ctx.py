@@ -31,9 +31,21 @@ Megatron pair for an edge-parallel region (SchNet's messages);
 rows over every axis, each data rank keeping its rows (a reduce-scatter,
 done as one all-reduce over every axis and the rank's slice);
 `gather_last`, an all-gather over ``model`` on the last dimension whose
-backward is the reduce-scatter (a kv head's Dh cut); `merge_attention`,
-the log-sum-exp merge of partial attention ``(max, sum, unnormalised
-output)`` over the ranks that split a cache's sequence.
+backward is the reduce-scatter (a kv head's Dh cut); `gather_data`, its
+twin over the data axes on any dimension (a parameter cut over the data
+axis, gathered where it is used); `merge_attention`, the log-sum-exp
+merge of partial attention ``(max, sum, unnormalised output)`` over the
+ranks that split a cache's sequence.
+
+The axis name ``"data"`` given to a collective means the mesh's data
+axes: ``("data",)``, or ``("pod", "data")`` on a pod mesh, whose ranks
+have a group of their own (`launch.mesh.make_production_mesh`).
+
+With `count_collectives` on (the dry run, `launch.dryrun`), every
+collective here adds its output's bytes to a counter per op type,
+weighted as the reference's roofline weights them (`launch.roofline.
+COLL_OPS`: an all-reduce moves about twice its buffer); broadcasts and
+object collectives are counted apart.  Off, nothing is counted.
 
 Logical axes:  "dp" -> ("pod", "data") / ("data",)   "mp" -> "model"
 """
@@ -52,6 +64,58 @@ from repro_torch.launch.mesh import axis_size, data_axes
 from repro_torch.sharding.specs import P, block_index
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("mesh_ctx", default=None)
+
+# the dry run's collective counter (a module global, not a context
+# variable: a backward runs its collectives on autograd's threads)
+_COUNTS: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count every collective issued while the block runs (the module
+    docstring) -> the counter, a dict filled in place: ``per_op_bytes``
+    and ``counts`` per op type (wire-weighted bytes), ``total_bytes``,
+    and ``other`` (broadcasts and object collectives, unweighted)."""
+    from repro_torch.launch.roofline import COLL_OPS
+
+    global _COUNTS
+    prev = _COUNTS
+    _COUNTS = {"per_op_bytes": {k: 0.0 for k in COLL_OPS}, "counts": {k: 0 for k in COLL_OPS},
+               "total_bytes": 0.0, "other": {"broadcast": {"bytes": 0.0, "count": 0},
+                                             "object": {"count": 0}}}
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = prev
+
+
+def _count(op: str, *outs: torch.Tensor) -> None:
+    """Add a collective's output bytes to the counter (when it is on)."""
+    if _COUNTS is None:
+        return
+    n = float(sum(t.numel() * t.element_size() for t in outs))
+    if op == "broadcast":
+        _COUNTS["other"]["broadcast"]["bytes"] += n
+        _COUNTS["other"]["broadcast"]["count"] += 1
+        return
+    if op == "object":
+        _COUNTS["other"]["object"]["count"] += 1
+        return
+    from repro_torch.launch.roofline import COLL_OPS
+
+    _COUNTS["per_op_bytes"][op] += n * COLL_OPS[op]
+    _COUNTS["counts"][op] += 1
+    _COUNTS["total_bytes"] += n * COLL_OPS[op]
+
+
+def _all_reduce(x: torch.Tensor, group, op=None) -> None:
+    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
+    _count("all-reduce", x)
+
+
+def _all_gather(parts, x: torch.Tensor, group) -> None:
+    dist.all_gather(parts, x, group=group)
+    _count("all-gather", *parts)
 
 
 @contextlib.contextmanager
@@ -103,10 +167,7 @@ def _dp():
     n = axis_size(mesh, dax)
     if n == 1:
         return None
-    if tuple(dax) != ("data",):
-        raise ValueError(f"data parallelism over the axes {dax}: the port reduces over one "
-                         "'data' axis (a pod axis waits for more than one host)")
-    return mesh, mesh.groups["data"], n
+    return mesh, group_of(("data",))[0], n
 
 
 def dp_size() -> int:
@@ -115,8 +176,9 @@ def dp_size() -> int:
 
 
 def dp_rank() -> int:
+    """This rank's block index over the data axes."""
     dp = _dp()
-    return 0 if dp is None else dp[0].coords["data"]
+    return 0 if dp is None else block_index(dp[0], data_axes(dp[0]))[1]
 
 
 class _ReduceTP(torch.autograd.Function):
@@ -127,7 +189,7 @@ class _ReduceTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.clone()
-        dist.all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y
 
     @staticmethod
@@ -148,7 +210,7 @@ class _CopyToTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -160,7 +222,7 @@ class _MeanOverDP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
         y = x.clone()
-        dist.all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y / n
 
     @staticmethod
@@ -182,7 +244,7 @@ def all_reduce(x: torch.Tensor, axes=("model",)) -> torch.Tensor:
         return x
     if _tracked(x):
         return _ReduceTP.apply(x, g[0])
-    dist.all_reduce(x, group=g[0])
+    _all_reduce(x, g[0])
     return x
 
 
@@ -205,15 +267,18 @@ def reduce_(x: torch.Tensor, axis: str, op=None) -> torch.Tensor:
     """`x` summed (or reduced by `op`) over `axis` in place, no gradient."""
     g = group_of((axis,))
     if g is not None:
-        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=g[0])
+        _all_reduce(x, g[0], op)
     return x
 
 
 def broadcast_(x: torch.Tensor, axis: str, src: int) -> torch.Tensor:
-    """`x` as the rank at coordinate `src` of `axis` holds it (in place)."""
+    """`x` as the rank at coordinate `src` of `axis` holds it (in place;
+    ``"data"``: block `src` of the data axes)."""
     g = group_of((axis,))
     if g is not None:
-        dist.broadcast(x, src=current().axis_ranks(axis)[src], group=g[0])
+        dist.broadcast(x, src=current().axis_ranks(_names(current(), (axis,)))[src],
+                       group=g[0])
+        _count("broadcast", x)
     return x
 
 
@@ -232,7 +297,7 @@ def grad_mean_dp(tensors) -> None:
     if dp is None:
         return
     for g in tensors:
-        dist.all_reduce(g, group=dp[1])
+        _all_reduce(g, dp[1])
         g.div_(dp[2])
 
 
@@ -244,28 +309,39 @@ def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     if g is None:
         return x
     parts = [torch.empty_like(x) for _ in range(g[1])]
-    dist.all_gather(parts, x.contiguous(), group=g[0])
+    _all_gather(parts, x.contiguous(), g[0])
     return torch.cat(parts, dim=dim)
+
+
+def _names(mesh, axes) -> tuple:
+    """`axes` in mesh order, ``"data"`` standing for every data axis."""
+    axes = tuple(axes)
+    if "data" in axes:
+        axes = axes + tuple(data_axes(mesh))
+    return tuple(a for a in mesh.axis_names if a in axes)
 
 
 def group_of(axes):
     """(process group, size, this rank's coordinate) of the ranks that
-    differ from this one only along `axes` (names; a coordinate counts the
-    axes in mesh order, the last fastest), or None where they are this
-    rank alone.  `axes` is one axis or every axis of the mesh."""
+    differ from this one only along `axes` (names, ``"data"`` for the
+    data axes; a coordinate counts the axes in mesh order, the last
+    fastest), or None where they are this rank alone.  `axes` is one
+    axis, the data axes or every axis of the mesh."""
     mesh = current()
     if mesh is None:
         return None
-    axes = tuple(a for a in mesh.axis_names if a in axes)
+    axes = _names(mesh, axes)
     n, c = block_index(mesh, axes)
     if n == 1:
         return None
     if len(axes) == 1:
         return mesh.groups[axes[0]], n, c
-    if set(axes) != set(mesh.axis_names):
-        raise ValueError(f"a collective over {axes} of a mesh {mesh.axis_names}: the port "
-                         "reduces over one axis or over every axis")
-    return dist.group.WORLD, n, c
+    if set(axes) == set(mesh.axis_names):
+        return dist.group.WORLD, n, c
+    if axes == tuple(data_axes(mesh)):
+        return mesh.groups[axes], n, c
+    raise ValueError(f"a collective over {axes} of a mesh {mesh.axis_names}: the port "
+                     "reduces over one axis, the data axes or every axis")
 
 
 def block_of(axes) -> Tuple[int, int]:
@@ -297,7 +373,7 @@ class _SumLookups(torch.autograd.Function):
         ctx.rows, ctx.data = rows, data
         y = x.clone()
         if every is not None:
-            dist.all_reduce(y, group=every[0])
+            _all_reduce(y, every[0])
         if rows and data is not None:
             step = y.shape[0] // data[1]
             y = y.narrow(0, data[2] * step, step).contiguous()
@@ -312,10 +388,10 @@ class _SumLookups(torch.autograd.Function):
         g = g.contiguous()
         if ctx.rows:
             parts = [torch.empty_like(g) for _ in range(n)]
-            dist.all_gather(parts, g, group=group)
+            _all_gather(parts, g, group)
             return torch.cat(parts, 0) / n, None
         g = g.clone()
-        dist.all_reduce(g, group=group)
+        _all_reduce(g, group)
         return g / n, None
 
 
@@ -339,13 +415,13 @@ class _GatherLast(torch.autograd.Function):
     def forward(ctx, x, group, n, c):
         ctx.group, ctx.n, ctx.c, ctx.w = group, n, c, x.shape[-1]
         parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        _all_gather(parts, x.contiguous(), group)
         return torch.cat(parts, dim=-1)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g.narrow(-1, ctx.c * ctx.w, ctx.w).contiguous(), None, None, None
 
 
@@ -354,6 +430,44 @@ def gather_last(x: torch.Tensor) -> torch.Tensor:
     (a kv head's Dh columns), with the reduce-scatter for a backward."""
     g = group_of(("model",))
     return x if g is None else _GatherLast.apply(x, *g)
+
+
+class _GatherData(torch.autograd.Function):
+    """Forward: the data axes' blocks of dimension `dim` concatenated (a
+    parameter cut over the data axis, whole where it is used).  Backward:
+    the gradient of the data axes' mean objective with respect to this
+    rank's block: the whole weight's gradient from each rank's rows summed
+    over the data axes, this rank's block kept (a reduce-scatter, done as
+    an all-reduce and the rank's slice, which every backend offers), and
+    divided by the data axes' size, as each data rank's loss is the mean
+    over its rows and the objective their mean (`sum_lookups` does the
+    same).  The parameter is its own data block (`specs.ParamLayout.
+    data_cut`), so `grad_mean_dp` leaves its gradient alone."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, c):
+        ctx.dim, ctx.group, ctx.n, ctx.c, ctx.w = dim, group, n, c, x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(n)]
+        _all_gather(parts, x.contiguous(), group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _all_reduce(g, ctx.group)
+        g = g.narrow(ctx.dim, ctx.c * ctx.w, ctx.w) / ctx.n
+        return g.contiguous(), None, None, None, None
+
+
+def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The data axes' blocks of `x`'s dimension `dim`, in block order (a
+    parameter the specs cut over the data axis, whole for its use), with
+    the reduce-scatter of the mean objective's gradient for a backward
+    (`_GatherData`).  The identity where the data axes have one rank."""
+    g = group_of(("data",))
+    if g is None:
+        return x
+    return _GatherData.apply(x, dim % x.dim(), *g)
 
 
 def merge_attention(m: torch.Tensor, s: torch.Tensor, o: torch.Tensor,
@@ -366,11 +480,11 @@ def merge_attention(m: torch.Tensor, s: torch.Tensor, o: torch.Tensor,
     g = group_of(axes)
     if g is not None:
         top = m.clone()
-        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g[0])
+        _all_reduce(top, g[0], dist.ReduceOp.MAX)
         w = torch.exp(m - top)
         s, o = s * w, o * w[..., None]
-        dist.all_reduce(s, group=g[0])
-        dist.all_reduce(o, group=g[0])
+        _all_reduce(s, g[0])
+        _all_reduce(o, g[0])
     return o / s[..., None]
 
 
@@ -380,10 +494,10 @@ def exclusive_cumsum_dp(counts: torch.Tensor) -> torch.Tensor:
     dp = _dp()
     if dp is None:
         return torch.zeros_like(counts)
-    mesh, group, n = dp
+    _, group, n = dp
     parts = [torch.empty_like(counts) for _ in range(n)]
-    dist.all_gather(parts, counts.contiguous(), group=group)
-    r = mesh.coords["data"]
+    _all_gather(parts, counts.contiguous(), group)
+    r = dp_rank()
     return torch.stack(parts[:r]).sum(0) if r else torch.zeros_like(counts)
 
 
@@ -409,7 +523,7 @@ def gather_vocab(x: torch.Tensor, vocab: int) -> torch.Tensor:
     n = x.shape[-1]
     out = x.new_zeros(x.shape[:-1] + (vocab,), dtype=torch.float32)
     out[..., c * n:(c + 1) * n] = x
-    dist.all_reduce(out, group=group)
+    _all_reduce(out, group)
     return out
 
 
@@ -422,6 +536,7 @@ def decide(value):
         return value
     box = [value]
     dist.broadcast_object_list(box, src=current().axis_ranks("model")[0], group=g[0])
+    _count("object")
     return box[0]
 
 
@@ -462,6 +577,7 @@ def check(tag: str, value) -> None:
     mine = digest(value)
     got = [None] * mesh.shape["model"]
     dist.all_gather_object(got, mine, group=group)
+    _count("object")
     mesh.log.append((tag, mine))
     if len(set(got)) != 1:
         raise RuntimeError(f"ranks {mesh.axis_ranks('model')} disagree on {tag} "

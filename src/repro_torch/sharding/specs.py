@@ -26,12 +26,19 @@ over every axis (the data axes, then ``model``), and
 the tables' with their rows).  GNN parameters replicate, and so do their
 moments.
 
-Entries over the DATA axis in a parameter's spec (an MoE's expert-ff
-dimension, serve mode's ``din`` of an MoE model) are not cut: every data
-rank keeps those parameters whole.  That computes the same function at
-more memory per rank; gathering them on use waits (ROADMAP A.2).  The
-optimizer state does take its data-axis cuts (ZeRO's moments), and a
-recsys table its rows over every axis.
+Entries over the DATA axes in a parameter's spec are cut too: an MoE's
+expert-ff dimension (w_gate / w_up's last, w_down's middle) in both
+modes, and in serve mode an MoE model's ``din``, the d_model input
+dimension of wq / wk / wv (and wo's output).  A rank keeps its block over
+the data axes (`block_index` over ``("data",)``, or ``("pod", "data")``
+on a pod mesh), as it keeps its block over ``model``, and the model
+gathers the whole dimension where it uses it, one layer (one chunk of
+experts) at a time (`sharding.ctx.gather_data`; its backward sums the
+gradient over the data axes and keeps the rank's block).  Such a
+parameter is its own data block for the optimizer (`ParamLayout.
+data_cut`): its moments lie with it, and ZeRO does not cut it again.
+The 1T-parameter MoE only fits that way: kimi-k2's experts at 16-way EP
+alone would be ~129 GB of bf16 per rank.
 """
 from __future__ import annotations
 
@@ -175,23 +182,41 @@ def _check_shardable(cfg: LMConfig, mesh) -> None:
         if n % msz:
             raise ValueError(f"mesh.tp={msz} must divide {name}={n} (the rank-local "
                              "MLP, expert and vocabulary shards are whole)")
+    dsz = axis_size(mesh, data_axes(mesh))
+    if cfg.moe is not None:
+        for name, n in (("moe.d_ff", cfg.moe.d_ff), ("d_model", cfg.d_model)):
+            if n % dsz:
+                raise ValueError(f"the data axes' {dsz} ranks must divide {name}={n} (an "
+                                 "MoE's expert-ff dimension, and in serve mode d_model, "
+                                 "are cut over the data axis)")
+
+
+def data_cuts(cfg: LMConfig, mesh, mode: str) -> Dict[str, Any]:
+    """How `lm_param_specs(mode=mode)` cuts a rank's model over the data
+    axes: ``dp``, the data axes' size the cut dimensions divide by (1: no
+    cut), and ``din``, whether the attention's d_model dimension is cut
+    (serve mode of an MoE model) -> `transformer.Transformer`'s keywords."""
+    dsz = axis_size(mesh, data_axes(mesh))
+    return {"dp": dsz if cfg.moe is not None else 1,
+            "din": mode == "serve" and cfg.is_moe and dsz > 1}
 
 
 def _cut(x: torch.Tensor, spec: Tuple, mesh, coords: Mapping[str, int]) -> torch.Tensor:
     """This rank's block of `x` under `spec`: each dimension split over
     ``model`` (heads, a kv head's Dh, MLP columns, experts, vocabulary
-    rows) keeps the rank's contiguous slice; one split over the data axis
-    stays whole (the module docstring)."""
+    rows) or over the data axes (expert-ff, serve mode's ``din``) keeps
+    the rank's contiguous slice, its block index over those axes
+    (`block_index`)."""
     dax = data_axes(mesh)
     for dim, ax in enumerate(spec):
-        if ax is None or (ax != "model" and all(a in dax for a in
-                                                 (ax if isinstance(ax, tuple) else (ax,)))):
+        if ax is None:
             continue
-        if ax != "model":
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        if axes != ("model",) and not all(a in dax for a in axes):
             raise ValueError(f"spec {spec}: a parameter dimension over {ax}")
-        n = mesh.shape["model"]
+        n, c = block_index(mesh, axes, coords)
         step = x.shape[dim] // n
-        x = x.narrow(dim, coords["model"] * step, step)
+        x = x.narrow(dim, c * step, step)
     return x
 
 
@@ -235,7 +260,8 @@ def shard_lm_params(source, cfg: LMConfig, mesh, coords: Optional[Mapping[str, i
     specs = _layer_specs(cfg, mesh, mode)
     if device is None:
         device = source.device if isinstance(source, torch.nn.Module) else "cpu"
-    model = Transformer(cfg, device=device, tp=mesh.shape["model"], tp_rank=coords["model"])
+    model = Transformer(cfg, device=device, tp=mesh.shape["model"], tp_rank=coords["model"],
+                        **data_cuts(cfg, mesh, mode))
     for name, p in model.named_parameters():
         if isinstance(source, torch.nn.Module):
             full = source.get_parameter(name)
@@ -251,15 +277,33 @@ def shard_lm_params(source, cfg: LMConfig, mesh, coords: Optional[Mapping[str, i
     return model
 
 
+def shares_card(mesh) -> bool:
+    """Do several ranks of `mesh`'s world share one card (gloo ranks on
+    fewer cards than ranks)?"""
+    import torch.distributed as dist
+
+    dev = getattr(mesh, "device", None)
+    return (dev is not None and torch.device(dev).type == "cuda" and dist.is_initialized()
+            and dist.get_world_size() > torch.cuda.device_count())
+
+
 def init_sharded_params(cfg: LMConfig, mesh, generator: torch.Generator, device,
                         coords: Optional[Mapping[str, int]] = None, mode: str = "serve",
                         token_embed: bool = True):
     """One rank's parameters: `transformer.init_params` drawing the whole
     model's weights from `generator`, each parameter cut to the rank's
     block as soon as it is drawn, so the rank never holds the whole
-    model.  -> (the rank's `Transformer`, the whole embedding as fp32
-    numpy, which the semantic cache's token matching reads; None without
+    model: its peak is its shard plus the largest whole parameter, in the
+    model's dtype (kimi-k2's w_up, 384 x 7168 x 2048: 11.3 GB in bf16).
+    The draws are `init_params`' on the whole model, so every rank's
+    blocks are cut from the same weights.  Where ranks share a card
+    (`shares_card`) they draw in turn, rank by rank, so that the card
+    holds one rank's whole parameter at a time besides the shards.  ->
+    (the rank's `Transformer`, the whole embedding as fp32 numpy, which
+    the semantic cache's token matching reads; None without
     `token_embed`)."""
+    import torch.distributed as dist
+
     from repro_torch.models.transformer import init_params
 
     _check_shardable(cfg, mesh)
@@ -272,8 +316,18 @@ def init_sharded_params(cfg: LMConfig, mesh, generator: torch.Generator, device,
             embeds.append(full.float().cpu().numpy())
         return _cut(full, _param_spec(specs, name), mesh, coords)
 
-    model = init_params(cfg, generator, device, tp=mesh.shape["model"],
-                        tp_rank=coords["model"], keep=keep)
+    def draw():
+        return init_params(cfg, generator, device, tp=mesh.shape["model"],
+                           tp_rank=coords["model"], keep=keep, **data_cuts(cfg, mesh, mode))
+
+    if not shares_card(mesh):
+        return draw(), embeds[0] if embeds else None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            model = draw()
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        dist.barrier()
     return model, embeds[0] if embeds else None
 
 
@@ -364,13 +418,15 @@ class ParamLayout:
     whole layer's moments on data rank ``data_owner`` and none elsewhere;
     both None: whole on every data rank.  ``data_cut``: the parameter
     itself is this rank's block over the data axis too (a recsys table's
-    rows over every axis): its gradient is its own, not a share to
+    rows over every axis; an LM parameter the specs cut over the data
+    axes, along ``data_dims``): its gradient is its own, not a share to
     average over the data axis, and its moments lie with it."""
 
     model_dims: Tuple[int, ...] = ()
     data_dim: Optional[int] = None
     data_owner: Optional[int] = None
     data_cut: bool = False
+    data_dims: Tuple[int, ...] = ()
 
     @property
     def data_split(self) -> bool:
@@ -385,7 +441,10 @@ def _has(entry, axes) -> bool:
 def train_layout(cfg: LMConfig, mesh, optimizer: str) -> Dict[str, ParamLayout]:
     """Per `Transformer.named_parameters` name, its `ParamLayout` under
     `lm_param_specs(mode="train")` and `lm_opt_state_specs` for
-    `optimizer`'s state (adamw | adafactor | sgd)."""
+    `optimizer`'s state (adamw | adafactor | sgd): a parameter cut over
+    the data axes is its own data block (``data_cut``, its moments with
+    it, as the reference's `zero_shard` leaves it), every other one's
+    moments on its ZeRO block."""
     from repro_torch.training.optimizer import abstract_opt_state
 
     _check_shardable(cfg, mesh)
@@ -401,6 +460,9 @@ def train_layout(cfg: LMConfig, mesh, optimizer: str) -> Dict[str, ParamLayout]:
         off = 1 if stacked else 0
         pdims = tuple(pspec)[off:]
         model_dims = tuple(i for i, d in enumerate(pdims) if d == "model")
+        data_dims = tuple(i for i, d in enumerate(pdims) if d is not None and _has(d, dax))
+        if data_dims:                  # its own data block; ZeRO leaves it whole
+            return ParamLayout(model_dims, data_cut=True, data_dims=data_dims)
         if mspec is None:
             return ParamLayout(model_dims)
         for i, d in enumerate(tuple(mspec)):

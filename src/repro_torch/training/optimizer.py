@@ -26,10 +26,12 @@ squares of the data-axis blocks the moments live on (or that a
 parameter itself is, a recsys table's rows) summed over the data axis.
 AdamW keeps its moments on the rank's ZeRO block (`ParamLayout`),
 updates that block of the parameter and all-gathers
-the parameter over the data axis.  Adafactor keeps ``vr`` / ``vc`` on
-the parameter's own layout; its factored means along a model-cut
-dimension, and the update's RMS clip and the parameter's RMS over the
-whole tensor, are reduced over the model axis.
+the parameter over the data axis; a parameter that is itself cut over
+the data axes (``data_cut``: an MoE's expert-ff blocks) keeps its moments
+with it and needs no gather.  Adafactor keeps ``vr`` / ``vc`` on the
+parameter's own layout; its factored means along a dimension cut over the
+model axis (or the data axes), and the update's RMS clip and the
+parameter's RMS over the whole tensor, are reduced over those axes.
 """
 from __future__ import annotations
 
@@ -115,11 +117,12 @@ def state_layout(layout, key: str, nd: int):
     leaves that factor whole (its mean was reduced over the axis)."""
     if layout is None or key not in ("vr", "vc"):
         return layout
-    if key == "vr":
-        dims = tuple(d for d in layout.model_dims if d < nd - 1)
-    else:
-        dims = tuple(d if d < nd - 2 else nd - 2 for d in layout.model_dims if d != nd - 2)
-    return dataclasses.replace(layout, model_dims=dims, data_dim=None, data_owner=None)
+    def drop(dims):
+        if key == "vr":
+            return tuple(d for d in dims if d < nd - 1)
+        return tuple(d if d < nd - 2 else nd - 2 for d in dims if d != nd - 2)
+    return dataclasses.replace(layout, model_dims=drop(layout.model_dims), data_dim=None,
+                               data_owner=None, data_dims=drop(layout.data_dims))
 
 
 def _sq(t: torch.Tensor) -> torch.Tensor:
@@ -254,7 +257,36 @@ def whole_shape(p: torch.Tensor, layout) -> Tuple[int, ...]:
     if layout is not None:
         for d in layout.model_dims:
             shape[d] *= CTX.tp_size()
+        for d in layout.data_dims:
+            shape[d] *= CTX.dp_size()
     return tuple(shape)
+
+
+def cut_axes(layout, nd: int) -> Dict[int, Tuple[str, ...]]:
+    """Per dimension of a rank's `nd`-dim shard, the axes it is cut over
+    (``"model"``, ``"data"``) where they have more than one rank."""
+    cut: Dict[int, Tuple[str, ...]] = {}
+    if layout is None:
+        return cut
+    for dims, axis, n in ((layout.model_dims, "model", CTX.tp_size()),
+                          (layout.data_dims, "data", CTX.dp_size())):
+        if n > 1:
+            for d in dims:
+                cut[d % nd] = cut.get(d % nd, ()) + (axis,)
+    return cut
+
+
+def _axes_size(axes) -> int:
+    n = 1
+    for a in axes:
+        n *= CTX.tp_size() if a == "model" else CTX.dp_size()
+    return n
+
+
+def _reduce_over(x: torch.Tensor, axes) -> torch.Tensor:
+    for a in axes:
+        CTX.reduce_(x, a)
+    return x
 
 
 class Adafactor(ClippedOptimizer):
@@ -284,22 +316,22 @@ class Adafactor(ClippedOptimizer):
         eps1 = d["eps1"]
         beta = 1.0 - (torch.tensor(float(t), dtype=torch.float32, device=p.device) + 1.0) \
             ** -d["decay"]
-        cut = set() if layout is None or CTX.tp_size() == 1 else \
-            {i % p.dim() for i in layout.model_dims}
         nd = p.dim()
+        cut = cut_axes(layout, nd)
+        every = tuple(sorted({a for axes in cut.values() for a in axes}))
 
         def mean(x, dim, along, keepdim=False):
             # x's mean along `dim`, the whole dimension's where `along` (a
-            # dim of p) is cut over the model axis
+            # dim of p) is cut over the model axis or the data axes
             if along not in cut:
                 return x.mean(dim=dim, keepdim=keepdim)
-            return CTX.reduce_(x.sum(dim=dim, keepdim=keepdim), "model") / \
-                (x.shape[dim] * CTX.tp_size())
+            return _reduce_over(x.sum(dim=dim, keepdim=keepdim), cut[along]) / \
+                (x.shape[dim] * _axes_size(cut[along]))
 
         def mean_all(x):
             if not cut:
                 return torch.mean(x)
-            return CTX.reduce_(x.sum(), "model") / (x.numel() * CTX.tp_size())
+            return _reduce_over(x.sum(), every) / (x.numel() * _axes_size(every))
 
         g = g.float() * scale
         g2 = g * g + eps1

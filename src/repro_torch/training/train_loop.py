@@ -95,16 +95,20 @@ def compress_topk(g: torch.Tensor, frac: float,
     return sent.reshape(g.shape), (flat - sent).reshape(g.shape)
 
 
-def _model_cut(layout) -> bool:
-    return layout is not None and bool(layout.model_dims) and CTX.tp_size() > 1
+def _cut_over(layout, nd: int) -> Tuple[str, ...]:
+    """The axes (``"model"``, ``"data"``) a shard of `nd` dims is cut over."""
+    return tuple(sorted({a for axes in OPT.cut_axes(layout, nd).values() for a in axes}))
 
 
 def compress_int8_sharded(g: torch.Tensor, layout) -> torch.Tensor:
     """`compress_int8` of a shard, with the whole tensor's scale (the max
-    over the model axis where `layout` cuts it)."""
-    if not _model_cut(layout):
+    over the axes where `layout` cuts it)."""
+    axes = _cut_over(layout, g.dim())
+    if not axes:
         return compress_int8(g)
-    amax = CTX.reduce_(g.abs().max(), "model", dist.ReduceOp.MAX)
+    amax = g.abs().max()
+    for a in axes:
+        CTX.reduce_(amax, a, dist.ReduceOp.MAX)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q.to(g.dtype) * scale
@@ -113,12 +117,15 @@ def compress_int8_sharded(g: torch.Tensor, layout) -> torch.Tensor:
 def compress_topk_sharded(g: torch.Tensor, frac: float, err: torch.Tensor,
                           layout) -> Tuple[torch.Tensor, torch.Tensor]:
     """`compress_topk` of a shard: k and the threshold from the whole
-    tensor's magnitudes (gathered over the model axis where `layout` cuts
-    it), the error feedback this shard's."""
-    if not _model_cut(layout):
+    tensor's magnitudes (gathered over the axes where `layout` cuts it),
+    the error feedback this shard's."""
+    axes = _cut_over(layout, g.dim())
+    if not axes:
         return compress_topk(g, frac, err)
     flat = (g + err).reshape(-1)
-    mags = CTX.all_gather(flat.abs(), "model", 0)
+    mags = flat.abs()
+    for a in axes:
+        mags = CTX.all_gather(mags, a, 0)
     k = max(1, int(frac * mags.shape[0]))
     thresh = torch.topk(mags, k).values[-1]
     sent = torch.where(flat.abs() >= thresh, flat, torch.zeros_like(flat))
@@ -226,8 +233,9 @@ def _sharded(optimizer: OPT.ClippedOptimizer) -> bool:
 
 def _whole(t: torch.Tensor, layout, moment: Optional[torch.Size] = None) -> torch.Tensor:
     """The whole tensor of which `t` is this rank's block: a moment's
-    (`moment`: the rank's parameter's shape) data block gathered over the
-    data axis first, then the model cut."""
+    (`moment`: the rank's parameter's shape) ZeRO block gathered over the
+    data axis first, then the data-axis cut of a parameter (and of the
+    state that lies with it), then the model cut."""
     if moment is not None and layout.data_split and CTX.dp_size() > 1:
         if layout.data_dim is not None:
             t = CTX.all_gather(t.contiguous(), "data", layout.data_dim)
@@ -235,6 +243,8 @@ def _whole(t: torch.Tensor, layout, moment: Optional[torch.Size] = None) -> torc
             mine = CTX.dp_rank() == layout.data_owner
             full = t.clone() if mine else torch.zeros(moment, dtype=t.dtype, device=t.device)
             t = CTX.broadcast_(full, "data", layout.data_owner)
+    for d in (layout.data_dims if CTX.dp_size() > 1 else ()):
+        t = CTX.all_gather(t.contiguous(), "data", d)
     for d in (layout.model_dims if CTX.tp_size() > 1 else ()):
         t = CTX.all_gather(t.contiguous(), "model", d)
     return t
@@ -246,6 +256,9 @@ def _block(whole: torch.Tensor, layout, moment: bool) -> torch.Tensor:
     for d in (layout.model_dims if CTX.tp_size() > 1 else ()):
         step = t.shape[d] // CTX.tp_size()
         t = t.narrow(d, CTX.current().coords["model"] * step, step)
+    for d in (layout.data_dims if CTX.dp_size() > 1 else ()):
+        step = t.shape[d] // CTX.dp_size()
+        t = t.narrow(d, CTX.dp_rank() * step, step)
     return OPT.data_block(t, layout) if moment else t
 
 

@@ -17,6 +17,10 @@ TRAINING_MODULES = ("repro_torch.training.optimizer", "repro_torch.training.trai
                     "repro_torch.core.ranker_training", "repro_torch.gnn.schnet",
                     "repro_torch.gnn.sampler", "repro_torch.gnn.convert",
                     "repro_torch.launch.train", "repro_torch.configs.schnet")
+# the dry run and the roofline report (the fake world and fake tensors
+# come from torch itself)
+DRYRUN_MODULES = ("repro_torch.launch.dryrun", "repro_torch.launch.roofline_report",
+                  "repro_torch.launch.roofline", "repro_torch.launch.mesh")
 EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
 
@@ -28,8 +32,9 @@ def _modules():
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _modules()
     assert "repro_torch.serving.batch_engine" in mods and len(mods) > 25
-    # the training slice's modules are among them
+    # the training slice's and the dry run's modules are among them
     assert set(TRAINING_MODULES) <= set(mods)
+    assert set(DRYRUN_MODULES) <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -71,7 +76,7 @@ def test_sources_name_no_jax_or_reference_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + EXAMPLES
     assert len(EXAMPLES) == 4
     assert len(files) > 25
-    for m in TRAINING_MODULES:
+    for m in TRAINING_MODULES + DRYRUN_MODULES:
         assert PORT.parent / (m.replace(".", "/") + ".py") in files
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN.search(f.read_text())]

@@ -413,3 +413,70 @@ def kv_split_rank_job(rank, world, backend, device, trees, rows, layouts):
                                     one_row_decode(run, tree, rows[run], mesh))
         out["layouts"][layout] = res
     return out
+
+
+# ------------------------------------- the data-axis parameter cuts (MoE)
+DATA_CUT_RUNS = ("moonshot-v1-16b-a3b", "kimi-k2-1t-a32b")
+DATA_CUT_LAYOUTS = ((2, 1), (2, 2))
+
+
+def data_cut_train_cfg(cfg, ckpt_dir=None, steps=2):
+    return TTL.TrainConfig(steps=steps, optimizer=cfg.optimizer, lr=1e-3, ckpt_dir=ckpt_dir,
+                           ckpt_every=1)
+
+
+def data_cut_rank_job(rank, world, backend, device, trees, layout, ckpt_root):
+    """On this rank of a (dp, tp) `layout`, per MoE run: its parameter
+    blocks in both modes (and their bytes), prefill and two greedy decode
+    steps of its rows, and two training steps on its rows with the whole
+    parameters gathered after them.  At (2, 2) the training writes a
+    checkpoint per run under `ckpt_root`; at (1, 2) the run resumes from
+    that checkpoint of step 2 and takes step 3."""
+    torch.set_num_threads(1)
+    dp, tp = layout
+    mesh = MeshConfig(dp=dp, tp=tp).build()
+    d = mesh.coords["data"]
+    out = {"rank": rank, "backend": backend, "coords": dict(mesh.coords), "runs": {}}
+    with CTX.axes(mesh):
+        for run in DATA_CUT_RUNS:
+            cfg = port_config(run)
+            toks, batches = run_data(run)
+            whole = params_from_numpy(trees[run], cfg, device="cpu")
+            ckpt = f"{ckpt_root}/{run}"
+            res = {}
+            if layout == (1, 2):
+                model = SPECS.shard_lm_params(whole, cfg, mesh, mode="train")
+                third = iter([{k: rows_of(v, d, dp) for k, v in batches[1].items()}])
+                model, opt, hist = TTL.train(model, ST.lm_loss, third,
+                                             data_cut_train_cfg(cfg, ckpt, steps=3),
+                                             layout=SPECS.train_layout(cfg, mesh,
+                                                                       cfg.optimizer))
+                res["resumed"] = hist
+                out["runs"][run] = res
+                continue
+            res["blocks"] = {mode: {n: p.detach().numpy().copy() for n, p in
+                                    SPECS.shard_lm_params(whole, cfg, mesh,
+                                                          mode=mode).named_parameters()}
+                             for mode in ("serve", "train")}
+            serve = SPECS.shard_lm_params(whole, cfg, mesh)
+            inputs = ST.rank_inputs(cfg, mesh, "prefill", {"tokens": torch.from_numpy(toks)})
+            logits, cache = TT.prefill(serve, inputs["tokens"])
+            res["prefill"] = logits.numpy()
+            cache = {k: torch.from_numpy(pad(v)) for k, v in cache.items()}
+            pos = torch.tensor(rows_of(np.asarray(POSITIONS), d, dp))
+            nxt, steps = logits.argmax(-1)[:, None], []
+            for _ in range(2):
+                logits, cache = TT.decode_step(serve, nxt, cache, pos)
+                nxt, pos = logits.argmax(-1)[:, None], pos + 1
+                steps.append((logits.numpy(), nxt[:, 0].numpy()))
+            res["decode"] = steps
+            model = SPECS.shard_lm_params(whole, cfg, mesh, mode="train")
+            data = iter([{k: rows_of(v, d, dp) for k, v in b.items()} for b in batches])
+            model, opt, hist = TTL.train(
+                model, ST.lm_loss, data,
+                data_cut_train_cfg(cfg, ckpt if layout == (2, 2) else None),
+                layout=SPECS.train_layout(cfg, mesh, cfg.optimizer))
+            res["train"] = hist
+            res["params"] = {k: v.numpy() for k, v in TTL.whole_state(model, opt)["params"].items()}
+            out["runs"][run] = res
+    return out
