@@ -217,6 +217,18 @@ else (no network, no JAX).  Phases:
    is not written: `train_loop.whole_state` gathers the whole state on
    every rank, ~30 GB a rank at depth 4).  Gloo's host staging sets the
    times, as in 2l-2n;
+2p. the hillclimbs of `launch.perf_iterations` (after phase 2o; no model on the card):
+   `launch.perf_iterations.main` prints its four cells' tables,
+   modelled at H100 SXM peaks on 256 cards and never measured, and
+   traces its three probes (nemotron-4-15b prefill_32k with 2,048-token
+   tiles and kimi-k2 train_4k at 16 x 16, moonshot train_4k at 64 x 4,
+   uncut) as rank 0 of a fake world on fake cuda tensors, the train
+   cells through their backward.  Each probe is held against the
+   committed CPU record (`results/perf_torch/hillclimbs.json`, whose
+   argument bytes `tests/test_torch_perf_iterations.py` holds against
+   the JAX package's specs): the same argument bytes, FLOPs, collectives
+   and modelled temp, traced bytes within 0.1% (ops that decompose by
+   device); the analytic terms equal the record's;
 3. checks: each kernel against its plain PyTorch version on the inputs
    one of its serving calls saw, in the working dtypes and in fp32 (the
    block gather bitwise where it copies, at its largest all-layer call of
@@ -262,6 +274,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -5637,6 +5650,64 @@ def data_cut_phase(smi, dev):
     return report
 
 
+# ---------------------------------------------------------------- phase 2p
+def hillclimb_phase(smi):
+    """Phase 2p (the module docstring).  -> its report."""
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch import perf_iterations as PI
+
+    t0 = time.perf_counter()
+    log(f"the hillclimbs (phase 2p): four cells modelled at H100 SXM peaks on 256 "
+        f"cards (never measured), three probes traced on fake {DRY.fake_device()} tensors "
+        f"({smi})")
+    if DRY.fake_device() != "cuda":
+        raise RuntimeError("phase 2p: the probes must trace fake cuda tensors")
+    with open(ROOT / "results" / "perf_torch" / "hillclimbs.json") as f:
+        committed = json.load(f)
+    out = PI.main(probe=True, out_dir=str(ROOT / "chiprun_out" / "perf_torch"))
+    report = {"nvidia_smi": smi, "cells": out}
+    if list(out) != list(committed):
+        raise RuntimeError(f"phase 2p: cells {list(out)} vs the record's {list(committed)}")
+    n_probes = 0
+    for cell, rec in out.items():
+        want_its = committed[cell]["iterations"]
+        if len(rec["iterations"]) != len(want_its):
+            raise RuntimeError(f"phase 2p {cell}: {len(rec['iterations'])} iterations vs "
+                               f"the record's {len(want_its)}")
+        for it, want in zip(rec["iterations"], want_its):
+            if "terms" in it:
+                bad = [k for k, v in it["terms"].items() if not (
+                    v == want["terms"][k] if isinstance(v, str) else
+                    math.isclose(v, want["terms"][k], rel_tol=1e-12))]
+                if bad or it.get("confirmed") != want.get("confirmed"):
+                    raise RuntimeError(f"phase 2p {cell} [{it['iter']}]: {bad} differ "
+                                       "from the record")
+                continue
+            p, w = it["probe"], want["probe"]
+            same = ("mesh_shape", "cuts", "arg_bytes", "flops_per_device",
+                    "collective_counts", "collective_bytes")
+            bad = [k for k in same if p[k] != w[k]]
+            if p["device"] != "cuda" or bad or \
+                    abs(p["bytes_per_device"] / w["bytes_per_device"] - 1) > 1e-3 or \
+                    abs(p["temp_gb"] - w["temp_gb"]) > 0.01 * w["temp_gb"] + 0.01:
+                raise RuntimeError(f"phase 2p {cell} probe on {p['device']}: {bad} differ; "
+                                   f"{p} vs the record's {w}")
+            n_probes += 1
+            log(f"  {cell} probe at {tuple(p['mesh_shape'])} on fake {p['device']} tensors, "
+                f"{p['trace_s']} s: argument bytes {p['arg_bytes']}, "
+                f"{p['flops_per_device'] / 1e12:.1f} TFLOP, collectives "
+                f"{p['collective_bytes'] / 1e9:.2f} GB ({p['collective_counts']}) as "
+                f"recorded; bytes {p['bytes_per_device'] / 1e12:.4f} TB "
+                f"({100 * (p['bytes_per_device'] / w['bytes_per_device'] - 1):+.4f}%), "
+                f"modelled temp {p['temp_gb']} GB (record {w['temp_gb']})")
+    if n_probes != 3:
+        raise RuntimeError(f"phase 2p: {n_probes} probes, 3 expected")
+    report["wall_s"] = time.perf_counter() - t0
+    log(f"  check: three probes and every cell's terms as recorded; phase 2p "
+        f"{report['wall_s']:.1f} s")
+    return report
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -5734,6 +5805,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     report["data_cuts"] = data_cut_phase(smi, dev)
     PHASE_S["2o"] = time.perf_counter() - t0
+
+    # ---- phase 2p: the hillclimbs, their probes on fake cuda tensors ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["hillclimb"] = hillclimb_phase(smi)
+    PHASE_S["2p"] = time.perf_counter() - t0
     report.update({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "phase_s": PHASE_S,
                    "total_s": time.perf_counter() - t_start})

@@ -41,7 +41,8 @@ def test_lm_analytic_equals_the_reference(arch, step):
     assert dims == JR.LM_SHAPES[STEPS[step]].dims
     got = TRA.lm_analytic(TR.ARCHS[arch], step, dims)
     want = JRA.lm_analytic(JR.ARCHS[arch], step, dims, n_chips=1, data_par=1)
-    assert set(got) == {"compute_s", "memory_s", "bottleneck", "roofline_fraction", *COUNTS}
+    assert set(got) == {"compute_s", "memory_s", "bottleneck", "roofline_fraction",
+                        "serial_s", "overlapped_s", *COUNTS}
     for key in COUNTS:
         assert got[key] == want[key], key
     scale = {"compute_s": JRF.PEAK_FLOPS / TRF.PEAK_FLOPS,
@@ -52,6 +53,7 @@ def test_lm_analytic_equals_the_reference(arch, step):
     assert got["bottleneck"] == max(terms, key=terms.get)
     assert math.isclose(got["roofline_fraction"], terms["compute"] / max(terms.values()),
                         rel_tol=REL)
+    assert got["serial_s"] == got["overlapped_s"] == terms["compute"] + terms["memory"]
 
 
 @pytest.mark.parametrize("step", list(STEPS))
